@@ -1,0 +1,459 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (a failure raises and the script exits
+non-zero without printing the final result line):
+
+1. info: the card (``nvidia-smi`` name and power limit), torch and CUDA
+   versions; TF32 is switched off for matmuls and cuDNN.
+2. build: the paged-attention CUDA kernel, compiled from the checkout's
+   sources with ``nvcc`` for ``sm_90a``.
+3. kernel vs plain: the kernel against its plain-PyTorch version at yi-6b
+   attention geometry (B=8, H=32, Kv=4, hd=128, page 16, a 1,024-page
+   pool, ragged lengths 1..1,024 with an empty lane and aliased
+   shared-prefix pages), C in {1, 128}, float32 and bfloat16, with times,
+   bytes, FLOPs and the roofline bound of each case.
+4. engine parity: the same float32 weights (yi-6b widths, 2 layers) served
+   by the CUDA engine (kernel) and the CPU engine (plain version); greedy
+   tokens must agree, excusing only near-ties.
+5. serve: yi-6b at full width (32 layers, bf16, random weights from seed
+   0) serves 12 requests with a shared prefix and a forced preemption;
+   the kernel must carry every layer of every iteration.
+
+Then one JSON line ``{"kernels": [...]}`` and, last, the result line
+``{"ok": true, "device": {...}}``.  It needs a CUDA device and the
+repository's ``src/`` beside it.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+#: H100 SXM published peaks (NVIDIA data sheet, dense): HBM bandwidth, and
+#: the operation rate by input type (bf16 on the tensor cores, float32
+#: outside them)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: kernel-vs-plain tolerances: tests/test_kernels.py's f32 bar and its
+#: bf16 TOL
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+L2_FLUSH_BYTES = 64 << 20          # more than the L2 (50 MB, data sheet)
+
+
+def check(cond: bool, msg: str):
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+# ---------------------------------------------------------------- timing --
+class Timer:
+    """Median device time of one call, measured with CUDA events around
+    each call, the L2 cache flushed before every call (the serving path
+    meets each layer's pages cold)."""
+
+    def __init__(self):
+        self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+                                 device="cuda")
+
+    def ms(self, fn, reps: int = 20, warmup: int = 3) -> float:
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(reps):
+            self.flush.zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            times.append((start, end))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in times)
+
+
+# --------------------------------------------------------------- phase 3 --
+def attention_case(C: int, dtype: torch.dtype, seed: int = 0) -> dict:
+    """Inputs at yi-6b attention geometry, as the engine feeds the kernel:
+    lane b holds ``lengths[b]`` tokens of which its last ``n_new`` are
+    this step's queries (q_start = lengths - n_new); lanes 1..5 share a
+    128-token prefix (8 aliased physical pages); the last lane is
+    empty."""
+    from repro_torch.kernels.paged_attention.ops import (
+        page_counts_for, pad_block_table,
+    )
+    B, H, Kv, hd, page, P, n_pages = 8, 32, 4, 128, 16, 1024, 64
+    rng = np.random.default_rng(seed)
+    lengths = np.array([1, 17, 130, 300, 511, 777, 1024, 0], np.int32)
+    n_new = np.minimum(C, lengths).astype(np.int32)
+    q_start = (lengths - n_new).astype(np.int32)
+    perm = rng.permutation(P)
+    shared, private = perm[:8], list(perm[8:])
+    bt = np.full((B, n_pages), -1, np.int32)
+    for b, ln in enumerate(lengths):
+        for lp in range(-(-int(ln) // page)):
+            bt[b, lp] = shared[lp] if (1 <= b <= 5 and lp < 8) \
+                else private.pop()
+    dev = "cuda"
+    q = torch.from_numpy(rng.standard_normal((B, C, H, hd), np.float32)
+                         * 0.3).to(dev, dtype)
+    kv = torch.from_numpy(rng.standard_normal((P, 2, page, Kv, hd),
+                                              np.float32) * 0.5).to(dev, dtype)
+    lens = torch.from_numpy(lengths).to(dev)
+    counts = page_counts_for(lens, page)
+    table = torch.from_numpy(bt).to(dev)
+    # bytes the function must move: q in, out back, and every distinct
+    # pool page a lane can see (K and V), read once; the int32 tables
+    visible = {int(p) for p in bt[bt >= 0]}
+    elt = torch.finfo(dtype).bits // 8
+    nbytes = (2 * q.numel() * elt + len(visible) * 2 * page * Kv * hd * elt
+              + bt.size * 4 + 3 * B * 4)
+    # operations: QK^T and PV over each query row's visible tokens
+    vis = np.clip(np.minimum(lengths[:, None],
+                             q_start[:, None] + np.arange(C)[None, :] + 1),
+                  0, None)
+    flops = 4 * hd * H * int(vis.sum())
+    return dict(q=q, kv=kv, padded=pad_block_table(table, counts),
+                counts=counts, lens=lens,
+                q_start=torch.from_numpy(q_start).to(dev),
+                bytes=int(nbytes), flops=int(flops))
+
+
+def sdpa_call(case: dict, C: int):
+    """One PyTorch call computing the same attention on dense K/V gathered
+    beforehand (the gather is not timed): the library yardstick."""
+    import torch.nn.functional as F
+    q, kv, padded = case["q"], case["kv"], case["padded"]
+    B, _, H, hd = q.shape
+    k = kv[padded.long(), 0].flatten(1, 2).transpose(1, 2).contiguous()
+    v = kv[padded.long(), 1].flatten(1, 2).transpose(1, 2).contiguous()
+    T = k.shape[2]
+    tok = torch.arange(T, device=q.device)
+    qpos = case["q_start"][:, None] + torch.arange(C, device=q.device)
+    mask = (tok[None, None, :] < case["lens"][:, None, None]) & \
+        (tok[None, None, :] <= qpos[..., None])
+    qh = q.transpose(1, 2).contiguous()
+    return lambda: F.scaled_dot_product_attention(
+        qh, k, v, attn_mask=mask[:, None], enable_gqa=True)
+
+
+def phase_kernel(timer: Timer) -> list:
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.paged_attention import ref as R
+    from repro_torch.kernels.paged_attention.ops import mask_block_table
+    cases = []
+    for C in (1, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            c = attention_case(C, dtype)
+            args = (c["q"], c["kv"], c["padded"], c["counts"], c["lens"],
+                    c["q_start"])
+            masked = mask_block_table(c["padded"], c["counts"])
+
+            def kernel(args=args):
+                return K.paged_prefill_fwd(*args)
+
+            def plain(c=c, masked=masked):
+                return R.paged_prefill_ref(
+                    c["q"], c["kv"][:, 0], c["kv"][:, 1], masked, c["lens"],
+                    c["q_start"])
+
+            out = kernel()
+            torch.cuda.synchronize()
+            ref = plain()
+            err = (out.float() - ref.float()).abs().max().item()
+            tol = TOL[dtype]
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"C={C} {dtype}: non-finite kernel output")
+            check(torch.allclose(out.float(), ref.float(), rtol=tol,
+                                 atol=tol),
+                  f"C={C} {dtype}: kernel vs plain max |err| {err}")
+            ms = timer.ms(kernel)
+            plain_ms = timer.ms(plain, reps=5)
+            library_ms = timer.ms(sdpa_call(c, C))
+            t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
+            t_ops = c["flops"] / PEAK_OPS_PER_S[dtype] * 1e3
+            bound_ms = max(t_bytes, t_ops)
+            row = dict(C=C, dtype=str(dtype).replace("torch.", ""),
+                       max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bytes=c["bytes"],
+                       flops=c["flops"], bound_ms=bound_ms,
+                       bound_by="bytes" if t_bytes >= t_ops else "operations",
+                       share_of_bound=bound_ms / ms)
+            cases.append(row)
+            print(f"kernel C={C} {row['dtype']}: ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+                  f"bytes={c['bytes']} flops={c['flops']} "
+                  f"bound_ms={bound_ms:.5f} ({row['bound_by']}) "
+                  f"share_of_bound={row['share_of_bound']:.4f} "
+                  f"max_abs_err={err:.3g} tol={tol}", flush=True)
+    return cases
+
+
+# --------------------------------------------------------------- phase 4 --
+def _lockstep(engines, requests, preempt_rid: int, preempt_after: int):
+    """Serve ``requests`` on every engine in lockstep (one ``step()`` each
+    per round), preempting ``preempt_rid`` on all of them once it has
+    ``preempt_after`` output tokens.  Returns each engine's tokens."""
+    outs = [{r.rid: [] for r in requests} for _ in engines]
+    for e in engines:
+        for r in requests:
+            e.submit(r)
+    preempted = False
+    busy = True
+    while busy:
+        busy = False
+        for e, out in zip(engines, outs):
+            busy |= e.step()
+            for d in e.poll_deltas():
+                out[d.rid].extend(d.tokens)
+        if not preempted and len(outs[0][preempt_rid]) >= preempt_after:
+            for e in engines:
+                check(e.preempt(preempt_rid), "forced preemption missed")
+            preempted = True
+    return outs
+
+
+def phase_parity():
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime import (
+        CacheConfig, EngineConfig, GenerationRequest, SamplingParams,
+        make_engine,
+    )
+    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=2,
+                              param_dtype="float32")
+    cpu_model = init_params(cfg, seed=0, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    ecfg = EngineConfig(cache=CacheConfig(num_pages=64, page_size=16,
+                                          max_pages_per_seq=8),
+                        max_lanes=2, chunk=16)
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab_size, 32).tolist()
+    requests = [GenerationRequest(
+        rid, tuple(prefix + rng.integers(0, cfg.vocab_size,
+                                         int(rng.integers(8, 33))).tolist()),
+        SamplingParams(max_new=8)) for rid in range(4)]
+
+    def engines():
+        return [make_engine(cfg, gpu_model, ecfg),
+                make_engine(cfg, cpu_model, ecfg, device="cpu")]
+
+    pair = engines()
+    gpu_out, cpu_out = _lockstep(pair, requests, preempt_rid=0,
+                                 preempt_after=3)
+    excused = 0
+    for r in requests:
+        a, b = gpu_out[r.rid], cpu_out[r.rid]
+        check(len(a) == len(b) == 8, f"rid {r.rid}: lengths {len(a)}, "
+                                     f"{len(b)}")
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        # a flip is excused only at a near-tie: re-run the position alone
+        # on both devices and compare the CPU's top-2 margin with the
+        # largest logit difference between the two
+        one = GenerationRequest(r.rid, tuple(r.prompt) + tuple(b[:j]),
+                                SamplingParams(max_new=1))
+        rows = []
+        for e in engines():
+            e.submit(one)
+            e.run()
+            rows.append(e.last_logits[0].double().cpu())
+        diff = (rows[0] - rows[1]).abs().max().item()
+        top2 = torch.topk(rows[1], 2).values
+        margin = (top2[0] - top2[1]).item()
+        check(margin < 10 * diff,
+              f"rid {r.rid} token {j}: CUDA {a[j]} != CPU {b[j]} with CPU "
+              f"top-2 margin {margin:.3g} >= 10 x max logit diff {diff:.3g}")
+        excused += 1
+    g, c = pair
+    check(g.preemptions >= 1 and c.preemptions >= 1, "no preemption")
+    check(g.cache_stats().prefix_hit_tokens > 0, "no prefix hit")
+    if not excused:
+        check((g.iterations, g.h2d_events, g.d2h_events)
+              == (c.iterations, c.h2d_events, c.d2h_events),
+              "CUDA and CPU engines scheduled differently")
+    n_tok = sum(len(v) for v in cpu_out.values())
+    print(f"parity: yi-6b widths x 2 layers f32, {len(requests)} requests, "
+          f"{n_tok} tokens, identical={excused == 0}, "
+          f"excused_positions={excused}, "
+          f"prefix_hit_tokens={g.cache_stats().prefix_hit_tokens}, "
+          f"preemptions={g.preemptions}, iterations={g.iterations}",
+          flush=True)
+    return excused
+
+
+# --------------------------------------------------------------- phase 5 --
+def serve_workload(cfg):
+    """Phase 5's engine spec and requests: 12 greedy requests of 300-700
+    prompt tokens and 32 new tokens each; rids 0, 8, 9 and 10 share a
+    256-token prefix (0 runs in the first wave and publishes it, the other
+    three are admitted after it finishes)."""
+    from repro_torch.runtime import (
+        CacheConfig, EngineConfig, GenerationRequest, SamplingParams,
+    )
+    ecfg = EngineConfig(cache=CacheConfig(num_pages=1024, page_size=16,
+                                          max_pages_per_seq=64),
+                        max_lanes=8, chunk=128)
+    rng = np.random.default_rng(2)
+    prefix = rng.integers(0, cfg.vocab_size, 256).tolist()
+    requests = []
+    for rid in range(12):
+        n = int(rng.integers(300, 701))
+        head = prefix if rid in (0, 8, 9, 10) else \
+            rng.integers(0, cfg.vocab_size, 256).tolist()
+        tail = rng.integers(0, cfg.vocab_size, n - 256).tolist()
+        requests.append(GenerationRequest(rid, tuple(head + tail),
+                                          SamplingParams(max_new=32)))
+    return ecfg, requests
+
+
+def phase_serve() -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.paged_attention import ref as R
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime import make_engine
+    cfg = get_config("yi-6b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ecfg, requests = serve_workload(cfg)
+    engine = make_engine(cfg, model, ecfg)
+    for r in requests:
+        engine.submit(r)
+    streamed = {r.rid: [] for r in requests}
+    prefill_ms, decode_ms = [], []
+    preempted = False
+    K.launches.reset()
+    R.calls.reset()
+    t_start = time.perf_counter()
+    while True:
+        before = engine.prefill_tokens
+        t = time.perf_counter()
+        busy = engine.step()          # ends in the iteration's D2H pull
+        dt = (time.perf_counter() - t) * 1e3
+        if not busy:
+            break
+        (prefill_ms if engine.prefill_tokens > before else
+         decode_ms).append(dt)
+        for d in engine.poll_deltas():
+            streamed[d.rid].extend(d.tokens)
+        if not preempted and len(streamed[1]) >= 8:
+            check(engine.preempt(1), "forced preemption missed")
+            preempted = True
+    wall = time.perf_counter() - t_start
+    for d in engine.poll_deltas():
+        streamed[d.rid].extend(d.tokens)
+    launches, plain_calls = K.launches.n, R.calls.n
+
+    results = {r.rid: r for r in engine.finished}
+    check(len(results) == 12, f"{len(results)} of 12 requests finished")
+    for rid, res in results.items():
+        check(res.finish_reason == "length",
+              f"rid {rid} finished {res.finish_reason}")
+        check(list(res.tokens) == streamed[rid],
+              f"rid {rid}: streamed deltas != result tokens")
+        check(all(0 <= t < cfg.vocab_size for t in res.tokens),
+              f"rid {rid}: token out of vocabulary")
+    check(bool(torch.isfinite(engine.last_logits).all()),
+          "non-finite logits")
+    stats = engine.cache_stats()
+    check(stats.prefix_hit_tokens > 0, "no prefix-cache hit")
+    check(engine.preemptions >= 1, "no preemption")
+    check(engine.pool.stats["swapped_in"] > 0, "no swap-in")
+    check(launches == cfg.num_layers * engine.iterations,
+          f"kernel launches {launches} != {cfg.num_layers} layers x "
+          f"{engine.iterations} iterations")
+    check(plain_calls == 0, f"plain attention called {plain_calls} times")
+    out_tokens = sum(len(r.tokens) for r in results.values())
+    row = dict(iterations=engine.iterations,
+               prefill_iterations=len(prefill_ms),
+               decode_iterations=len(decode_ms),
+               prefill_iter_ms_median=statistics.median(prefill_ms),
+               decode_iter_ms_median=statistics.median(decode_ms),
+               output_tokens=out_tokens,
+               output_tokens_per_s=out_tokens / wall,
+               wall_s=wall, init_s=init_s,
+               prefix_hit_tokens=stats.prefix_hit_tokens,
+               preemptions=engine.preemptions,
+               swapped_in_pages=engine.pool.stats["swapped_in"],
+               h2d_events=engine.h2d_events, d2h_events=engine.d2h_events,
+               kernel_launches=launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    print("serve: yi-6b 32 layers bf16, 12 requests x 32 new tokens: "
+          + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                     for k, v in row.items()), flush=True)
+    return row
+
+
+# ------------------------------------------------------------------ main --
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.paged_attention import kernel as K
+
+    # 1. info
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi)
+    print(f"info: torch {torch.__version__} cuda {torch.version.cuda} "
+          f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
+          f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
+
+    # 2. build
+    t0 = time.perf_counter()
+    launch.build([K.SOURCE])
+    print(f"build: {K.SOURCE.name} -> {launch.library_path(K.SOURCE).name} "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # 3-5
+    cases = phase_kernel(Timer())
+    phase_parity()
+    serve = phase_serve()
+
+    head = next(c for c in cases if c["C"] == 1 and c["dtype"] == "bfloat16")
+    kernels = [{
+        "name": "paged_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/paged_attention/csrc/"
+                  "paged_attention.cu",
+        "replaces": "src/repro/kernels/paged_attention/kernel.py:222",
+        "launches": serve["kernel_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "held_against_plain": True,
+        "cases": cases,
+    }]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,40 @@
+"""Architecture registry: ``get_config(name)`` / ``list_archs()``.
+
+Lists only the archs the port serves so far (the dense GQA decoders).
+"""
+from __future__ import annotations
+
+import importlib
+from typing import List
+
+from repro_torch.configs.base import ArchConfig, SHAPES, ShapeSpec
+
+_MODULES = {
+    "yi-6b": "repro_torch.configs.yi_6b",
+    "qwen3-32b": "repro_torch.configs.qwen3_32b",
+}
+
+
+def list_archs() -> List[str]:
+    return list(_MODULES)
+
+
+def get_config(name: str) -> ArchConfig:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {list_archs()}")
+    return importlib.import_module(_MODULES[name]).CONFIG
+
+
+def get_shape(name: str) -> ShapeSpec:
+    return SHAPES[name]
+
+
+def all_cells():
+    """Every (arch, shape) cell with its applicability verdict."""
+    out = []
+    for a in list_archs():
+        cfg = get_config(a)
+        for s in SHAPES.values():
+            ok, why = cfg.shape_applicable(s)
+            out.append((cfg, s, ok, why))
+    return out

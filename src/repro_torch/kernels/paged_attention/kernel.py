@@ -1,0 +1,141 @@
+"""Paged attention on Hopper: the wrapper around ``csrc/paged_attention.cu``.
+
+One CUDA kernel serves both entry points, as one Pallas kernel does in the
+reference (``repro.kernels.paged_attention.kernel``):
+
+``paged_prefill_fwd``
+    A chunk of ``C`` query tokens per lane against the fused paged pool.
+``paged_decode_fwd``
+    One query token per lane: the C=1 case with ``q_start = lengths - 1``.
+
+The pool is fused, ``(P, 2, page, Kv, hd)``, and the block table is
+repeat-padded (entries past a lane's last mapped page repeat it; see
+``ops.pad_block_table``).  The kernel takes CUDA tensors only: a CPU
+tensor is the caller's cue to use the plain version (``ops`` dispatches),
+never this module's.  The library is built with ``nvcc`` at first launch
+(``kernels.launch``); every launch adds one to :data:`launches`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.launch import LaunchCounter, load
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: launches of the paged-attention kernel
+launches = LaunchCounter()
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = load(SOURCE)
+    fn = lib.paged_prefill_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(q, kv_pages, block_table, page_counts, lengths, q_start):
+    for name, t in (("q", q), ("kv_pages", kv_pages),
+                    ("block_table", block_table),
+                    ("page_counts", page_counts), ("lengths", lengths),
+                    ("q_start", q_start)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"q dtype {q.dtype} not supported (float32, "
+                         "bfloat16)")
+    if kv_pages.dtype != q.dtype:
+        raise ValueError(f"kv_pages dtype {kv_pages.dtype} != q dtype "
+                         f"{q.dtype}")
+    for name, t in (("block_table", block_table),
+                    ("page_counts", page_counts), ("lengths", lengths),
+                    ("q_start", q_start)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32, got {t.dtype}")
+    if q.dim() != 4 or kv_pages.dim() != 5 or kv_pages.shape[1] != 2:
+        raise ValueError(f"bad shapes: q {tuple(q.shape)} (want B,C,H,hd), "
+                         f"kv_pages {tuple(kv_pages.shape)} "
+                         "(want P,2,page,Kv,hd)")
+    B, C, H, hd = q.shape
+    P, _, page, Kv, hd_kv = kv_pages.shape
+    if hd_kv != hd or hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd} (pool {hd_kv}) not in {HEAD_DIMS}")
+    if Kv < 1 or H % Kv:
+        raise ValueError(f"H={H} not a multiple of Kv={Kv}")
+    if kv_pages.data_ptr() % 16:
+        raise ValueError("kv_pages must be 16-byte aligned (the kernel "
+                         "reads K/V rows 16 bytes at a time)")
+    if block_table.dim() != 2 or block_table.shape[0] != B \
+            or block_table.shape[1] < 1:
+        raise ValueError(f"block_table {tuple(block_table.shape)} for B={B}")
+    for name, t in (("page_counts", page_counts), ("lengths", lengths),
+                    ("q_start", q_start)):
+        if tuple(t.shape) != (B,):
+            raise ValueError(f"{name} shape {tuple(t.shape)} != ({B},)")
+    return B, C, H, hd, P, page, Kv
+
+
+def paged_prefill_fwd(q: torch.Tensor, kv_pages: torch.Tensor,
+                      block_table: torch.Tensor, page_counts: torch.Tensor,
+                      lengths: torch.Tensor, q_start: torch.Tensor, *,
+                      pages_per_step: int = 2,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,C,H,hd) — C query tokens per lane at positions
+    ``q_start[b] .. q_start[b]+C-1``, whose K/V are already in the pool
+    (``lengths`` counts them); kv_pages: (P, 2, page, Kv, hd) fused pool
+    in q's dtype (float32 or bfloat16); block_table: (B, n_pages) int32,
+    repeat-padded; page_counts / lengths / q_start: (B,) int32.  Rows past
+    a lane's real chunk attend to the whole resident sequence (callers
+    ignore them).  Returns (B,C,H,hd) in q's dtype.
+
+    ``pages_per_step`` is accepted for parity with the TPU kernel, whose
+    grid step it sets; this kernel's tiling does not depend on it (it
+    stages 32 tokens per step whatever the page size)."""
+    del pages_per_step
+    B, C, H, hd, P, page, Kv = _check(q, kv_pages, block_table, page_counts,
+                                      lengths, q_start)
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    sc = scale if scale is not None else 1.0 / math.sqrt(hd)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.paged_prefill_launch(
+            _DTYPES[q.dtype], q.data_ptr(), kv_pages.data_ptr(),
+            block_table.data_ptr(), page_counts.data_ptr(),
+            lengths.data_ptr(), q_start.data_ptr(), out.data_ptr(),
+            B, C, H, Kv, hd, page, block_table.shape[1], P, sc, stream)
+    if err:
+        raise RuntimeError(f"paged attention kernel launch failed: CUDA "
+                           f"error {err}")
+    launches.n += 1
+    return out
+
+
+def paged_decode_fwd(q: torch.Tensor, kv_pages: torch.Tensor,
+                     block_table: torch.Tensor, page_counts: torch.Tensor,
+                     lengths: torch.Tensor, *, pages_per_step: int = 2,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B,H,hd), one query per lane at position ``lengths - 1``: the
+    C=1 case of :func:`paged_prefill_fwd` (an empty lane, q_start = -1,
+    stays fully masked and outputs 0).  Returns (B,H,hd)."""
+    return paged_prefill_fwd(q[:, None], kv_pages, block_table, page_counts,
+                             lengths, (lengths - 1).to(torch.int32),
+                             pages_per_step=pages_per_step,
+                             scale=scale)[:, 0]

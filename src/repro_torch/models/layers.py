@@ -1,0 +1,122 @@
+"""Shared model primitives: norms, RoPE, MLPs, embeddings, logits.
+
+Plain functions on tensors, one per ``repro.models.layers`` function, with
+the same parameter layout: ``p`` is any mapping holding the named tensors
+(the port's modules are ``nn.ParameterDict``s, so ``p["scale"]`` works).
+Dtype flow follows the reference: norms and RoPE compute in float32 and
+cast back to the input dtype; logits come out in float32.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+
+# vocab rows upcast per matmul in ``logits_from_hidden`` (bounds the f32
+# copy of a bf16 head to a slice instead of the whole V x d matrix)
+_LOGIT_ROWS = 8192
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def norm_forward(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    if "bias" in p:  # LayerNorm
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        out = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        out = out * p["scale"] + p["bias"]
+    else:  # RMSNorm
+        ms = xf.square().mean(dim=-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"]
+    return out.to(x.dtype)
+
+
+def rms_head_norm(scale: torch.Tensor, x: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """Per-head RMSNorm over the trailing head_dim (qwen3 qk-norm)."""
+    xf = x.float()
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding, rotate-half convention.
+
+    x: (..., S, H, hd) with matching positions (..., S) broadcastable.
+    """
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = torch.exp(-math.log(theta) * torch.arange(
+        0, half, dtype=torch.float32, device=x.device) / half)
+    ang = positions[..., None].float() * freqs          # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                  # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1f, x2f = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1f * cos - x2f * sin, x2f * cos + x1f * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_forward(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    up = x @ p["w_up"]
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        gate = x @ p["w_gate"]
+        # jax.nn.gelu defaults to the tanh approximation
+        act = F.silu(gate) if cfg.mlp_kind == "swiglu" else \
+            F.gelu(gate, approximate="tanh")
+        h = act * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Embedding + logits
+# ---------------------------------------------------------------------------
+
+def embed_tokens(cfg: ArchConfig, p, tokens: torch.Tensor) -> torch.Tensor:
+    x = p["table"][tokens.long()]
+    if cfg.embedding_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+    return x
+
+
+def head_matrix(cfg: ArchConfig, p) -> torch.Tensor:
+    return p["table"] if cfg.tie_embeddings else p["head"]
+
+
+def logits_from_hidden(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """Float32 logits, as the reference asks XLA for
+    (``preferred_element_type=float32``).  A bf16 matmul would round its
+    output to bf16 and turn near-ties over a large vocabulary into argmax
+    ties; here bf16 operands are upcast (products of bf16 values are exact
+    in float32) one slice of vocabulary rows at a time."""
+    w = head_matrix(cfg, p)
+    xf = x.float()
+    if w.dtype == torch.float32:
+        logits = xf @ w.t()
+    else:
+        logits = torch.cat([xf @ w[v:v + _LOGIT_ROWS].float().t()
+                            for v in range(0, w.shape[0], _LOGIT_ROWS)],
+                           dim=-1)
+    return softcap(logits, cfg.final_softcap)

@@ -1,0 +1,16 @@
+from repro_torch.runtime.api import (
+    CacheConfig, CacheStats, EngineConfig, GenerationRequest,
+    GenerationResult, SamplingParams, TokenDelta, make_engine,
+    FINISH_STOP, FINISH_LENGTH, FINISH_ABORTED,
+    FINISH_TIMEOUT, FINISH_ERROR, FINISH_SHED,
+)
+from repro_torch.runtime.clock import Clock, MonotonicClock, VirtualClock
+from repro_torch.runtime.frontdoor import GreedyChunkPolicy, SchedulerPolicy
+from repro_torch.runtime.server import PagedServer
+
+__all__ = ["PagedServer", "CacheConfig", "CacheStats", "EngineConfig",
+           "GenerationRequest", "GenerationResult", "SamplingParams",
+           "TokenDelta", "make_engine", "FINISH_STOP", "FINISH_LENGTH",
+           "FINISH_ABORTED", "FINISH_TIMEOUT", "FINISH_ERROR",
+           "FINISH_SHED", "Clock", "MonotonicClock", "VirtualClock",
+           "SchedulerPolicy", "GreedyChunkPolicy"]
