@@ -13,18 +13,27 @@ non-zero without printing the final result line):
 3. kernel vs plain: the kernel against its plain-PyTorch version at yi-6b
    attention geometry (B=8, H=32, Kv=4, hd=128, page 16, a 1,024-page
    pool, ragged lengths 1..1,024 with an empty lane and aliased
-   shared-prefix pages), C in {1, 128}, float32 and bfloat16, with times,
-   bytes, FLOPs and the roofline bound of each case.
+   shared-prefix pages), C in {1, 128}, q in float32 and bfloat16, on a
+   pool in q's type and on an int8 pool with its scales (the int8
+   branch), with times, bytes, FLOPs and the roofline bound of each case.
 4. engine parity: the same float32 weights (yi-6b widths, 2 layers) served
-   by the CUDA engine (kernel) and the CPU engine (plain version); greedy
-   tokens must agree, excusing only near-ties.
+   by the CUDA engine (kernel) and the CPU engine (plain version), once
+   greedy on a float32 pool and once with an int8 pool and speculative
+   decoding (``spec_k=4``, drafts replayed from the first run's tokens);
+   greedy tokens must agree, excusing only near-ties.
 5. serve: yi-6b at full width (32 layers, bf16, random weights from seed
    0) serves 12 requests with a shared prefix and a forced preemption;
    the kernel must carry every layer of every iteration.
+6. serve int8 + speculation: the same model and workload with
+   ``kv_dtype="int8"`` and ``spec_k=4`` (the default n-gram drafter),
+   then an ``echo_wave`` of requests that repeat a token pattern of the
+   model's own; the kernel's int8 branch must carry every layer of every
+   iteration and the drafter must propose.
 
-Then one JSON line ``{"kernels": [...]}`` and, last, the result line
-``{"ok": true, "device": {...}}``.  It needs a CUDA device and the
-repository's ``src/`` beside it.
+Then one JSON line ``{"kernels": [...]}`` (the kernel's bf16/f32 branch
+and its int8 branch) and, last, the result line ``{"ok": true, "device":
+{...}}``.  It needs a CUDA device and the repository's ``src/`` beside
+it.
 """
 from __future__ import annotations
 
@@ -85,12 +94,14 @@ class Timer:
 
 
 # --------------------------------------------------------------- phase 3 --
-def attention_case(C: int, dtype: torch.dtype, seed: int = 0) -> dict:
+def attention_case(C: int, dtype: torch.dtype, int8: bool = False,
+                   seed: int = 0) -> dict:
     """Inputs at yi-6b attention geometry, as the engine feeds the kernel:
     lane b holds ``lengths[b]`` tokens of which its last ``n_new`` are
     this step's queries (q_start = lengths - n_new); lanes 1..5 share a
     128-token prefix (8 aliased physical pages); the last lane is
-    empty."""
+    empty.  With ``int8`` the pool is int8 with (P, 2, Kv) float32
+    scales, as the quantized engine keeps it."""
     from repro_torch.kernels.paged_attention.ops import (
         page_counts_for, pad_block_table,
     )
@@ -109,36 +120,52 @@ def attention_case(C: int, dtype: torch.dtype, seed: int = 0) -> dict:
     dev = "cuda"
     q = torch.from_numpy(rng.standard_normal((B, C, H, hd), np.float32)
                          * 0.3).to(dev, dtype)
-    kv = torch.from_numpy(rng.standard_normal((P, 2, page, Kv, hd),
-                                              np.float32) * 0.5).to(dev, dtype)
+    if int8:
+        kv = torch.from_numpy(rng.integers(-127, 128, (P, 2, page, Kv, hd))
+                              .astype(np.int8)).to(dev)
+        scales = torch.from_numpy(rng.uniform(
+            1e-3, 2e-2, (P, 2, Kv)).astype(np.float32)).to(dev)
+    else:
+        kv = torch.from_numpy(rng.standard_normal(
+            (P, 2, page, Kv, hd), np.float32) * 0.5).to(dev, dtype)
+        scales = None
     lens = torch.from_numpy(lengths).to(dev)
     counts = page_counts_for(lens, page)
     table = torch.from_numpy(bt).to(dev)
     # bytes the function must move: q in, out back, and every distinct
-    # pool page a lane can see (K and V), read once; the int32 tables
+    # pool page a lane can see (K and V, with an int8 page's 2*Kv float32
+    # scales), read once; the int32 tables
     visible = {int(p) for p in bt[bt >= 0]}
     elt = torch.finfo(dtype).bits // 8
-    nbytes = (2 * q.numel() * elt + len(visible) * 2 * page * Kv * hd * elt
+    page_bytes = 2 * page * Kv * hd * (1 if int8 else elt) \
+        + (2 * Kv * 4 if int8 else 0)
+    nbytes = (2 * q.numel() * elt + len(visible) * page_bytes
               + bt.size * 4 + 3 * B * 4)
     # operations: QK^T and PV over each query row's visible tokens
     vis = np.clip(np.minimum(lengths[:, None],
                              q_start[:, None] + np.arange(C)[None, :] + 1),
                   0, None)
     flops = 4 * hd * H * int(vis.sum())
-    return dict(q=q, kv=kv, padded=pad_block_table(table, counts),
-                counts=counts, lens=lens,
+    return dict(q=q, kv=kv, scales=scales,
+                padded=pad_block_table(table, counts), counts=counts,
+                lens=lens,
                 q_start=torch.from_numpy(q_start).to(dev),
                 bytes=int(nbytes), flops=int(flops))
 
 
 def sdpa_call(case: dict, C: int):
     """One PyTorch call computing the same attention on dense K/V gathered
-    beforehand (the gather is not timed): the library yardstick."""
+    (and, from an int8 pool, dequantized to q's type) beforehand; the
+    gather is not timed: the library yardstick."""
     import torch.nn.functional as F
     q, kv, padded = case["q"], case["kv"], case["padded"]
     B, _, H, hd = q.shape
-    k = kv[padded.long(), 0].flatten(1, 2).transpose(1, 2).contiguous()
-    v = kv[padded.long(), 1].flatten(1, 2).transpose(1, 2).contiguous()
+    kv = kv[padded.long()]                        # (B, n_pages, 2, page, ..)
+    if case["scales"] is not None:
+        sc = case["scales"][padded.long()]        # (B, n_pages, 2, Kv)
+        kv = (kv.float() * sc[:, :, :, None, :, None]).to(q.dtype)
+    k = kv[:, :, 0].flatten(1, 2).transpose(1, 2).contiguous()
+    v = kv[:, :, 1].flatten(1, 2).transpose(1, 2).contiguous()
     T = k.shape[2]
     tok = torch.arange(T, device=q.device)
     qpos = case["q_start"][:, None] + torch.arange(C, device=q.device)
@@ -150,55 +177,61 @@ def sdpa_call(case: dict, C: int):
 
 
 def phase_kernel(timer: Timer) -> list:
+    return [kernel_case(timer, C, dtype, int8) for int8 in (False, True)
+            for C in (1, 128) for dtype in (torch.float32, torch.bfloat16)]
+
+
+def kernel_case(timer: Timer, C: int, dtype: torch.dtype, int8: bool
+                ) -> dict:
+    """One case of phase 3: the kernel (the int8 branch with ``int8``)
+    against its plain version, then timed beside the plain version and
+    SDPA, with its bytes, FLOPs and roofline bound."""
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention import ref as R
     from repro_torch.kernels.paged_attention.ops import mask_block_table
-    cases = []
-    for C in (1, 128):
-        for dtype in (torch.float32, torch.bfloat16):
-            c = attention_case(C, dtype)
-            args = (c["q"], c["kv"], c["padded"], c["counts"], c["lens"],
-                    c["q_start"])
-            masked = mask_block_table(c["padded"], c["counts"])
+    c = attention_case(C, dtype, int8)
+    name = f"C={C} q={str(dtype).replace('torch.', '')} " \
+        f"kv={'int8' if int8 else 'same'}"
+    args = (c["q"], c["kv"], c["padded"], c["counts"], c["lens"],
+            c["q_start"])
+    masked = mask_block_table(c["padded"], c["counts"])
+    sc = c["scales"]
+    scales = {} if sc is None else dict(k_scales=sc[:, 0], v_scales=sc[:, 1])
 
-            def kernel(args=args):
-                return K.paged_prefill_fwd(*args)
+    def kernel():
+        return K.paged_prefill_fwd(*args, kv_scales=sc)
 
-            def plain(c=c, masked=masked):
-                return R.paged_prefill_ref(
-                    c["q"], c["kv"][:, 0], c["kv"][:, 1], masked, c["lens"],
-                    c["q_start"])
+    def plain():
+        return R.paged_prefill_ref(c["q"], c["kv"][:, 0], c["kv"][:, 1],
+                                   masked, c["lens"], c["q_start"], **scales)
 
-            out = kernel()
-            torch.cuda.synchronize()
-            ref = plain()
-            err = (out.float() - ref.float()).abs().max().item()
-            tol = TOL[dtype]
-            check(bool(torch.isfinite(out.float()).all()),
-                  f"C={C} {dtype}: non-finite kernel output")
-            check(torch.allclose(out.float(), ref.float(), rtol=tol,
-                                 atol=tol),
-                  f"C={C} {dtype}: kernel vs plain max |err| {err}")
-            ms = timer.ms(kernel)
-            plain_ms = timer.ms(plain, reps=5)
-            library_ms = timer.ms(sdpa_call(c, C))
-            t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
-            t_ops = c["flops"] / PEAK_OPS_PER_S[dtype] * 1e3
-            bound_ms = max(t_bytes, t_ops)
-            row = dict(C=C, dtype=str(dtype).replace("torch.", ""),
-                       max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-                       library_ms=library_ms, bytes=c["bytes"],
-                       flops=c["flops"], bound_ms=bound_ms,
-                       bound_by="bytes" if t_bytes >= t_ops else "operations",
-                       share_of_bound=bound_ms / ms)
-            cases.append(row)
-            print(f"kernel C={C} {row['dtype']}: ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-                  f"bytes={c['bytes']} flops={c['flops']} "
-                  f"bound_ms={bound_ms:.5f} ({row['bound_by']}) "
-                  f"share_of_bound={row['share_of_bound']:.4f} "
-                  f"max_abs_err={err:.3g} tol={tol}", flush=True)
-    return cases
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = TOL[dtype]
+    check(bool(torch.isfinite(out.float()).all()),
+          f"{name}: non-finite kernel output")
+    check(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
+          f"{name}: kernel vs plain max |err| {err}")
+    ms = timer.ms(kernel)
+    plain_ms = timer.ms(plain, reps=5)
+    library_ms = timer.ms(sdpa_call(c, C))
+    t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_ops = c["flops"] / PEAK_OPS_PER_S[dtype] * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    row = dict(C=C, dtype=str(dtype).replace("torch.", ""),
+               kv="int8" if int8 else "same", max_abs_err=err, tol=tol,
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bytes=c["bytes"], flops=c["flops"], bound_ms=bound_ms,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               share_of_bound=bound_ms / ms)
+    print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} bytes={c['bytes']} "
+          f"flops={c['flops']} bound_ms={bound_ms:.5f} ({row['bound_by']}) "
+          f"share_of_bound={row['share_of_bound']:.4f} "
+          f"max_abs_err={err:.3g} tol={tol}", flush=True)
+    return row
 
 
 # --------------------------------------------------------------- phase 4 --
@@ -225,26 +258,65 @@ def _lockstep(engines, requests, preempt_rid: int, preempt_after: int):
     return outs
 
 
-def phase_parity():
+def parity_models():
+    """Phase 4's float32 weights at yi-6b widths x 2 layers, on the CPU
+    and (a copy) on the card."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
+    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=2,
+                              param_dtype="float32")
+    cpu_model = init_params(cfg, seed=0, device="cpu")
+    return cfg, cpu_model, copy.deepcopy(cpu_model).to("cuda")
+
+
+class ReplayDrafter:
+    """Proposes each request's greedy continuation from an earlier run
+    (``known``: {prompt: tokens}), with the last draft of every call at an
+    odd context length corrupted, so verification both accepts and
+    rejects.  With random weights an n-gram drafter finds nothing to copy
+    at a 64,000-token vocabulary; this one is deterministic in the
+    context, so two engines that agree see the same drafts."""
+
+    def __init__(self, known: dict, vocab: int):
+        self.known, self.vocab = known, vocab
+
+    def propose(self, ctx, k):
+        for prompt, cont in self.known.items():
+            n = len(prompt)
+            if tuple(ctx[:n]) == prompt and \
+                    list(ctx[n:]) == list(cont[:len(ctx) - n]):
+                d = list(cont[len(ctx) - n:len(ctx) - n + k])
+                if d and len(ctx) % 2:
+                    d[-1] = (d[-1] + 1) % self.vocab
+                return d
+        return []
+
+
+def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
+                 known=None) -> tuple:
+    """The CUDA engine against the CPU engine on the same weights and
+    requests (a shared 32-token prefix, a forced preemption).  With
+    ``spec_k`` both speculate with a ``ReplayDrafter`` of ``known``
+    ({prompt: greedy tokens} from an earlier run).  Returns (excused
+    positions, {prompt: the CPU engine's tokens})."""
     from repro_torch.runtime import (
         CacheConfig, EngineConfig, GenerationRequest, SamplingParams,
         make_engine,
     )
-    cfg = dataclasses.replace(get_config("yi-6b"), num_layers=2,
-                              param_dtype="float32")
-    cpu_model = init_params(cfg, seed=0, device="cpu")
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    cfg, cpu_model, gpu_model = models
     ecfg = EngineConfig(cache=CacheConfig(num_pages=64, page_size=16,
-                                          max_pages_per_seq=8),
-                        max_lanes=2, chunk=16)
+                                          max_pages_per_seq=8,
+                                          kv_dtype=kv_dtype),
+                        max_lanes=2, chunk=16, spec_k=spec_k,
+                        drafter=ReplayDrafter(known, cfg.vocab_size)
+                        if spec_k else None)
     rng = np.random.default_rng(1)
     prefix = rng.integers(0, cfg.vocab_size, 32).tolist()
-    requests = [GenerationRequest(
-        rid, tuple(prefix + rng.integers(0, cfg.vocab_size,
-                                         int(rng.integers(8, 33))).tolist()),
-        SamplingParams(max_new=8)) for rid in range(4)]
+    prompts = [prefix + rng.integers(0, cfg.vocab_size,
+                                     int(rng.integers(8, 33))).tolist()
+               for _ in range(4)]
+    requests = [GenerationRequest(rid, tuple(p), SamplingParams(max_new=8))
+                for rid, p in enumerate(prompts)]
 
     def engines():
         return [make_engine(cfg, gpu_model, ecfg),
@@ -275,38 +347,47 @@ def phase_parity():
         top2 = torch.topk(rows[1], 2).values
         margin = (top2[0] - top2[1]).item()
         check(margin < 10 * diff,
-              f"rid {r.rid} token {j}: CUDA {a[j]} != CPU {b[j]} with CPU "
-              f"top-2 margin {margin:.3g} >= 10 x max logit diff {diff:.3g}")
+              f"{kv_dtype} spec_k={spec_k} rid {r.rid} token {j}: CUDA "
+              f"{a[j]} != CPU {b[j]} with CPU top-2 margin {margin:.3g} "
+              f">= 10 x max logit diff {diff:.3g}")
         excused += 1
     g, c = pair
     check(g.preemptions >= 1 and c.preemptions >= 1, "no preemption")
     check(g.cache_stats().prefix_hit_tokens > 0, "no prefix hit")
+    spec = [(e.spec_proposed, e.spec_accepted, e.spec_rejected)
+            for e in pair]
+    if spec_k:
+        check(c.spec_accepted > 0 and c.spec_rejected > 0,
+              f"speculation accepted {c.spec_accepted} and rejected "
+              f"{c.spec_rejected} drafts (both must happen)")
     if not excused:
-        check((g.iterations, g.h2d_events, g.d2h_events)
-              == (c.iterations, c.h2d_events, c.d2h_events),
+        check((g.iterations, g.h2d_events, g.d2h_events, spec[0])
+              == (c.iterations, c.h2d_events, c.d2h_events, spec[1]),
               "CUDA and CPU engines scheduled differently")
     n_tok = sum(len(v) for v in cpu_out.values())
-    print(f"parity: yi-6b widths x 2 layers f32, {len(requests)} requests, "
-          f"{n_tok} tokens, identical={excused == 0}, "
-          f"excused_positions={excused}, "
+    print(f"parity: yi-6b widths x 2 layers f32, kv {kv_dtype}, "
+          f"spec_k={spec_k}, {len(requests)} requests, {n_tok} tokens, "
+          f"identical={excused == 0}, excused_positions={excused}, "
           f"prefix_hit_tokens={g.cache_stats().prefix_hit_tokens}, "
-          f"preemptions={g.preemptions}, iterations={g.iterations}",
+          f"preemptions={g.preemptions}, iterations={g.iterations}, "
+          f"spec_proposed/accepted/rejected cuda={spec[0]} cpu={spec[1]}",
           flush=True)
-    return excused
+    return excused, {tuple(r.prompt): cpu_out[r.rid] for r in requests}
 
 
 # --------------------------------------------------------------- phase 5 --
-def serve_workload(cfg):
-    """Phase 5's engine spec and requests: 12 greedy requests of 300-700
-    prompt tokens and 32 new tokens each; rids 0, 8, 9 and 10 share a
-    256-token prefix (0 runs in the first wave and publishes it, the other
-    three are admitted after it finishes)."""
+def serve_workload(cfg, kv_dtype: str = "bf16", spec_k: int = 0):
+    """Phases 5 and 6's engine spec and requests: 12 greedy requests of
+    300-700 prompt tokens and 32 new tokens each; rids 0, 8, 9 and 10
+    share a 256-token prefix (0 runs in the first wave and publishes it,
+    the other three are admitted after it finishes)."""
     from repro_torch.runtime import (
         CacheConfig, EngineConfig, GenerationRequest, SamplingParams,
     )
     ecfg = EngineConfig(cache=CacheConfig(num_pages=1024, page_size=16,
-                                          max_pages_per_seq=64),
-                        max_lanes=8, chunk=128)
+                                          max_pages_per_seq=64,
+                                          kv_dtype=kv_dtype),
+                        max_lanes=8, chunk=128, spec_k=spec_k)
     rng = np.random.default_rng(2)
     prefix = rng.integers(0, cfg.vocab_size, 256).tolist()
     requests = []
@@ -314,55 +395,90 @@ def serve_workload(cfg):
         n = int(rng.integers(300, 701))
         head = prefix if rid in (0, 8, 9, 10) else \
             rng.integers(0, cfg.vocab_size, 256).tolist()
-        tail = rng.integers(0, cfg.vocab_size, n - 256).tolist()
-        requests.append(GenerationRequest(rid, tuple(head + tail),
+        prompt = head + rng.integers(0, cfg.vocab_size, n - 256).tolist()
+        requests.append(GenerationRequest(rid, tuple(prompt),
                                           SamplingParams(max_new=32)))
     return ecfg, requests
 
 
-def phase_serve() -> dict:
-    from repro_torch.configs import get_config
+def echo_wave(requests, results) -> list:
+    """Requests that repeat a token pattern the model itself produced:
+    for each served request whose greedy continuation repeats a token of
+    its history (first at index m), its prompt plus the continuation's
+    first m tokens.  Greedy decode then emits that repeated token first,
+    so the n-gram drafter finds it in the history; the prompt's full
+    pages are prefix-cache hits, so every such request finishes its
+    prefill in one chunk and they all decode together."""
+    from repro_torch.runtime import GenerationRequest, SamplingParams
+    wave = []
+    for r in requests:
+        toks = list(results[r.rid])
+        seen = set(r.prompt)
+        for m, t in enumerate(toks):
+            if m and t in seen:
+                wave.append(GenerationRequest(
+                    100 + r.rid, tuple(r.prompt) + tuple(toks[:m]),
+                    SamplingParams(max_new=len(toks) - m)))
+                break
+            seen.add(t)
+    return wave
+
+
+def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
+                ) -> tuple:
+    """Serve the workload at full width; the kernel branch of the pool's
+    type must carry every layer of every iteration (its count is read
+    from 0 just before the run and just after) and the plain version
+    must never run.  With ``spec_k`` an ``echo_wave`` follows once the
+    workload is served.  Returns (metrics, {rid: tokens})."""
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention import ref as R
-    from repro_torch.models.model import init_params
     from repro_torch.runtime import make_engine
-    cfg = get_config("yi-6b")
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    model = init_params(cfg, seed=0)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    ecfg, requests = serve_workload(cfg)
+    ecfg, requests = serve_workload(cfg, kv_dtype, spec_k)
     engine = make_engine(cfg, model, ecfg)
-    for r in requests:
-        engine.submit(r)
-    streamed = {r.rid: [] for r in requests}
-    prefill_ms, decode_ms = [], []
-    preempted = False
-    K.launches.reset()
-    R.calls.reset()
-    t_start = time.perf_counter()
-    while True:
-        before = engine.prefill_tokens
-        t = time.perf_counter()
-        busy = engine.step()          # ends in the iteration's D2H pull
-        dt = (time.perf_counter() - t) * 1e3
-        if not busy:
-            break
-        (prefill_ms if engine.prefill_tokens > before else
-         decode_ms).append(dt)
+    streamed = {}
+    iter_ms = {"prefill": [], "decode": [], "verify": []}
+
+    def drive(reqs, preempt_rid=None):
+        for r in reqs:
+            engine.submit(r)
+            streamed[r.rid] = []
+        preempted = preempt_rid is None
+        while True:
+            before = (engine.prefill_tokens, engine.spec_iterations)
+            t = time.perf_counter()
+            busy = engine.step()      # ends in the iteration's D2H pull
+            dt = (time.perf_counter() - t) * 1e3
+            if not busy:
+                break
+            kind = "prefill" if engine.prefill_tokens > before[0] else \
+                "verify" if engine.spec_iterations > before[1] else "decode"
+            iter_ms[kind].append(dt)
+            for d in engine.poll_deltas():
+                streamed[d.rid].extend(d.tokens)
+            if not preempted and len(streamed[preempt_rid]) >= 8:
+                check(engine.preempt(preempt_rid),
+                      "forced preemption missed")
+                preempted = True
         for d in engine.poll_deltas():
             streamed[d.rid].extend(d.tokens)
-        if not preempted and len(streamed[1]) >= 8:
-            check(engine.preempt(1), "forced preemption missed")
-            preempted = True
+
+    for counter in (K.launches, K.int8_launches, R.calls):
+        counter.reset()
+    t_start = time.perf_counter()
+    drive(requests, preempt_rid=1)
+    wave = echo_wave(requests, streamed) if spec_k else []
+    drive(wave)
     wall = time.perf_counter() - t_start
-    for d in engine.poll_deltas():
-        streamed[d.rid].extend(d.tokens)
-    launches, plain_calls = K.launches.n, R.calls.n
+    ours, other = (K.int8_launches, K.launches) if kv_dtype == "int8" \
+        else (K.launches, K.int8_launches)
+    launches, other_launches, plain_calls = ours.n, other.n, R.calls.n
 
     results = {r.rid: r for r in engine.finished}
-    check(len(results) == 12, f"{len(results)} of 12 requests finished")
+    n_req = len(requests) + len(wave)
+    check(len(results) == n_req,
+          f"{len(results)} of {n_req} requests finished")
     for rid, res in results.items():
         check(res.finish_reason == "length",
               f"rid {rid} finished {res.finish_reason}")
@@ -377,28 +493,37 @@ def phase_serve() -> dict:
     check(engine.preemptions >= 1, "no preemption")
     check(engine.pool.stats["swapped_in"] > 0, "no swap-in")
     check(launches == cfg.num_layers * engine.iterations,
-          f"kernel launches {launches} != {cfg.num_layers} layers x "
-          f"{engine.iterations} iterations")
+          f"{kv_dtype} kernel launches {launches} != {cfg.num_layers} "
+          f"layers x {engine.iterations} iterations")
+    check(other_launches == 0,
+          f"the other pool type's kernel branch ran {other_launches} times")
     check(plain_calls == 0, f"plain attention called {plain_calls} times")
+    if spec_k:
+        check(engine.spec_proposed > 0, "the drafter never proposed")
     out_tokens = sum(len(r.tokens) for r in results.values())
-    row = dict(iterations=engine.iterations,
-               prefill_iterations=len(prefill_ms),
-               decode_iterations=len(decode_ms),
-               prefill_iter_ms_median=statistics.median(prefill_ms),
-               decode_iter_ms_median=statistics.median(decode_ms),
+    row = dict(kv_dtype=kv_dtype, spec_k=spec_k, requests=n_req,
+               echo_requests=len(wave), iterations=engine.iterations,
+               **{f"{k}_iterations": len(v) for k, v in iter_ms.items()},
+               **{f"{k}_iter_ms_median": statistics.median(v)
+                  for k, v in iter_ms.items() if v},
                output_tokens=out_tokens,
-               output_tokens_per_s=out_tokens / wall,
-               wall_s=wall, init_s=init_s,
+               output_tokens_per_s=out_tokens / wall, wall_s=wall,
+               spec_proposed=engine.spec_proposed,
+               spec_accepted=engine.spec_accepted,
+               acceptance=(engine.spec_accepted / engine.spec_proposed
+                           if engine.spec_proposed else 0.0),
+               bytes_per_token=stats.bytes_per_token,
                prefix_hit_tokens=stats.prefix_hit_tokens,
                preemptions=engine.preemptions,
                swapped_in_pages=engine.pool.stats["swapped_in"],
                h2d_events=engine.h2d_events, d2h_events=engine.d2h_events,
                kernel_launches=launches,
                max_memory_allocated=torch.cuda.max_memory_allocated())
-    print("serve: yi-6b 32 layers bf16, 12 requests x 32 new tokens: "
+    print(f"serve: yi-6b 32 layers bf16, kv {kv_dtype}, spec_k={spec_k}, "
+          f"{n_req} requests: "
           + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                      for k, v in row.items()), flush=True)
-    return row
+    return row, {rid: res.tokens for rid, res in results.items()}
 
 
 # ------------------------------------------------------------------ main --
@@ -406,6 +531,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_script = time.perf_counter()
+
+    def done(phase: str):
+        print(f"{phase} done at {time.perf_counter() - t_script:.2f} s",
+              flush=True)
+
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import launch
     from repro_torch.kernels.paged_attention import kernel as K
@@ -428,26 +559,51 @@ def main() -> int:
     print(f"build: {K.SOURCE.name} -> {launch.library_path(K.SOURCE).name} "
           f"in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    # 3-5
-    cases = phase_kernel(Timer())
-    phase_parity()
-    serve = phase_serve()
+    done("phase 2")
 
-    head = next(c for c in cases if c["C"] == 1 and c["dtype"] == "bfloat16")
-    kernels = [{
-        "name": "paged_attention",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/paged_attention/csrc/"
-                  "paged_attention.cu",
-        "replaces": "src/repro/kernels/paged_attention/kernel.py:222",
-        "launches": serve["kernel_launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in cases),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "held_against_plain": True,
-        "cases": cases,
-    }]
+    # 3-6
+    cases = phase_kernel(Timer())
+    done("phase 3")
+    parity = parity_models()
+    _, known = phase_parity(parity)
+    phase_parity(parity, kv_dtype="int8", spec_k=4, known=known)
+    del parity
+    done("phase 4")
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = get_config("yi-6b")
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"init: yi-6b bf16 weights in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    serve, _ = phase_serve(cfg, model)
+    done("phase 5")
+    serve8, _ = phase_serve(cfg, model, kv_dtype="int8", spec_k=4)
+    done("phase 6")
+
+    def entry(name, kv, launches, replaces):
+        own = [c for c in cases if c["kv"] == kv]
+        head = next(c for c in own if c["C"] == 1 and c["dtype"] == "bfloat16")
+        return {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/paged_attention/csrc/"
+                      "paged_attention.cu",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in own),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "held_against_plain": True,
+            "cases": own,
+        }
+
+    kernels = [
+        entry("paged_attention", "same", serve["kernel_launches"],
+              "src/repro/kernels/paged_attention/kernel.py:222"),
+        entry("paged_attention_int8", "int8", serve8["kernel_launches"],
+              "src/repro/kernels/paged_attention/kernel.py:113-121"),
+    ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

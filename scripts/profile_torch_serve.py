@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where a serving iteration's time goes: host vs device, kernel by kernel.
 
-    python3 scripts/profile_torch_serve.py
+    python3 scripts/profile_torch_serve.py [--kv-dtype int8]
 
 Serves ``chip_smoke.py``'s phase-5 workload (yi-6b at full width, bf16,
 random weights from seed 0, 12 requests, a 1,024-page pool) on the CUDA
@@ -11,10 +11,12 @@ device's kernel time.  Iterations are split into prefill (any prompt
 tokens fed) and decode (all lanes decoding).  Prints one JSON object per
 class: median wall ms, median device-busy ms (sum of kernel durations),
 idle share (1 - busy / wall), kernel launches per iteration, and the
-kernels taking the most device time.  Needs a CUDA device.
+kernels taking the most device time.  ``--kv-dtype int8`` serves the
+same workload from an int8 KV pool.  Needs a CUDA device.
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import statistics
@@ -62,6 +64,9 @@ def _drive(engine, requests, profiled: bool):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8"))
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
@@ -81,7 +86,7 @@ def main() -> int:
     launch.build([K.SOURCE])
     cfg = get_config("yi-6b")
     model = init_params(cfg, seed=0)
-    ecfg, requests = serve_workload(cfg)
+    ecfg, requests = serve_workload(cfg, kv_dtype=args.kv_dtype)
     _drive(make_engine(cfg, model, ecfg), requests, profiled=False)  # warm
     walls = _drive(make_engine(cfg, model, ecfg), requests, profiled=False)
     traced = _drive(make_engine(cfg, model, ecfg), requests, profiled=True)
@@ -96,7 +101,8 @@ def main() -> int:
                for name, ms in total.most_common(8)]
         med_wall = statistics.median(wall)
         print(json.dumps({
-            "iterations": kind, "count": len(wall),
+            "kv_dtype": args.kv_dtype, "iterations": kind,
+            "count": len(wall),
             "wall_ms_median": med_wall, "device_busy_ms_median": busy,
             "idle_share": 1 - busy / med_wall,
             "kernel_launches_per_iter": statistics.median(

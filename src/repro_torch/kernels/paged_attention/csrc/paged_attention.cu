@@ -2,9 +2,12 @@
 // fused, paged K/V pool reached through a block table.
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attention/kernel.py::
-// _prefill_kernel (the pl.pallas_call in paged_prefill_fwd, bf16/f32
-// branch), which the reference enters as paged_prefill_fwd for prompt
-// chunks and as paged_decode_fwd (C = 1, q_start = len - 1) for decode.
+// _prefill_kernel (the pl.pallas_call in paged_prefill_fwd), which the
+// reference enters as paged_prefill_fwd for prompt chunks and as
+// paged_decode_fwd (C = 1, q_start = len - 1) for decode: both its
+// bf16/f32 branch and its int8 branch (quant=True, kernel.py:113-121),
+// where the pool holds int8 pages and kv_scales (P, 2, Kv) float32 one
+// scale per (page, K/V, kv head).
 //
 // What it computes, per lane b, query token c (position qpos = q_start[b]
 // + c) and query head h = k*G + g (GQA is kv-major, G = H / Kv):
@@ -12,7 +15,9 @@
 //           t < lengths[b] && t <= qpos,
 // where token t lives in physical page block_table[b, t / page], slot
 // t % page.  Scores, the online softmax (m, l, acc) and the output
-// accumulation are float32; a row with no visible token outputs 0.
+// accumulation are float32; a row with no visible token outputs 0.  On an
+// int8 pool K[t] = k_int8[t] * kv_scales[page, 0, k] (V with index 1),
+// the dequantization the reference does in its fetch.
 //
 // Design (simple and exact first):
 //   * one thread block of 8 warps per (tile of up to 32 query rows, kv
@@ -25,7 +30,11 @@
 //     (one token per lane): all 256 threads stage that tile's K and V for
 //     head k in shared memory as float32, with 16-byte loads (K rows
 //     padded by one word so the lanes' column reads hit 32 different
-//     banks); each lane scores its token against a row, the warp reduces
+//     banks); an int8 pool is read 16 elements per load and each row is
+//     multiplied by its page's scale as it is staged, so everything after
+//     the staging is the same for every pool type (the scales add 8 bytes
+//     per page and kv head; an int8 row is half a bf16 row's bytes);
+//     each lane scores its token against a row, the warp reduces
 //     max and sum with shuffles, and the probabilities are broadcast lane
 //     by lane into the V accumulation;
 //   * the walk stops at the last token any of the block's rows can see,
@@ -46,12 +55,15 @@
 // Plain C interface (loaded with ctypes): paged_prefill_launch returns
 // cudaGetLastError() after the launch; 0 means launched.  The pool must be
 // 16-byte aligned (the wrapper checks): K/V rows are read 16 bytes at a
-// time.
+// time, which for int8 needs hd >= 16 (every supported hd is).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <stddef.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -64,6 +76,9 @@ constexpr unsigned kFull = 0xffffffffu;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -95,18 +110,22 @@ constexpr size_t smem_bytes(int rows_per_block) {
           size_t(rows_per_block) * HD);
 }
 
-template <typename T, int HD>
+// TQ: q/out element type (float or bf16); TKV: pool element type (TQ, or
+// int8_t with kv_scales).
+template <typename TQ, typename TKV, int HD>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kv,
+paged_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kv,
+                     const float* __restrict__ kv_scales,
                      const int* __restrict__ block_table,
                      const int* __restrict__ page_counts,
                      const int* __restrict__ lengths,
-                     const int* __restrict__ q_start, T* __restrict__ out,
+                     const int* __restrict__ q_start, TQ* __restrict__ out,
                      int C, int H, int Kv, int page, int n_pages,
                      int pool_pages, int rows_per_block, float scale) {
+  constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
   constexpr int kDimsPerLane = (HD + 31) / 32;
   constexpr int kKStride = HD + 1;   // padded K row: conflict-free columns
-  constexpr int kVec = 16 / sizeof(T);          // elements per 16-byte load
+  constexpr int kVec = 16 / sizeof(TKV);        // elements per 16-byte load
   constexpr int kVecPerRow = HD / kVec;
   const int G = H / Kv;
   const int b = blockIdx.z;
@@ -165,16 +184,25 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kv,
         const int lp = min(t / page, n_pages - 1);
         int phys = block_table[size_t(b) * n_pages + lp];
         phys = min(max(phys, 0), pool_pages - 1);
-        const T* src = kv + size_t(phys) * 2 * page_elems +
-                       (size_t(t - (t / page) * page) * Kv + kh) * HD + d0;
+        const TKV* src = kv + size_t(phys) * 2 * page_elems +
+                         (size_t(t - (t / page) * page) * Kv + kh) * HD + d0;
         const uint4 kraw = *reinterpret_cast<const uint4*>(src);
         const uint4 vraw = *reinterpret_cast<const uint4*>(src + page_elems);
-        const T* kp = reinterpret_cast<const T*>(&kraw);
-        const T* vp = reinterpret_cast<const T*>(&vraw);
+        const TKV* kp = reinterpret_cast<const TKV*>(&kraw);
+        const TKV* vp = reinterpret_cast<const TKV*>(&vraw);
 #pragma unroll
         for (int e = 0; e < kVec; ++e) {
           kf[e] = to_f32(kp[e]);
           vf[e] = to_f32(vp[e]);
+        }
+        if constexpr (kInt8) {
+          const float ksc = kv_scales[(size_t(phys) * 2) * Kv + kh];
+          const float vsc = kv_scales[(size_t(phys) * 2 + 1) * Kv + kh];
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) {
+            kf[e] *= ksc;
+            vf[e] *= vsc;
+          }
         }
       } else {
 #pragma unroll
@@ -232,27 +260,27 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kv,
     const int c = row / G;
     const int h = kh * G + (row - c * G);
     const float denom = l[r] == 0.f ? 1.f : l[r];   // fully masked -> 0
-    T* dst = out + ((size_t(b) * C + c) * H + h) * HD;
+    TQ* dst = out + ((size_t(b) * C + c) * H + h) * HD;
 #pragma unroll
     for (int j = 0; j < kDimsPerLane; ++j) {
       const int d = lane + 32 * j;
-      if (d < HD) dst[d] = from_f32<T>(acc[r][j] / denom);
+      if (d < HD) dst[d] = from_f32<TQ>(acc[r][j] / denom);
     }
   }
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* kv, const int* block_table,
-                   const int* page_counts, const int* lengths,
-                   const int* q_start, void* out, int B, int C, int H, int Kv,
-                   int page, int n_pages, int pool_pages, float scale,
-                   cudaStream_t stream) {
+template <typename TQ, typename TKV, int HD>
+cudaError_t launch(const void* q, const void* kv, const float* kv_scales,
+                   const int* block_table, const int* page_counts,
+                   const int* lengths, const int* q_start, void* out, int B,
+                   int C, int H, int Kv, int page, int n_pages,
+                   int pool_pages, float scale, cudaStream_t stream) {
   const int rows = C * (H / Kv);
   const int rows_per_block =
       rows < kMaxWarps * kRowsPerWarp ? rows : kMaxWarps * kRowsPerWarp;
   const dim3 grid((rows + rows_per_block - 1) / rows_per_block, Kv, B);
   const size_t smem = smem_bytes<HD>(rows_per_block);
-  auto kernel = paged_prefill_kernel<T, HD>;
+  auto kernel = paged_prefill_kernel<TQ, TKV, HD>;
   // above 48 KB a block needs the opt-in; set it once per instantiation
   // to the most any launch of it asks for
   static bool opted_in = false;
@@ -264,47 +292,44 @@ cudaError_t launch(const void* q, const void* kv, const int* block_table,
     opted_in = true;
   }
   kernel<<<grid, kMaxWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kv), block_table,
-      page_counts, lengths, q_start, static_cast<T*>(out), C, H, Kv, page,
-      n_pages, pool_pages, rows_per_block, scale);
+      static_cast<const TQ*>(q), static_cast<const TKV*>(kv), kv_scales,
+      block_table, page_counts, lengths, q_start, static_cast<TQ*>(out), C,
+      H, Kv, page, n_pages, pool_pages, rows_per_block, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename TQ, typename TKV>
 cudaError_t dispatch_hd(int hd, const void* q, const void* kv,
-                        const int* block_table, const int* page_counts,
-                        const int* lengths, const int* q_start, void* out,
-                        int B, int C, int H, int Kv, int page, int n_pages,
-                        int pool_pages, float scale, cudaStream_t stream) {
+                        const float* kv_scales, const int* block_table,
+                        const int* page_counts, const int* lengths,
+                        const int* q_start, void* out, int B, int C, int H,
+                        int Kv, int page, int n_pages, int pool_pages,
+                        float scale, cudaStream_t stream) {
+#define PAGED_LAUNCH(HD_)                                                   \
+  launch<TQ, TKV, HD_>(q, kv, kv_scales, block_table, page_counts, lengths, \
+                       q_start, out, B, C, H, Kv, page, n_pages, pool_pages, \
+                       scale, stream)
   switch (hd) {
-    case 16:
-      return launch<T, 16>(q, kv, block_table, page_counts, lengths, q_start,
-                           out, B, C, H, Kv, page, n_pages, pool_pages,
-                           scale, stream);
-    case 32:
-      return launch<T, 32>(q, kv, block_table, page_counts, lengths, q_start,
-                           out, B, C, H, Kv, page, n_pages, pool_pages,
-                           scale, stream);
-    case 64:
-      return launch<T, 64>(q, kv, block_table, page_counts, lengths, q_start,
-                           out, B, C, H, Kv, page, n_pages, pool_pages,
-                           scale, stream);
-    case 128:
-      return launch<T, 128>(q, kv, block_table, page_counts, lengths,
-                            q_start, out, B, C, H, Kv, page, n_pages,
-                            pool_pages, scale, stream);
-    default:
-      return cudaErrorInvalidValue;
+    case 16: return PAGED_LAUNCH(16);
+    case 32: return PAGED_LAUNCH(32);
+    case 64: return PAGED_LAUNCH(64);
+    case 128: return PAGED_LAUNCH(128);
+    default: return cudaErrorInvalidValue;
   }
+#undef PAGED_LAUNCH
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Pointers are device pointers of
-// contiguous tensors: q/out (B,C,H,hd), kv (pool_pages,2,page,Kv,hd),
-// block_table (B,n_pages) int32 repeat-padded, page_counts/lengths/q_start
-// (B,) int32.  Launches on `stream`; does not synchronise.
-extern "C" int paged_prefill_launch(int dtype, const void* q, const void* kv,
+// Element-type codes: 0 = float32, 1 = bfloat16, 2 = int8 (pool only).
+// q_dtype is 0 or 1; kv_dtype equals q_dtype, or is 2 with kv_scales a
+// (pool_pages, 2, Kv) float32 device pointer (null otherwise).  Pointers
+// are device pointers of contiguous tensors: q/out (B,C,H,hd), kv
+// (pool_pages,2,page,Kv,hd), block_table (B,n_pages) int32 repeat-padded,
+// page_counts/lengths/q_start (B,) int32.  Launches on `stream`; does not
+// synchronise.
+extern "C" int paged_prefill_launch(int q_dtype, int kv_dtype, const void* q,
+                                    const void* kv, const void* kv_scales,
                                     const void* block_table,
                                     const void* page_counts,
                                     const void* lengths, const void* q_start,
@@ -312,20 +337,30 @@ extern "C" int paged_prefill_launch(int dtype, const void* q, const void* kv,
                                     int hd, int page, int n_pages,
                                     int pool_pages, float scale,
                                     void* stream) {
+  const float* sc = static_cast<const float*>(kv_scales);
   const int* bt = static_cast<const int*>(block_table);
   const int* cnt = static_cast<const int*>(page_counts);
   const int* len = static_cast<const int*>(lengths);
   const int* qs = static_cast<const int*>(q_start);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (dtype == 0) {
-    e = dispatch_hd<float>(hd, q, kv, bt, cnt, len, qs, out, B, C, H, Kv,
-                           page, n_pages, pool_pages, scale, s);
-  } else if (dtype == 1) {
-    e = dispatch_hd<__nv_bfloat16>(hd, q, kv, bt, cnt, len, qs, out, B, C, H,
-                                   Kv, page, n_pages, pool_pages, scale, s);
-  } else {
-    e = cudaErrorInvalidValue;
+  const bool int8_pool = kv_dtype == 2;
+  if (int8_pool != (sc != nullptr)) return int(cudaErrorInvalidValue);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (q_dtype == 0 && kv_dtype == 0) {
+    e = dispatch_hd<float, float>(hd, q, kv, sc, bt, cnt, len, qs, out, B, C,
+                                  H, Kv, page, n_pages, pool_pages, scale, s);
+  } else if (q_dtype == 1 && kv_dtype == 1) {
+    e = dispatch_hd<__nv_bfloat16, __nv_bfloat16>(
+        hd, q, kv, sc, bt, cnt, len, qs, out, B, C, H, Kv, page, n_pages,
+        pool_pages, scale, s);
+  } else if (q_dtype == 0 && int8_pool) {
+    e = dispatch_hd<float, int8_t>(hd, q, kv, sc, bt, cnt, len, qs, out, B,
+                                   C, H, Kv, page, n_pages, pool_pages,
+                                   scale, s);
+  } else if (q_dtype == 1 && int8_pool) {
+    e = dispatch_hd<__nv_bfloat16, int8_t>(hd, q, kv, sc, bt, cnt, len, qs,
+                                           out, B, C, H, Kv, page, n_pages,
+                                           pool_pages, scale, s);
   }
   return static_cast<int>(e);
 }

@@ -10,10 +10,14 @@ reference (``repro.kernels.paged_attention.kernel``):
 
 The pool is fused, ``(P, 2, page, Kv, hd)``, and the block table is
 repeat-padded (entries past a lane's last mapped page repeat it; see
-``ops.pad_block_table``).  The kernel takes CUDA tensors only: a CPU
-tensor is the caller's cue to use the plain version (``ops`` dispatches),
-never this module's.  The library is built with ``nvcc`` at first launch
-(``kernels.launch``); every launch adds one to :data:`launches`.
+``ops.pad_block_table``).  The pool is either in q's type (float32 or
+bfloat16) or int8 with ``kv_scales`` ((P, 2, Kv) float32, one scale per
+page, K/V and kv head), which the kernel applies as it stages each page
+(the ``quant=True`` branch of the reference kernel).  The kernel takes
+CUDA tensors only: a CPU tensor is the caller's cue to use the plain
+version (``ops`` dispatches), never this module's.  The library is built
+with ``nvcc`` at first launch (``kernels.launch``); every launch adds one
+to :data:`launches` (bf16/f32 pool) or :data:`int8_launches` (int8 pool).
 """
 from __future__ import annotations
 
@@ -29,39 +33,33 @@ from repro_torch.kernels.launch import LaunchCounter, load
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: element-type codes of the C interface (q/out; the pool adds int8)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
-#: launches of the paged-attention kernel
+#: launches of the paged-attention kernel on a bf16/f32 pool
 launches = LaunchCounter()
+#: launches of its int8 branch (int8 pool, dequantized in the fetch)
+int8_launches = LaunchCounter()
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
     fn = lib.paged_prefill_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
                    + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
 
-def _check(q, kv_pages, block_table, page_counts, lengths, q_start):
-    for name, t in (("q", q), ("kv_pages", kv_pages),
-                    ("block_table", block_table),
-                    ("page_counts", page_counts), ("lengths", lengths),
-                    ("q_start", q_start)):
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _DTYPES:
+def _check(q, kv_pages, block_table, page_counts, lengths, q_start,
+           kv_scales):
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"q dtype {q.dtype} not supported (float32, "
                          "bfloat16)")
-    if kv_pages.dtype != q.dtype:
+    if kv_scales is None and kv_pages.dtype != q.dtype:
         raise ValueError(f"kv_pages dtype {kv_pages.dtype} != q dtype "
-                         f"{q.dtype}")
+                         f"{q.dtype} (an int8 pool needs kv_scales)")
     for name, t in (("block_table", block_table),
                     ("page_counts", page_counts), ("lengths", lengths),
                     ("q_start", q_start)):
@@ -73,10 +71,21 @@ def _check(q, kv_pages, block_table, page_counts, lengths, q_start):
                          "(want P,2,page,Kv,hd)")
     B, C, H, hd = q.shape
     P, _, page, Kv, hd_kv = kv_pages.shape
+    # every head dim here is >= 16, so an int8 K/V row is a whole number
+    # of the kernel's 16-byte loads
     if hd_kv != hd or hd not in HEAD_DIMS:
         raise ValueError(f"head dim {hd} (pool {hd_kv}) not in {HEAD_DIMS}")
     if Kv < 1 or H % Kv:
         raise ValueError(f"H={H} not a multiple of Kv={Kv}")
+    if kv_scales is not None:
+        if kv_pages.dtype != torch.int8:
+            raise ValueError(f"kv_scales given for a {kv_pages.dtype} pool "
+                             "(they mark an int8 pool)")
+        if kv_scales.dtype != torch.float32 \
+                or tuple(kv_scales.shape) != (P, 2, Kv):
+            raise ValueError(f"kv_scales {kv_scales.dtype} "
+                             f"{tuple(kv_scales.shape)}: want float32 "
+                             f"({P}, 2, {Kv})")
     if kv_pages.data_ptr() % 16:
         raise ValueError("kv_pages must be 16-byte aligned (the kernel "
                          "reads K/V rows 16 bytes at a time)")
@@ -87,6 +96,18 @@ def _check(q, kv_pages, block_table, page_counts, lengths, q_start):
                     ("q_start", q_start)):
         if tuple(t.shape) != (B,):
             raise ValueError(f"{name} shape {tuple(t.shape)} != ({B},)")
+    tensors = [("q", q), ("kv_pages", kv_pages),
+               ("block_table", block_table), ("page_counts", page_counts),
+               ("lengths", lengths), ("q_start", q_start)]
+    if kv_scales is not None:
+        tensors.append(("kv_scales", kv_scales))
+    for name, t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
     return B, C, H, hd, P, page, Kv
 
 
@@ -94,11 +115,14 @@ def paged_prefill_fwd(q: torch.Tensor, kv_pages: torch.Tensor,
                       block_table: torch.Tensor, page_counts: torch.Tensor,
                       lengths: torch.Tensor, q_start: torch.Tensor, *,
                       pages_per_step: int = 2,
-                      scale: Optional[float] = None) -> torch.Tensor:
+                      scale: Optional[float] = None,
+                      kv_scales: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """q: (B,C,H,hd) — C query tokens per lane at positions
     ``q_start[b] .. q_start[b]+C-1``, whose K/V are already in the pool
     (``lengths`` counts them); kv_pages: (P, 2, page, Kv, hd) fused pool
-    in q's dtype (float32 or bfloat16); block_table: (B, n_pages) int32,
+    in q's dtype (float32 or bfloat16), or int8 with ``kv_scales``
+    ((P, 2, Kv) float32); block_table: (B, n_pages) int32,
     repeat-padded; page_counts / lengths / q_start: (B,) int32.  Rows past
     a lane's real chunk attend to the whole resident sequence (callers
     ignore them).  Returns (B,C,H,hd) in q's dtype.
@@ -108,7 +132,7 @@ def paged_prefill_fwd(q: torch.Tensor, kv_pages: torch.Tensor,
     stages 32 tokens per step whatever the page size)."""
     del pages_per_step
     B, C, H, hd, P, page, Kv = _check(q, kv_pages, block_table, page_counts,
-                                      lengths, q_start)
+                                      lengths, q_start, kv_scales)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
@@ -117,25 +141,29 @@ def paged_prefill_fwd(q: torch.Tensor, kv_pages: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.paged_prefill_launch(
-            _DTYPES[q.dtype], q.data_ptr(), kv_pages.data_ptr(),
+            _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], q.data_ptr(),
+            kv_pages.data_ptr(),
+            kv_scales.data_ptr() if kv_scales is not None else None,
             block_table.data_ptr(), page_counts.data_ptr(),
             lengths.data_ptr(), q_start.data_ptr(), out.data_ptr(),
             B, C, H, Kv, hd, page, block_table.shape[1], P, sc, stream)
     if err:
         raise RuntimeError(f"paged attention kernel launch failed: CUDA "
                            f"error {err}")
-    launches.n += 1
+    (int8_launches if kv_scales is not None else launches).n += 1
     return out
 
 
 def paged_decode_fwd(q: torch.Tensor, kv_pages: torch.Tensor,
                      block_table: torch.Tensor, page_counts: torch.Tensor,
                      lengths: torch.Tensor, *, pages_per_step: int = 2,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     kv_scales: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """q: (B,H,hd), one query per lane at position ``lengths - 1``: the
     C=1 case of :func:`paged_prefill_fwd` (an empty lane, q_start = -1,
     stays fully masked and outputs 0).  Returns (B,H,hd)."""
     return paged_prefill_fwd(q[:, None], kv_pages, block_table, page_counts,
                              lengths, (lengths - 1).to(torch.int32),
                              pages_per_step=pages_per_step,
-                             scale=scale)[:, 0]
+                             scale=scale, kv_scales=kv_scales)[:, 0]

@@ -87,29 +87,40 @@ def mask_block_table(block_table: torch.Tensor,
                        torch.full_like(block_table, -1))
 
 
+def _scales(kv_scales):
+    """(P, 2, Kv) scales -> the plain version's (k_scales, v_scales)."""
+    if kv_scales is None:
+        return {}
+    return dict(k_scales=kv_scales[:, 0], v_scales=kv_scales[:, 1])
+
+
 def paged_decode_fused(q, kv_pages, block_table, page_counts, lengths, *,
-                       pages_per_step: int = 2):
+                       pages_per_step: int = 2, kv_scales=None):
     """Decode on a fused pool + repeat-padded block table.  q: (B,H,hd);
-    returns (B,H,hd)."""
+    returns (B,H,hd).  Pass ``kv_scales`` ((P, 2, Kv) float32) for an int8
+    pool: the pages are dequantized in the K/V fetch."""
     if q.is_cuda:
         return K.paged_decode_fwd(q, kv_pages, block_table, page_counts,
-                                  lengths, pages_per_step=pages_per_step)
+                                  lengths, pages_per_step=pages_per_step,
+                                  kv_scales=kv_scales)
     return paged_attention_ref(q, kv_pages[:, 0], kv_pages[:, 1],
                                mask_block_table(block_table, page_counts),
-                               lengths)
+                               lengths, **_scales(kv_scales))
 
 
 def paged_prefill_fused(q, kv_pages, block_table, page_counts, lengths,
-                        q_start, *, pages_per_step: int = 2):
+                        q_start, *, pages_per_step: int = 2, kv_scales=None):
     """Chunked prefill on a fused pool + repeat-padded block table.
-    q: (B,C,H,hd); returns (B,C,H,hd)."""
+    q: (B,C,H,hd); returns (B,C,H,hd).  ``kv_scales`` as in
+    :func:`paged_decode_fused`."""
     if q.is_cuda:
         return K.paged_prefill_fwd(q, kv_pages, block_table, page_counts,
                                    lengths, q_start,
-                                   pages_per_step=pages_per_step)
+                                   pages_per_step=pages_per_step,
+                                   kv_scales=kv_scales)
     return paged_prefill_ref(q, kv_pages[:, 0], kv_pages[:, 1],
                              mask_block_table(block_table, page_counts),
-                             lengths, q_start)
+                             lengths, q_start, **_scales(kv_scales))
 
 
 def paged_attention(q, k_pages, v_pages, block_table, lengths, *,

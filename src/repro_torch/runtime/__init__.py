@@ -7,8 +7,12 @@ from repro_torch.runtime.api import (
 from repro_torch.runtime.clock import Clock, MonotonicClock, VirtualClock
 from repro_torch.runtime.frontdoor import GreedyChunkPolicy, SchedulerPolicy
 from repro_torch.runtime.server import PagedServer
+from repro_torch.runtime.speculative import (
+    Drafter, DraftModelDrafter, NGramDrafter,
+)
 
-__all__ = ["PagedServer", "CacheConfig", "CacheStats", "EngineConfig",
+__all__ = ["PagedServer", "Drafter", "NGramDrafter", "DraftModelDrafter",
+           "CacheConfig", "CacheStats", "EngineConfig",
            "GenerationRequest", "GenerationResult", "SamplingParams",
            "TokenDelta", "make_engine", "FINISH_STOP", "FINISH_LENGTH",
            "FINISH_ABORTED", "FINISH_TIMEOUT", "FINISH_ERROR",

@@ -17,8 +17,8 @@ moves between the two packages without rewriting its requests:
 
 What the port does not serve yet is still spelled here and raises
 ``NotImplementedError`` where the engine meets it: sampling at
-``temperature > 0``, speculation (``spec_k``), int8 KV pages, the host and
-disk cache tiers, fault injection and the sharded engine.
+``temperature > 0``, the draft-model drafter, the host and disk cache
+tiers, fault injection and the sharded engine.
 """
 from __future__ import annotations
 

@@ -18,14 +18,30 @@ The hot path keeps the reference's transfer discipline:
   token live on the device; the block table is repeat-padded and updated
   by dirty rows only;
 * each iteration ends with exactly one device-to-host pull, the sampled
-  tokens.  ``H2D`` / ``D2H`` events count the transfers exactly as the
-  reference does.
+  tokens (or, in a speculative iteration, the (B, K+2) verdict).
+  ``H2D`` / ``D2H`` events count the transfers exactly as the reference
+  does.
+
+With ``CacheConfig(kv_dtype="int8")`` the pool holds int8 pages beside a
+``(L, P+1, 2, Kv)`` float32 slab of per-(page, K/V, kv-head) scales.  The
+write quantizes each new token under its page's running-max scale; a page
+whose scale grew is re-packed under the new scale.  Only the pages this
+step writes can grow, so only they are re-packed, in place (the reference
+re-packs the whole layer, where every other page's factor is exactly 1).
+Attention dequantizes in the kernel's K/V fetch.  Parked pages travel as
+one blob of int8 bytes and scales (``_pack_kv_page``), byte for byte the
+reference's.
+
+With ``spec_k > 0`` a host drafter (``runtime.speculative``, n-gram by
+default) proposes up to K tokens per decoding lane; one verify step scores
+all K+1 positions through the same kernel, the accepted prefix plus the
+bonus token is the exact greedy continuation, and ``PagedKVPool.trim``
+rolls the rejected tail back.
 
 Decoding is greedy: the next token is the argmax of float32 logits.  These
 features of the reference raise ``NotImplementedError`` until their slice
-is ported: ``temperature > 0`` sampling, speculative decoding
-(``spec_k``), int8 KV pages, host/disk cache tiers, fault injection, MoE
-layers and the sharded engine.
+is ported: ``temperature > 0`` sampling, the draft-model drafter,
+host/disk cache tiers, fault injection, MoE layers and the sharded engine.
 """
 from __future__ import annotations
 
@@ -47,6 +63,9 @@ from repro_torch.kernels.paged_attention.ops import (
 from repro_torch.kernels.paged_attention.ref import paged_prefill_ref
 from repro_torch.models import layers as L
 from repro_torch.models.layers import rms_head_norm, rope
+from repro_torch.optim.compress import (
+    SCALE_EPS, headwise_scales, quantize_int8,
+)
 from repro_torch.runtime.api import (
     CacheStats, EngineConfig, GenerationRequest, GenerationResult,
     SamplingParams, TokenDelta, FINISH_ABORTED, FINISH_ERROR, FINISH_LENGTH,
@@ -54,6 +73,7 @@ from repro_torch.runtime.api import (
 )
 from repro_torch.runtime.clock import MonotonicClock
 from repro_torch.runtime.frontdoor import GreedyChunkPolicy
+from repro_torch.runtime.speculative import NGramDrafter
 
 
 @dataclasses.dataclass
@@ -84,6 +104,10 @@ class SeqState:
     error: Optional[str] = None       # diagnostic for error/timeout finishes
     progress_marker: Tuple[int, int] = (-1, -1)   # (fed, len(out)) watermark
     progress_iter: int = 0            # iteration the marker last advanced
+    spec_k_cur: int = 0               # adaptive per-lane draft depth
+    spec_proposed: int = 0            # drafted tokens sent to verification
+    spec_accepted: int = 0            # drafted tokens the target confirmed
+    spec_rejected: int = 0            # drafted tokens rolled back
 
     @property
     def max_new(self) -> int:
@@ -104,6 +128,25 @@ def _from_host(a: np.ndarray, dtype: torch.dtype,
     if dtype == torch.bfloat16:
         t = t.view(torch.bfloat16)
     return t.to(device)
+
+
+def _pack_kv_page(pages: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    """Fuse one page's int8 payload + f32 scales into a single 1-D uint8
+    blob (the backing store's contract is one array per page; one CRC
+    covers both).  The reference's byte layout exactly."""
+    return np.concatenate([
+        np.ascontiguousarray(pages).view(np.uint8).reshape(-1),
+        np.ascontiguousarray(scales).view(np.uint8).reshape(-1)])
+
+
+def _unpack_kv_page(blob: np.ndarray, page_shape: tuple,
+                    scale_shape: tuple) -> Tuple[np.ndarray, np.ndarray]:
+    """Inverse of ``_pack_kv_page``."""
+    split = int(np.prod(page_shape))
+    blob = np.asarray(blob).view(np.uint8).reshape(-1)
+    pages = blob[:split].view(np.int8).reshape(page_shape)
+    scales = blob[split:].view(np.float32).reshape(scale_shape)
+    return pages, scales
 
 
 def _not_ported(feature: str) -> NotImplementedError:
@@ -136,10 +179,6 @@ class PagedServer:
             raise _not_ported("MoE layers")
         if engine.wants_sharded:
             raise _not_ported("sharded serving (clusters/heads/mesh)")
-        if engine.spec_k > 0:
-            raise _not_ported("speculative decoding (spec_k > 0)")
-        if engine.cache.kv_dtype != "bf16":
-            raise _not_ported(f"kv_dtype={engine.cache.kv_dtype!r}")
         if engine.cache.host_tier_pages or engine.cache.disk_tier_pages:
             raise _not_ported("the host/disk prefix-cache tiers")
         if engine.fault_injector is not None:
@@ -154,6 +193,12 @@ class PagedServer:
         self.engine_cfg = engine
         self.cfg, self.params = cfg, params
         self.cache_cfg = engine.cache
+        # quantized KV: int8 pages + per-(page, K/V, head) scales; the
+        # attention math stays float32
+        self.quant_kv = self.cache_cfg.kv_dtype == "int8"
+        self.spec_k = max(0, engine.spec_k)
+        self.drafter = engine.drafter if engine.drafter is not None else \
+            (NGramDrafter() if self.spec_k else None)
         self.page_size, self.max_lanes = self.cache_cfg.page_size, \
             engine.max_lanes
         self.max_pages = self.cache_cfg.max_pages_per_seq
@@ -202,6 +247,10 @@ class PagedServer:
         self._dirty: set = set()      # lane rows to push before the kernel
         self._arrival = 0
         self._deltas: List[TokenDelta] = []   # streamed by generate()
+        self.spec_iterations = 0      # engine iterations that verified drafts
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_rejected = 0
 
     # --------------------------------------------------------------- trace --
     def _h2d(self, n: int = 1):
@@ -222,12 +271,18 @@ class PagedServer:
     def _build_device_state(self, num_pages: int):
         cfg, dev = self.cfg, self.device
         L_, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
-        self.kv_dtype = getattr(torch, cfg.param_dtype)
+        self.kv_dtype = torch.int8 if self.quant_kv else \
+            getattr(torch, cfg.param_dtype)
         # fused K/V pool; the extra page (index num_pages) is the trash
         # page masked writes are routed to
         self.kv_pages = torch.zeros(
             (L_, num_pages + 1, 2, self.page_size, kv, hd),
             dtype=self.kv_dtype, device=dev)
+        # per-(page, K/V, kv-head) dequantization scales of an int8 pool,
+        # updated in place like the pool
+        self.kv_scales = torch.zeros((L_, num_pages + 1, 2, kv),
+                                     dtype=torch.float32, device=dev) \
+            if self.quant_kv else None
         # device-resident engine state: the scheduler and the model share
         # these without per-iteration re-uploads
         B = self.max_lanes
@@ -241,9 +296,12 @@ class PagedServer:
         self._decode_feed = torch.zeros((B, 1), dtype=torch.int32, device=dev)
         self._decode_use_last = torch.ones((B,), dtype=torch.int32,
                                            device=dev)
-        self._step = functools.partial(
-            _paged_chunk_step, cfg, self.params, self.use_kernel,
-            self.pages_per_step, num_pages)
+        step_args = (cfg, self.params, self.use_kernel, self.pages_per_step,
+                     num_pages)
+        self._step = functools.partial(_paged_chunk_step, *step_args,
+                                       kv_scales=self.kv_scales)
+        self._spec_step = functools.partial(_paged_spec_step, *step_args,
+                                            kv_scales=self.kv_scales)
 
     def close(self):
         """Release the backing store.  Idempotent; the engine stays usable
@@ -277,6 +335,8 @@ class PagedServer:
             seq.deadline_t = self.clock.now() + req.deadline_s
         self.tracer.record_host(EventType.REQUEST_ARRIVE, seq.rid,
                                 len(self.queue))
+        # every lane is greedy (sampling raises above), so every lane drafts
+        seq.spec_k_cur = self.spec_k
         self.queue.append(seq)
         if self.max_queue_depth and len(self.queue) > self.max_queue_depth:
             # admission-time load shedding: reject the lowest-priority
@@ -449,17 +509,35 @@ class PagedServer:
     # -------------------------------------------------- page payload seam --
     def _snap_pages(self, idx: List[int]) -> List[np.ndarray]:
         """One gathered D2H pull of ``idx``'s pages (all layers); returns
-        one payload per page."""
+        one payload per page (packed blobs of bytes and scales in int8
+        mode)."""
         gi = torch.tensor(idx, dtype=torch.long, device=self.device)
         payload = _to_host(self.kv_pages[:, gi])
-        return [payload[:, j] for j in range(len(idx))]
+        if not self.quant_kv:
+            return [payload[:, j] for j in range(len(idx))]
+        scales = _to_host(self.kv_scales[:, gi])
+        return [_pack_kv_page(payload[:, j], scales[:, j])
+                for j in range(len(idx))]
 
     def _load_pages(self, phys: List[int], payloads: List[np.ndarray]):
         """One batched H2D restore of ``payloads`` into pool slots
-        ``phys``."""
+        ``phys`` (unpacking blobs into pages + scales in int8 mode)."""
         gi = torch.tensor(phys, dtype=torch.long, device=self.device)
-        self.kv_pages[:, gi] = _from_host(np.stack(payloads, axis=1),
-                                          self.kv_dtype, self.device)
+        if not self.quant_kv:
+            self.kv_pages[:, gi] = _from_host(np.stack(payloads, axis=1),
+                                              self.kv_dtype, self.device)
+            return
+        cfg = self.cfg
+        L_, kv = cfg.num_layers, cfg.num_kv_heads
+        parts = [_unpack_kv_page(
+            p, (L_, 2, self.page_size, kv, cfg.resolved_head_dim),
+            (L_, 2, kv)) for p in payloads]
+        self.kv_pages[:, gi] = _from_host(
+            np.stack([pg for pg, _ in parts], axis=1), torch.int8,
+            self.device)
+        self.kv_scales[:, gi] = _from_host(
+            np.stack([sc for _, sc in parts], axis=1), torch.float32,
+            self.device)
 
     def _preempt(self, req: SeqState):
         """Reclaim a running lane: every mapped page's payload goes D2H
@@ -574,8 +652,14 @@ class PagedServer:
         the host/disk tiers are ported)."""
         pool = self.pool
         cfg = self.cfg
-        bpt = cfg.num_layers * 2 * cfg.num_kv_heads * \
-            cfg.resolved_head_dim * self.kv_dtype.itemsize
+        kv_hd = cfg.num_kv_heads * cfg.resolved_head_dim
+        if self.quant_kv:
+            # int8 page bytes plus the per-page scale slab amortized over
+            # the page's token slots (4 bytes per (K/V, head) per page)
+            bpt = cfg.num_layers * 2 * (
+                kv_hd + 4.0 * cfg.num_kv_heads / self.page_size)
+        else:
+            bpt = cfg.num_layers * 2 * kv_hd * self.kv_dtype.itemsize
         return CacheStats(
             bytes_per_token=float(bpt),
             device_pages=pool.num_pages,
@@ -612,7 +696,12 @@ class PagedServer:
             rid=req.rid, prompt=tuple(req.prompt), tokens=tuple(req.out),
             finish_reason=req.finish_reason or FINISH_LENGTH,
             prefix_hit_tokens=req.prefix_hit_tokens,
-            preemptions=req.preemptions, error=req.error)
+            preemptions=req.preemptions,
+            spec_proposed=req.spec_proposed,
+            spec_accepted=req.spec_accepted,
+            spec_rejected=req.spec_rejected,
+            spec_k_final=req.spec_k_cur,
+            error=req.error)
 
     def _finish(self, req: SeqState, reason: str):
         req.done = True
@@ -729,6 +818,7 @@ class PagedServer:
         dirty, self._dirty = self._dirty, set()
         cow_src: List[int] = []
         cow_dst: List[int] = []
+        fresh_pages: List[int] = []
         pool = self.pool
         for r in active:
             i = r.lane
@@ -738,6 +828,7 @@ class PagedServer:
                     phys = pool.translate(r.rid, lpage)
                     self.tracer.record_host(EventType.PAGE_ALLOC, r.rid, phys)
                     self._bt_host[i, lpage:] = phys
+                    fresh_pages.append(phys)
                     dirty.add(i)
                 for (s, lp, src, dst) in pool.drain_cow():
                     # the writer was remapped off a shared page: patch its
@@ -747,12 +838,20 @@ class PagedServer:
                     self._bt_host[i, lp:] = dst
                     dirty.add(i)
                     self.tracer.record_host(EventType.PAGE_COW, s, dst)
+        if self.quant_kv and fresh_pages:
+            # a recycled page must not inherit its previous owner's scale:
+            # the running max would only grow across pool reuse
+            self.kv_scales[:, torch.tensor(fresh_pages, dtype=torch.long,
+                                           device=self.device)] = 0.0
         if cow_src:
             # one batched on-device page copy, applied before this step's
             # K/V scatter so the write lands in the private copy
             src = torch.tensor(cow_src, dtype=torch.long, device=self.device)
             dst = torch.tensor(cow_dst, dtype=torch.long, device=self.device)
             self.kv_pages[:, dst] = self.kv_pages[:, src]
+            if self.quant_kv:
+                # the private copy carries the donor page's scales too
+                self.kv_scales[:, dst] = self.kv_scales[:, src]
         self._register_prompt_pages(active, n_new)
         if dirty:
             rows = sorted(dirty)
@@ -782,6 +881,13 @@ class PagedServer:
             return bool(self.queue)
         self.iterations += 1
         t0 = self.clock.now()
+
+        if self._spec_wanted(active):
+            drafts, n_spec = self._propose(active)
+            if drafts is not None:
+                self._spec_iteration(active, drafts, n_spec)
+                self._post_iteration(self.clock.now() - t0)
+                return True
 
         B, C = self.max_lanes, self.chunk
         n_new = np.zeros((B,), np.int32)
@@ -883,6 +989,108 @@ class PagedServer:
                            f"for {self.watchdog_iters} iterations "
                            f"(stuck at fed={r.fed}, out={len(r.out)})")
 
+    # -------------------------------------------------------- speculation --
+    def _spec_wanted(self, active: List[SeqState]) -> bool:
+        """Draft this iteration?  Only when speculation is configured,
+        every active lane decodes (mixed prefill iterations keep the chunk
+        path), and nothing waits for admission (a non-empty queue is
+        preemption pressure: lanes should not widen their verify window
+        while other work is starved)."""
+        return (self.spec_k > 0 and not self.queue
+                and all(r.fed >= len(r.prompt) for r in active))
+
+    def _propose(self, active: List[SeqState]):
+        """Per-lane draft proposals in a fixed-width (B, spec_k) matrix.
+        A lane's depth is its adaptive ``spec_k_cur`` capped by the tokens
+        it still owes (at most ``remaining - 1`` drafts).  Returns
+        (None, None) when no lane proposed anything: the plain decode step
+        is cheaper."""
+        drafts = np.zeros((self.max_lanes, self.spec_k), np.int32)
+        n_spec = np.zeros((self.max_lanes,), np.int32)
+        any_draft = False
+        for r in active:
+            rem = r.max_new - len(r.out)
+            cap = min(r.spec_k_cur, rem - 1, self.spec_k)
+            if cap <= 0:
+                continue
+            try:
+                d = self.drafter.propose(r.prompt + r.out, cap)[:cap]
+            except Exception:
+                # a broken drafter is an accelerant, not a dependency: this
+                # lane decodes plainly from here on, and the engine logs
+                # the degradation instead of crashing the step
+                r.spec_k_cur = 0
+                self.degrades += 1
+                self.tracer.record_host(EventType.DEGRADE, r.rid, 1)
+                continue
+            if not d:
+                continue
+            drafts[r.lane, :len(d)] = d
+            n_spec[r.lane] = len(d)
+            any_draft = True
+        return (drafts, n_spec) if any_draft else (None, None)
+
+    def _spec_iteration(self, active: List[SeqState], drafts: np.ndarray,
+                        n_spec: np.ndarray):
+        """One draft-verify-rollback iteration: the pool appends all K+1
+        candidate positions per lane (the ordinary append path: pages,
+        CoW), the verify step scores every position and counts the
+        accepted prefix on the device, and the host trims each lane back
+        to ``accepted + 1`` kept tokens.  The only pull is the verdict."""
+        self.spec_iterations += 1
+        pool = self.pool
+        lens0 = {r.rid: pool.seq_len[r.rid] for r in active}
+        n_new = np.zeros((self.max_lanes,), np.int32)
+        for r in active:
+            k_i = int(n_spec[r.lane])
+            n_new[r.lane] = k_i + 1
+            if k_i:
+                self.tracer.record_host(EventType.SPEC_PROPOSE, r.rid, k_i)
+                self.spec_proposed += k_i
+                r.spec_proposed += k_i
+        self._account_appends(active, n_new)
+
+        self._h2d(1)                # the draft feed bundle
+        bundle = torch.from_numpy(np.concatenate(
+            [n_spec[:, None], drafts], axis=1)).to(self.device)
+        verdict, self.last_tok, self.len_dev, self.last_logits = \
+            self._spec_step(self.kv_pages, self.bt_dev, self.len_dev,
+                            self.active_dev, self.last_tok, bundle[:, 1:],
+                            bundle[:, 0])
+        v = verdict.cpu().numpy()   # one pull per iteration
+        self._d2h(1)
+
+        K = drafts.shape[1]
+        for r in list(active):
+            i = r.lane
+            k_i = int(n_spec[i])
+            a = int(v[i, K + 1])
+            emitted = [int(t) for t in drafts[i, :a]] + [int(v[i, a])]
+            freed = pool.trim(r.rid, lens0[r.rid] + a + 1)
+            kept, reason = self._emit(r, emitted)
+            self._delta(r.rid, kept, event="spec" if k_i else "token",
+                        data=a, reason=reason)
+            if k_i:
+                self.tracer.record_host(EventType.SPEC_ACCEPT, r.rid, a)
+                self.spec_accepted += a
+                r.spec_accepted += a
+                rej = k_i - a
+                if rej:
+                    self.spec_rejected += rej
+                    r.spec_rejected += rej
+                    self.tracer.record_host(EventType.SPEC_ROLLBACK,
+                                            r.rid, rej)
+                # adaptive depth: full acceptance widens the window, total
+                # rejection halves it (never below 1)
+                if a == k_i:
+                    r.spec_k_cur = min(self.spec_k, r.spec_k_cur + 1)
+                elif a == 0:
+                    r.spec_k_cur = max(1, r.spec_k_cur // 2)
+            if freed:
+                self._refresh_row(i, r)
+            if reason:
+                self._finish(r, reason)
+
     # ---------------------------------------------------------- frontend --
     def poll_deltas(self) -> List[TokenDelta]:
         """Drain every delta accumulated since the last drain, for callers
@@ -966,15 +1174,62 @@ def _layer_mlp(cfg, lp, x):
     return x + L.mlp_forward(cfg, lp["mlp"], h)
 
 
+def _touched_pages(bt, lens, n_new, C: int, page_size: int, trash: int):
+    """Every physical page this step writes, as a fixed-size index vector:
+    per lane the ``(C + page - 2) // page + 1`` logical pages positions
+    ``lens .. lens + C - 1`` can span, an unwritten one replaced by the
+    trash page, plus the trash page itself.  Fixed-size (no ``unique``)
+    so the decode step never waits on the host; written pages are private
+    to their lane (the pool copies a shared page on write), so only the
+    trash page repeats."""
+    n_pages = bt.shape[1]
+    span = (C + page_size - 2) // page_size + 1
+    lp = (lens // page_size)[:, None] + torch.arange(
+        span, dtype=torch.int32, device=bt.device)[None, :]      # (B,span)
+    first = torch.maximum(lp * page_size, lens[:, None])
+    written = first < (lens + n_new)[:, None]
+    phys = torch.gather(bt, 1, lp.clamp(max=n_pages - 1).long())
+    phys = torch.where(written, phys, torch.full_like(phys, trash))
+    return torch.cat([phys.reshape(-1),
+                      phys.new_full((1,), trash)]).long()
+
+
+def _quant_scatter(pool, scales, phys, sl, touched, kv_new):
+    """Write ``kv_new`` (B, C, 2, Kv, hd) into the int8 layer ``pool``
+    (P+1, 2, page, Kv, hd) at (phys, sl), with ``scales`` (P+1, 2, Kv) the
+    layer's running-max scales, all in place.
+
+    The reference's arithmetic, on the touched pages only: fold the new
+    tokens' absmax/127 into their pages' scales (a max, so duplicate
+    indices are safe), re-pack each touched page's bytes by old/new scale
+    (exactly 1.0 where the scale did not grow, 0 for a fresh page), then
+    quantize the new tokens under the new scales.  Two of the reference's
+    steps are identities here and are left out: its ``where(new > 0, ...,
+    0)`` (a scale of 0 was 0 before too, and 0 / SCALE_EPS is 0) and the
+    clip of the re-packed bytes (|q| <= 127 times a factor in [0, 1])."""
+    B, C = phys.shape
+    kv32 = kv_new.float()
+    old = scales[touched]
+    flat = scales.view(scales.shape[0], -1)
+    tok = headwise_scales(kv32).reshape(B * C, -1)             # (B*C, 2*Kv)
+    flat.scatter_reduce_(0, phys.reshape(-1, 1).expand(-1, tok.shape[1]),
+                         tok, "amax", include_self=True)
+    factor = old / scales[touched].clamp(min=SCALE_EPS)
+    pool[touched] = torch.round(
+        pool[touched].float() * factor[:, :, None, :, None]).to(torch.int8)
+    pool[phys, :, sl] = quantize_int8(kv32, scales[phys][..., None])
+
+
 def _paged_forward(cfg: ArchConfig, model, use_kernel: bool,
                    pages_per_step: int, num_pages: int, kv_pages, bt, lens,
-                   n_new, feed, last_tok, use_last):
-    """Shared forward of the chunk and decode steps: consume up to C tokens
-    per lane (prompt chunks from ``feed``; lanes with ``use_last`` take
-    the device-resident previous sample at position 0), writing their K/V
-    into ``kv_pages`` in place.
+                   n_new, feed, last_tok, use_last, kv_scales=None):
+    """Shared forward of the chunk, decode and speculative verify steps:
+    consume up to C tokens per lane (prompt chunks from ``feed``; lanes
+    with ``use_last`` take the device-resident previous sample at position
+    0), writing their K/V into ``kv_pages`` in place.
 
-    kv_pages: (L, P+1, 2, page, kv, hd); bt: (B, n_pages) repeat-padded.
+    kv_pages: (L, P+1, 2, page, kv, hd); bt: (B, n_pages) repeat-padded;
+    kv_scales: (L, P+1, 2, kv) float32 for an int8 pool, else None.
     Returns (final-norm hidden (B, C, d), new lengths (B,))."""
     B, C = feed.shape
     page = kv_pages.shape[3]
@@ -987,22 +1242,32 @@ def _paged_forward(cfg: ArchConfig, model, use_kernel: bool,
     counts = page_counts_for(new_lens, page)
     phys, sl = _write_coords(bt, lens, n_new, C, page, num_pages)
     phys, sl = phys.long(), sl.long()
+    if kv_scales is not None:
+        touched = _touched_pages(bt, lens, n_new, C, page, num_pages)
     if not use_kernel:      # the -1-marked table form the plain path reads
         bt_masked = mask_block_table(bt, counts)
 
     for i, lp in enumerate(model.layers):
         q, k, v = _layer_qkv(cfg, lp, x, pos)
         pool = kv_pages[i]                           # (P+1,2,page,Kv,hd) view
+        kv_new = torch.stack([k, v], dim=2)          # (B,C,2,Kv,hd)
+        sc = kv_scales[i] if kv_scales is not None else None
         # one fused scatter writes K AND V of all lanes' chunk tokens,
         # in place: the pool is the largest tensor of the engine and is
         # never copied (duplicate indices only ever hit the trash page)
-        pool[phys, :, sl] = torch.stack([k, v], dim=2).to(pool.dtype)
+        if sc is None:
+            pool[phys, :, sl] = kv_new.to(pool.dtype)
+        else:
+            _quant_scatter(pool, sc, phys, sl, touched, kv_new)
         if use_kernel:
             a = paged_prefill_fused(q, pool, bt, counts, new_lens, lens,
-                                    pages_per_step=pages_per_step)
+                                    pages_per_step=pages_per_step,
+                                    kv_scales=sc)
         else:
+            scales = {} if sc is None else dict(k_scales=sc[:, 0],
+                                                v_scales=sc[:, 1])
             a = paged_prefill_ref(q, pool[:, 0], pool[:, 1], bt_masked,
-                                  new_lens, lens)
+                                  new_lens, lens, **scales)
         x = x + a.reshape(B, C, -1) @ lp["attn"]["wo"].reshape(-1, cfg.d_model)
         x = _layer_mlp(cfg, lp, x)
 
@@ -1012,7 +1277,7 @@ def _paged_forward(cfg: ArchConfig, model, use_kernel: bool,
 @torch.no_grad()
 def _paged_chunk_step(cfg: ArchConfig, model, use_kernel: bool,
                       pages_per_step: int, num_pages: int, kv_pages, bt, lens,
-                      n_new, feed, last_tok, use_last):
+                      n_new, feed, last_tok, use_last, kv_scales=None):
     """Consume up to C tokens per lane and pick each lane's next token:
     the greedy argmax of float32 logits at its last fed position.  The
     decode step is the C=1 case (every lane feeds its device-resident
@@ -1021,10 +1286,9 @@ def _paged_chunk_step(cfg: ArchConfig, model, use_kernel: bool,
     Returns (next tokens (B,), new lengths (B,), logits (B, V) f32)."""
     h, new_lens = _paged_forward(cfg, model, use_kernel, pages_per_step,
                                  num_pages, kv_pages, bt, lens, n_new, feed,
-                                 last_tok, use_last)
+                                 last_tok, use_last, kv_scales)
     # only the row each lane samples from goes through the head, so a
-    # chunk's (B, C, V) float32 logits are never materialized; the
-    # speculative verify step (a later slice) needs every row
+    # chunk's (B, C, V) float32 logits are never materialized
     row = (n_new - 1).clamp(min=0).long()
     h_last = torch.gather(h, 1, row[:, None, None].expand(-1, 1, h.shape[-1])
                           )[:, 0]
@@ -1032,3 +1296,44 @@ def _paged_chunk_step(cfg: ArchConfig, model, use_kernel: bool,
     nxt = logits.argmax(dim=-1).to(torch.int32)
     nxt = torch.where(n_new > 0, nxt, last_tok)   # idle lanes keep their token
     return nxt, new_lens, logits
+
+
+@torch.no_grad()
+def _paged_spec_step(cfg: ArchConfig, model, use_kernel: bool,
+                     pages_per_step: int, num_pages: int, kv_pages, bt, lens,
+                     active, last_tok, drafts, n_spec, kv_scales=None):
+    """Speculative verify: score all K+1 candidate positions of every lane
+    in one chunked forward and count the accepted draft prefix (greedy
+    lanes only).
+
+    The feed is ``[x0, d_1 .. d_K]`` with x0 the device-resident previous
+    sample; lane b uses ``n_spec[b]`` drafts (the rest go to the trash
+    page).  Draft d_{j+1} is accepted iff every earlier one was and it
+    equals the greedy token after position j, so the accepted prefix plus
+    the bonus token (the greedy token at row ``accepted``) is exactly the
+    plain greedy continuation.  Lengths advance by ``accepted + 1``.
+
+    Returns (verdict (B, K+2), next tokens (B,), new lengths (B,), the
+    bonus rows' logits (B, V) f32); ``verdict[:, :K+1]`` holds each row's
+    greedy token (the bonus token at column ``accepted``) and
+    ``verdict[:, K+1]`` the accepted count."""
+    B, K = drafts.shape
+    feed = torch.cat([torch.zeros_like(drafts[:, :1]), drafts], dim=1)
+    n_new = torch.where(active == 1, n_spec + 1, torch.zeros_like(n_spec))
+    h, _ = _paged_forward(cfg, model, use_kernel, pages_per_step, num_pages,
+                          kv_pages, bt, lens, n_new, feed, last_tok, active,
+                          kv_scales)
+    logits = L.logits_from_hidden(cfg, model.embed, h)     # (B,K+1,V) f32
+    greedy = logits.argmax(dim=-1).to(torch.int32)
+    idx = torch.arange(K, device=drafts.device)[None, :]
+    ok = (drafts == greedy[:, :K]) & (idx < n_spec[:, None])
+    accepted = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1).to(
+        torch.int32)
+    new_lens = lens + torch.where(active == 1, accepted + 1,
+                                  torch.zeros_like(accepted))
+    rows = torch.arange(B, device=drafts.device)
+    last = torch.where(active == 1, greedy[rows, accepted.long()], last_tok)
+    toks = greedy.clone()
+    toks[rows, accepted.long()] = last
+    verdict = torch.cat([toks, accepted[:, None]], dim=1)
+    return verdict, last, new_lens, logits[rows, accepted.long()]

@@ -36,6 +36,8 @@ def test_port_imports_neither_jax_nor_reference():
         [str(ROOT / "src" / "repro_torch")])}
     assert "repro_torch.runtime.server" in out["modules"]
     assert "repro_torch.kernels.paged_attention.kernel" in out["modules"]
+    assert "repro_torch.optim.compress" in out["modules"]
+    assert "repro_torch.runtime.speculative" in out["modules"]
     assert expected <= set(out["modules"]) | {"repro_torch.runtime",
                                               "repro_torch.kernels"}
 

@@ -2,7 +2,8 @@
 
 On the CPU the port's ops run the plain version (``repro_torch``'s
 ``ref.py``); it is held against the reference's Pallas kernel in interpret
-mode and against its jnp oracle, on the same inputs made with numpy.  The
+mode and against its jnp oracle, on the same inputs made with numpy, for
+pools in q's type and for int8 pools with their (P, 2, Kv) scales.  The
 CUDA kernel itself is held against the plain version by the ``cuda``-marked
 test here (it skips without a card) and by ``chip_smoke.py`` phase 3.
 """
@@ -13,6 +14,7 @@ import torch
 
 from repro.kernels.paged_attention import (
     paged_attention as j_paged_attention,
+    paged_decode_fused as j_paged_decode_fused,
     paged_attention_ref as j_paged_attention_ref,
     paged_prefill as j_paged_prefill,
     paged_prefill_fused as j_paged_prefill_fused,
@@ -21,8 +23,8 @@ from repro.kernels.paged_attention import (
     page_counts_for as j_page_counts_for,
 )
 from repro_torch.kernels.paged_attention import (
-    mask_block_table, paged_attention, paged_prefill, paged_prefill_fused,
-    pad_block_table, page_counts_for, paged_prefill_ref,
+    mask_block_table, paged_attention, paged_decode_fused, paged_prefill,
+    paged_prefill_fused, pad_block_table, page_counts_for, paged_prefill_ref,
     validate_head_sharding,
 )
 from repro_torch.kernels.paged_attention import kernel as K
@@ -171,6 +173,106 @@ def test_page_table_helpers_match_jax():
         validate_head_sharding(32, 4, 3)
 
 
+def _int8_inputs(seed, B, C, H, Kv, hd, page, P, dtype):
+    """q in ``dtype``, an int8 fused pool with (P, 2, Kv) float32 scales,
+    the same values in both frameworks."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, C, H, hd)).astype(np.float32) * 0.3
+    kv = rng.integers(-127, 128, (P, 2, page, Kv, hd)).astype(np.int8)
+    sc = rng.uniform(1e-3, 2e-2, (P, 2, Kv)).astype(np.float32)
+    jq = jnp.asarray(q).astype(jnp.dtype(dtype))
+    tq = torch.from_numpy(np.array(jq.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    return rng, (jq, jnp.asarray(kv), jnp.asarray(sc)), \
+        (tq, torch.from_numpy(kv), torch.from_numpy(sc))
+
+
+@pytest.mark.parametrize("C,H,Kv,hd,page,npg,P", [
+    (1, 8, 4, 32, 8, 6, 16),       # decode, G=2
+    (1, 16, 2, 128, 16, 4, 12),    # decode, G=8, yi-6b head dim
+    (8, 8, 2, 16, 4, 10, 24),      # prefill, G=4
+    (5, 6, 6, 32, 16, 3, 8),       # prefill, G=1
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_pool_matches_jax(C, H, Kv, hd, page, npg, P, dtype):
+    """An int8 pool with scales: the fused op's plain version against the
+    reference's oracle with ``k_scales``/``v_scales`` and its Pallas
+    kernel (interpret mode) with ``kv_scales``.  Lanes alias one prefix
+    page and the last lane is empty."""
+    B = 3
+    rng, (jq, jkv, jsc), (tq, tkv, tsc) = _int8_inputs(
+        7, B, C, H, Kv, hd, page, P, dtype)
+    lengths = rng.integers(C, npg * page + 1, B).astype(np.int32)
+    lengths[-1] = 0
+    start = np.maximum(lengths - C, 0).astype(np.int32)
+    bt = _dense_table(lengths, page, npg, P, rng, shared=(2,))
+    counts = page_counts_for(torch.from_numpy(lengths), page)
+    padded = pad_block_table(torch.from_numpy(bt), counts)
+    jpad, jcounts = jnp.asarray(padded.numpy()), jnp.asarray(counts.numpy())
+    jref_args = (jkv[:, 0], jkv[:, 1], jnp.asarray(bt), jnp.asarray(lengths))
+    jscales = dict(k_scales=jsc[:, 0], v_scales=jsc[:, 1])
+    if C == 1:
+        out = paged_decode_fused(tq[:, 0], tkv, padded, counts,
+                                 torch.from_numpy(lengths), kv_scales=tsc)
+        ref = j_paged_attention_ref(jq[:, 0], *jref_args, **jscales)
+        ker = j_paged_decode_fused(jq[:, 0], jkv, jpad, jcounts,
+                                   jnp.asarray(lengths), interpret=True,
+                                   kv_scales=jsc)
+    else:
+        out = paged_prefill_fused(tq, tkv, padded, counts,
+                                  *_i32(lengths, start), kv_scales=tsc)
+        ref = j_paged_prefill_ref(jq, *jref_args, jnp.asarray(start),
+                                  **jscales)
+        ker = j_paged_prefill_fused(jq, jkv, jpad, jcounts,
+                                    jnp.asarray(lengths), jnp.asarray(start),
+                                    interpret=True, kv_scales=jsc)
+    assert out.dtype == tq.dtype
+    _close(ref, out, dtype)
+    _close(ker, out, dtype)
+    assert float(out[-1].abs().max()) == 0.0    # empty lane outputs 0
+
+
+def test_int8_scales_dequantize_before_the_math():
+    """The plain version on an int8 pool equals it on the dequantized
+    float32 pool (scales applied per page and kv head)."""
+    B, C, H, Kv, hd, page, npg, P = 2, 4, 4, 2, 16, 4, 5, 12
+    rng, _, (tq, tkv, tsc) = _int8_inputs(8, B, C, H, Kv, hd, page, P,
+                                          "float32")
+    lengths = np.array([13, 20], np.int32)
+    start = lengths - C
+    bt = _dense_table(lengths, page, npg, P, rng)
+    deq = tkv.float() * tsc[:, :, None, :, None]
+    args = (*_i32(bt, lengths, start),)
+    got = paged_prefill_ref(tq, tkv[:, 0], tkv[:, 1], *args,
+                            k_scales=tsc[:, 0], v_scales=tsc[:, 1])
+    want = paged_prefill_ref(tq, deq[:, 0], deq[:, 1], *args)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_kernel_wrapper_checks_int8_inputs():
+    """The wrapper's own checks of an int8 call, before it looks at the
+    device: an int8 pool needs float32 (P, 2, Kv) scales, and scales mark
+    an int8 pool."""
+    B, C, H, Kv, hd, page, P = 1, 1, 4, 2, 16, 4, 6
+    q = torch.zeros(B, C, H, hd)
+    kv8 = torch.zeros(P, 2, page, Kv, hd, dtype=torch.int8)
+    sc = torch.zeros(P, 2, Kv)
+    t = torch.zeros(B, 2, dtype=torch.int32)
+    one = torch.ones(B, dtype=torch.int32)
+    with pytest.raises(ValueError, match="needs kv_scales"):
+        K.paged_prefill_fwd(q, kv8, t, one, one, one)
+    with pytest.raises(ValueError, match="kv_scales"):
+        K.paged_prefill_fwd(q, kv8, t, one, one, one,
+                            kv_scales=sc[:, :1])
+    with pytest.raises(ValueError, match="kv_scales"):
+        K.paged_prefill_fwd(q, kv8, t, one, one, one,
+                            kv_scales=sc.double())
+    with pytest.raises(ValueError, match="mark an int8 pool"):
+        K.paged_prefill_fwd(q, kv8.float(), t, one, one, one, kv_scales=sc)
+    with pytest.raises(ValueError, match="CUDA"):
+        K.paged_prefill_fwd(q, kv8, t, one, one, one, kv_scales=sc)
+
+
 def test_kernel_wrapper_rejects_cpu_tensors():
     """The CUDA wrapper never computes on the CPU: a CPU tensor is the
     ops layer's cue to take the plain version, and the wrapper refuses
@@ -211,3 +313,34 @@ def test_kernel_matches_plain_on_card(dtype):
         torch.cuda.synchronize()
         np.testing.assert_allclose(out.float().cpu().numpy(),
                                    ref.float().numpy(), **TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_kernel_matches_plain_on_card(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the H100: "
+                    "pytest -m cuda tests/test_torch_paged_attention.py)")
+    before = K.int8_launches.n
+    for C, H, Kv, hd, page, npg, P in [(1, 8, 4, 32, 8, 6, 16),
+                                       (8, 8, 2, 16, 4, 10, 24),
+                                       (5, 6, 6, 64, 16, 3, 8),
+                                       (3, 16, 2, 128, 8, 8, 12)]:
+        B = 3
+        rng, _, (tq, tkv, tsc) = _int8_inputs(9, B, C, H, Kv, hd, page, P,
+                                              dtype)
+        lengths = rng.integers(C, npg * page + 1, B).astype(np.int32)
+        lengths[-1] = 0
+        start = np.maximum(lengths - C, 0).astype(np.int32)
+        bt = _dense_table(lengths, page, npg, P, rng)
+        ln, st, table = _i32(lengths, start, bt)
+        counts = page_counts_for(ln, page)
+        ref = paged_prefill_ref(tq, tkv[:, 0], tkv[:, 1], table, ln, st,
+                                k_scales=tsc[:, 0], v_scales=tsc[:, 1])
+        dev = [x.cuda() for x in (tq, tkv, pad_block_table(table, counts),
+                                  counts, ln, st)]
+        out = K.paged_prefill_fwd(*dev, kv_scales=tsc.cuda())
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   ref.float().numpy(), **TOL[dtype])
+    assert K.int8_launches.n == before + 4
