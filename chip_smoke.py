@@ -8,8 +8,9 @@ non-zero without printing the final result line):
 
 1. info: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; TF32 is switched off for matmuls and cuDNN.
-2. build: the paged-attention CUDA kernel, compiled from the checkout's
-   sources with ``nvcc`` for ``sm_90a``.
+2. build: the paged-attention and cluster-matmul CUDA kernels, compiled
+   from the checkout's sources with ``nvcc`` for ``sm_90a``, one
+   compiler per source, all started together.
 3. kernel vs plain: the kernel against its plain-PyTorch version at yi-6b
    attention geometry (B=8, H=32, Kv=4, hd=128, page 16, a 1,024-page
    pool, ragged lengths 1..1,024 with an empty lane and aliased
@@ -29,17 +30,32 @@ non-zero without printing the final result line):
    then an ``echo_wave`` of requests that repeat a token pattern of the
    model's own; the kernel's int8 branch must carry every layer of every
    iteration and the drafter must propose.
+7. cluster matmul vs plain: the cluster-matmul CUDA kernel against its
+   plain version in float32 and bfloat16 at ``tests/test_kernels.py``'s
+   shapes, 64^3, the demo's 256^3, Fig.5's 768^3, 4096^3 and yi-6b's MLP
+   product (1024 x 4096 @ 4096 x 11008), with times beside
+   ``torch.matmul``'s and the roofline bound.
+8. offload path: the offload demo (copy-based vs zero-copy SVM through
+   the cluster matmul, 256^2 float32), the same two modes at 4096^2 in
+   float32 and bfloat16, Fig.5's four benchmarks on the card and Fig.6's
+   traced RAB programs (host only, its assertions must hold); the kernel
+   must carry every product (two launches per demo run) and the plain
+   version must never run; each of these outputs is then held against
+   the plain version.
 
-Then one JSON line ``{"kernels": [...]}`` (the kernel's bf16/f32 branch
-and its int8 branch) and, last, the result line ``{"ok": true, "device":
-{...}}``.  It needs a CUDA device and the repository's ``src/`` beside
-it.
+Then one JSON line ``{"kernels": [...]}`` (the paged-attention kernel's
+bf16/f32 branch, its int8 branch, and the cluster matmul) and, last, the
+result line ``{"ok": true, "device": {...}}``.  It needs a CUDA device and
+the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -60,6 +76,14 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #: bf16 TOL
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 L2_FLUSH_BYTES = 64 << 20          # more than the L2 (50 MB, data sheet)
+#: cluster-matmul tolerances (rtol = atol): tests/test_kernels.py's TOL
+MATMUL_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+#: (m, k, n): tests/test_kernels.py's three, 64^3, the offload demo's
+#: 256^3, Fig.5's 768^3, 4096^3 and yi-6b's MLP up/gate product at 1,024
+#: tokens (d 4096, d_ff 11008)
+MATMUL_SHAPES = [(128, 128, 128), (256, 384, 512), (384, 256, 128),
+                 (64, 64, 64), (256, 256, 256), (768, 768, 768),
+                 (4096, 4096, 4096), (1024, 4096, 11008)]
 
 
 def check(cond: bool, msg: str):
@@ -526,6 +550,170 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
     return row, {rid: res.tokens for rid, res in results.items()}
 
 
+# --------------------------------------------------------------- phase 7 --
+def matmul_case(timer: Timer, m: int, k: int, n: int, dtype: torch.dtype,
+                seed: int = 0) -> dict:
+    """One case of phase 7: the cluster-matmul kernel against its plain
+    version on A ~ N(0, 1), B ~ N(0, 1/k) (an initialised weight's scale,
+    so C is of unit scale and two valid float32 summation orders differ
+    far below the bar), then timed beside the plain version and
+    ``torch.matmul``, with its bytes, operations and roofline bound."""
+    from repro_torch.kernels.cluster_matmul import kernel as CK
+    from repro_torch.kernels.cluster_matmul import ref as CR
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = torch.randn(m, k, generator=g, device="cuda").to(dtype)
+    b = (torch.randn(k, n, generator=g, device="cuda")
+         / math.sqrt(k)).to(dtype)
+    dt = str(dtype).replace("torch.", "")
+    name = f"cluster_matmul {m}x{k}x{n} {dt}"
+    out = CK.matmul(a, b)
+    torch.cuda.synchronize()
+    ref = CR.cluster_matmul_ref(a, b)
+    err = (out.float() - ref.float()).abs().max().item()
+    tol = MATMUL_TOL[dtype]
+    check(out.dtype == dtype and tuple(out.shape) == (m, n),
+          f"{name}: output {out.dtype} {tuple(out.shape)}")
+    check(bool(torch.isfinite(out.float()).all()),
+          f"{name}: non-finite kernel output")
+    check(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
+          f"{name}: kernel vs plain max |err| {err}")
+    ms = timer.ms(lambda: CK.matmul(a, b))
+    plain_ms = timer.ms(lambda: CR.cluster_matmul_ref(a, b), reps=5)
+    library_ms = timer.ms(lambda: torch.matmul(a, b))
+    nbytes = (m * k + k * n + m * n) * a.element_size()
+    flops = 2 * m * n * k
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    row = dict(m=m, k=k, n=n, dtype=dt, max_abs_err=err, tol=tol, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
+               flops=flops, bound_ms=bound_ms,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               share_of_bound=bound_ms / ms,
+               tflops=flops / (ms * 1e-3) / 1e12)
+    print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} bytes={nbytes} flops={flops} "
+          f"bound_ms={bound_ms:.5f} ({row['bound_by']}) "
+          f"share_of_bound={row['share_of_bound']:.4f} "
+          f"tflops={row['tflops']:.2f} max_abs_err={err:.3g} tol={tol}",
+          flush=True)
+    return row
+
+
+def phase_matmul(timer: Timer) -> list:
+    return [matmul_case(timer, m, k, n, dtype)
+            for (m, k, n) in MATMUL_SHAPES
+            for dtype in (torch.float32, torch.bfloat16)]
+
+
+# --------------------------------------------------------------- phase 8 --
+def offload_pair(dtype: torch.dtype, size: int = 4096, seed: int = 1
+                 ) -> dict:
+    """Copy mode then zero-copy mode of one ``size``^2 cluster matmul
+    through ``OffloadTarget`` on the card; the two outputs must be equal
+    (one deterministic kernel on the same inputs) and the traced protocol
+    complete.  bfloat16 host arrays are CPU tensors (numpy has no
+    bfloat16)."""
+    from repro_torch.core import OffloadTarget, TraceBuffer
+    from repro_torch.core.analysis import layer1_decode
+    from repro_torch.kernels.cluster_matmul import cluster_matmul
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((size, size), dtype=np.float32)
+    b = rng.standard_normal((size, size), dtype=np.float32) / np.float32(
+        math.sqrt(size))
+    host = (a, b) if dtype == torch.float32 else \
+        tuple(torch.from_numpy(x).to(dtype) for x in (a, b))
+    tgt = OffloadTarget(tracer=TraceBuffer())
+    out_c, rep_c = tgt.run_copy_based(cluster_matmul, *host)
+    handles = [tgt.svm.share(torch.as_tensor(x).to(tgt.device))
+               for x in host]
+    out_h, rep_z = tgt.run_zero_copy(cluster_matmul, *handles)
+    zero = tgt.svm.deref(out_h)
+    dt = str(dtype).replace("torch.", "")
+    elt = torch.finfo(dtype).bits // 8
+    check(torch.equal(torch.as_tensor(out_c), zero.cpu()),
+          f"offload {size}^2 {dt}: copy-mode output != zero-copy output")
+    check((rep_c.bytes_to, rep_c.bytes_from)
+          == (2 * size * size * elt, size * size * elt),
+          f"offload {size}^2 {dt}: bytes {rep_c.bytes_to}, "
+          f"{rep_c.bytes_from}")
+    n_events = len(layer1_decode(tgt.tracer.drain()))
+    check(n_events == 10, f"offload {size}^2 {dt}: {n_events} events")
+    rows = {}
+    for rep in (rep_c, rep_z):
+        rows[rep.mode] = dict(
+            offload_ms=rep.offload_s * 1e3, kernel_ms=rep.kernel_s * 1e3,
+            writeback_ms=rep.writeback_s * 1e3, total_ms=rep.total_s * 1e3,
+            bytes_to=rep.bytes_to, bytes_from=rep.bytes_from)
+        print(f"offload {size}^2 {dt} {rep.mode}: "
+              + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
+                         else f"{k}={v}" for k, v in rows[rep.mode].items()),
+              flush=True)
+    return dict(size=size, dtype=dt, zero=zero,
+                inputs=[tgt.svm.deref(h) for h in handles], **rows)
+
+
+def phase_offload(smi: str) -> dict:
+    """The offload path on the card: the demo, then 4096^2 in float32 and
+    bfloat16; the kernel's count is read from 0 just before and just
+    after, and must be two per run with the plain version never called;
+    then each run's output is held against the plain version.  Then
+    Fig.5 on the card and Fig.6 on the host."""
+    from repro_torch.hero import (fig5_svm_offload, fig6_event_tracing,
+                                  svm_offload_demo)
+    from repro_torch.kernels.cluster_matmul import kernel as CK
+    from repro_torch.kernels.cluster_matmul import ref as CR
+    for counter in (CK.launches, CR.calls):
+        counter.reset()
+    rep_c, rep_z, (a, b), demo_out = svm_offload_demo.main()
+    check(CK.launches.n == 2,
+          f"demo: {CK.launches.n} kernel launches, want 2")
+    demo = dict(size=256, dtype="float32", zero=demo_out,
+                inputs=[torch.from_numpy(x).cuda() for x in (a, b)],
+                copy_total_ms=rep_c.total_s * 1e3,
+                zero_copy_total_ms=rep_z.total_s * 1e3)
+    pairs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        before = CK.launches.n
+        pairs.append(offload_pair(dtype))
+        check(CK.launches.n == before + 2,
+              f"offload 4096^2: {CK.launches.n - before} launches, want 2")
+    launches, plain_calls = CK.launches.n, CR.calls.n
+    check(plain_calls == 0, f"plain matmul called {plain_calls} times")
+    # the path's outputs against the plain version (after the count)
+    for p in [demo] + pairs:
+        z, (a, b) = p.pop("zero"), p.pop("inputs")
+        ref = CR.cluster_matmul_ref(a, b)
+        tol = MATMUL_TOL[z.dtype]
+        p["max_abs_err"] = (z.float() - ref.float()).abs().max().item()
+        check(bool(torch.isfinite(z.float()).all())
+              and torch.allclose(z.float(), ref.float(), rtol=tol, atol=tol),
+              f"offload {p['size']}^2 {p['dtype']}: output vs plain max "
+              f"|err| {p['max_abs_err']}")
+        print(f"offload {p['size']}^2 {p['dtype']}: output vs plain "
+              f"max_abs_err={p['max_abs_err']:.3g} tol={tol}", flush=True)
+    print(f"offload: demo copy total {rep_c.total_s * 1e3:.4f} ms, "
+          f"zero-copy total {rep_z.total_s * 1e3:.4f} ms; "
+          f"kernel launches={launches} plain_calls={plain_calls}",
+          flush=True)
+    rows = fig5_svm_offload.run_benchmarks()
+    for r in rows:
+        check(r["copy_total_s"] > 0 and r["svm_total_s"] > 0,
+              f"fig5 {r['bench']}: non-positive time")
+        print(f"fig5 [{smi}] " + " ".join(
+            f"{k}={v:.6f}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in r.items()), flush=True)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        results = fig6_event_tracing.main()
+    check(all(results.values()), f"fig6 assertions {results}")
+    print(f"fig6 (host): {len(text.getvalue().splitlines())} lines, "
+          f"assertions {results}", flush=True)
+    return dict(launches=launches, plain_calls=plain_calls,
+                demo=demo,
+                pairs=pairs, fig5=rows, fig6=results)
+
+
 # ------------------------------------------------------------------ main --
 def main() -> int:
     if not torch.cuda.is_available():
@@ -539,6 +727,7 @@ def main() -> int:
 
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import launch
+    from repro_torch.kernels.cluster_matmul import kernel as CK
     from repro_torch.kernels.paged_attention import kernel as K
 
     # 1. info
@@ -553,16 +742,19 @@ def main() -> int:
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}", flush=True)
 
-    # 2. build
+    # 2. build (one nvcc per source, all started together)
     t0 = time.perf_counter()
-    launch.build([K.SOURCE])
-    print(f"build: {K.SOURCE.name} -> {launch.library_path(K.SOURCE).name} "
-          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    launch.build([K.SOURCE, CK.SOURCE])
+    print("build: " + ", ".join(
+        f"{src.name} -> {launch.library_path(src).name}"
+        for src in (K.SOURCE, CK.SOURCE))
+        + f" in {time.perf_counter() - t0:.2f} s", flush=True)
 
     done("phase 2")
 
     # 3-6
-    cases = phase_kernel(Timer())
+    timer = Timer()
+    cases = phase_kernel(timer)
     done("phase 3")
     parity = parity_models()
     _, known = phase_parity(parity)
@@ -581,6 +773,14 @@ def main() -> int:
     done("phase 5")
     serve8, _ = phase_serve(cfg, model, kv_dtype="int8", spec_k=4)
     done("phase 6")
+    del model
+    torch.cuda.empty_cache()
+
+    # 7-8
+    mm_cases = phase_matmul(timer)
+    done("phase 7")
+    offload = phase_offload(smi)
+    done("phase 8")
 
     def entry(name, kv, launches, replaces):
         own = [c for c in cases if c["kv"] == kv]
@@ -604,6 +804,20 @@ def main() -> int:
         entry("paged_attention_int8", "int8", serve8["kernel_launches"],
               "src/repro/kernels/paged_attention/kernel.py:113-121"),
     ]
+    head = next(c for c in mm_cases if (c["m"], c["k"], c["n"])
+                == (4096, 4096, 4096) and c["dtype"] == "bfloat16")
+    kernels.append({
+        "name": "cluster_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/cluster_matmul/csrc/"
+                  "cluster_matmul.cu",
+        "replaces": "src/repro/kernels/cluster_matmul/kernel.py:48",
+        "launches": offload["launches"],
+        "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "held_against_plain": True,
+        "cases": mm_cases,
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

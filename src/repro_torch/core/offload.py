@@ -1,18 +1,102 @@
-"""Host-side backing store for reclaimed KV pages (HERO §2.2 SVM page
-reclamation), ported from ``repro.core.offload``.
+"""OpenMP-4.5-style offload runtime (HERO §2.2), copy-based vs zero-copy,
+and the host-side backing store for reclaimed KV pages (HERO §2.2 SVM
+page reclamation), ported from ``repro.core.offload``.
 
-The serving engine parks a preempted request's page payloads here (D2H)
-and restores them on re-admission (H2D).  Payloads are numpy arrays; the
-store checksums each at park and verifies it at restore.  The disk tier
-and the offload-runtime ``OffloadTarget`` are not ported yet.
+HERO encapsulates accelerator kernels in ``omp target`` regions; the RTE
+plugin implements two offload semantics:
+
+  * copy-based shared memory: inputs are serialized into a physically
+    contiguous, uncached staging area (pointer-rich structures must be
+    flattened and their pointers rewritten), copied to the accelerator,
+    outputs copied back;
+  * zero-copy SVM: host passes virtual-address *pointers*; the PMCA
+    translates through the RAB at run time.
+
+``OffloadTarget`` maps a ``target`` region to a Python callable run on one
+device.  Copy mode stages through pageable host memory (serialize ->
+contiguous numpy -> ``torch.from_numpy(x).to(device)`` -> run -> ``.cpu()``
+back to numpy), synchronizing the device where the reference blocks until
+ready.  Zero-copy mode passes SVM handles to device-resident tensors (no
+host staging).  ``OffloadReport`` splits total time into offload vs
+kernel, the Fig.5 measurement.  A host leaf of a type numpy lacks
+(bfloat16) is staged and returned as a CPU tensor.
+
+The serving engine parks a preempted request's page payloads in
+``HostBackingStore`` (D2H) and restores them on re-admission (H2D).
+Payloads are numpy arrays; the store checksums each at park and verifies
+it at restore.  The disk tier is not ported yet.
 """
 from __future__ import annotations
 
 import collections
+import dataclasses
+import time
 import zlib
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.core.svm import SVMSpace
+from repro_torch.core.tracing import EventType, TraceBuffer
+from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclasses.dataclass
+class OffloadReport:
+    mode: str                 # "copy" | "zero_copy"
+    offload_s: float          # host-side data preparation + transfers
+    kernel_s: float           # device execution
+    writeback_s: float        # copy-back (copy mode only)
+    bytes_to: int = 0
+    bytes_from: int = 0
+
+    @property
+    def total_s(self) -> float:
+        return self.offload_s + self.kernel_s + self.writeback_s
+
+
+def _tree_map(fn: Callable, tree: Any) -> Any:
+    """``fn`` over the leaves of nested tuples, lists and dicts; ``None``
+    is an empty subtree, as in ``jax.tree``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _leaves(tree: Any) -> list:
+    out: list = []
+    _tree_map(out.append, tree)
+    return out
+
+
+def _nbytes(tree: Any) -> int:
+    return sum(x.nbytes if isinstance(x, torch.Tensor)
+               else np.asarray(x).nbytes for x in _leaves(tree))
+
+
+def _stage(x: Any) -> torch.Tensor:
+    """Serialize one host leaf into contiguous host memory: a numpy copy
+    viewed as a tensor, or a CPU tensor for a type numpy lacks."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu":
+            raise ValueError("copy-based offload takes host arrays; got a "
+                             f"tensor on {x.device}")
+        return x.contiguous()
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))
+
+
+def _to_host(x: Any) -> Any:
+    """Copy one output leaf back to host memory: numpy, or a CPU tensor
+    for bfloat16 (numpy has no such type)."""
+    if not isinstance(x, torch.Tensor):
+        return np.asarray(x)
+    x = x.cpu()
+    return x if x.dtype == torch.bfloat16 else x.numpy()
 
 
 class BackingStoreError(RuntimeError):
@@ -390,3 +474,98 @@ class HostBackingStore:
         self._sums.clear()
         for tier in self.tiers:
             tier.close()
+
+
+class OffloadTarget:
+    """The 'PMCA': one device + the offload RTE around it."""
+
+    def __init__(self, svm: Optional[SVMSpace] = None,
+                 tracer: Optional[TraceBuffer] = None,
+                 device: DeviceLike = None):
+        self.svm = svm or SVMSpace()
+        self.tracer = tracer
+        self.device = resolve_device(device)
+
+    def _trace(self, etype: EventType, a: int = 0, b: int = 0):
+        if self.tracer is not None:
+            self.tracer.record_host(etype, a, b)
+
+    def _sync(self):
+        """Wait for the device's queued work (``block_until_ready``)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # ------------------------------------------------------------------
+    def target(self, fn: Callable, *, donate: Sequence[int] = ()) -> Callable:
+        """Mark a kernel for offload (the `omp target` outline step).
+
+        PyTorch runs eagerly, so the outlined region is ``fn`` itself:
+        there is no jitted function to cache.  ``donate`` is accepted and
+        ignored: torch has no buffer donation.
+        """
+        del donate
+        return fn
+
+    # ------------------------------------------------------------------
+    def run_copy_based(self, fn: Callable, *host_args: Any
+                       ) -> Tuple[Any, OffloadReport]:
+        """Copy-based SM offload: serialize -> stage -> run -> copy back.
+
+        ``host_args`` are host-side structures (numpy arrays, CPU tensors
+        or nested containers).  The serialization into contiguous staging
+        buffers models HERO's physically-contiguous uncached section,
+        including the pointer-flattening cost for linked structures.
+        """
+        jfn = self.target(fn)
+        self._trace(EventType.OFFLOAD_BEGIN, 0, 0)
+        t0 = time.perf_counter()
+        # serialize: force one contiguous host copy of every leaf
+        staged = _tree_map(_stage, host_args)
+        blob_bytes = _nbytes(staged)
+        # stage to device (the DMA across the host/PMCA boundary)
+        dev = _tree_map(lambda x: x.to(self.device), staged)
+        self._sync()
+        t1 = time.perf_counter()
+        self._trace(EventType.OFFLOAD_COPY_TO, blob_bytes % (1 << 31), 0)
+
+        self._trace(EventType.OFFLOAD_KERNEL_BEGIN, 0, 0)
+        out = jfn(*dev)
+        self._sync()
+        t2 = time.perf_counter()
+        self._trace(EventType.OFFLOAD_KERNEL_END, 0, 0)
+
+        # copy back to host memory (uncached section -> host structures)
+        host_out = _tree_map(_to_host, out)
+        t3 = time.perf_counter()
+        bytes_from = _nbytes(host_out)
+        self._trace(EventType.OFFLOAD_COPY_FROM, bytes_from % (1 << 31), 0)
+        self._trace(EventType.OFFLOAD_END, 0, 0)
+        rep = OffloadReport("copy", t1 - t0, t2 - t1, t3 - t2,
+                            bytes_to=blob_bytes, bytes_from=bytes_from)
+        return host_out, rep
+
+    # ------------------------------------------------------------------
+    def run_zero_copy(self, fn: Callable, *handles: int,
+                      donate: Sequence[int] = ()
+                      ) -> Tuple[Any, OffloadReport]:
+        """Zero-copy SVM offload: pass pointers, no staging.
+
+        ``handles`` are SVM handles to device-resident tensors.  The
+        kernel's outputs are published back into SVM and returned as
+        handles too — the host never touches the payload (Fig.5's SVM
+        bars).
+        """
+        jfn = self.target(fn, donate=donate)
+        self._trace(EventType.OFFLOAD_BEGIN, 1, 0)
+        t0 = time.perf_counter()
+        args = [self.svm.deref(h) for h in handles]       # pointer deref only
+        t1 = time.perf_counter()
+        self._trace(EventType.OFFLOAD_KERNEL_BEGIN, 0, 0)
+        out = jfn(*args)
+        self._sync()
+        t2 = time.perf_counter()
+        self._trace(EventType.OFFLOAD_KERNEL_END, 0, 0)
+        out_handles = _tree_map(self.svm.share, out)
+        self._trace(EventType.OFFLOAD_END, 0, 0)
+        rep = OffloadReport("zero_copy", t1 - t0, t2 - t1, 0.0)
+        return out_handles, rep

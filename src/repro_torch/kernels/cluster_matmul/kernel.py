@@ -1,0 +1,79 @@
+"""Cluster matmul on Hopper: the wrapper around ``csrc/cluster_matmul.cu``.
+
+``matmul(a, b)`` launches the hand-written kernel that replaces the
+reference's Pallas ``repro.kernels.cluster_matmul.kernel.matmul``: C = A @
+B with a float32 accumulator, C in A's type (float32 or bfloat16).  It
+takes CUDA tensors only, contiguous and of one type; a CPU tensor is the
+caller's cue to use the plain version (``ops`` dispatches), never this
+module's.  The kernel tiles C itself and masks the ragged edge, so it
+takes any shape; the reference's tile contract is checked in ``ops``.
+The library is built with ``nvcc`` at first launch (``kernels.launch``);
+every launch adds one to :data:`launches`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.launch import LaunchCounter, load
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "cluster_matmul.cu"
+#: element-type codes of the C interface
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the launch grid's row dimension holds ceil(m / 128) <= 65535 blocks
+MAX_ROWS = 65535 * 128
+
+#: launches of the cluster-matmul kernel
+launches = LaunchCounter()
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = load(SOURCE)
+    fn = lib.cluster_matmul_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(a: torch.Tensor, b: torch.Tensor):
+    if a.dtype not in _DTYPES or b.dtype != a.dtype:
+        raise ValueError(f"dtypes {a.dtype}, {b.dtype}: the kernel takes "
+                         "two float32 or two bfloat16 matrices")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"bad shapes {tuple(a.shape)} @ {tuple(b.shape)}")
+    if a.shape[0] > MAX_ROWS:
+        raise ValueError(f"{a.shape[0]} rows exceed the kernel's {MAX_ROWS}")
+    for name, t in (("a", a), ("b", b)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.device != a.device:
+            raise ValueError(f"{name} is on {t.device}, a on {a.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B: a (m, k), b (k, n), both float32 or both bfloat16, on
+    one CUDA device.  Returns (m, n) in a's type."""
+    _check(a, b)
+    m, k = a.shape
+    n = b.shape[1]
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.cluster_matmul_launch(_DTYPES[a.dtype], a.data_ptr(),
+                                        b.data_ptr(), out.data_ptr(), m, n,
+                                        k, stream)
+    if err:
+        raise RuntimeError(f"cluster matmul kernel launch failed: CUDA "
+                           f"error {err}")
+    launches.n += 1
+    return out

@@ -38,6 +38,12 @@ def test_port_imports_neither_jax_nor_reference():
     assert "repro_torch.kernels.paged_attention.kernel" in out["modules"]
     assert "repro_torch.optim.compress" in out["modules"]
     assert "repro_torch.runtime.speculative" in out["modules"]
+    for m in ("core.svm", "core.analysis", "core.cluster", "core.buildflow",
+              "configs.hero_pmca", "kernels.cluster_matmul.kernel",
+              "kernels.cluster_matmul.ops", "kernels.cluster_matmul.ref",
+              "hero.svm_offload_demo", "hero.fig5_svm_offload",
+              "hero.fig6_event_tracing"):
+        assert f"repro_torch.{m}" in out["modules"], m
     assert expected <= set(out["modules"]) | {"repro_torch.runtime",
                                               "repro_torch.kernels"}
 
