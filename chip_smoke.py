@@ -8,9 +8,9 @@ non-zero without printing the final result line):
 
 1. info: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; TF32 is switched off for matmuls and cuDNN.
-2. build: the paged-attention and cluster-matmul CUDA kernels, compiled
-   from the checkout's sources with ``nvcc`` for ``sm_90a``, one
-   compiler per source, all started together.
+2. build: the paged-attention, cluster-matmul and flash-attention CUDA
+   kernels, compiled from the checkout's sources with ``nvcc`` for
+   ``sm_90a``, one compiler per source, all started together.
 3. kernel vs plain: the kernel against its plain-PyTorch version at yi-6b
    attention geometry (B=8, H=32, Kv=4, hd=128, page 16, a 1,024-page
    pool, ragged lengths 1..1,024 with an empty lane and aliased
@@ -42,11 +42,31 @@ non-zero without printing the final result line):
    must carry every product (two launches per demo run) and the plain
    version must never run; each of these outputs is then held against
    the plain version.
+9. flash kernel vs plain: the flash-attention CUDA kernel against its
+   plain version at ``tests/test_kernels.py``'s three shapes x five
+   (causal, window, cap) masks x {float32, bfloat16}, and at gemma2-2b's
+   geometry (B=2, H=8, Kv=4, S=T=4096, hd 256, bf16, cap 50, window 0
+   and 4096), each capped case and gemma2's again with q and k scaled
+   so that scores reach the cap's range (``FLASH_SHARP``), with times
+   beside the plain version and the library call (SDPA without a cap,
+   the compiled ``flex_attention`` with a softcap score_mod with one);
+   then the op's gradients against plain autograd.
+10. train parity: one ``make_train_step`` on the same float32 weights at
+   gemma2-2b's widths (d 2304, 8/4 heads, hd 256, d_ff 9216) with one
+   local/global pair, on the card (kernel) and on the CPU (plain).
+11. trainer: ``Trainer.run_with_recovery`` at phase 10's size (bf16) on
+   the card with an injected failure; it must restart from the last
+   commit and end at ``total_steps``.
+12. train, full size: gemma2-2b as registered (26 layers, vocab 256,000,
+   bf16 with a float32 master) takes a few steps at ``train_4k``'s
+   S=4096, batch 2; the flash kernel must carry every self-attention
+   forward (26 layers x (forward + checkpoint recompute) per step) and
+   the plain version must never run a forward.
 
 Then one JSON line ``{"kernels": [...]}`` (the paged-attention kernel's
-bf16/f32 branch, its int8 branch, and the cluster matmul) and, last, the
-result line ``{"ok": true, "device": {...}}``.  It needs a CUDA device and
-the repository's ``src/`` beside it.
+bf16/f32 branch, its int8 branch, the cluster matmul and the flash
+kernel) and, last, the result line ``{"ok": true, "device": {...}}``.  It
+needs a CUDA device and the repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
@@ -84,6 +104,30 @@ MATMUL_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 MATMUL_SHAPES = [(128, 128, 128), (256, 384, 512), (384, 256, 128),
                  (64, 64, 64), (256, 256, 256), (768, 768, 768),
                  (4096, 4096, 4096), (1024, 4096, 11008)]
+#: flash-attention tolerances (rtol = atol): tests/test_kernels.py's TOL;
+#: gradients: its grad tests' 2e-3
+FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+FLASH_GRAD_TOL = 2e-3
+#: (BH, S, T, hd): tests/test_kernels.py's flash shapes
+FLASH_SHAPES = [(2, 128, 128, 64), (4, 256, 128, 32), (1, 128, 384, 128)]
+#: (causal, window, cap): its five masks
+FLASH_MASKS = [(True, 0, 0.0), (False, 0, 0.0), (True, 64, 0.0),
+               (True, 0, 50.0), (True, 32, 30.0)]
+#: q and k scale of the "sharp" cases: scores of std 16 reach the caps'
+#: range (30, 50) and make the softmax peaky, so a dropped cap or a
+#: dropped key tile moves an output by O(|v|) (at test_kernels' 0.3 the
+#: scores have std 0.09, a cap of 30 moves them by < 5e-5 and gemma2's
+#: S=4096 outputs are averages of about 0.02)
+FLASH_SHARP = 4.0
+#: gemma2-2b cut for phases 10-11 (the CPU side must fit in host memory
+#: and finish in seconds): one local/global pair, a 16,384-token
+#: vocabulary, S=512 with the window cut to 128 so the local layer's mask
+#: bites, batch 2
+TRAIN_CUTS = dict(num_layers=2, vocab_size=16384, sliding_window=128)
+TRAIN_SMALL_S, TRAIN_SMALL_B = 512, 2
+#: phase 12: train_4k's S=4096 with the batch cut from 256 to 2, and the
+#: number of steps (the first one warms up)
+TRAIN_FULL_B, TRAIN_FULL_STEPS = 2, 4
 
 
 def check(cond: bool, msg: str):
@@ -714,6 +758,402 @@ def phase_offload(smi: str) -> dict:
                 pairs=pairs, fig5=rows, fig6=results)
 
 
+# --------------------------------------------------------------- phase 9 --
+def flash_library(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool, window: int, cap: float):
+    """One PyTorch call computing what the kernel computes on the same
+    unexpanded GQA inputs: without a cap, ``scaled_dot_product_attention``
+    (its ``is_causal`` is top-left aligned, as the kernel's iotas); with
+    one, the compiled ``flex_attention`` with a ``cap * tanh(s / cap)``
+    score_mod and a causal / window block mask (built here, outside the
+    timed call, as SDPA's boolean mask is)."""
+    import torch.nn.functional as F
+    q4, k4, v4 = q[None], k[None], v[None]
+    S, T = q.shape[1], k.shape[1]
+    if not cap:
+        if causal and not window:
+            return lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True, enable_gqa=True)
+        from repro_torch.kernels.flash_attention import ref as FR
+        am = None if not (causal or window) else \
+            FR.visible_mask(S, T, causal, window, "cuda")
+        return lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=am, enable_gqa=True)
+    from torch.nn.attention.flex_attention import (
+        create_block_mask, flex_attention,
+    )
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return cap * torch.tanh(score / cap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        ok = kv_idx <= q_idx if causal else kv_idx >= 0
+        if window:
+            ok = ok & (q_idx - kv_idx < window)
+        return ok
+
+    block_mask = None if not (causal or window) else create_block_mask(
+        mask_mod, None, None, S, T, device="cuda")
+    flex = torch.compile(flex_attention, dynamic=False)
+    return lambda: flex(q4, k4, v4, score_mod=score_mod,
+                        block_mask=block_mask, enable_gqa=True)
+
+
+def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
+               dtype: torch.dtype, causal: bool, window: int, cap: float,
+               groups: int = 1, qk: float = 0.3, seed: int = 0) -> dict:
+    """One case of phase 9: the flash kernel against its plain version
+    (K/V repeated by ``groups`` for it), then timed beside the plain
+    version and the library call (``flash_library``, itself held against
+    the plain version and its error recorded), with its bytes, operations
+    (4 hd per visible (query, key) pair per head) and roofline bound.  q
+    and k are N(0, qk^2): scores have std qk^2 (0.09 at the default, as
+    tests/test_kernels.py draws them; 16 at ``FLASH_SHARP``, where the
+    cap bites and the softmax is peaky).  v is N(0, 1)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = (torch.randn(BH, S, d, generator=g, device="cuda") * qk).to(dtype)
+    k = (torch.randn(BH // groups, T, d, generator=g, device="cuda")
+         * qk).to(dtype)
+    v = torch.randn(BH // groups, T, d, generator=g, device="cuda").to(dtype)
+    dt = str(dtype).replace("torch.", "")
+    name = (f"flash BH={BH} S={S} T={T} d={d} G={groups} {dt} "
+            f"causal={causal} window={window} cap={cap} qk={qk}")
+
+    def kernel():
+        return FK.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                      cap=cap, groups=groups)
+
+    def plain():
+        return FR.flash_attention_ref(
+            q, k.repeat_interleave(groups, 0), v.repeat_interleave(groups, 0),
+            causal=causal, window=window, cap=cap)
+
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    err = (out.float() - ref.float()).abs().max().item()
+    ref_max = ref.float().abs().max().item()
+    tol = FLASH_TOL[dtype]
+    check(out.dtype == dtype and out.shape == q.shape,
+          f"{name}: output {out.dtype} {tuple(out.shape)}")
+    check(bool(torch.isfinite(out.float()).all()),
+          f"{name}: non-finite kernel output")
+    check(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
+          f"{name}: kernel vs plain max |err| {err}")
+    del out
+    library = flash_library(q, k, v, causal, window, cap)
+    t0 = time.perf_counter()
+    lib_out = library().squeeze(0)
+    torch.cuda.synchronize()
+    library_first_s = time.perf_counter() - t0
+    library_err = (lib_out.float() - ref.float()).abs().max().item()
+    del ref, lib_out
+    ms = timer.ms(kernel)
+    plain_ms = timer.ms(plain, reps=5)
+    library_ms = timer.ms(library)
+    pairs = int(FR.visible_mask(S, T, causal, window, "cuda").sum())
+    flops = 4 * d * BH * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    row = dict(BH=BH, S=S, T=T, d=d, groups=groups, dtype=dt,
+               causal=causal, window=window, cap=cap, qk=qk,
+               max_abs_err=err, ref_max_abs=ref_max, tol=tol, ms=ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library="flex_attention" if cap else "sdpa",
+               library_max_abs_err=library_err,
+               library_first_call_s=library_first_s,
+               bytes=nbytes, flops=flops, bound_ms=bound_ms,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               share_of_bound=bound_ms / ms,
+               tflops=flops / (ms * 1e-3) / 1e12)
+    print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} ({row['library']}, max_abs_err "
+          f"{library_err:.3g}, first call {library_first_s:.2f} s) "
+          f"bytes={nbytes} flops={flops} "
+          f"bound_ms={bound_ms:.5f} ({row['bound_by']}) "
+          f"share_of_bound={row['share_of_bound']:.4f} "
+          f"tflops={row['tflops']:.2f} max_abs_err={err:.3g} "
+          f"ref_max_abs={ref_max:.3g} tol={tol}", flush=True)
+    return row
+
+
+def flash_grads():
+    """The op's gradients (the kernel's forward, the recompute backward)
+    against plain autograd through the plain version, on (out ** 2).sum()
+    so the forward's output enters them: the grad tests' shapes and a
+    gemma2 layer's head geometry at S=512 with its cap and a window."""
+    from repro_torch.kernels.flash_attention import mha_flash
+    from repro_torch.kernels.flash_attention import ref as FR
+    worst = 0.0
+    for (B, S, H, Kv, hd, window, cap) in ((2, 128, 2, 2, 32, 0, 0.0),
+                                           (2, 128, 4, 2, 32, 0, 0.0),
+                                           (1, 512, 8, 4, 256, 128, 50.0)):
+        g = torch.Generator(device="cuda").manual_seed(B * S + H)
+        base = [torch.randn(B, S, h, hd, generator=g, device="cuda") * sc
+                for h, sc in ((H, 0.3), (Kv, 0.3), (Kv, 1.0))]
+        grads = []
+        for use_kernel in (True, False):
+            ts = [t.clone().requires_grad_(True) for t in base]
+            if use_kernel:
+                out = mha_flash(*ts, causal=True, window=window, cap=cap)
+            else:
+                G = H // Kv
+                qf = ts[0].transpose(1, 2).reshape(B * H, S, hd)
+                kf, vf = (t.transpose(1, 2).reshape(B * Kv, S, hd)
+                          .repeat_interleave(G, 0) for t in ts[1:])
+                out = FR.flash_attention_ref(qf, kf, vf, causal=True,
+                                             window=window, cap=cap)
+            (out.float() ** 2).sum().backward()
+            grads.append([t.grad for t in ts])
+        for a, b in zip(*grads):
+            err = (a - b).abs().max().item()
+            worst = max(worst, err)
+            check(torch.allclose(a, b, rtol=FLASH_GRAD_TOL,
+                                 atol=FLASH_GRAD_TOL),
+                  f"flash grads B={B} S={S} H={H} Kv={Kv} hd={hd}: max "
+                  f"|err| {err}")
+    print(f"flash grads vs plain autograd: max_abs_err={worst:.3g} "
+          f"tol={FLASH_GRAD_TOL}", flush=True)
+    return worst
+
+
+def phase_flash(timer: Timer) -> dict:
+    """test_kernels' cases, then the capped ones again with sharp scores,
+    then gemma2-2b's geometry (B=2 x H=8 flat heads over B x Kv=4 KV
+    rows, S=T=4096, hd 256, cap 50, windows 0 and 4096) at both scales.
+    Each capped (shape, type, mask) compiles its own ``flex_attention``,
+    more than dynamo's default limit of 8 recompiles; past the limit flex
+    would run unfused and its time would not be the library's, so the
+    limit is raised and hitting it fails the phase."""
+    import torch._dynamo
+    with torch._dynamo.config.patch(recompile_limit=64,
+                                    fail_on_recompile_limit_hit=True):
+        return flash_cases(timer)
+
+
+def flash_cases(timer: Timer) -> dict:
+    cases = [flash_case(timer, BH, S, T, d, dtype, causal, window, cap)
+             for (BH, S, T, d) in FLASH_SHAPES
+             for (causal, window, cap) in FLASH_MASKS
+             for dtype in (torch.float32, torch.bfloat16)]
+    sharp = [flash_case(timer, BH, S, T, d, dtype, causal, window, cap,
+                        qk=FLASH_SHARP)
+             for (BH, S, T, d) in FLASH_SHAPES
+             for (causal, window, cap) in FLASH_MASKS if cap
+             for dtype in (torch.float32, torch.bfloat16)]
+    gemma = [flash_case(timer, 16, 4096, 4096, 256, torch.bfloat16, True,
+                        window, 50.0, groups=2, qk=qk)
+             for qk in (0.3, FLASH_SHARP) for window in (0, 4096)]
+    return dict(cases=cases + sharp + gemma, gemma=gemma,
+                grad_max_abs_err=flash_grads())
+
+
+# -------------------------------------------------------------- phase 10 --
+def train_small_cfg(dtype: str):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("gemma2-2b"), param_dtype=dtype,
+                               **TRAIN_CUTS)
+
+
+def train_small_batch(cfg, step: int = 0) -> dict:
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import MarkovChainData
+    shape = ShapeSpec("train_small", TRAIN_SMALL_S, TRAIN_SMALL_B, "train")
+    return MarkovChainData(cfg, shape, seed=0).batch(step)
+
+
+def phase_train_parity() -> dict:
+    """One train step on the same float32 weights on the card (flash
+    kernel) and on the CPU (plain version).  Loss within 1e-5 and grad
+    norm within 1e-4 (relative); each updated leaf: every element within
+    one full AdamW update (2.1 lr) plus 1e-6 |p|, and all but 1e-4 of
+    them within 1e-3 lr plus 1e-6 |p| (the step-1 update is g / (|g| +
+    eps), sign-like, so an element whose gradient is within its own
+    summation error of zero may flip); m (0.1 x the clipped gradient)
+    within 1e-3 of the leaf's largest |m|."""
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as ST
+    from repro_torch.configs import get_config
+    cfg = train_small_cfg("float32")
+    full = get_config("gemma2-2b")
+    for k, v in TRAIN_CUTS.items():
+        print(f"train parity cut: {k} {getattr(full, k)} -> {v}",
+              flush=True)
+    print(f"train parity cut: batch 256 -> {TRAIN_SMALL_B}, S 4096 -> "
+          f"{TRAIN_SMALL_S}", flush=True)
+    print(f"train parity cut: param_dtype {full.param_dtype} -> float32",
+          flush=True)
+    cpu_model = M.init_params(cfg, seed=0, device="cpu")
+    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    batch = train_small_batch(cfg)
+    opt = ST.default_opt_cfg(cfg)
+    out = {}
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        state = ST.init_train_state(cfg, opt, params=model)
+        t0 = time.perf_counter()
+        state, m = ST.make_train_step(cfg, opt)(
+            state, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = (state, {k: float(v) for k, v in m.items()},
+                    time.perf_counter() - t0)
+    (gs, gm, gt), (cs, cm, ct) = out["cuda"], out["cpu"]
+    lr = cm["lr"]
+    rel_loss = abs(gm["loss"] - cm["loss"]) / abs(cm["loss"])
+    rel_norm = abs(gm["grad_norm"] - cm["grad_norm"]) / cm["grad_norm"]
+    worst_p, worst_m, loose = 0.0, 0.0, 0
+    for path in ST.named_params(cs["params"]):
+        p_g = gs["params"].param(path).detach().cpu()
+        p_c = cs["params"].param(path).detach()
+        p0 = cpu_model.param(path).detach().abs()      # updated in place:
+        p0 = torch.maximum(p0, p_c.abs())              # |p| either side
+        diff = (p_g - p_c).abs()
+        worst_p = max(worst_p, (diff / lr).max().item())
+        check(bool((diff <= 1e-6 * p0 + 2.1 * lr).all()),
+              f"train parity {path}: an update differs by more than one "
+              f"step ({diff.max().item():.3g}, lr {lr:.3g})")
+        n_loose = int((diff > 1e-6 * p0 + 1e-3 * lr).sum())
+        loose += n_loose
+        check(n_loose <= max(1, 1e-4 * diff.numel()),
+              f"train parity {path}: {n_loose} of {diff.numel()} elements "
+              "beyond 1e-3 lr")
+        m_g = gs["opt"]["m"][path].cpu()
+        m_c = cs["opt"]["m"][path]
+        err = ((m_g - m_c).abs().max() / m_c.abs().max().clamp(min=1e-30))
+        worst_m = max(worst_m, err.item())
+        check(err.item() <= 1e-3, f"train parity {path}: m rel err {err}")
+    check(math.isfinite(gm["loss"]) and rel_loss <= 1e-5,
+          f"train parity: loss {gm['loss']} vs {cm['loss']}")
+    check(rel_norm <= 1e-4,
+          f"train parity: grad norm {gm['grad_norm']} vs {cm['grad_norm']}")
+    row = dict(loss_cuda=gm["loss"], loss_cpu=cm["loss"], rel_loss=rel_loss,
+               grad_norm_cuda=gm["grad_norm"], grad_norm_cpu=cm["grad_norm"],
+               rel_grad_norm=rel_norm, lr=lr,
+               max_param_diff_over_lr=worst_p, params_beyond_1e3_lr=loose,
+               max_m_rel_err=worst_m, cuda_step_s=gt, cpu_step_s=ct)
+    print("train parity: gemma2-2b widths x 2 layers f32: " + " ".join(
+        f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in row.items()), flush=True)
+    return row
+
+
+# -------------------------------------------------------------- phase 11 --
+def phase_trainer() -> dict:
+    """``Trainer.run_with_recovery`` on the card at phase 10's size, bf16
+    weights: 5 steps, a checkpoint every 2, a failure injected at step 3;
+    it must restart once, from the step-2 commit, and end at step 5.  The
+    checkpoints go to a temporary directory, deleted afterwards."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.data import MarkovChainData
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.runtime.trainer import (
+        FailureInjector, Trainer, TrainerConfig,
+    )
+    cfg = train_small_cfg("bfloat16")
+    shape = ShapeSpec("train_small", TRAIN_SMALL_S, TRAIN_SMALL_B, "train")
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        tr = Trainer(cfg, shape, MarkovChainData(cfg, shape, seed=0),
+                     TrainerConfig(total_steps=5, ckpt_every=2,
+                                   ckpt_dir=ckpt, log_every=1))
+        t0 = time.perf_counter()
+        res = tr.run_with_recovery(FailureInjector([3]))
+        wall = time.perf_counter() - t0
+        steps = [m["step"] for m in res["metrics"]]
+        losses = [m["loss"] for m in res["metrics"]]
+        check((res["final_step"], res["restarts"]) == (5, 1),
+              f"trainer: final_step {res['final_step']}, restarts "
+              f"{res['restarts']}")
+        check(steps == [0, 1, 2, 2, 3, 4],
+              f"trainer: logged steps {steps} (want a replay from 2)")
+        check(latest_step(ckpt) == 5, f"trainer: last commit "
+              f"{latest_step(ckpt)}")
+        check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+        replay = abs(losses[3] - losses[2]) / abs(losses[2])
+        check(replay <= 1e-3, f"trainer: step 2 replayed at loss "
+              f"{losses[3]} against {losses[2]}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    row = dict(final_step=res["final_step"], restarts=res["restarts"],
+               logged_steps=steps, losses=losses, replay_rel_diff=replay,
+               wall_s=wall)
+    print(f"trainer: {row}", flush=True)
+    return row
+
+
+# -------------------------------------------------------------- phase 12 --
+def phase_train_full() -> dict:
+    """gemma2-2b as registered takes ``TRAIN_FULL_STEPS`` train steps at
+    S=4096 on the card; counts are read from 0 just before the steps and
+    just after."""
+    from repro_torch.configs import SHAPES, ShapeSpec, get_config, \
+        param_count
+    from repro_torch.data import MarkovChainData
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.models import steps as ST
+    cfg = get_config("gemma2-2b")
+    S = SHAPES["train_4k"].seq_len
+    print(f"train full: reduced batch from 256 (train_4k) to "
+          f"{TRAIN_FULL_B}; S={S}, {cfg.num_layers} layers, vocab "
+          f"{cfg.vocab_size}, {cfg.param_dtype} params, float32 master",
+          flush=True)
+    shape = ShapeSpec("train_4k", S, TRAIN_FULL_B, "train")
+    data = MarkovChainData(cfg, shape, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    opt = ST.default_opt_cfg(cfg)
+    state = ST.init_train_state(cfg, opt, seed=0)
+    step_fn = ST.make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                data.batch(i).items()} for i in range(TRAIN_FULL_STEPS)]
+    for c in (FK.launches, FO.plain_forwards, FO.backward_recomputes):
+        c.reset()
+    step_s, losses = [], []
+    for b in batches:
+        t = time.perf_counter()
+        state, m = step_fn(state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        losses.append(float(m["loss"]))
+    launches, plain_fwd, recomputes = (FK.launches.n, FO.plain_forwards.n,
+                                       FO.backward_recomputes.n)
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = len(batches)
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    want = cfg.num_layers * 2 * n_steps
+    check(launches == want, f"flash launches {launches} != {cfg.num_layers}"
+          f" layers x (forward + recompute) x {n_steps} steps = {want}")
+    check(plain_fwd == 0, f"plain flash forward ran {plain_fwd} times")
+    check(recomputes == cfg.num_layers * n_steps,
+          f"backward recomputes {recomputes}")
+    tokens = TRAIN_FULL_B * S
+    med = statistics.median(step_s[1:])
+    n_params = param_count(cfg)
+    row = dict(batch=TRAIN_FULL_B, seq=S, steps=n_steps, losses=losses,
+               step_s=step_s, step_ms_median=med * 1e3,
+               tokens_per_s=tokens / med,
+               model_flop_share=6 * n_params * tokens / med / 989e12,
+               params=n_params, peak_memory_bytes=peak,
+               init_s=init_s, flash_launches=launches,
+               plain_forwards=plain_fwd, backward_recomputes=recomputes)
+    print("train full: gemma2-2b " + " ".join(
+        f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in row.items()), flush=True)
+    del state, batches
+    torch.cuda.empty_cache()
+    return row
+
+
 # ------------------------------------------------------------------ main --
 def main() -> int:
     if not torch.cuda.is_available():
@@ -728,6 +1168,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import launch
     from repro_torch.kernels.cluster_matmul import kernel as CK
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.paged_attention import kernel as K
 
     # 1. info
@@ -744,10 +1185,10 @@ def main() -> int:
 
     # 2. build (one nvcc per source, all started together)
     t0 = time.perf_counter()
-    launch.build([K.SOURCE, CK.SOURCE])
+    launch.build([K.SOURCE, CK.SOURCE, FK.SOURCE])
     print("build: " + ", ".join(
         f"{src.name} -> {launch.library_path(src).name}"
-        for src in (K.SOURCE, CK.SOURCE))
+        for src in (K.SOURCE, CK.SOURCE, FK.SOURCE))
         + f" in {time.perf_counter() - t0:.2f} s", flush=True)
 
     done("phase 2")
@@ -781,6 +1222,16 @@ def main() -> int:
     done("phase 7")
     offload = phase_offload(smi)
     done("phase 8")
+
+    # 9-12
+    flash = phase_flash(timer)
+    done("phase 9")
+    phase_train_parity()
+    done("phase 10")
+    phase_trainer()
+    done("phase 11")
+    train = phase_train_full()
+    done("phase 12")
 
     def entry(name, kv, launches, replaces):
         own = [c for c in cases if c["kv"] == kv]
@@ -817,6 +1268,23 @@ def main() -> int:
         "bound_by": head["bound_by"], "library_ms": head["library_ms"],
         "held_against_plain": True,
         "cases": mm_cases,
+    })
+    # the main path's case: gemma2-2b's global (window 0) layer; its error
+    # is the largest of gemma2's four cases (both scales, both windows)
+    head = dict(flash["gemma"][0], max_abs_err=max(
+        c["max_abs_err"] for c in flash["gemma"]))
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
+        "launches": train["flash_launches"],
+        "max_abs_err": head["max_abs_err"], "ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+        "held_against_plain": True,
+        "grad_max_abs_err": flash["grad_max_abs_err"],
+        "cases": flash["cases"],
     })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,8 @@
 """Architecture registry: ``get_config(name)`` / ``list_archs()``.
 
-Lists only the archs the port serves so far (the dense GQA decoders).
+Lists only the archs the port runs so far: the dense GQA decoders it
+serves (yi-6b, qwen3-32b) and trains (those and gemma2-2b, whose
+local/global layers the paged server refuses, as the reference's does).
 """
 from __future__ import annotations
 
@@ -9,7 +11,9 @@ from typing import List
 
 from repro_torch.configs.base import ArchConfig, SHAPES, ShapeSpec
 
+#: in the reference registry's order
 _MODULES = {
+    "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "yi-6b": "repro_torch.configs.yi_6b",
     "qwen3-32b": "repro_torch.configs.qwen3_32b",
 }

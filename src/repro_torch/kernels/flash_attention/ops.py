@@ -1,0 +1,119 @@
+"""Public flash-attention op: the kernel's forward and an exact recompute
+backward, as ``repro.kernels.flash_attention.ops``.
+
+``flash_attention`` is a ``torch.autograd.Function``.  Its forward is the
+hand-written CUDA kernel (``kernel.py``) for CUDA tensors and the plain
+version (``ref.py``) for CPU tensors, chosen by device with no fallback
+from one to the other.  Its backward does what the reference's ``_bwd``
+does: it recomputes the attention through ``flash_attention_ref`` under
+autograd, with K/V ``repeat_interleave``d by ``groups`` for the
+recompute only, so the grads of the query heads that share a KV head are
+summed back onto it.  That backward is the reference's XLA backward, not
+a Pallas kernel, so it stays plain PyTorch: it is the one place where the
+plain version runs on the card (counted by :data:`backward_recomputes`).
+
+Deliberate differences: the reference asserts that its 128-row tiles
+divide S and T; the kernel masks partial tiles, so any S and T are
+accepted.  ``interpret`` has no meaning here and is not taken; ``scale``
+(the kernel's, default ``1/sqrt(d)``) is.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import kernel as K
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.launch import LaunchCounter
+
+__all__ = ["flash_attention", "mha_flash", "flash_attention_ref"]
+
+DTYPES = (torch.float32, torch.bfloat16)
+
+#: forward calls that took the plain version (CPU tensors)
+plain_forwards = LaunchCounter()
+#: backward recomputes through the plain version, on either device
+backward_recomputes = LaunchCounter()
+
+
+def _forward(q, k, v, causal, window, cap, groups, scale):
+    if q.device.type == "cuda":
+        return K.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                     cap=cap, scale=scale, groups=groups)
+    if q.device.type == "cpu":
+        plain_forwards.n += 1
+        if groups > 1:
+            k = k.repeat_interleave(groups, dim=0)
+            v = v.repeat_interleave(groups, dim=0)
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   cap=cap, scale=scale)
+    raise ValueError(f"unsupported device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, cap, groups, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.conf = (causal, window, cap, groups, scale)
+        return _forward(q, k, v, causal, window, cap, groups, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, cap, groups, scale = ctx.conf
+        backward_recomputes.n += 1
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_()
+                       for t in ctx.saved_tensors)
+            kk, vv = k, v
+            if groups > 1:
+                kk = k.repeat_interleave(groups, dim=0)
+                vv = v.repeat_interleave(groups, dim=0)
+            out = flash_attention_ref(q, kk, vv, causal=causal,
+                                      window=window, cap=cap, scale=scale)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0, cap: float = 0.0,
+                    groups: int = 1, *,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (BH, S, d); k/v: (BH // groups, T, d) — heads pre-flattened,
+    KV-major (query head ``b`` reads KV head ``b // groups``).  Returns
+    (BH, S, d) in q's type; differentiable in q, k and v."""
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: float32 "
+                        "or bfloat16, one type")
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape \
+            or k.shape[2] != q.shape[2]:
+        raise ValueError(f"bad shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if groups < 1 or q.shape[0] != k.shape[0] * groups:
+        raise AssertionError((q.shape[0], k.shape[0], groups))
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on "
+                         f"{v.device}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    return _FlashAttention.apply(q, k, v, bool(causal), int(window),
+                                 float(cap), int(groups), scale)
+
+
+def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0, cap: float = 0.0,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """(B,S,H,hd) x (B,T,Kv,hd) GQA wrapper -> (B,S,H,hd).
+
+    The shared KV head is indexed inside the kernel: flat query head
+    ``b*H + kv*G + g`` reads KV row ``b*Kv + kv = (b*H + kv*G + g) // G``,
+    so the G-fold expansion never exists in device memory in the
+    forward."""
+    B, S, H, hd = q.shape
+    T, Kv = k.shape[1], k.shape[2]
+    G = H // Kv
+    qf = q.transpose(1, 2).reshape(B * H, S, hd)
+    kf = k.transpose(1, 2).reshape(B * Kv, T, hd)
+    vf = v.transpose(1, 2).reshape(B * Kv, T, hd)
+    out = flash_attention(qf, kf, vf, causal, window, cap, G, scale=scale)
+    return out.reshape(B, H, S, hd).transpose(1, 2)

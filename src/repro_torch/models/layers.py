@@ -1,4 +1,5 @@
-"""Shared model primitives: norms, RoPE, MLPs, embeddings, logits.
+"""Shared model primitives: norms, RoPE, MLPs, embeddings, logits and the
+chunked cross-entropy.
 
 Plain functions on tensors, one per ``repro.models.layers`` function, with
 the same parameter layout: ``p`` is any mapping holding the named tensors
@@ -9,9 +10,11 @@ cast back to the input dtype; logits come out in float32.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
@@ -120,3 +123,40 @@ def logits_from_hidden(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
                             for v in range(0, w.shape[0], _LOGIT_ROWS)],
                            dim=-1)
     return softcap(logits, cfg.final_softcap)
+
+
+def _xent_chunk(cfg: ArchConfig, w: torch.Tensor, h: torch.Tensor,
+                lab: torch.Tensor) -> torch.Tensor:
+    """Sum over one chunk of ``logsumexp(logits) - logits[label]``, the
+    logits in float32 (bf16 operands upcast: their products are exact in
+    float32, the reference's ``preferred_element_type``)."""
+    logits = softcap(h.float() @ w.float().t(), cfg.final_softcap)
+    lse = torch.logsumexp(logits, dim=-1)                      # (B,c)
+    correct = logits.gather(-1, lab.long()[..., None])[..., 0]  # (B,c)
+    return (lse - correct).sum()
+
+
+def chunked_xent(cfg: ArchConfig, p, hidden: torch.Tensor,
+                 labels: torch.Tensor,
+                 chunk: Optional[int] = None) -> torch.Tensor:
+    """Mean cross-entropy without keeping full (B,S,V) logits.
+
+    The sequence is cut into at most 16 chunks, as the reference cuts it;
+    each chunk runs under ``torch.utils.checkpoint``, so its float32
+    logits (a 256,000-wide row per token for gemma2) are recomputed in
+    the backward instead of kept."""
+    B, S, _ = hidden.shape
+    c = min(chunk or cfg.loss_chunk, S)
+    while S % c:
+        c -= 1
+    n = S // c
+    if n > 16:
+        n = max(i for i in range(1, 17) if S % i == 0)
+        c = S // n
+    w = head_matrix(cfg, p)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(n):
+        total = total + checkpoint(
+            _xent_chunk, cfg, w, hidden[:, i * c:(i + 1) * c],
+            labels[:, i * c:(i + 1) * c], use_reentrant=False)
+    return total / (B * S)

@@ -1,13 +1,16 @@
-"""The dense GQA decoder as an ``nn.Module``, with the reference's layout.
+"""The dense GQA decoder as an ``nn.Module``, with the reference's layout,
+and its full-sequence forward and loss (the training path).
 
 Parameters keep ``repro.models.model``'s names and shapes, per layer
 instead of stacked: ``attn.wq (d,H,hd)``, ``attn.wk/wv (d,Kv,hd)``,
 ``attn.wo (H,hd,d)``, ``mlp.w_gate/w_up (d,ff)``, ``mlp.w_down (ff,d)``,
-``embed.table/head (V,d)`` and the norms' ``scale`` (always float32).
-Every container is an ``nn.ParameterDict`` / ``nn.ModuleDict``, so the
-layer functions index it exactly as the reference indexes its pytree
-(``lp["attn"]["wq"]``).  The serving forward lives with the engine
-(``runtime.server._paged_forward``), as in the reference.
+``embed.table/head (V,d)`` (no ``head`` with tied embeddings), gemma2's
+post-block norms ``pln1``/``pln2`` and the norms' ``scale`` (always
+float32).  Every container is an ``nn.ParameterDict`` / ``nn.ModuleDict``,
+so the layer functions index it exactly as the reference indexes its
+pytree (``lp["attn"]["wq"]``).  The serving forward lives with the engine
+(``runtime.server._paged_forward``), as in the reference; the paged
+server refuses what it does not serve (:func:`_check_supported`).
 
 Two ways to fill it:
 
@@ -16,29 +19,49 @@ Two ways to fill it:
 * :func:`params_from_jax` — carry the reference's ``init_params`` output
   (a pytree of numpy arrays, layers stacked as ``(L, ...)`` leaves) into
   the port, so both sides compute on identical weights.
+
+:func:`forward_fullseq` and :func:`loss_fn` are the training path's
+forward for the dense and local/global (gemma2) transformer stacks, with
+per-layer activation checkpointing under ``cfg.remat_policy``.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
 
 
-def _check_supported(cfg: ArchConfig):
+def _check_params_supported(cfg: ArchConfig):
+    """The parameter layouts ported so far: dense GQA transformers, with
+    or without gemma2's local/global layers and post-block norms."""
     if cfg.moe_num_experts:
         raise NotImplementedError(
             f"{cfg.name}: MoE layers are not ported yet (dense GQA only)")
     if not (cfg.block_kind == "transformer" and cfg.attention_kind == "gqa"
-            and not cfg.local_global_period and not cfg.post_block_norm
             and not cfg.frontend):
         raise NotImplementedError(
-            f"{cfg.name}: only plain dense GQA decoders are ported")
+            f"{cfg.name}: only dense GQA decoders are ported")
+
+
+def _check_supported(cfg: ArchConfig):
+    """The paged server's guard: plain dense GQA decoders only (no
+    local/global layers, which the reference's server refuses too, and
+    no post-block norms, which its paged forward does not apply)."""
+    _check_params_supported(cfg)
+    if cfg.local_global_period or cfg.post_block_norm:
+        raise NotImplementedError(
+            f"{cfg.name}: the paged server serves plain dense GQA decoders "
+            "only")
 
 
 def _layer_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
@@ -54,12 +77,15 @@ def _layer_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
         out["mlp/w_gate"] = (d, ff)
     out["mlp/w_up"] = (d, ff)
     out["mlp/w_down"] = (ff, d)
+    if cfg.post_block_norm:
+        out["pln1/scale"] = (d,)
+        out["pln2/scale"] = (d,)
     return out
 
 
 def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     """Every parameter's path -> shape, in init order."""
-    _check_supported(cfg)
+    _check_params_supported(cfg)
     V, d = cfg.vocab_size, cfg.d_model
     out: Dict[str, Tuple[int, ...]] = {"embed/table": (V, d)}
     if not cfg.tie_embeddings:
@@ -100,12 +126,14 @@ def _pdict(shapes: Mapping[str, Tuple[int, ...]], dtype, device):
 
 class DenseDecoder(nn.Module):
     """Dense GQA decoder weights: ``embed``, ``layers[i]`` (``ln1``,
-    ``attn``, ``ln2``, ``mlp``) and ``final_norm``.  Inference only: every
-    parameter has ``requires_grad=False``."""
+    ``attn``, ``ln2``, ``mlp``, and ``pln1``/``pln2`` with post-block
+    norms) and ``final_norm``.  Every parameter starts with
+    ``requires_grad=False`` (serving); the training path's
+    ``steps.init_train_state`` switches it on."""
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()
-        _check_supported(cfg)
+        _check_params_supported(cfg)
         self.cfg = cfg
         dtype = getattr(torch, cfg.param_dtype)
         V, d = cfg.vocab_size, cfg.d_model
@@ -167,6 +195,46 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
+def reference_leaf(tree, path: str):
+    """What a tree in the reference's layout (layers stacked as ``(L,
+    ...)`` leaves) holds for the port's parameter ``path``: layer i's
+    slice of the stacked leaf for ``layers/i/...``."""
+    parts = path.split("/")
+    if parts[0] == "layers":
+        return tree["layers"][parts[2]][parts[3]][int(parts[1])]
+    return tree[parts[0]][parts[1]]
+
+
+def reference_groups(cfg: ArchConfig) -> List[List[str]]:
+    """``param_shapes`` paths grouped by the reference leaf that holds
+    them (a layer stack's per-layer paths form one group)."""
+    groups: Dict[str, List[str]] = {}
+    for path in param_shapes(cfg):
+        parts = path.split("/")
+        key = f"layers/{parts[2]}/{parts[3]}" if parts[0] == "layers" \
+            else path
+        groups.setdefault(key, []).append(path)
+    return list(groups.values())
+
+
+def stack_layers(cfg: ArchConfig, flat: Mapping[str, torch.Tensor]
+                 ) -> Dict[str, Dict]:
+    """The reference's layout of ``flat`` (``param_shapes`` path ->
+    tensor): nested dicts with each layer leaf stacked over the layers,
+    every tensor copied to the host."""
+    out: Dict[str, Dict] = {}
+    for path in param_shapes(cfg):
+        parts = path.split("/")
+        if parts[0] != "layers":
+            out.setdefault(parts[0], {})[parts[1]] = flat[path].detach().cpu()
+        elif parts[1] == "0":
+            g, leaf = parts[2], parts[3]
+            out.setdefault("layers", {}).setdefault(g, {})[leaf] = \
+                torch.stack([flat[f"layers/{i}/{g}/{leaf}"].detach().cpu()
+                             for i in range(cfg.num_layers)])
+    return out
+
+
 @torch.no_grad()
 def params_from_jax(cfg: ArchConfig, tree, device: DeviceLike = None
                     ) -> DenseDecoder:
@@ -177,15 +245,93 @@ def params_from_jax(cfg: ArchConfig, tree, device: DeviceLike = None
     dev = resolve_device(device)
     model = DenseDecoder(cfg, dev)
     for path, shape in param_shapes(cfg).items():
-        parts = path.split("/")
-        if parts[0] == "layers":
-            i, group, leaf = int(parts[1]), parts[2], parts[3]
-            src = np.asarray(tree["layers"][group][leaf])[i]
-        else:
-            src = np.asarray(tree[parts[0]][parts[1]])
+        src = np.asarray(reference_leaf(tree, path))
         if tuple(src.shape) != tuple(shape):
             raise ValueError(f"{path}: reference shape {src.shape} != "
                              f"port shape {shape}")
         p = model.param(path)
         p.copy_(_to_tensor(src).to(dtype=p.dtype))
     return model
+
+
+# ===========================================================================
+# Full-sequence forward (train / prefill)
+# ===========================================================================
+
+def _remat(cfg: ArchConfig, fn):
+    """Per-layer activation checkpointing under ``cfg.remat_policy``:
+    ``"none"`` keeps every activation, ``"full"`` keeps only the layer's
+    inputs and recomputes the rest in the backward, ``"dots"`` also keeps
+    the outputs of the 2-D matrix products (the reference's
+    ``dots_with_no_batch_dims_saveable``)."""
+    if cfg.remat_policy == "none":
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        from torch.utils.checkpoint import (
+            CheckpointPolicy, create_selective_checkpoint_contexts,
+        )
+
+        def policy(ctx, op, *args, **kwargs):
+            return CheckpointPolicy.MUST_SAVE \
+                if op == torch.ops.aten.mm.default \
+                else CheckpointPolicy.PREFER_RECOMPUTE
+
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, policy)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+def _tf_block(cfg: ArchConfig, lp, x: torch.Tensor,
+              positions: Optional[torch.Tensor], *,
+              window: int) -> torch.Tensor:
+    h = L.norm_forward(cfg, lp["ln1"], x)
+    a = A.gqa_fullseq(cfg, lp["attn"], h, positions, window=window)
+    if cfg.post_block_norm:
+        a = L.norm_forward(cfg, lp["pln1"], a)
+    x = x + a
+    h = L.norm_forward(cfg, lp["ln2"], x)
+    m = L.mlp_forward(cfg, lp["mlp"], h)
+    if cfg.post_block_norm:
+        m = L.norm_forward(cfg, lp["pln2"], m)
+    return x + m
+
+
+def _layer_window(cfg: ArchConfig, i: int) -> int:
+    """Layer i's sliding window: gemma2's local layers (i % period == 0)
+    use ``sliding_window``, its global layers 0 (no window)."""
+    if cfg.local_global_period:
+        return cfg.sliding_window if i % cfg.local_global_period == 0 else 0
+    return cfg.sliding_window
+
+
+def forward_fullseq(cfg: ArchConfig, params: DenseDecoder,
+                    tokens: torch.Tensor,
+                    frontend: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Final hidden states (B,S,d) of the dense or local/global
+    transformer stack; every layer's self-attention runs in the flash
+    kernel (its plain version for CPU tensors).  Frontends, MoE, MLA and
+    the other block kinds raise until their families are ported (so
+    ``frontend`` is ignored, as the reference ignores it for an arch
+    without one).  The reference checkpoints gemma2's [local, global]
+    pairs as one unit; here each layer is one."""
+    _check_params_supported(cfg)
+    del frontend
+    x = L.embed_tokens(cfg, params.embed, tokens)
+    for i, lp in enumerate(params.layers):
+        block = _remat(cfg, functools.partial(
+            _tf_block, cfg, window=_layer_window(cfg, i)))
+        x = block(lp, x, None)          # positions: arange(S)
+    return L.norm_forward(cfg, params.final_norm, x)
+
+
+def loss_fn(cfg: ArchConfig, params: DenseDecoder,
+            batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """Mean next-token cross-entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (float32 scalar)."""
+    hidden = forward_fullseq(cfg, params, batch["tokens"],
+                             frontend=batch.get("frontend"))
+    return L.chunked_xent(cfg, params.embed, hidden, batch["labels"])

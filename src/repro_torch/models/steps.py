@@ -1,0 +1,127 @@
+"""The train step and its state, the port of ``repro.models.steps``.
+
+    train_step(state, batch) -> (state, metrics)
+
+The state is ``{"params": DenseDecoder, "opt": {"m", "v", "step",
+"master"}, "resid"}`` (``resid`` with gradient compression), the
+optimizer's dicts keyed by ``model.param_shapes`` paths.  The step runs
+eagerly: ``loss.backward()``, the gradients taken off the parameters,
+the optional error-feedback compression, then AdamW in place.  The
+reference jits the step and donates the state; here the state is updated
+in place and the same dict comes back.  The reference's sharding
+(``input_specs``/``input_axes``/``*_axes``, ``lowerable``) and
+``make_batch`` are not ported.
+
+:func:`state_tree` and :func:`load_state_tree` map the state to and from
+the reference's train-state layout (layers stacked as ``(L, ...)``), the
+layout checkpoints are written in, so either package restores the
+other's.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DeviceLike
+from repro_torch.models import model as M
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.optim.compress import ef_compress_grads, init_residual
+
+
+def default_opt_cfg(cfg: ArchConfig) -> AdamWConfig:
+    # huge models skip the fp32 master copy to fit device memory
+    big = cfg.name in ("deepseek-v2-236b", "qwen3-32b", "pixtral-12b",
+                       "minitron-8b")
+    return AdamWConfig(use_master=not big)
+
+
+def named_params(model: M.DenseDecoder) -> Dict[str, torch.Tensor]:
+    """``param_shapes`` path -> the model's parameter."""
+    return {path: model.param(path) for path in M.param_shapes(model.cfg)}
+
+
+def init_train_state(cfg: ArchConfig, opt_cfg: AdamWConfig, seed: int = 0,
+                     compress: bool = False, device: DeviceLike = None,
+                     params: Optional[M.DenseDecoder] = None
+                     ) -> Dict[str, Any]:
+    """Weights from ``init_params(cfg, seed, device)`` (or ``params``, e.g.
+    from ``params_from_jax``), made trainable, with a fresh optimizer
+    state beside them."""
+    model = params if params is not None else M.init_params(cfg, seed,
+                                                            device)
+    model.requires_grad_(True)
+    named = named_params(model)
+    st: Dict[str, Any] = {"params": model,
+                          "opt": init_opt_state(named, opt_cfg)}
+    if compress:
+        st["resid"] = init_residual(named)
+    return st
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
+                    compress: bool = False):
+    opt_cfg = opt_cfg or default_opt_cfg(cfg)
+
+    def train_step(state: Dict[str, Any],
+                   batch: Mapping[str, torch.Tensor]):
+        named = named_params(state["params"])
+        for p in named.values():
+            p.grad = None
+        loss = M.loss_fn(cfg, state["params"], batch)
+        loss.backward()
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in named.items()}
+        for p in named.values():
+            p.grad = None
+        if compress:
+            grads, state["resid"] = ef_compress_grads(
+                grads, state["resid"], M.reference_groups(cfg))
+        _, state["opt"], metrics = adamw_update(named, grads, state["opt"],
+                                                opt_cfg)
+        del grads
+        return state, dict(metrics, loss=loss.detach())
+
+    return train_step
+
+
+def state_tree(cfg: ArchConfig, state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The train state in the reference's layout, on the host: params,
+    ``opt`` (``m``, ``v``, ``step``, ``master``) and ``resid`` as nested
+    dicts with the layers stacked."""
+    opt = state["opt"]
+    tree: Dict[str, Any] = {
+        "params": M.stack_layers(cfg, named_params(state["params"])),
+        "opt": {k: M.stack_layers(cfg, opt[k]) for k in ("m", "v", "master")
+                if k in opt}}
+    tree["opt"]["step"] = opt["step"].detach().cpu()
+    if "resid" in state:
+        tree["resid"] = M.stack_layers(cfg, state["resid"])
+    return tree
+
+
+@torch.no_grad()
+def load_state_tree(cfg: ArchConfig, state: Dict[str, Any],
+                    tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """Copy a tree in the reference's layout (as :func:`state_tree` gives
+    it, or a checkpoint of either package restores it) into ``state``, in
+    place; shapes and types must match."""
+    def fill(flat: Mapping[str, torch.Tensor], sub, what: str):
+        for path, dst in flat.items():
+            src = torch.as_tensor(M.reference_leaf(sub, path))
+            if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+                raise ValueError(f"{what}/{path}: {src.dtype} "
+                                 f"{tuple(src.shape)} != {dst.dtype} "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(src)
+
+    fill(named_params(state["params"]), tree["params"], "params")
+    opt = state["opt"]
+    for k in ("m", "v", "master"):
+        if k in opt:
+            fill(opt[k], tree["opt"][k], f"opt/{k}")
+    opt["step"].copy_(torch.as_tensor(tree["opt"]["step"]))
+    if "resid" in state:
+        fill(state["resid"], tree["resid"], "resid")
+    return state

@@ -12,11 +12,14 @@ These agree bit for bit with the reference as its engine runs them, under
 multiplication by the float32 reciprocal, so the absmax/127 scale is
 computed that way here too; a division by a scale held in a tensor stays a
 true division on both sides.  ``torch.round`` and ``jnp.round`` both round
-half to even.  ``ef_compress_grads`` comes with the training slice.
+half to even.  ``ef_compress_grads`` is the training step's simulated
+int8 wire format (``Trainer(compress=True)``), with an error-feedback
+residual kept in the train state; gradients and residuals are dicts keyed
+like the parameters.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,3 +57,36 @@ def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     and then quantizes the new tokens under it."""
     q = torch.round(x.float() / scale.clamp(min=SCALE_EPS))
     return torch.clamp(q, -127, 127).to(torch.int8)
+
+
+@torch.no_grad()
+def ef_compress_grads(grads: Mapping[str, torch.Tensor],
+                      residual: Mapping[str, torch.Tensor],
+                      groups: Optional[Sequence[Sequence[str]]] = None
+                      ) -> Tuple[Dict[str, torch.Tensor],
+                                 Dict[str, torch.Tensor]]:
+    """Error-feedback int8 round trip: returns (decompressed grads, new
+    residual), what the receiving side of the cross-pod all-reduce would
+    reconstruct and what it owes the next step.  One absmax/127 scale per
+    group of keys (``groups``; default one per key): the reference keeps
+    a layer stack as one ``(L, ...)`` leaf with one scale, so the train
+    step passes each stack's per-layer keys as one group."""
+    out_g, out_r = {}, {}
+    for keys in groups if groups is not None else [[k] for k in grads]:
+        # two passes, so one group's float32 copies are never all alive
+        amax = torch.stack([(grads[k].float() + residual[k]).abs().max()
+                            for k in keys]).max()
+        scale = amax.clamp(min=1e-12) * _INV_127
+        for k in keys:
+            g32 = grads[k].float() + residual[k]
+            d = decompress_int8(quantize_int8(g32, scale), scale)
+            out_g[k] = d.to(grads[k].dtype)
+            out_r[k] = g32 - d
+    return out_g, out_r
+
+
+def init_residual(grads_like: Mapping[str, torch.Tensor]
+                  ) -> Dict[str, torch.Tensor]:
+    """Zero float32 residuals shaped like ``grads_like``."""
+    return {k: torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+            for k, g in grads_like.items()}

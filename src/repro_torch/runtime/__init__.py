@@ -10,8 +10,10 @@ from repro_torch.runtime.server import PagedServer
 from repro_torch.runtime.speculative import (
     Drafter, DraftModelDrafter, NGramDrafter,
 )
+from repro_torch.runtime.trainer import FailureInjector, Trainer, TrainerConfig
 
-__all__ = ["PagedServer", "Drafter", "NGramDrafter", "DraftModelDrafter",
+__all__ = ["Trainer", "TrainerConfig", "FailureInjector",
+           "PagedServer", "Drafter", "NGramDrafter", "DraftModelDrafter",
            "CacheConfig", "CacheStats", "EngineConfig",
            "GenerationRequest", "GenerationResult", "SamplingParams",
            "TokenDelta", "make_engine", "FINISH_STOP", "FINISH_LENGTH",

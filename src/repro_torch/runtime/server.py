@@ -63,6 +63,7 @@ from repro_torch.kernels.paged_attention.ops import (
 from repro_torch.kernels.paged_attention.ref import paged_prefill_ref
 from repro_torch.models import layers as L
 from repro_torch.models.layers import rms_head_norm, rope
+from repro_torch.models.model import _check_supported
 from repro_torch.optim.compress import (
     SCALE_EPS, headwise_scales, quantize_int8,
 )
@@ -177,6 +178,7 @@ class PagedServer:
                              "archs")
         if cfg.moe_num_experts:
             raise _not_ported("MoE layers")
+        _check_supported(cfg)
         if engine.wants_sharded:
             raise _not_ported("sharded serving (clusters/heads/mesh)")
         if engine.cache.host_tier_pages or engine.cache.disk_tier_pages:

@@ -1,5 +1,6 @@
 """The port stands alone: importing every ``repro_torch`` module and
-``chip_smoke.py`` pulls in neither JAX nor the reference package."""
+``chip_smoke.py`` pulls in neither JAX, nor ``ml_dtypes``, nor the
+reference package."""
 import json
 import os
 import pkgutil
@@ -19,12 +20,14 @@ for m in mods:
 import chip_smoke
 leaked = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith(("jax.", "jaxlib"))
-                or m == "repro" or m.startswith("repro."))
+                or m == "repro" or m.startswith("repro.")
+                or m == "ml_dtypes" or m.startswith("ml_dtypes."))
 print(json.dumps({"modules": mods, "leaked": leaked}))
 """
 
 
 def test_port_imports_neither_jax_nor_reference():
+    """Nor ``ml_dtypes``: the GPU machine has none."""
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         [str(ROOT / "src"), str(ROOT)])}
     r = subprocess.run([sys.executable, "-c", PROBE], capture_output=True,
@@ -42,7 +45,11 @@ def test_port_imports_neither_jax_nor_reference():
               "configs.hero_pmca", "kernels.cluster_matmul.kernel",
               "kernels.cluster_matmul.ops", "kernels.cluster_matmul.ref",
               "hero.svm_offload_demo", "hero.fig5_svm_offload",
-              "hero.fig6_event_tracing"):
+              "hero.fig6_event_tracing", "configs.gemma2_2b",
+              "kernels.flash_attention.kernel", "kernels.flash_attention.ops",
+              "kernels.flash_attention.ref", "models.attention",
+              "models.steps", "optim.adamw", "data.pipeline",
+              "checkpoint.store", "runtime.trainer", "launch.train"):
         assert f"repro_torch.{m}" in out["modules"], m
     assert expected <= set(out["modules"]) | {"repro_torch.runtime",
                                               "repro_torch.kernels"}
