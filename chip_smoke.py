@@ -11,37 +11,47 @@ non-zero without printing the final result line):
 2. build: the paged-attention, cluster-matmul and flash-attention CUDA
    kernels, compiled from the checkout's sources with ``nvcc`` for
    ``sm_90a``, one compiler per source, all started together.
-3. kernel vs plain: the kernel against its plain-PyTorch version at yi-6b
-   attention geometry (B=8, H=32, Kv=4, hd=128, page 16, a 1,024-page
-   pool, ragged lengths 1..1,024 with an empty lane and aliased
-   shared-prefix pages), C in {1, 128}, q in float32 and bfloat16, on a
-   pool in q's type and on an int8 pool with its scales (the int8
-   branch), with times, bytes, FLOPs and the roofline bound of each case.
-4. engine parity: the same float32 weights (yi-6b widths, 2 layers) served
-   by the CUDA engine (kernel) and the CPU engine (plain version), once
-   greedy on a float32 pool and once with an int8 pool and speculative
-   decoding (``spec_k=4``, drafts replayed from the first run's tokens);
-   greedy tokens must agree, excusing only near-ties.
+3. kernel vs plain: the paged-attention kernels against their
+   plain-PyTorch version at yi-6b attention geometry (B=8, H=32, Kv=4,
+   hd=128, page 16, a 1,024-page pool, ragged lengths 1..1,024 with an
+   empty lane and aliased shared-prefix pages), C in {1, 128} with q in
+   float32 and bfloat16 and C=5 (the verify width) with bfloat16 q, on a
+   pool in q's type and on an int8 pool with its scales, and every
+   bfloat16 case again with q scaled so that scores have std 4
+   (``PAGED_SHARP``); each case prints the kernel it took (tensor cores
+   for bf16 q with C > 1, FP32 cores otherwise), its times, bytes, FLOPs
+   and roofline bound.
+4. engine parity: the same weights (yi-6b widths, 2 layers) served by the
+   CUDA engine (kernel) and the CPU engine (plain version): float32
+   greedy on a float32 pool, float32 with an int8 pool and speculative
+   decoding (``spec_k=4``, drafts replayed from the first run's tokens),
+   and bfloat16 greedy (its chunks on the tensor-core kernel); greedy
+   tokens must agree, excusing only near-ties.
 5. serve: yi-6b at full width (32 layers, bf16, random weights from seed
    0) serves 12 requests with a shared prefix and a forced preemption;
-   the kernel must carry every layer of every iteration.
+   the kernels must carry every layer of every iteration: the tensor-core
+   kernel every prefill iteration, the FP32-core kernel every decode one.
 6. serve int8 + speculation: the same model and workload with
    ``kv_dtype="int8"`` and ``spec_k=4`` (the default n-gram drafter),
    then an ``echo_wave`` of requests that repeat a token pattern of the
-   model's own; the kernel's int8 branch must carry every layer of every
-   iteration and the drafter must propose.
+   model's own; the int8 pool's kernels must carry every layer of every
+   iteration (tensor cores: prefill and verify; FP32 cores: decode) and
+   the drafter must propose.
 7. cluster matmul vs plain: the cluster-matmul CUDA kernel against its
    plain version in float32 and bfloat16 at ``tests/test_kernels.py``'s
-   shapes, 64^3, the demo's 256^3, Fig.5's 768^3, 4096^3 and yi-6b's MLP
-   product (1024 x 4096 @ 4096 x 11008), with times beside
+   shapes, 64^3, the demo's 256^3, Fig.5's 768^3, 4096^3, yi-6b's MLP
+   product (1024 x 4096 @ 4096 x 11008), 100 x 36 x 20 (which breaks
+   TMA's 16-byte rule) and 1000 x 1032 x 776 (partial tiles in every
+   dimension), with the branch each took (wgmma for bf16 with k, n
+   multiples of 8, general otherwise) and times beside
    ``torch.matmul``'s and the roofline bound.
 8. offload path: the offload demo (copy-based vs zero-copy SVM through
    the cluster matmul, 256^2 float32), the same two modes at 4096^2 in
    float32 and bfloat16, Fig.5's four benchmarks on the card and Fig.6's
    traced RAB programs (host only, its assertions must hold); the kernel
-   must carry every product (two launches per demo run) and the plain
-   version must never run; each of these outputs is then held against
-   the plain version.
+   must carry every product (two launches per demo run, the bf16 ones on
+   its wgmma branch) and the plain version must never run; each of these
+   outputs is then held against the plain version.
 9. flash kernel vs plain: the flash-attention CUDA kernel against its
    plain version at ``tests/test_kernels.py``'s three shapes x five
    (causal, window, cap) masks x {float32, bfloat16}, and at gemma2-2b's
@@ -63,8 +73,9 @@ non-zero without printing the final result line):
    forward (26 layers x (forward + checkpoint recompute) per step) and
    the plain version must never run a forward.
 
-Then one JSON line ``{"kernels": [...]}`` (the paged-attention kernel's
-bf16/f32 branch, its int8 branch, the cluster matmul and the flash
+Then one JSON line ``{"kernels": [...]}`` (the paged-attention FP32-core
+kernel's bf16/f32 and int8 branches, the tensor-core kernel on each pool
+type, the cluster matmul's general and wgmma branches and the flash
 kernel) and, last, the result line ``{"ok": true, "device": {...}}``.  It
 needs a CUDA device and the repository's ``src/`` beside it.
 """
@@ -99,11 +110,21 @@ L2_FLUSH_BYTES = 64 << 20          # more than the L2 (50 MB, data sheet)
 #: cluster-matmul tolerances (rtol = atol): tests/test_kernels.py's TOL
 MATMUL_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 #: (m, k, n): tests/test_kernels.py's three, 64^3, the offload demo's
-#: 256^3, Fig.5's 768^3, 4096^3 and yi-6b's MLP up/gate product at 1,024
-#: tokens (d 4096, d_ff 11008)
+#: 256^3, Fig.5's 768^3, 4096^3, yi-6b's MLP up/gate product at 1,024
+#: tokens (d 4096, d_ff 11008), one that breaks TMA's 16-byte rule (k, n
+#: not multiples of 8) and one with partial tiles in every dimension
+#: (outside the reference's tile contract, so called through ``kernel``)
 MATMUL_SHAPES = [(128, 128, 128), (256, 384, 512), (384, 256, 128),
                  (64, 64, 64), (256, 256, 256), (768, 768, 768),
-                 (4096, 4096, 4096), (1024, 4096, 11008)]
+                 (4096, 4096, 4096), (1024, 4096, 11008), (100, 36, 20),
+                 (1000, 1032, 776)]
+#: the branch each bf16 shape must take (the rest of MATMUL_SHAPES: wgmma)
+MATMUL_GENERAL_BF16 = {(100, 36, 20)}
+#: score std of phase 3's "sharp" cases (q scaled by PAGED_SHARP / rms of
+#: the pool's K): a dropped or misplaced K tile then moves an output by
+#: O(|v|); at q*0.3 the scores have std 0.15, nearly flat, and a
+#: dropped tile of a long lane can hide under the bf16 bar
+PAGED_SHARP = 4.0
 #: flash-attention tolerances (rtol = atol): tests/test_kernels.py's TOL;
 #: gradients: its grad tests' 2e-3
 FLASH_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
@@ -163,13 +184,14 @@ class Timer:
 
 # --------------------------------------------------------------- phase 3 --
 def attention_case(C: int, dtype: torch.dtype, int8: bool = False,
-                   seed: int = 0) -> dict:
+                   seed: int = 0, sharp: bool = False) -> dict:
     """Inputs at yi-6b attention geometry, as the engine feeds the kernel:
     lane b holds ``lengths[b]`` tokens of which its last ``n_new`` are
     this step's queries (q_start = lengths - n_new); lanes 1..5 share a
     128-token prefix (8 aliased physical pages); the last lane is
     empty.  With ``int8`` the pool is int8 with (P, 2, Kv) float32
-    scales, as the quantized engine keeps it."""
+    scales, as the quantized engine keeps it.  q ~ N(0, 0.09), or with
+    ``sharp`` scaled so the scores have std ``PAGED_SHARP``."""
     from repro_torch.kernels.paged_attention.ops import (
         page_counts_for, pad_block_table,
     )
@@ -187,16 +209,21 @@ def attention_case(C: int, dtype: torch.dtype, int8: bool = False,
                 else private.pop()
     dev = "cuda"
     q = torch.from_numpy(rng.standard_normal((B, C, H, hd), np.float32)
-                         * 0.3).to(dev, dtype)
+                         ).to(dev)
     if int8:
         kv = torch.from_numpy(rng.integers(-127, 128, (P, 2, page, Kv, hd))
                               .astype(np.int8)).to(dev)
         scales = torch.from_numpy(rng.uniform(
             1e-3, 2e-2, (P, 2, Kv)).astype(np.float32)).to(dev)
+        k = kv[:, 0].float() * scales[:, 0, None, :, None]
     else:
         kv = torch.from_numpy(rng.standard_normal(
             (P, 2, page, Kv, hd), np.float32) * 0.5).to(dev, dtype)
         scales = None
+        k = kv[:, 0].float()
+    # a score is q.k / sqrt(hd): its std is q's std times k's rms
+    q_std = PAGED_SHARP / k.pow(2).mean().sqrt().item() if sharp else 0.3
+    q = (q * q_std).to(dtype)
     lens = torch.from_numpy(lengths).to(dev)
     counts = page_counts_for(lens, page)
     table = torch.from_numpy(bt).to(dev)
@@ -244,22 +271,32 @@ def sdpa_call(case: dict, C: int):
         qh, k, v, attn_mask=mask[:, None], enable_gqa=True)
 
 
+#: phase 3's (C, q dtype, sharp) cases, each on both pool types
+PAGED_CASES = [(C, dtype, sharp)
+               for C, dtypes in ((1, (torch.float32, torch.bfloat16)),
+                                 (5, (torch.bfloat16,)),
+                                 (128, (torch.float32, torch.bfloat16)))
+               for dtype in dtypes for sharp in (False, True)
+               if not sharp or dtype == torch.bfloat16]
+
+
 def phase_kernel(timer: Timer) -> list:
-    return [kernel_case(timer, C, dtype, int8) for int8 in (False, True)
-            for C in (1, 128) for dtype in (torch.float32, torch.bfloat16)]
+    return [kernel_case(timer, C, dtype, int8, sharp) for int8 in (False, True)
+            for C, dtype, sharp in PAGED_CASES]
 
 
-def kernel_case(timer: Timer, C: int, dtype: torch.dtype, int8: bool
-                ) -> dict:
-    """One case of phase 3: the kernel (the int8 branch with ``int8``)
-    against its plain version, then timed beside the plain version and
-    SDPA, with its bytes, FLOPs and roofline bound."""
+def kernel_case(timer: Timer, C: int, dtype: torch.dtype, int8: bool,
+                sharp: bool = False) -> dict:
+    """One case of phase 3: the kernel its route picks (on the int8 pool
+    with ``int8``) against its plain version, then timed beside the plain
+    version and SDPA, with its bytes, FLOPs and roofline bound."""
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention import ref as R
     from repro_torch.kernels.paged_attention.ops import mask_block_table
-    c = attention_case(C, dtype, int8)
+    c = attention_case(C, dtype, int8, sharp=sharp)
+    route = K.route(dtype, C)
     name = f"C={C} q={str(dtype).replace('torch.', '')} " \
-        f"kv={'int8' if int8 else 'same'}"
+        f"kv={'int8' if int8 else 'same'}{' sharp' if sharp else ''}"
     args = (c["q"], c["kv"], c["padded"], c["counts"], c["lens"],
             c["q_start"])
     masked = mask_block_table(c["padded"], c["counts"])
@@ -273,8 +310,12 @@ def kernel_case(timer: Timer, C: int, dtype: torch.dtype, int8: bool
         return R.paged_prefill_ref(c["q"], c["kv"][:, 0], c["kv"][:, 1],
                                    masked, c["lens"], c["q_start"], **scales)
 
+    tc_before = K.tc_launches.n
     out = kernel()
     torch.cuda.synchronize()
+    check(K.tc_launches.n - tc_before == int(route == K.TENSOR_CORES),
+          f"{name}: route {route} but {K.tc_launches.n - tc_before} "
+          "tensor-core launches")
     ref = plain()
     err = (out.float() - ref.float()).abs().max().item()
     tol = TOL[dtype]
@@ -289,16 +330,18 @@ def kernel_case(timer: Timer, C: int, dtype: torch.dtype, int8: bool
     t_ops = c["flops"] / PEAK_OPS_PER_S[dtype] * 1e3
     bound_ms = max(t_bytes, t_ops)
     row = dict(C=C, dtype=str(dtype).replace("torch.", ""),
-               kv="int8" if int8 else "same", max_abs_err=err, tol=tol,
-               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               kv="int8" if int8 else "same", sharp=sharp, kernel=route,
+               max_abs_err=err, max_abs_ref=ref.float().abs().max().item(),
+               tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bytes=c["bytes"], flops=c["flops"], bound_ms=bound_ms,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                share_of_bound=bound_ms / ms)
-    print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} bytes={c['bytes']} "
-          f"flops={c['flops']} bound_ms={bound_ms:.5f} ({row['bound_by']}) "
-          f"share_of_bound={row['share_of_bound']:.4f} "
-          f"max_abs_err={err:.3g} tol={tol}", flush=True)
+    print(f"kernel {name}: kernel={route} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"bytes={c['bytes']} flops={c['flops']} bound_ms={bound_ms:.5f} "
+          f"({row['bound_by']}) share_of_bound={row['share_of_bound']:.4f} "
+          f"max_abs_err={err:.3g} max_abs_ref={row['max_abs_ref']:.3g} "
+          f"tol={tol}", flush=True)
     return row
 
 
@@ -326,13 +369,13 @@ def _lockstep(engines, requests, preempt_rid: int, preempt_after: int):
     return outs
 
 
-def parity_models():
-    """Phase 4's float32 weights at yi-6b widths x 2 layers, on the CPU
+def parity_models(dtype: str = "float32"):
+    """Phase 4's weights (``dtype``) at yi-6b widths x 2 layers, on the CPU
     and (a copy) on the card."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     cfg = dataclasses.replace(get_config("yi-6b"), num_layers=2,
-                              param_dtype="float32")
+                              param_dtype=dtype)
     cpu_model = init_params(cfg, seed=0, device="cpu")
     return cfg, cpu_model, copy.deepcopy(cpu_model).to("cuda")
 
@@ -365,8 +408,10 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
     """The CUDA engine against the CPU engine on the same weights and
     requests (a shared 32-token prefix, a forced preemption).  With
     ``spec_k`` both speculate with a ``ReplayDrafter`` of ``known``
-    ({prompt: greedy tokens} from an earlier run).  Returns (excused
-    positions, {prompt: the CPU engine's tokens})."""
+    ({prompt: greedy tokens} from an earlier run).  On bfloat16 weights
+    the CUDA engine's chunk steps must take the tensor-core kernel.
+    Returns (excused positions, {prompt: the CPU engine's tokens})."""
+    from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.runtime import (
         CacheConfig, EngineConfig, GenerationRequest, SamplingParams,
         make_engine,
@@ -391,8 +436,13 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
                 make_engine(cfg, cpu_model, ecfg, device="cpu")]
 
     pair = engines()
+    tc_before = K.tc_launches.n
     gpu_out, cpu_out = _lockstep(pair, requests, preempt_rid=0,
                                  preempt_after=3)
+    tc_launches = K.tc_launches.n - tc_before
+    bf16 = cfg.param_dtype == "bfloat16"
+    check((tc_launches > 0) == bf16,
+          f"{cfg.param_dtype} parity: {tc_launches} tensor-core launches")
     excused = 0
     for r in requests:
         a, b = gpu_out[r.rid], cpu_out[r.rid]
@@ -433,8 +483,9 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
               == (c.iterations, c.h2d_events, c.d2h_events, spec[1]),
               "CUDA and CPU engines scheduled differently")
     n_tok = sum(len(v) for v in cpu_out.values())
-    print(f"parity: yi-6b widths x 2 layers f32, kv {kv_dtype}, "
-          f"spec_k={spec_k}, {len(requests)} requests, {n_tok} tokens, "
+    print(f"parity: yi-6b widths x 2 layers {cfg.param_dtype}, kv "
+          f"{kv_dtype}, spec_k={spec_k}, {len(requests)} requests, "
+          f"{n_tok} tokens, tensor_core_launches={tc_launches}, "
           f"identical={excused == 0}, excused_positions={excused}, "
           f"prefix_hit_tokens={g.cache_stats().prefix_hit_tokens}, "
           f"preemptions={g.preemptions}, iterations={g.iterations}, "
@@ -494,11 +545,13 @@ def echo_wave(requests, results) -> list:
 
 def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
                 ) -> tuple:
-    """Serve the workload at full width; the kernel branch of the pool's
-    type must carry every layer of every iteration (its count is read
-    from 0 just before the run and just after) and the plain version
-    must never run.  With ``spec_k`` an ``echo_wave`` follows once the
-    workload is served.  Returns (metrics, {rid: tokens})."""
+    """Serve the workload at full width; the kernels of the pool's type
+    must carry every layer of every iteration (their counts are read from
+    0 just before the run and just after): the tensor-core kernel every
+    prefill and verify iteration, the FP32-core kernel every decode one;
+    the plain version must never run.  With ``spec_k`` an ``echo_wave``
+    follows once the workload is served.  Returns (metrics, {rid:
+    tokens})."""
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention import ref as R
     from repro_torch.runtime import make_engine
@@ -532,7 +585,7 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
         for d in engine.poll_deltas():
             streamed[d.rid].extend(d.tokens)
 
-    for counter in (K.launches, K.int8_launches, R.calls):
+    for counter in (K.launches, K.int8_launches, K.tc_launches, R.calls):
         counter.reset()
     t_start = time.perf_counter()
     drive(requests, preempt_rid=1)
@@ -542,6 +595,7 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
     ours, other = (K.int8_launches, K.launches) if kv_dtype == "int8" \
         else (K.launches, K.int8_launches)
     launches, other_launches, plain_calls = ours.n, other.n, R.calls.n
+    tc_launches = K.tc_launches.n
 
     results = {r.rid: r for r in engine.finished}
     n_req = len(requests) + len(wave)
@@ -563,6 +617,15 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
     check(launches == cfg.num_layers * engine.iterations,
           f"{kv_dtype} kernel launches {launches} != {cfg.num_layers} "
           f"layers x {engine.iterations} iterations")
+    n_chunked = len(iter_ms["prefill"]) + len(iter_ms["verify"])
+    check(tc_launches == cfg.num_layers * n_chunked,
+          f"{kv_dtype} tensor-core launches {tc_launches} != "
+          f"{cfg.num_layers} layers x {n_chunked} prefill and verify "
+          "iterations")
+    check(launches - tc_launches == cfg.num_layers * len(iter_ms["decode"]),
+          f"{kv_dtype} FP32-core launches {launches - tc_launches} != "
+          f"{cfg.num_layers} layers x {len(iter_ms['decode'])} decode "
+          "iterations")
     check(other_launches == 0,
           f"the other pool type's kernel branch ran {other_launches} times")
     check(plain_calls == 0, f"plain attention called {plain_calls} times")
@@ -585,7 +648,8 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
                preemptions=engine.preemptions,
                swapped_in_pages=engine.pool.stats["swapped_in"],
                h2d_events=engine.h2d_events, d2h_events=engine.d2h_events,
-               kernel_launches=launches,
+               kernel_launches=launches, tc_launches=tc_launches,
+               fp32_core_launches=launches - tc_launches,
                max_memory_allocated=torch.cuda.max_memory_allocated())
     print(f"serve: yi-6b 32 layers bf16, kv {kv_dtype}, spec_k={spec_k}, "
           f"{n_req} requests: "
@@ -597,11 +661,12 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
 # --------------------------------------------------------------- phase 7 --
 def matmul_case(timer: Timer, m: int, k: int, n: int, dtype: torch.dtype,
                 seed: int = 0) -> dict:
-    """One case of phase 7: the cluster-matmul kernel against its plain
-    version on A ~ N(0, 1), B ~ N(0, 1/k) (an initialised weight's scale,
-    so C is of unit scale and two valid float32 summation orders differ
-    far below the bar), then timed beside the plain version and
-    ``torch.matmul``, with its bytes, operations and roofline bound."""
+    """One case of phase 7: the cluster-matmul kernel (the branch its
+    route picks, checked by the counts) against its plain version on A ~
+    N(0, 1), B ~ N(0, 1/k) (an initialised weight's scale, so C is of unit
+    scale and two valid float32 summation orders differ far below the
+    bar), then timed beside the plain version and ``torch.matmul``, with
+    its bytes, operations and roofline bound."""
     from repro_torch.kernels.cluster_matmul import kernel as CK
     from repro_torch.kernels.cluster_matmul import ref as CR
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -610,8 +675,16 @@ def matmul_case(timer: Timer, m: int, k: int, n: int, dtype: torch.dtype,
          / math.sqrt(k)).to(dtype)
     dt = str(dtype).replace("torch.", "")
     name = f"cluster_matmul {m}x{k}x{n} {dt}"
+    branch = CK.route(dtype, m, k, n)
+    want = CK.GENERAL if dtype == torch.float32 \
+        or (m, k, n) in MATMUL_GENERAL_BF16 else CK.WGMMA
+    check(branch == want, f"{name}: routed to {branch}, want {want}")
+    before = (CK.launches.n, CK.wgmma_launches.n)
     out = CK.matmul(a, b)
     torch.cuda.synchronize()
+    check((CK.launches.n - before[0], CK.wgmma_launches.n - before[1])
+          == (1, int(branch == CK.WGMMA)),
+          f"{name}: counts do not show one {branch} launch")
     ref = CR.cluster_matmul_ref(a, b)
     err = (out.float() - ref.float()).abs().max().item()
     tol = MATMUL_TOL[dtype]
@@ -629,14 +702,16 @@ def matmul_case(timer: Timer, m: int, k: int, n: int, dtype: torch.dtype,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
     bound_ms = max(t_bytes, t_ops)
-    row = dict(m=m, k=k, n=n, dtype=dt, max_abs_err=err, tol=tol, ms=ms,
-               plain_ms=plain_ms, library_ms=library_ms, bytes=nbytes,
+    row = dict(m=m, k=k, n=n, dtype=dt, branch=branch, max_abs_err=err,
+               tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bytes=nbytes,
                flops=flops, bound_ms=bound_ms,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                share_of_bound=bound_ms / ms,
                tflops=flops / (ms * 1e-3) / 1e12)
-    print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} bytes={nbytes} flops={flops} "
+    print(f"kernel {name}: branch={branch} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"bytes={nbytes} flops={flops} "
           f"bound_ms={bound_ms:.5f} ({row['bound_by']}) "
           f"share_of_bound={row['share_of_bound']:.4f} "
           f"tflops={row['tflops']:.2f} max_abs_err={err:.3g} tol={tol}",
@@ -699,30 +774,35 @@ def offload_pair(dtype: torch.dtype, size: int = 4096, seed: int = 1
 
 def phase_offload(smi: str) -> dict:
     """The offload path on the card: the demo, then 4096^2 in float32 and
-    bfloat16; the kernel's count is read from 0 just before and just
-    after, and must be two per run with the plain version never called;
-    then each run's output is held against the plain version.  Then
-    Fig.5 on the card and Fig.6 on the host."""
+    bfloat16; the kernel's counts are read from 0 just before and just
+    after, and must be two per run (on the wgmma branch for bfloat16, the
+    general one for float32) with the plain version never called; then
+    each run's output is held against the plain version.  Then Fig.5 on
+    the card and Fig.6 on the host."""
     from repro_torch.hero import (fig5_svm_offload, fig6_event_tracing,
                                   svm_offload_demo)
     from repro_torch.kernels.cluster_matmul import kernel as CK
     from repro_torch.kernels.cluster_matmul import ref as CR
-    for counter in (CK.launches, CR.calls):
+    for counter in (CK.launches, CK.wgmma_launches, CR.calls):
         counter.reset()
     rep_c, rep_z, (a, b), demo_out = svm_offload_demo.main()
-    check(CK.launches.n == 2,
-          f"demo: {CK.launches.n} kernel launches, want 2")
+    check((CK.launches.n, CK.wgmma_launches.n) == (2, 0),
+          f"demo: {CK.launches.n} kernel launches ({CK.wgmma_launches.n} "
+          "wgmma), want 2 general")
     demo = dict(size=256, dtype="float32", zero=demo_out,
                 inputs=[torch.from_numpy(x).cuda() for x in (a, b)],
                 copy_total_ms=rep_c.total_s * 1e3,
                 zero_copy_total_ms=rep_z.total_s * 1e3)
     pairs = []
     for dtype in (torch.float32, torch.bfloat16):
-        before = CK.launches.n
+        before = (CK.launches.n, CK.wgmma_launches.n)
         pairs.append(offload_pair(dtype))
-        check(CK.launches.n == before + 2,
-              f"offload 4096^2: {CK.launches.n - before} launches, want 2")
+        got = (CK.launches.n - before[0], CK.wgmma_launches.n - before[1])
+        want = (2, 2 if dtype == torch.bfloat16 else 0)
+        check(got == want, f"offload 4096^2 {dtype}: (launches, wgmma "
+                           f"launches) {got}, want {want}")
     launches, plain_calls = CK.launches.n, CR.calls.n
+    wgmma_launches = CK.wgmma_launches.n
     check(plain_calls == 0, f"plain matmul called {plain_calls} times")
     # the path's outputs against the plain version (after the count)
     for p in [demo] + pairs:
@@ -738,8 +818,8 @@ def phase_offload(smi: str) -> dict:
               f"max_abs_err={p['max_abs_err']:.3g} tol={tol}", flush=True)
     print(f"offload: demo copy total {rep_c.total_s * 1e3:.4f} ms, "
           f"zero-copy total {rep_z.total_s * 1e3:.4f} ms; "
-          f"kernel launches={launches} plain_calls={plain_calls}",
-          flush=True)
+          f"kernel launches={launches} (wgmma {wgmma_launches}) "
+          f"plain_calls={plain_calls}", flush=True)
     rows = fig5_svm_offload.run_benchmarks()
     for r in rows:
         check(r["copy_total_s"] > 0 and r["svm_total_s"] > 0,
@@ -753,8 +833,8 @@ def phase_offload(smi: str) -> dict:
     check(all(results.values()), f"fig6 assertions {results}")
     print(f"fig6 (host): {len(text.getvalue().splitlines())} lines, "
           f"assertions {results}", flush=True)
-    return dict(launches=launches, plain_calls=plain_calls,
-                demo=demo,
+    return dict(launches=launches, wgmma_launches=wgmma_launches,
+                plain_calls=plain_calls, demo=demo,
                 pairs=pairs, fig5=rows, fig6=results)
 
 
@@ -1200,6 +1280,8 @@ def main() -> int:
     parity = parity_models()
     _, known = phase_parity(parity)
     phase_parity(parity, kv_dtype="int8", spec_k=4, known=known)
+    parity = parity_models("bfloat16")
+    phase_parity(parity)
     del parity
     done("phase 4")
     from repro_torch.configs import get_config
@@ -1233,9 +1315,13 @@ def main() -> int:
     train = phase_train_full()
     done("phase 12")
 
-    def entry(name, kv, launches, replaces):
-        own = [c for c in cases if c["kv"] == kv]
-        head = next(c for c in own if c["C"] == 1 and c["dtype"] == "bfloat16")
+    def entry(name, kernel, kv, C, launches, replaces):
+        """A paged-attention kernel on one pool type: its head case is
+        the main path's (C=1 decode or C=128 chunk, bf16, flat); its error
+        the largest of its cases."""
+        own = [c for c in cases if c["kv"] == kv and c["kernel"] == kernel]
+        head = next(c for c in own if c["C"] == C and not c["sharp"]
+                    and c["dtype"] == "bfloat16")
         return {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/paged_attention/csrc/"
@@ -1249,26 +1335,43 @@ def main() -> int:
             "cases": own,
         }
 
+    from repro_torch.kernels.paged_attention.kernel import (
+        FP32_CORES, TENSOR_CORES)
     kernels = [
-        entry("paged_attention", "same", serve["kernel_launches"],
+        entry("paged_attention", FP32_CORES, "same", 1,
+              serve["fp32_core_launches"],
               "src/repro/kernels/paged_attention/kernel.py:222"),
-        entry("paged_attention_int8", "int8", serve8["kernel_launches"],
+        entry("paged_attention_int8", FP32_CORES, "int8", 1,
+              serve8["fp32_core_launches"],
+              "src/repro/kernels/paged_attention/kernel.py:113-121"),
+        entry("paged_attention_prefill_tc", TENSOR_CORES, "same", 128,
+              serve["tc_launches"],
+              "src/repro/kernels/paged_attention/kernel.py:222"),
+        entry("paged_attention_prefill_tc_int8", TENSOR_CORES, "int8", 128,
+              serve8["tc_launches"],
               "src/repro/kernels/paged_attention/kernel.py:113-121"),
     ]
-    head = next(c for c in mm_cases if (c["m"], c["k"], c["n"])
-                == (4096, 4096, 4096) and c["dtype"] == "bfloat16")
-    kernels.append({
-        "name": "cluster_matmul", "route": "cuda",
-        "source": "src/repro_torch/kernels/cluster_matmul/csrc/"
-                  "cluster_matmul.cu",
-        "replaces": "src/repro/kernels/cluster_matmul/kernel.py:48",
-        "launches": offload["launches"],
-        "max_abs_err": head["max_abs_err"], "ms": head["ms"],
-        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "held_against_plain": True,
-        "cases": mm_cases,
-    })
+    for name, branch, dtype, launches in (
+            ("cluster_matmul", CK.GENERAL, "float32",
+             offload["launches"] - offload["wgmma_launches"]),
+            ("cluster_matmul_wgmma", CK.WGMMA, "bfloat16",
+             offload["wgmma_launches"])):
+        own = [c for c in mm_cases if c["branch"] == branch]
+        head = next(c for c in own if (c["m"], c["k"], c["n"])
+                    == (4096, 4096, 4096) and c["dtype"] == dtype)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/cluster_matmul/csrc/"
+                      "cluster_matmul.cu",
+            "replaces": "src/repro/kernels/cluster_matmul/kernel.py:48",
+            "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in own),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "held_against_plain": True,
+            "cases": own,
+        })
     # the main path's case: gemma2-2b's global (window 0) layer; its error
     # is the largest of gemma2's four cases (both scales, both windows)
     head = dict(flash["gemma"][0], max_abs_err=max(

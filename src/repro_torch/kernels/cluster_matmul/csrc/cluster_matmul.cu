@@ -10,11 +10,61 @@
 // accumulator to that type (round to nearest even for bfloat16, as
 // .astype does).
 //
-// Design (simple and exact first).  One thread block of 256 threads owns
-// a 128 x 128 tile of C and walks K in steps; each step stages the A and
-// B tiles in shared memory (the scratchpad), zero-filled past the edges of
-// the matrices, so every shape is right whatever it is (the wrapper's
-// shape contract, tiles of min(128, dim) dividing each dim, is not needed
+// Two branches, chosen by the wrapper (kernel.py::route) from the type
+// and the shape alone, never on a failure:
+//
+// The wgmma branch (bfloat16, k and n multiples of 8: TMA's 16-byte row
+// pitch for A, B and C).  What bounds it: at the shapes the offload path
+// and a model MLP meet (768^3 to 4096^3, 1024 x 4096 x 11008) the product
+// does 2mnk operations on (mk + kn + mn) elements, far above the card's
+// ridge point, so it is bound by the tensor cores' 989 TFLOP/s.  Only
+// wgmma reaches that rate, and only when its operands arrive without the
+// threads' help, so the design is Hopper's usual one:
+//   * a block owns a 128 x 256 tile of C (grid in a grouped order: 8 tile
+//     rows walk the tile columns together, so the B panels they share stay
+//     in L2).  128 x 256 rather than 128 x 128: each stage's 48 KB then
+//     feeds 2 x 64 x 256 x 64 multiply-adds, 1.3x the operations per
+//     shared-memory byte, and the 128 accumulators per thread fit in the
+//     232 registers setmaxnreg gives a consumer;
+//   * a ring of 4 shared-memory stages, each an A tile (128 x 64) and a B
+//     tile (64 x 256), loaded by TMA (cp.async.bulk.tensor) with 128-byte
+//     swizzle; TMA zero-fills past the matrices' edges, so ragged m, k and
+//     n need no masks in the main loop;
+//   * warp specialisation: warpgroup 2 is the producer (setmaxnreg down to
+//     40; one thread keeps the ring full, completing each stage on its
+//     "full" mbarrier with the transaction bytes), warpgroups 0 and 1 are
+//     the consumers (setmaxnreg up to 232), each running
+//     wgmma.mma_async m64n256k16 on its 64 rows with float32 accumulators
+//     in registers, keeping one k-tile's wgmmas in flight and releasing a
+//     stage on its "empty" mbarrier once they are waited on;
+//   * the epilogue rounds to bf16 (nearest even), stages the tile in the
+//     ring's shared memory and writes C with 16-byte stores, masking rows
+//     past m and columns past n.
+// Where it can go wrong, and what guards it:
+//   * B is row-major (k, n): for wgmma it is MN-major, so its descriptor
+//     sets the transpose bit and its strides follow CUTLASS's canonical
+//     MN-major 128-byte-swizzle layout: LBO = 8 KB from one 64-column TMA
+//     box to the next along n, SBO = 1 KB from one 8-row group to the
+//     next along k.  A is K-major: SBO = 1 KB, LBO unused, and a 16-deep
+//     k step advances the start address by 32 bytes inside the swizzled
+//     128-byte rows.  A swapped stride is silently wrong, so the tests and
+//     chip_smoke.py phase 7 hold shapes with m != k != n;
+//   * the tensor maps (cuTensorMapEncodeTiled) hold the matrices'
+//     addresses, so they are encoded on the host at every call and passed
+//     as __grid_constant__ parameters.  The function is a driver-API one;
+//     this library is not linked against libcuda but reaches it through
+//     the runtime's cudaGetDriverEntryPoint(ByVersion);
+//   * TMA needs 16-byte-aligned bases and 16-byte row pitches: k % 8 == 0
+//     (A), n % 8 == 0 (B, and C's 16-byte stores); the wrapper routes
+//     every other bf16 shape to the general branch, and the C entry
+//     refuses them.
+//
+// The general branch (float32, and bf16 shapes the wgmma branch cannot
+// take), simple and exact: one thread block of 256 threads owns a 128 x
+// 128 tile of C and walks K in steps; each step stages the A and B tiles
+// in shared memory (the scratchpad), zero-filled past the edges of the
+// matrices, so every shape is right whatever it is (the wrapper's shape
+// contract, tiles of min(128, dim) dividing each dim, is not needed
 // here).  The Pallas grid's sequential K dimension, which carries the sum
 // in VMEM scratch, becomes the loop inside the block; the sum stays in
 // registers.
@@ -22,26 +72,19 @@
 //     registers (rows ty*4+{0..3} and 64+ty*4+{0..3}, columns likewise
 //     from tx, so its shared-memory reads are 16-byte and conflict-free)
 //     and accumulates with true FP32 FMAs (no TF32: the reference is a
-//     float32 jnp.dot).
+//     float32 jnp.dot).  Bound by the 67 TFLOP/s of the FP32 cores; this
+//     design reaches about half (synchronous staging, scalar loads).
 //   * bfloat16: 32 K per step on the tensor cores through WMMA
 //     (mma.sync, 16 x 16 x 16 bf16 fragments, float32 accumulators in
 //     registers); 8 warps as 2 x 4, each owning 64 x 32 of C.  The
 //     epilogue stages each 16 x 16 fragment through shared memory to
-//     round and bounds-check it.
+//     round and bounds-check it.  Only odd shapes take it now.
 //
-// What bounds it on the card: at the shapes the offload path and a model
-// MLP meet (768^3 to 4096^3, 1024 x 4096 x 11008) the product does
-// 2mnk operations on (mk + kn + mn) elements, far above the card's ridge
-// point, so it is bound by operations: 67 TFLOP/s of FP32 cores for
-// float32, 989 TFLOP/s of tensor cores for bfloat16.  This design reaches
-// neither: staging is synchronous (no cp.async or TMA double-buffering,
-// two barriers per K step) and global loads are scalar; bf16 uses
-// mma.sync, not Hopper's wgmma.  Left for later: a TMA-fed, wgmma,
-// warp-specialized pipeline.
-//
-// Plain C interface (loaded with ctypes): cluster_matmul_launch returns
-// cudaGetLastError() after the launch; 0 means launched.
+// Plain C interface (loaded with ctypes): cluster_matmul_launch (general)
+// and cluster_matmul_wgmma_launch return cudaGetLastError() after the
+// launch; 0 means launched.
 
+#include <cuda.h>   // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -206,6 +249,288 @@ matmul_bf16_kernel(const __nv_bfloat16* __restrict__ A,
 
 }  // namespace
 
+// ------------------------------------------------------- bf16, wgmma --
+namespace wg {
+
+constexpr int kBM = 128;             // rows of C per block (2 x 64)
+constexpr int kBN = 256;             // columns of C per block
+constexpr int kBK = 64;              // K per stage: one 128-byte row of A
+constexpr int kBoxN = 64;            // B's TMA box: 64 columns (128 bytes)
+constexpr int kStages = 4;
+constexpr int kConsumers = 2;        // warpgroups running wgmma
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kABytes = kBM * kBK * 2;          // 16 KB
+constexpr int kBBytes = kBK * kBN * 2;          // 32 KB: 4 boxes of 8 KB
+constexpr int kStageBytes = kABytes + kBBytes;
+constexpr int kCLd = kBN + 8;        // epilogue staging row (elements):
+                                     // 528 bytes, conflict-free pair stores
+constexpr int kGroupM = 8;           // tile rows per L2 group
+// the 1 KB the swizzled tiles' alignment may cost, the ring, 2 x kStages
+// mbarriers
+constexpr size_t kSmem = 1024 + size_t(kStages) * kStageBytes +
+                         2 * kStages * sizeof(uint64_t);
+static_assert(kConsumers * 64 * kCLd * 2 <= kStages * kStageBytes,
+              "the epilogue stages C in the ring");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar)) : "memory");
+}
+
+// Wait for the completion of the phase of parity `parity`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(bar)), "r"(c0), "r"(c1) : "memory");
+}
+
+// A wgmma shared-memory descriptor for a 128-byte-swizzled tile:
+// start address, leading and stride byte offsets (16-byte units), and
+// layout type 1 (SWIZZLE_128B) in bits 62-63.
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return uint64_t((smem_u32(p) & 0x3FFFF) >> 4) |
+         uint64_t((lbo >> 4) & 0x3FFF) << 16 |
+         uint64_t((sbo >> 4) & 0x3FFF) << 32 | uint64_t(1) << 62;
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma's fence, commit and wait.
+__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 256, f32) += A (64 x 16, K-major) . B (16 x 256, MN-major).
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128],
+                                                 uint64_t desc_a,
+                                                 uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, "
+      "%119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+matmul_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
+                         const __grid_constant__ CUtensorMap map_b,
+                         __nv_bfloat16* __restrict__ C, int M, int N,
+                         int K) {
+  extern __shared__ uint8_t smem_raw[];
+  // 128-byte-swizzled TMA tiles and their descriptors want 1 KB alignment
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+
+  // grouped tile order: kGroupM tile rows walk the tile columns together
+  const int tiles_m = (M + kBM - 1) / kBM, tiles_n = (N + kBN - 1) / kBN;
+  const int per_group = kGroupM * tiles_n;
+  const int first_m = (int(blockIdx.x) / per_group) * kGroupM;
+  const int group_rows = min(tiles_m - first_m, kGroupM);
+  const int in_group = int(blockIdx.x) % per_group;
+  const int m0 = (first_m + in_group % group_rows) * kBM;
+  const int n0 = (in_group / group_rows) * kBN;
+  const int k_tiles = (K + kBK - 1) / kBK;
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);             // the producer's expect_tx
+      mbar_init(&empty[s], kConsumers);   // one arrival per consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == kConsumers) {
+    // ------------------------------------------------ producer --
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
+    if (threadIdx.x == kConsumers * 128) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(&empty[s], ((kt / kStages) - 1) & 1);
+        uint8_t* a = smem + s * kStageBytes;
+        uint8_t* b = a + kABytes;
+        // the full box bytes land whatever the edge (TMA zero-fills)
+        mbar_expect_tx(&full[s], kStageBytes);
+        tma_load_2d(a, &map_a, &full[s], kt * kBK, m0);
+#pragma unroll
+        for (int j = 0; j < kBN / kBoxN; ++j)
+          tma_load_2d(b + j * kBK * 128, &map_b, &full[s], n0 + j * kBoxN,
+                      kt * kBK);
+      }
+    }
+  } else {
+    // ------------------------------------------------ consumers --
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;");
+    float d[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.f;
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(&full[s], (kt / kStages) & 1);
+      const uint8_t* a = smem + s * kStageBytes + wgi * 64 * 128;
+      const uint8_t* b = smem + s * kStageBytes + kABytes;
+      fence_acc(d);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        // A: +32 bytes per 16-deep step inside the 128-byte rows;
+        // B: +16 rows of 128 bytes
+        wgmma_m64n256k16(d, gmma_desc(a + kk * 32, 16, 1024),
+                         gmma_desc(b + kk * 16 * 128, kBK * 128, 1024));
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      // keep this k-tile's wgmmas in flight; the previous tile's are done
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+      fence_acc(d);
+      if (kt > 0 && threadIdx.x % 128 == 0)
+        mbar_arrive(&empty[(kt - 1) % kStages]);
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+    fence_acc(d);
+
+    // epilogue: every load was consumed and every wgmma has read its
+    // operands once both consumers pass this barrier, so the ring is free
+    asm volatile("bar.sync 1, %0;" ::"n"(kConsumers * 128) : "memory");
+    __nv_bfloat16* cs =
+        reinterpret_cast<__nv_bfloat16*>(smem) + wgi * 64 * kCLd;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    // accumulator i holds row 16*warp + lane/4 + 8*((i/2)%2) and column
+    // 8*(i/4) + 2*(lane%4) + i%2 of the warpgroup's 64 x 256
+#pragma unroll
+    for (int i = 0; i < 128; i += 2) {
+      const int r = 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+      const int c = 8 * (i / 4) + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(cs + r * kCLd + c) =
+          __floats2bfloat162_rn(d[i], d[i + 1]);
+    }
+    asm volatile("bar.sync %0, 128;" ::"r"(2 + wgi) : "memory");
+    const int row0 = m0 + wgi * 64;
+#pragma unroll 4
+    for (int e = t; e < 64 * (kBN / 8); e += 128) {
+      const int r = e / (kBN / 8), c = (e % (kBN / 8)) * 8;
+      const int gm = row0 + r, gn = n0 + c;
+      if (gm < M && gn < N)   // n % 8 == 0: a chunk is all in or all out
+        *reinterpret_cast<uint4*>(C + size_t(gm) * N + gn) =
+            *reinterpret_cast<const uint4*>(cs + r * kCLd + c);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no libcuda link).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+cudaError_t encode_fn(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (!cached) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                            cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess) return e;
+    if (found != cudaDriverEntryPointSuccess || !p)
+      return cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// A row-major (rows, cols) bf16 matrix, boxes of (box_rows, box_cols)
+// with 128-byte swizzle (box_cols * 2 == 128).
+bool encode_2d(EncodeTiled fn, CUtensorMap* map, const void* base, int rows,
+               int cols, int box_rows, int box_cols) {
+  const cuuint64_t dims[2] = {cuuint64_t(cols), cuuint64_t(rows)};
+  const cuuint64_t pitch[1] = {cuuint64_t(cols) * 2};
+  const cuuint32_t box[2] = {cuuint32_t(box_cols), cuuint32_t(box_rows)};
+  const cuuint32_t step[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+            const_cast<void*>(base), dims, pitch, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace wg
+
 // dtype: 0 = float32, 1 = bfloat16 (A, B and C alike).
 extern "C" int cluster_matmul_launch(int dtype, const void* a, const void* b,
                                      void* c, int m, int n, int k,
@@ -225,5 +550,41 @@ extern "C" int cluster_matmul_launch(int dtype, const void* a, const void* b,
   } else {
     return int(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wgmma branch: bfloat16 A (m, k), B (k, n), C (m, n), row-major, with
+// k % 8 == 0, n % 8 == 0 and 16-byte-aligned bases (TMA's rule; anything
+// else is refused with cudaErrorInvalidValue: the wrapper's route sends
+// such shapes to cluster_matmul_launch).  Encodes the two tensor maps,
+// then launches on `stream`; does not synchronise.
+extern "C" int cluster_matmul_wgmma_launch(const void* a, const void* b,
+                                           void* c, int m, int n, int k,
+                                           void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || k % 8 || n % 8 ||
+      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+       reinterpret_cast<uintptr_t>(c)) % 16)
+    return int(cudaErrorInvalidValue);
+  wg::EncodeTiled fn;
+  cudaError_t e = wg::encode_fn(&fn);
+  if (e != cudaSuccess) return int(e);
+  CUtensorMap map_a, map_b;
+  if (!wg::encode_2d(fn, &map_a, a, m, k, wg::kBM, wg::kBK) ||
+      !wg::encode_2d(fn, &map_b, b, k, n, wg::kBK, wg::kBoxN))
+    return int(cudaErrorInvalidValue);
+  static bool opted_in = false;
+  if (!opted_in) {
+    e = cudaFuncSetAttribute(wg::matmul_bf16_wgmma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(wg::kSmem));
+    if (e != cudaSuccess) return int(e);
+    opted_in = true;
+  }
+  const long long tiles = (long long)((m + wg::kBM - 1) / wg::kBM) *
+                          ((n + wg::kBN - 1) / wg::kBN);
+  if (tiles > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  wg::matmul_bf16_wgmma_kernel<<<unsigned(tiles), wg::kThreads, wg::kSmem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      map_a, map_b, static_cast<__nv_bfloat16*>(c), m, n, k);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,8 +7,15 @@ takes CUDA tensors only, contiguous and of one type; a CPU tensor is the
 caller's cue to use the plain version (``ops`` dispatches), never this
 module's.  The kernel tiles C itself and masks the ragged edge, so it
 takes any shape; the reference's tile contract is checked in ``ops``.
+
+Two branches, chosen by :func:`route` from the type, the shape and the
+base addresses alone (never on a failure): bfloat16 products whose rows
+TMA can address (k and n multiples of 8, 16-byte-aligned bases) go to the
+TMA-fed, warp-specialised wgmma kernel; float32, and bfloat16 shapes that
+break that 16-byte rule (3 x 5 @ 5 x 7 is legal), to the general kernel.
 The library is built with ``nvcc`` at first launch (``kernels.launch``);
-every launch adds one to :data:`launches`.
+every launch adds one to :data:`launches`, and a launch of the wgmma
+branch also to :data:`wgmma_launches`.
 """
 from __future__ import annotations
 
@@ -26,8 +33,26 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the launch grid's row dimension holds ceil(m / 128) <= 65535 blocks
 MAX_ROWS = 65535 * 128
 
-#: launches of the cluster-matmul kernel
+#: launches of the cluster-matmul kernel, both branches
 launches = LaunchCounter()
+#: launches of its wgmma branch
+wgmma_launches = LaunchCounter()
+
+#: the two branches :func:`route` chooses between
+WGMMA, GENERAL = "wgmma", "general"
+
+
+def route(dtype: torch.dtype, m: int, k: int, n: int,
+          aligned: bool = True) -> str:
+    """The branch a product of this type and shape takes: :data:`WGMMA`
+    for bfloat16 when TMA can address its rows (k and n multiples of 8,
+    so A's, B's and C's row pitches are multiples of 16 bytes; k > 0;
+    ``aligned``: every base address a multiple of 16 bytes),
+    :data:`GENERAL` otherwise (every float32 product)."""
+    if dtype == torch.bfloat16 and k > 0 and k % 8 == 0 and n % 8 == 0 \
+            and aligned:
+        return WGMMA
+    return GENERAL
 
 
 @functools.lru_cache(maxsize=None)
@@ -36,6 +61,10 @@ def _library() -> ctypes.CDLL:
     fn = lib.cluster_matmul_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.cluster_matmul_wgmma_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -66,14 +95,22 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
     if out.numel() == 0:
         return out
+    branch = route(a.dtype, m, k, n, aligned=all(
+        t.data_ptr() % 16 == 0 for t in (a, b, out)))
     lib = _library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.cluster_matmul_launch(_DTYPES[a.dtype], a.data_ptr(),
-                                        b.data_ptr(), out.data_ptr(), m, n,
-                                        k, stream)
+        if branch == WGMMA:
+            err = lib.cluster_matmul_wgmma_launch(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, stream)
+        else:
+            err = lib.cluster_matmul_launch(
+                _DTYPES[a.dtype], a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), m, n, k, stream)
     if err:
-        raise RuntimeError(f"cluster matmul kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"cluster matmul kernel ({branch} branch) launch "
+                           f"failed: CUDA error {err}")
     launches.n += 1
+    if branch == WGMMA:
+        wgmma_launches.n += 1
     return out

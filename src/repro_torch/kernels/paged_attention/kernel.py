@@ -13,11 +13,18 @@ repeat-padded (entries past a lane's last mapped page repeat it; see
 ``ops.pad_block_table``).  The pool is either in q's type (float32 or
 bfloat16) or int8 with ``kv_scales`` ((P, 2, Kv) float32, one scale per
 page, K/V and kv head), which the kernel applies as it stages each page
-(the ``quant=True`` branch of the reference kernel).  The kernel takes
+(the ``quant=True`` branch of the reference kernel).  The kernels take
 CUDA tensors only: a CPU tensor is the caller's cue to use the plain
-version (``ops`` dispatches), never this module's.  The library is built
-with ``nvcc`` at first launch (``kernels.launch``); every launch adds one
-to :data:`launches` (bf16/f32 pool) or :data:`int8_launches` (int8 pool).
+version (``ops`` dispatches), never this module's.
+
+The source holds two kernels, and :func:`route` picks one from q's type
+and C alone (never on a failure): bf16 q with C > 1 (the chunk and the
+speculative verify steps) runs on the tensor cores; C = 1 (decode) and
+float32 q run on the FP32 cores.  The library is built with ``nvcc`` at
+first launch (``kernels.launch``); every launch adds one to
+:data:`launches` (bf16/f32 pool) or :data:`int8_launches` (int8 pool),
+whichever kernel it takes, and a tensor-core launch also to
+:data:`tc_launches`.
 """
 from __future__ import annotations
 
@@ -40,6 +47,22 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 launches = LaunchCounter()
 #: launches of its int8 branch (int8 pool, dequantized in the fetch)
 int8_launches = LaunchCounter()
+#: launches of the tensor-core kernel (either pool type)
+tc_launches = LaunchCounter()
+
+#: the two kernels :func:`route` chooses between
+TENSOR_CORES, FP32_CORES = "tensor_cores", "fp32_cores"
+
+
+def route(q_dtype: torch.dtype, C: int) -> str:
+    """The kernel a call with q of ``q_dtype`` and ``C`` query tokens per
+    lane takes: :data:`TENSOR_CORES` for bfloat16 q with C > 1 (mma.sync
+    with bf16 operands), :data:`FP32_CORES` for C = 1 (decode: bytes-bound,
+    one query token per lane) and for float32 q (its 1e-4 bar is out of
+    the tensor cores' reach), whatever the pool's type."""
+    if q_dtype == torch.bfloat16 and C > 1:
+        return TENSOR_CORES
+    return FP32_CORES
 
 
 @functools.lru_cache(maxsize=None)
@@ -47,6 +70,10 @@ def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
     fn = lib.paged_prefill_launch
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.paged_prefill_tc_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                    + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -86,9 +113,9 @@ def _check(q, kv_pages, block_table, page_counts, lengths, q_start,
             raise ValueError(f"kv_scales {kv_scales.dtype} "
                              f"{tuple(kv_scales.shape)}: want float32 "
                              f"({P}, 2, {Kv})")
-    if kv_pages.data_ptr() % 16:
-        raise ValueError("kv_pages must be 16-byte aligned (the kernel "
-                         "reads K/V rows 16 bytes at a time)")
+    if kv_pages.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError("kv_pages and q must be 16-byte aligned (the "
+                         "kernels read K/V and q rows 16 bytes at a time)")
     if block_table.dim() != 2 or block_table.shape[0] != B \
             or block_table.shape[1] < 1:
         raise ValueError(f"block_table {tuple(block_table.shape)} for B={B}")
@@ -128,8 +155,8 @@ def paged_prefill_fwd(q: torch.Tensor, kv_pages: torch.Tensor,
     ignore them).  Returns (B,C,H,hd) in q's dtype.
 
     ``pages_per_step`` is accepted for parity with the TPU kernel, whose
-    grid step it sets; this kernel's tiling does not depend on it (it
-    stages 32 tokens per step whatever the page size)."""
+    grid step it sets; these kernels' tiling does not depend on it (they
+    stage 32 or 64 tokens per step whatever the page size)."""
     del pages_per_step
     B, C, H, hd, P, page, Kv = _check(q, kv_pages, block_table, page_counts,
                                       lengths, q_start, kv_scales)
@@ -137,20 +164,28 @@ def paged_prefill_fwd(q: torch.Tensor, kv_pages: torch.Tensor,
     if q.numel() == 0:
         return out
     sc = scale if scale is not None else 1.0 / math.sqrt(hd)
+    kernel = route(q.dtype, C)
     lib = _library()
+    pointers = (q.data_ptr(), kv_pages.data_ptr(),
+                kv_scales.data_ptr() if kv_scales is not None else None,
+                block_table.data_ptr(), page_counts.data_ptr(),
+                lengths.data_ptr(), q_start.data_ptr(), out.data_ptr())
+    sizes = (B, C, H, Kv, hd, page, block_table.shape[1], P, sc)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.paged_prefill_launch(
-            _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], q.data_ptr(),
-            kv_pages.data_ptr(),
-            kv_scales.data_ptr() if kv_scales is not None else None,
-            block_table.data_ptr(), page_counts.data_ptr(),
-            lengths.data_ptr(), q_start.data_ptr(), out.data_ptr(),
-            B, C, H, Kv, hd, page, block_table.shape[1], P, sc, stream)
+        if kernel == TENSOR_CORES:
+            err = lib.paged_prefill_tc_launch(
+                _DTYPES[kv_pages.dtype], *pointers, *sizes, stream)
+        else:
+            err = lib.paged_prefill_launch(
+                _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], *pointers,
+                *sizes, stream)
     if err:
-        raise RuntimeError(f"paged attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"paged attention kernel ({kernel}) launch "
+                           f"failed: CUDA error {err}")
     (int8_launches if kv_scales is not None else launches).n += 1
+    if kernel == TENSOR_CORES:
+        tc_launches.n += 1
     return out
 
 

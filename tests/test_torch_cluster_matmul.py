@@ -147,3 +147,58 @@ def test_cuda_kernel_matches_plain_version():
     np.testing.assert_allclose(out.cpu().numpy(), a @ b, **TOL["float32"])
     with pytest.raises(ValueError, match="contiguous"):
         K.matmul(at, torch.from_numpy(b).cuda())
+
+
+@pytest.mark.parametrize("dtype,m,k,n,aligned,want", [
+    (torch.bfloat16, 4096, 4096, 4096, True, "wgmma"),
+    (torch.bfloat16, 1024, 4096, 11008, True, "wgmma"),   # yi-6b's MLP
+    (torch.bfloat16, 1000, 1032, 776, True, "wgmma"),     # ragged tiles
+    (torch.bfloat16, 256, 256, 256, True, "wgmma"),
+    (torch.bfloat16, 100, 36, 20, True, "general"),       # k % 8 == 4
+    (torch.bfloat16, 64, 64, 60, True, "general"),        # n % 8 == 4
+    (torch.bfloat16, 3, 5, 7, True, "general"),
+    (torch.bfloat16, 8, 0, 8, True, "general"),           # empty k
+    (torch.bfloat16, 256, 256, 256, False, "general"),    # a base off 16
+    (torch.float32, 4096, 4096, 4096, True, "general"),
+    (torch.float32, 128, 128, 128, True, "general"),
+])
+def test_route_by_type_shape_and_alignment(dtype, m, k, n, aligned, want):
+    assert K.route(dtype, m, k, n, aligned=aligned) == want
+
+
+def test_ragged_wgmma_shape_is_outside_the_reference_contract():
+    """1000 x 1032 @ 1032 x 776 takes the wgmma branch with partial tiles
+    in every dimension; ``ops`` (the reference's tile contract) refuses it,
+    so ``chip_smoke.py`` phase 7 calls ``kernel.matmul`` directly."""
+    a, b = _inputs(1000, 1032, 776)
+    with pytest.raises(AssertionError, match="not tiled by"):
+        cluster_matmul(torch.from_numpy(a), torch.from_numpy(b))
+    assert K.route(torch.bfloat16, 1000, 1032, 776) == K.WGMMA
+
+
+@pytest.mark.cuda
+def test_wgmma_branch_matches_plain_version():
+    """The wgmma branch against the plain version on the card, at shapes
+    with m != k != n and partial tiles (a swapped descriptor stride or a
+    dropped edge shows there), and the general branch at shapes that break
+    the 16-byte rule; each branch's launches are counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine: "
+                    "pytest -m cuda tests/test_torch_cluster_matmul.py)")
+    for (m, k, n) in [(128, 64, 256), (256, 384, 512), (1000, 1032, 776),
+                      (72, 200, 48), (300, 8, 520), (100, 36, 20),
+                      (5, 7, 3)]:
+        a, b = _inputs(m, k, n, seed=3)
+        ta = torch.from_numpy(a).to("cuda", torch.bfloat16)
+        tb = (torch.from_numpy(b) / np.sqrt(k)).to("cuda", torch.bfloat16)
+        want = K.route(torch.bfloat16, m, k, n)
+        before = (K.launches.n, K.wgmma_launches.n)
+        out = K.matmul(ta, tb)
+        torch.cuda.synchronize()
+        assert (K.launches.n - before[0],
+                K.wgmma_launches.n - before[1]) == \
+            (1, int(want == K.WGMMA)), (m, k, n)
+        ref = R.cluster_matmul_ref(ta, tb)
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   ref.float().cpu().numpy(),
+                                   **TOL["bfloat16"])

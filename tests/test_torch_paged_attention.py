@@ -344,3 +344,205 @@ def test_int8_kernel_matches_plain_on_card(dtype):
         np.testing.assert_allclose(out.float().cpu().numpy(),
                                    ref.float().numpy(), **TOL[dtype])
     assert K.int8_launches.n == before + 4
+
+
+# --------------------------------------------- the tensor-core kernel --
+# q and pool scales of the phase-3-like inputs below: "flat" scores of std
+# 0.15 (chip_smoke.py's q*0.3 against K of std 0.5), and "sharp" ones of
+# std 4, where a dropped or misplaced K tile moves an output by O(|v|)
+SCORE_STD = {"flat": 0.15, "sharp": 4.0}
+#: rms of an int8 pool's K after its scales: integers uniform in
+#: [-127, 127] (rms 73.6) times scales uniform in [1e-3, 2e-2] (rms 0.0118)
+INT8_K_RMS = 0.872
+
+
+def _tc_inputs(pool, sharpness, seed=11, B=4, C=5, H=8, Kv=2, hd=32,
+               page=8, npg=20, P=48):
+    """Phase-3-like inputs at a small size: ragged lanes of which the last
+    is empty, the others sharing two aliased prefix pages, C query tokens
+    at the end of each lane (q_start = len - min(C, len)), more than two
+    64-token tiles in the longest lane.  Returns numpy arrays."""
+    rng = np.random.default_rng(seed)
+    lengths = np.array([150, 67, 3, 0][:B], np.int32)
+    q_start = (lengths - np.minimum(C, lengths)).astype(np.int32)
+    bt = _dense_table(lengths, page, npg, P, rng, shared=(5, 9))
+    k_rms = INT8_K_RMS if pool == "int8" else 0.5
+    q = rng.standard_normal((B, C, H, hd)).astype(np.float32) \
+        * (SCORE_STD[sharpness] / k_rms)
+    if pool == "int8":
+        kv = rng.integers(-127, 128, (P, 2, page, Kv, hd)).astype(np.int8)
+        sc = rng.uniform(1e-3, 2e-2, (P, 2, Kv)).astype(np.float32)
+    else:
+        kv = rng.standard_normal((P, 2, page, Kv, hd)).astype(np.float32) \
+            * 0.5
+        sc = None
+    return q, kv, sc, bt, lengths, q_start
+
+
+def tc_emulation(q, kv, kv_scales, block_table, lengths, q_start,
+                 tile=64):
+    """The tensor-core kernel's arithmetic, for the tests only: bf16
+    operands (int8 values are exact in bf16), float32 sums, 64-token tiles
+    under the online softmax, the int8 K scale on each score column, the V
+    scale folded into p, p rounded to bf16 for P.V while l sums it
+    unrounded.  q: (B,C,H,hd) bf16 tensor; kv (P,2,page,Kv,hd) bf16 or
+    int8; kv_scales (P,2,Kv) or None; block_table -1-marked."""
+    B, C, H, hd = q.shape
+    _, _, page, Kv, _ = kv.shape
+    G = H // Kv
+    scale = 1.0 / np.sqrt(hd)
+    out = torch.zeros(B, C, H, hd)
+    for b in range(B):
+        n = int(lengths[b])
+        if n == 0:
+            continue
+        t = torch.arange(n)
+        phys = torch.as_tensor(block_table[b])[t // page].long()
+        k = kv[phys, 0, t % page].float()                   # (n, Kv, hd)
+        v = kv[phys, 1, t % page].float()
+        ks = kv_scales[phys, 0] if kv_scales is not None \
+            else torch.ones(n, Kv)                          # (n, Kv)
+        vs = kv_scales[phys, 1] if kv_scales is not None \
+            else torch.ones(n, Kv)
+        qb = q[b].float().reshape(C, Kv, G, hd).permute(1, 0, 2, 3) \
+            .reshape(Kv, C * G, hd)                         # rows (c, g)
+        qpos = int(q_start[b]) + torch.arange(C).repeat_interleave(G)
+        m = torch.full((Kv, C * G), -1e30)
+        l_sum = torch.zeros(Kv, C * G)
+        o = torch.zeros(Kv, C * G, hd)
+        for t0 in range(0, n, tile):
+            sl = slice(t0, min(t0 + tile, n))
+            s = torch.einsum("krd,tkd->krt", qb, k[sl]) * scale \
+                * ks[sl].T[:, None, :]
+            mask = (t[sl][None, :] <= qpos[:, None])[None]    # (1, rows, T)
+            s = torch.where(mask, s, torch.tensor(-1e30))
+            m_new = torch.maximum(m, s.max(-1).values)
+            p = torch.where(mask, torch.exp(s - m_new[..., None]),
+                            torch.tensor(0.0))
+            alpha = torch.exp(m - m_new)
+            l_sum = l_sum * alpha + p.sum(-1)
+            pv = (p * vs[sl].T[:, None, :]).to(torch.bfloat16).float()
+            o = o * alpha[..., None] + torch.einsum("krt,tkd->krd", pv,
+                                                    v[sl])
+            m = m_new
+        o = o / torch.where(l_sum == 0, torch.ones_like(l_sum),
+                            l_sum)[..., None]
+        out[b] = o.reshape(Kv, C, G, hd).permute(1, 0, 2, 3).reshape(
+            C, H, hd)
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("sharpness", ["flat", "sharp"])
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_tensor_core_arithmetic_matches_the_pallas_kernel(pool, sharpness):
+    """The tensor-core kernel's rounding (bf16 operands, p rounded to bf16
+    for P.V, int8 scales folded into the score columns and into p) against
+    the reference's Pallas kernel in interpret mode, within the bf16 bar,
+    at phase-3-like shapes on both pool types and both score scales."""
+    q, kv, sc, bt, lengths, q_start = _tc_inputs(pool, sharpness)
+    page = kv.shape[2]
+    counts = page_counts_for(torch.from_numpy(lengths), page)
+    padded = pad_block_table(torch.from_numpy(bt), counts)
+    jq = jnp.asarray(q).astype(jnp.bfloat16)
+    tq = torch.from_numpy(np.array(jq.astype(jnp.float32))).to(
+        torch.bfloat16)
+    if pool == "int8":
+        jkv, tkv = jnp.asarray(kv), torch.from_numpy(kv)
+    else:
+        jkv = jnp.asarray(kv).astype(jnp.bfloat16)
+        tkv = torch.from_numpy(np.array(jkv.astype(jnp.float32))).to(
+            torch.bfloat16)
+    ker = j_paged_prefill_fused(
+        jq, jkv, jnp.asarray(padded.numpy()), jnp.asarray(counts.numpy()),
+        jnp.asarray(lengths), jnp.asarray(q_start), interpret=True,
+        kv_scales=None if sc is None else jnp.asarray(sc))
+    emu = tc_emulation(tq, tkv, None if sc is None else torch.from_numpy(sc),
+                       bt, lengths, q_start)
+    ref = np.asarray(ker, np.float32)
+    assert np.abs(ref).max() > (1.0 if sharpness == "sharp" else 0.0)
+    _close(ker, emu, "bfloat16")
+    assert float(emu[-1].abs().max()) == 0.0     # the empty lane
+
+
+def test_sharp_inputs_catch_a_dropped_tile():
+    """Dropping the first 64-token K/V tile of the longest lane (what a
+    kernel with a wrong tile walk would do) moves its outputs by O(1) on
+    sharp scores, far past the bf16 bar."""
+    q, kv, _, bt, lengths, q_start = _tc_inputs("bf16", "sharp")
+    tq = torch.from_numpy(q).to(torch.bfloat16)
+    tkv = torch.from_numpy(kv).to(torch.bfloat16)
+    full = tc_emulation(tq, tkv, None, bt, lengths, q_start)
+    cut = tkv.clone()
+    for lp in range(64 // kv.shape[2]):         # lane 0's first tile
+        cut[bt[0, lp]] = 0
+    dropped = tc_emulation(tq, cut, None, bt, lengths, q_start)
+    assert float((full[0].float() - dropped[0].float()).abs().max()) > 0.5
+
+
+@pytest.mark.parametrize("q_dtype,C,want", [
+    (torch.bfloat16, 128, "tensor_cores"),   # the chunk step
+    (torch.bfloat16, 5, "tensor_cores"),     # the verify step, spec_k = 4
+    (torch.bfloat16, 2, "tensor_cores"),
+    (torch.bfloat16, 1, "fp32_cores"),       # decode
+    (torch.float32, 128, "fp32_cores"),      # the 1e-4 bar
+    (torch.float32, 1, "fp32_cores"),
+])
+def test_route_by_q_dtype_and_chunk(q_dtype, C, want):
+    assert K.route(q_dtype, C) == want
+
+
+def test_cpu_calls_count_no_kernel_launch():
+    """On the CPU the ops take the plain version: no kernel counter
+    moves, the tensor-core one included."""
+    q, kv, _, bt, lengths, q_start = _tc_inputs("bf16", "flat")
+    tq = torch.from_numpy(q).to(torch.bfloat16)
+    tkv = torch.from_numpy(kv).to(torch.bfloat16)
+    counts = page_counts_for(torch.from_numpy(lengths), kv.shape[2])
+    for c in (K.launches, K.int8_launches, K.tc_launches):
+        c.reset()
+    out = paged_prefill_fused(tq, tkv, pad_block_table(torch.from_numpy(bt),
+                                                       counts),
+                              counts, *_i32(lengths, q_start))
+    assert out.dtype == torch.bfloat16
+    assert (K.launches.n, K.int8_launches.n, K.tc_launches.n) == (0, 0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bf16", "int8"])
+def test_tensor_core_kernel_matches_plain_on_card(pool):
+    """The tensor-core kernel against the plain version on the card, flat
+    and sharp, at C in {2, 5, 16, 64}, every head dim, G in {1, 4, 8};
+    every call must take the tensor-core kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the H100: "
+                    "pytest -m cuda tests/test_torch_paged_attention.py)")
+    from repro_torch.kernels.paged_attention import ref as R
+    n = 0
+    K.tc_launches.reset()
+    for C, H, Kv, hd, sharp in [(5, 8, 2, 32, "flat"), (5, 8, 2, 32, "sharp"),
+                                (16, 8, 1, 16, "sharp"),
+                                (2, 4, 4, 64, "sharp"),
+                                (64, 32, 4, 128, "flat"),
+                                (64, 32, 4, 128, "sharp")]:
+        q, kv, sc, bt, lengths, q_start = _tc_inputs(pool, sharp, C=C, H=H,
+                                                     Kv=Kv, hd=hd)
+        tq = torch.from_numpy(q).to(torch.bfloat16)
+        tkv = torch.from_numpy(kv) if pool == "int8" else \
+            torch.from_numpy(kv).to(torch.bfloat16)
+        tsc = None if sc is None else torch.from_numpy(sc)
+        ln, st, table = _i32(lengths, q_start, bt)
+        counts = page_counts_for(ln, kv.shape[2])
+        scales = {} if tsc is None else dict(k_scales=tsc[:, 0],
+                                             v_scales=tsc[:, 1])
+        ref = R.paged_prefill_ref(tq, tkv[:, 0], tkv[:, 1], table, ln, st,
+                                  **scales)
+        dev = [x.cuda() for x in (tq, tkv, pad_block_table(table, counts),
+                                  counts, ln, st)]
+        out = K.paged_prefill_fwd(
+            *dev, kv_scales=None if tsc is None else tsc.cuda())
+        torch.cuda.synchronize()
+        n += 1
+        np.testing.assert_allclose(out.float().cpu().numpy(),
+                                   ref.float().numpy(), **TOL["bfloat16"])
+        assert float(out[-1].abs().max()) == 0.0
+    assert K.tc_launches.n == n
