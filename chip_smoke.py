@@ -18,24 +18,26 @@ non-zero without printing the final result line):
    float32 and bfloat16 and C=5 (the verify width) with bfloat16 q, on a
    pool in q's type and on an int8 pool with its scales, and every
    bfloat16 case again with q scaled so that scores have std 4
-   (``PAGED_SHARP``); each case prints the kernel it took (tensor cores
-   for bf16 q with C > 1, FP32 cores otherwise), its times, bytes, FLOPs
-   and roofline bound.
+   (``PAGED_SHARP``); each case prints the kernel it took (split-KV for
+   C = 1, tensor cores for bf16 q with C > 1, FP32 cores for f32 q with
+   C > 1; the counts must agree), its times, bytes, FLOPs and roofline
+   bound.
 4. engine parity: the same weights (yi-6b widths, 2 layers) served by the
    CUDA engine (kernel) and the CPU engine (plain version): float32
    greedy on a float32 pool, float32 with an int8 pool and speculative
    decoding (``spec_k=4``, drafts replayed from the first run's tokens),
-   and bfloat16 greedy (its chunks on the tensor-core kernel); greedy
+   and bfloat16 greedy (its chunks on the tensor-core kernel, float32
+   chunks on the FP32-core kernel, decode on the split-KV kernel); greedy
    tokens must agree, excusing only near-ties.
 5. serve: yi-6b at full width (32 layers, bf16, random weights from seed
    0) serves 12 requests with a shared prefix and a forced preemption;
    the kernels must carry every layer of every iteration: the tensor-core
-   kernel every prefill iteration, the FP32-core kernel every decode one.
+   kernel every prefill iteration, the split-KV kernel every decode one.
 6. serve int8 + speculation: the same model and workload with
    ``kv_dtype="int8"`` and ``spec_k=4`` (the default n-gram drafter),
    then an ``echo_wave`` of requests that repeat a token pattern of the
    model's own; the int8 pool's kernels must carry every layer of every
-   iteration (tensor cores: prefill and verify; FP32 cores: decode) and
+   iteration (tensor cores: prefill and verify; split-KV: decode) and
    the drafter must propose.
 7. cluster matmul vs plain: the cluster-matmul CUDA kernel against its
    plain version in float32 and bfloat16 at ``tests/test_kernels.py``'s
@@ -52,32 +54,37 @@ non-zero without printing the final result line):
    must carry every product (two launches per demo run, the bf16 ones on
    its wgmma branch) and the plain version must never run; each of these
    outputs is then held against the plain version.
-9. flash kernel vs plain: the flash-attention CUDA kernel against its
-   plain version at ``tests/test_kernels.py``'s three shapes x five
-   (causal, window, cap) masks x {float32, bfloat16}, and at gemma2-2b's
+9. flash kernels vs plain: the flash-attention CUDA kernels against
+   their plain version at ``tests/test_kernels.py``'s three shapes x five
+   (causal, window, cap) masks x {float32, bfloat16}, at gemma2-2b's
    geometry (B=2, H=8, Kv=4, S=T=4096, hd 256, bf16, cap 50, window 0
-   and 4096), each capped case and gemma2's again with q and k scaled
-   so that scores reach the cap's range (``FLASH_SHARP``), with times
-   beside the plain version and the library call (SDPA without a cap,
-   the compiled ``flex_attention`` with a softcap score_mod with one);
-   then the op's gradients against plain autograd.
+   and 4096; the tensor-core kernel) and at phase 10's float32 calls
+   (S=512, window 0 and 128; the FP32-core kernel), each capped case and
+   gemma2's again with q and k scaled so that scores reach the cap's
+   range (``FLASH_SHARP``); each case prints the kernel its route picked
+   (the counts must agree), with times beside the plain version and the
+   library call (SDPA without a cap, the compiled ``flex_attention`` with
+   a softcap score_mod with one); then the op's gradients against plain
+   autograd.
 10. train parity: one ``make_train_step`` on the same float32 weights at
    gemma2-2b's widths (d 2304, 8/4 heads, hd 256, d_ff 9216) with one
-   local/global pair, on the card (kernel) and on the CPU (plain).
+   local/global pair, on the card (kernel) and on the CPU (plain); every
+   flash forward on the card takes the FP32-core kernel.
 11. trainer: ``Trainer.run_with_recovery`` at phase 10's size (bf16) on
    the card with an injected failure; it must restart from the last
    commit and end at ``total_steps``.
 12. train, full size: gemma2-2b as registered (26 layers, vocab 256,000,
    bf16 with a float32 master) takes a few steps at ``train_4k``'s
-   S=4096, batch 2; the flash kernel must carry every self-attention
-   forward (26 layers x (forward + checkpoint recompute) per step) and
-   the plain version must never run a forward.
+   S=4096, batch 2; the tensor-core flash kernel must carry every
+   self-attention forward (26 layers x (forward + checkpoint recompute)
+   per step) and the plain version must never run a forward.
 
-Then one JSON line ``{"kernels": [...]}`` (the paged-attention FP32-core
-kernel's bf16/f32 and int8 branches, the tensor-core kernel on each pool
-type, the cluster matmul's general and wgmma branches and the flash
-kernel) and, last, the result line ``{"ok": true, "device": {...}}``.  It
-needs a CUDA device and the repository's ``src/`` beside it.
+Then one JSON line ``{"kernels": [...]}`` (the paged-attention split-KV
+decode kernel, FP32-core kernel and tensor-core kernel, each on both pool
+types; the cluster matmul's general and wgmma branches; the flash kernel
+on the tensor cores and on the FP32 cores) and, last, the result line
+``{"ok": true, "device": {...}}``.  It needs a CUDA device and the
+repository's ``src/`` beside it.
 """
 from __future__ import annotations
 
@@ -107,6 +114,9 @@ PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 #: bf16 TOL
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 L2_FLUSH_BYTES = 64 << 20          # more than the L2 (50 MB, data sheet)
+#: device cycles the timer sleeps before each start event: ~0.1 ms at the
+#: H100's 1.98 GHz boost clock, more than a wrapper's host work
+SLEEP_CYCLES = 200_000
 #: cluster-matmul tolerances (rtol = atol): tests/test_kernels.py's TOL
 MATMUL_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 #: (m, k, n): tests/test_kernels.py's three, 64^3, the offload demo's
@@ -160,7 +170,10 @@ def check(cond: bool, msg: str):
 class Timer:
     """Median device time of one call, measured with CUDA events around
     each call, the L2 cache flushed before every call (the serving path
-    meets each layer's pages cold)."""
+    meets each layer's pages cold).  A device-side sleep of ~0.1 ms
+    before the start event keeps the device busy while the host enqueues
+    the call, so a call shorter than its own host work (a decode kernel,
+    SDPA at C=1) is timed on the device, not on the host's clock."""
 
     def __init__(self):
         self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
@@ -172,6 +185,7 @@ class Timer:
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -310,12 +324,13 @@ def kernel_case(timer: Timer, C: int, dtype: torch.dtype, int8: bool,
         return R.paged_prefill_ref(c["q"], c["kv"][:, 0], c["kv"][:, 1],
                                    masked, c["lens"], c["q_start"], **scales)
 
-    tc_before = K.tc_launches.n
+    before = (K.tc_launches.n, K.split_launches.n)
     out = kernel()
     torch.cuda.synchronize()
-    check(K.tc_launches.n - tc_before == int(route == K.TENSOR_CORES),
-          f"{name}: route {route} but {K.tc_launches.n - tc_before} "
-          "tensor-core launches")
+    got = (K.tc_launches.n - before[0], K.split_launches.n - before[1])
+    check(got == (int(route == K.TENSOR_CORES), int(route == K.SPLIT_KV)),
+          f"{name}: route {route} but (tensor-core, split-KV) launches "
+          f"{got}")
     ref = plain()
     err = (out.float() - ref.float()).abs().max().item()
     tol = TOL[dtype]
@@ -410,7 +425,9 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
     ``spec_k`` both speculate with a ``ReplayDrafter`` of ``known``
     ({prompt: greedy tokens} from an earlier run).  On bfloat16 weights
     the CUDA engine's chunk steps must take the tensor-core kernel.
-    Returns (excused positions, {prompt: the CPU engine's tokens})."""
+    Decode steps must take the split-KV kernel, float32 chunks the
+    FP32-core kernel.  Returns (excused positions, {prompt: the CPU
+    engine's tokens}, the CUDA engine's launches by kernel)."""
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.runtime import (
         CacheConfig, EngineConfig, GenerationRequest, SamplingParams,
@@ -436,13 +453,21 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
                 make_engine(cfg, cpu_model, ecfg, device="cpu")]
 
     pair = engines()
-    tc_before = K.tc_launches.n
+    counters = (K.launches, K.int8_launches, K.tc_launches, K.split_launches)
+    before = [c.n for c in counters]
     gpu_out, cpu_out = _lockstep(pair, requests, preempt_rid=0,
                                  preempt_after=3)
-    tc_launches = K.tc_launches.n - tc_before
+    same, int8, tc_launches, split_launches = (
+        c.n - b for c, b in zip(counters, before))
+    fp32_core = same + int8 - tc_launches - split_launches
     bf16 = cfg.param_dtype == "bfloat16"
     check((tc_launches > 0) == bf16,
           f"{cfg.param_dtype} parity: {tc_launches} tensor-core launches")
+    check(spec_k or split_launches > 0,
+          f"{cfg.param_dtype} parity: no decode step took the split-KV "
+          "kernel")
+    check((fp32_core > 0) == (not bf16),
+          f"{cfg.param_dtype} parity: {fp32_core} FP32-core launches")
     excused = 0
     for r in requests:
         a, b = gpu_out[r.rid], cpu_out[r.rid]
@@ -486,12 +511,16 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
     print(f"parity: yi-6b widths x 2 layers {cfg.param_dtype}, kv "
           f"{kv_dtype}, spec_k={spec_k}, {len(requests)} requests, "
           f"{n_tok} tokens, tensor_core_launches={tc_launches}, "
+          f"split_kv_launches={split_launches}, "
+          f"fp32_core_launches={fp32_core}, "
           f"identical={excused == 0}, excused_positions={excused}, "
           f"prefix_hit_tokens={g.cache_stats().prefix_hit_tokens}, "
           f"preemptions={g.preemptions}, iterations={g.iterations}, "
           f"spec_proposed/accepted/rejected cuda={spec[0]} cpu={spec[1]}",
           flush=True)
-    return excused, {tuple(r.prompt): cpu_out[r.rid] for r in requests}
+    return excused, {tuple(r.prompt): cpu_out[r.rid] for r in requests}, \
+        dict(tc_launches=tc_launches, split_launches=split_launches,
+             fp32_core_launches=fp32_core)
 
 
 # --------------------------------------------------------------- phase 5 --
@@ -548,7 +577,7 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
     """Serve the workload at full width; the kernels of the pool's type
     must carry every layer of every iteration (their counts are read from
     0 just before the run and just after): the tensor-core kernel every
-    prefill and verify iteration, the FP32-core kernel every decode one;
+    prefill and verify iteration, the split-KV kernel every decode one;
     the plain version must never run.  With ``spec_k`` an ``echo_wave``
     follows once the workload is served.  Returns (metrics, {rid:
     tokens})."""
@@ -585,7 +614,8 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
         for d in engine.poll_deltas():
             streamed[d.rid].extend(d.tokens)
 
-    for counter in (K.launches, K.int8_launches, K.tc_launches, R.calls):
+    for counter in (K.launches, K.int8_launches, K.tc_launches,
+                    K.split_launches, R.calls):
         counter.reset()
     t_start = time.perf_counter()
     drive(requests, preempt_rid=1)
@@ -595,7 +625,7 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
     ours, other = (K.int8_launches, K.launches) if kv_dtype == "int8" \
         else (K.launches, K.int8_launches)
     launches, other_launches, plain_calls = ours.n, other.n, R.calls.n
-    tc_launches = K.tc_launches.n
+    tc_launches, split_launches = K.tc_launches.n, K.split_launches.n
 
     results = {r.rid: r for r in engine.finished}
     n_req = len(requests) + len(wave)
@@ -622,10 +652,13 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
           f"{kv_dtype} tensor-core launches {tc_launches} != "
           f"{cfg.num_layers} layers x {n_chunked} prefill and verify "
           "iterations")
-    check(launches - tc_launches == cfg.num_layers * len(iter_ms["decode"]),
-          f"{kv_dtype} FP32-core launches {launches - tc_launches} != "
+    check(split_launches == cfg.num_layers * len(iter_ms["decode"]),
+          f"{kv_dtype} split-KV launches {split_launches} != "
           f"{cfg.num_layers} layers x {len(iter_ms['decode'])} decode "
           "iterations")
+    check(launches == tc_launches + split_launches,
+          f"{kv_dtype}: {launches - tc_launches - split_launches} launches "
+          "of the FP32-core kernel (bf16 q takes the other two)")
     check(other_launches == 0,
           f"the other pool type's kernel branch ran {other_launches} times")
     check(plain_calls == 0, f"plain attention called {plain_calls} times")
@@ -649,7 +682,7 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
                swapped_in_pages=engine.pool.stats["swapped_in"],
                h2d_events=engine.h2d_events, d2h_events=engine.d2h_events,
                kernel_launches=launches, tc_launches=tc_launches,
-               fp32_core_launches=launches - tc_launches,
+               split_launches=split_launches,
                max_memory_allocated=torch.cuda.max_memory_allocated())
     print(f"serve: yi-6b 32 layers bf16, kv {kv_dtype}, spec_k={spec_k}, "
           f"{n_req} requests: "
@@ -898,6 +931,7 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
          * qk).to(dtype)
     v = torch.randn(BH // groups, T, d, generator=g, device="cuda").to(dtype)
     dt = str(dtype).replace("torch.", "")
+    route = FK.route(dtype, d)
     name = (f"flash BH={BH} S={S} T={T} d={d} G={groups} {dt} "
             f"causal={causal} window={window} cap={cap} qk={qk}")
 
@@ -910,8 +944,13 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
             q, k.repeat_interleave(groups, 0), v.repeat_interleave(groups, 0),
             causal=causal, window=window, cap=cap)
 
+    before = (FK.launches.n, FK.tc_launches.n)
     out = kernel()
     torch.cuda.synchronize()
+    got = (FK.launches.n - before[0], FK.tc_launches.n - before[1])
+    check(got == (1, int(route == FK.TENSOR_CORES)),
+          f"{name}: route {route} but (launches, tensor-core launches) "
+          f"{got}")
     ref = plain()
     err = (out.float() - ref.float()).abs().max().item()
     ref_max = ref.float().abs().max().item()
@@ -940,7 +979,7 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
     t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
     bound_ms = max(t_bytes, t_ops)
     row = dict(BH=BH, S=S, T=T, d=d, groups=groups, dtype=dt,
-               causal=causal, window=window, cap=cap, qk=qk,
+               causal=causal, window=window, cap=cap, qk=qk, kernel=route,
                max_abs_err=err, ref_max_abs=ref_max, tol=tol, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms,
                library="flex_attention" if cap else "sdpa",
@@ -950,7 +989,8 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                share_of_bound=bound_ms / ms,
                tflops=flops / (ms * 1e-3) / 1e12)
-    print(f"kernel {name}: ms={ms:.4f} plain_ms={plain_ms:.4f} "
+    print(f"kernel {name}: kernel={route} ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} "
           f"library_ms={library_ms:.4f} ({row['library']}, max_abs_err "
           f"{library_err:.3g}, first call {library_first_s:.2f} s) "
           f"bytes={nbytes} flops={flops} "
@@ -1004,7 +1044,9 @@ def flash_grads():
 def phase_flash(timer: Timer) -> dict:
     """test_kernels' cases, then the capped ones again with sharp scores,
     then gemma2-2b's geometry (B=2 x H=8 flat heads over B x Kv=4 KV
-    rows, S=T=4096, hd 256, cap 50, windows 0 and 4096) at both scales.
+    rows, S=T=4096, hd 256, cap 50, windows 0 and 4096) at both scales
+    (the tensor-core kernel), then the float32 calls of phase 10 (S=512,
+    windows 0 and 128; the FP32-core kernel).
     Each capped (shape, type, mask) compiles its own ``flex_attention``,
     more than dynamo's default limit of 8 recompiles; past the limit flex
     would run unfused and its time would not be the library's, so the
@@ -1028,8 +1070,19 @@ def flash_cases(timer: Timer) -> dict:
     gemma = [flash_case(timer, 16, 4096, 4096, 256, torch.bfloat16, True,
                         window, 50.0, groups=2, qk=qk)
              for qk in (0.3, FLASH_SHARP) for window in (0, 4096)]
-    return dict(cases=cases + sharp + gemma, gemma=gemma,
-                grad_max_abs_err=flash_grads())
+    check(all(c["kernel"] == "tensor_cores" for c in gemma),
+          "gemma2-2b's bf16 cases must run on the tensor cores")
+    # the float32 calls phase 10's CUDA step makes (gemma2-2b widths, S
+    # 512, its global and its local layer): the FP32-core kernel's path
+    small = [flash_case(timer, TRAIN_SMALL_B * 8, TRAIN_SMALL_S,
+                        TRAIN_SMALL_S, 256, torch.float32, True, window,
+                        50.0, groups=2)
+             for window in (0, TRAIN_CUTS["sliding_window"])]
+    check(all(c["kernel"] == "fp32_cores" for c in cases + sharp + small
+              if c["dtype"] == "float32"),
+          "float32 cases must run on the FP32 cores")
+    return dict(cases=cases + sharp + gemma + small, gemma=gemma,
+                small=small, grad_max_abs_err=flash_grads())
 
 
 # -------------------------------------------------------------- phase 10 --
@@ -1071,6 +1124,9 @@ def phase_train_parity() -> dict:
     gpu_model = copy.deepcopy(cpu_model).to("cuda")
     batch = train_small_batch(cfg)
     opt = ST.default_opt_cfg(cfg)
+    from repro_torch.kernels.flash_attention import kernel as FK
+    FK.launches.reset()
+    FK.tc_launches.reset()
     out = {}
     for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
         state = ST.init_train_state(cfg, opt, params=model)
@@ -1110,7 +1166,12 @@ def phase_train_parity() -> dict:
           f"train parity: loss {gm['loss']} vs {cm['loss']}")
     check(rel_norm <= 1e-4,
           f"train parity: grad norm {gm['grad_norm']} vs {cm['grad_norm']}")
+    flash = (FK.launches.n, FK.tc_launches.n)
+    check(flash == (2 * cfg.num_layers, 0),
+          f"train parity: flash (launches, tensor-core launches) {flash}, "
+          f"want {2 * cfg.num_layers} on the FP32 cores")
     row = dict(loss_cuda=gm["loss"], loss_cpu=cm["loss"], rel_loss=rel_loss,
+               flash_fp32_core_launches=flash[0],
                grad_norm_cuda=gm["grad_norm"], grad_norm_cpu=cm["grad_norm"],
                rel_grad_norm=rel_norm, lr=lr,
                max_param_diff_over_lr=worst_p, params_beyond_1e3_lr=loose,
@@ -1196,7 +1257,8 @@ def phase_train_full() -> dict:
     init_s = time.perf_counter() - t0
     batches = [{k: torch.from_numpy(v).cuda() for k, v in
                 data.batch(i).items()} for i in range(TRAIN_FULL_STEPS)]
-    for c in (FK.launches, FO.plain_forwards, FO.backward_recomputes):
+    for c in (FK.launches, FK.tc_launches, FO.plain_forwards,
+              FO.backward_recomputes):
         c.reset()
     step_s, losses = [], []
     for b in batches:
@@ -1207,12 +1269,15 @@ def phase_train_full() -> dict:
         losses.append(float(m["loss"]))
     launches, plain_fwd, recomputes = (FK.launches.n, FO.plain_forwards.n,
                                        FO.backward_recomputes.n)
+    tc_launches = FK.tc_launches.n
     peak = torch.cuda.max_memory_allocated()
     n_steps = len(batches)
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     want = cfg.num_layers * 2 * n_steps
     check(launches == want, f"flash launches {launches} != {cfg.num_layers}"
           f" layers x (forward + recompute) x {n_steps} steps = {want}")
+    check(tc_launches == want, f"tensor-core flash launches {tc_launches} "
+          f"!= {want}")
     check(plain_fwd == 0, f"plain flash forward ran {plain_fwd} times")
     check(recomputes == cfg.num_layers * n_steps,
           f"backward recomputes {recomputes}")
@@ -1225,6 +1290,7 @@ def phase_train_full() -> dict:
                model_flop_share=6 * n_params * tokens / med / 989e12,
                params=n_params, peak_memory_bytes=peak,
                init_s=init_s, flash_launches=launches,
+               flash_tc_launches=tc_launches,
                plain_forwards=plain_fwd, backward_recomputes=recomputes)
     print("train full: gemma2-2b " + " ".join(
         f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
@@ -1278,8 +1344,9 @@ def main() -> int:
     cases = phase_kernel(timer)
     done("phase 3")
     parity = parity_models()
-    _, known = phase_parity(parity)
-    phase_parity(parity, kv_dtype="int8", spec_k=4, known=known)
+    _, known, parity_f32 = phase_parity(parity)
+    _, _, parity_int8 = phase_parity(parity, kv_dtype="int8", spec_k=4,
+                                     known=known)
     parity = parity_models("bfloat16")
     phase_parity(parity)
     del parity
@@ -1308,20 +1375,20 @@ def main() -> int:
     # 9-12
     flash = phase_flash(timer)
     done("phase 9")
-    phase_train_parity()
+    parity_train = phase_train_parity()
     done("phase 10")
     phase_trainer()
     done("phase 11")
     train = phase_train_full()
     done("phase 12")
 
-    def entry(name, kernel, kv, C, launches, replaces):
+    def entry(name, kernel, kv, C, dtype, launches, replaces):
         """A paged-attention kernel on one pool type: its head case is
-        the main path's (C=1 decode or C=128 chunk, bf16, flat); its error
-        the largest of its cases."""
+        the main path's (C=1 decode or C=128 chunk, flat, q of
+        ``dtype``); its error the largest of its cases."""
         own = [c for c in cases if c["kv"] == kv and c["kernel"] == kernel]
         head = next(c for c in own if c["C"] == C and not c["sharp"]
-                    and c["dtype"] == "bfloat16")
+                    and c["dtype"] == dtype)
         return {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/paged_attention/csrc/"
@@ -1336,20 +1403,23 @@ def main() -> int:
         }
 
     from repro_torch.kernels.paged_attention.kernel import (
-        FP32_CORES, TENSOR_CORES)
+        FP32_CORES, SPLIT_KV, TENSOR_CORES)
+    decode_fwd = "src/repro/kernels/paged_attention/kernel.py:61"
+    prefill = "src/repro/kernels/paged_attention/kernel.py:222"
+    quant = "src/repro/kernels/paged_attention/kernel.py:113-121"
     kernels = [
-        entry("paged_attention", FP32_CORES, "same", 1,
-              serve["fp32_core_launches"],
-              "src/repro/kernels/paged_attention/kernel.py:222"),
-        entry("paged_attention_int8", FP32_CORES, "int8", 1,
-              serve8["fp32_core_launches"],
-              "src/repro/kernels/paged_attention/kernel.py:113-121"),
+        entry("paged_attention_decode_split", SPLIT_KV, "same", 1,
+              "bfloat16", serve["split_launches"], decode_fwd),
+        entry("paged_attention_decode_split_int8", SPLIT_KV, "int8", 1,
+              "bfloat16", serve8["split_launches"], quant),
+        entry("paged_attention", FP32_CORES, "same", 128, "float32",
+              parity_f32["fp32_core_launches"], prefill),
+        entry("paged_attention_int8", FP32_CORES, "int8", 128, "float32",
+              parity_int8["fp32_core_launches"], quant),
         entry("paged_attention_prefill_tc", TENSOR_CORES, "same", 128,
-              serve["tc_launches"],
-              "src/repro/kernels/paged_attention/kernel.py:222"),
+              "bfloat16", serve["tc_launches"], prefill),
         entry("paged_attention_prefill_tc_int8", TENSOR_CORES, "int8", 128,
-              serve8["tc_launches"],
-              "src/repro/kernels/paged_attention/kernel.py:113-121"),
+              "bfloat16", serve8["tc_launches"], quant),
     ]
     for name, branch, dtype, launches in (
             ("cluster_matmul", CK.GENERAL, "float32",
@@ -1372,23 +1442,31 @@ def main() -> int:
             "held_against_plain": True,
             "cases": own,
         })
-    # the main path's case: gemma2-2b's global (window 0) layer; its error
-    # is the largest of gemma2's four cases (both scales, both windows)
-    head = dict(flash["gemma"][0], max_abs_err=max(
-        c["max_abs_err"] for c in flash["gemma"]))
-    kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
-        "launches": train["flash_launches"],
-        "max_abs_err": head["max_abs_err"], "ms": head["ms"],
-        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"],
-        "held_against_plain": True,
-        "grad_max_abs_err": flash["grad_max_abs_err"],
-        "cases": flash["cases"],
-    })
+    # flash on the tensor cores: the main path's case is gemma2-2b's
+    # global (window 0) layer, its error the largest of gemma2's four
+    # cases (both scales, both windows); on the FP32 cores: phase 10's
+    # float32 global layer, its error the largest of its float32 cases
+    for name, kernel, head, launches in (
+            ("flash_attention_tc", "tensor_cores", flash["gemma"][0],
+             train["flash_tc_launches"]),
+            ("flash_attention", "fp32_cores", flash["small"][0],
+             parity_train["flash_fp32_core_launches"])):
+        own = [c for c in flash["cases"] if c["kernel"] == kernel]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                      "flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
+            "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in (
+                flash["gemma"] if kernel == "tensor_cores" else own)),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+            "held_against_plain": True,
+            "grad_max_abs_err": flash["grad_max_abs_err"],
+            "cases": own,
+        })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

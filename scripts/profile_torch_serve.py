@@ -10,8 +10,10 @@ iteration, once with ``torch.profiler`` around every iteration for the
 device's kernel time.  Iterations are split into prefill (any prompt
 tokens fed) and decode (all lanes decoding).  Prints one JSON object per
 class: median wall ms, median device-busy ms (sum of kernel durations),
-idle share (1 - busy / wall), kernel launches per iteration, and the
-kernels taking the most device time.  ``--kv-dtype int8`` serves the
+idle share (1 - busy / wall), kernel launches per iteration, the device
+ms per iteration of the port's paged-attention kernels (every kernel of
+``paged_attention.cu``, whose names hold ``paged_``), and the kernels
+taking the most device time.  ``--kv-dtype int8`` serves the
 same workload from an int8 KV pool.  Needs a CUDA device.
 """
 from __future__ import annotations
@@ -107,6 +109,9 @@ def main() -> int:
             "idle_share": 1 - busy / med_wall,
             "kernel_launches_per_iter": statistics.median(
                 n for _, n, _ in prof),
+            "paged_attention_ms_per_iter": sum(
+                ms for name, ms in total.items() if "paged_" in name)
+            / len(prof),
             "top_kernels_ms_per_iter": top}))
     return 0
 

@@ -10,9 +10,14 @@ and an optional tanh logit cap; float32 or bfloat16, d in
 :data:`HEAD_DIMS`.  It takes CUDA tensors only: a CPU tensor is the
 caller's cue to use the plain version (``ops`` dispatches), never this
 module's.  The kernel masks partial tiles, so any S and T are right (the
-reference asserts that its tiles divide S and T).  The library is built
-with ``nvcc`` at first launch (``kernels.launch``); every launch adds one
-to :data:`launches`.
+reference asserts that its tiles divide S and T).
+
+The source holds two kernels, and :func:`route` picks one from the type
+and the head dim alone (never on a failure): bfloat16 at hd 64, 128 and
+256 runs on the tensor cores (TMA + wgmma), float32 and bf16 at hd 16
+and 32 on the FP32 cores.  The library is built with ``nvcc`` at first
+launch (``kernels.launch``); every launch adds one to :data:`launches`,
+and a tensor-core launch also to :data:`tc_launches`.
 """
 from __future__ import annotations
 
@@ -28,13 +33,32 @@ from repro_torch.kernels.launch import LaunchCounter, load
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128, 256)
+#: head dims the tensor-core kernel takes: whole 64-column (128-byte) TMA
+#: boxes
+TC_HEAD_DIMS = (64, 128, 256)
 #: element-type codes of the C interface
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the launch grid's head dimension holds at most 65535 blocks
 MAX_HEADS = 65535
 
-#: launches of the flash-attention kernel
+#: launches of either flash-attention kernel
 launches = LaunchCounter()
+#: launches of the tensor-core kernel
+tc_launches = LaunchCounter()
+
+#: the two kernels :func:`route` chooses between
+TENSOR_CORES, FP32_CORES = "tensor_cores", "fp32_cores"
+
+
+def route(dtype: torch.dtype, hd: int) -> str:
+    """The kernel a call of ``dtype`` with head dim ``hd`` takes:
+    :data:`TENSOR_CORES` for bfloat16 at hd in :data:`TC_HEAD_DIMS`,
+    :data:`FP32_CORES` for float32 (its 2e-4 bar is out of the tensor
+    cores' reach) and for bfloat16 at hd 16 and 32 (less than one
+    128-byte TMA box a row)."""
+    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
+        return TENSOR_CORES
+    return FP32_CORES
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -44,6 +68,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
                    + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.flash_attention_tc_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -78,8 +106,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, groups: int):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel "
-                             "reads rows 16 bytes at a time)")
+            raise ValueError(f"{name} must be 16-byte aligned (the kernels "
+                             "read rows 16 bytes at a time, or by TMA)")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,15 +123,28 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
+    kernel = route(q.dtype, d)
+    if T == 0 and kernel == TENSOR_CORES:
+        # no key at all: every row is fully masked and gives 0 (a tensor
+        # map cannot describe an empty K/V)
+        return out.zero_()
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_launch(
-            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), BH, S, T, d, groups, int(bool(causal)),
-            int(window), float(cap), float(sc), stream)
+        if kernel == TENSOR_CORES:
+            err = lib.flash_attention_tc_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
+                S, T, d, groups, int(bool(causal)), int(window), float(cap),
+                float(sc), stream)
+        else:
+            err = lib.flash_attention_launch(
+                _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                out.data_ptr(), BH, S, T, d, groups, int(bool(causal)),
+                int(window), float(cap), float(sc), stream)
     if err:
-        raise RuntimeError(f"flash attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flash attention kernel ({kernel}) launch "
+                           f"failed: CUDA error {err}")
     launches.n += 1
+    if kernel == TENSOR_CORES:
+        tc_launches.n += 1
     return out

@@ -17,14 +17,17 @@ page, K/V and kv head), which the kernel applies as it stages each page
 CUDA tensors only: a CPU tensor is the caller's cue to use the plain
 version (``ops`` dispatches), never this module's.
 
-The source holds two kernels, and :func:`route` picks one from q's type
-and C alone (never on a failure): bf16 q with C > 1 (the chunk and the
-speculative verify steps) runs on the tensor cores; C = 1 (decode) and
-float32 q run on the FP32 cores.  The library is built with ``nvcc`` at
-first launch (``kernels.launch``); every launch adds one to
-:data:`launches` (bf16/f32 pool) or :data:`int8_launches` (int8 pool),
-whichever kernel it takes, and a tensor-core launch also to
-:data:`tc_launches`.
+The source holds three kernels, and :func:`route` picks one from q's type
+and C alone (never on a failure): C = 1 (decode) runs the split-KV kernel
+(flash-decoding: a lane's tokens spread over blocks of 128 for bf16 q,
+whose products run on the tensor cores, or of 32 for float32 q, combined
+by log-sum-exp in the same launch); bf16 q with C > 1 (the chunk and the
+speculative verify steps) runs on the tensor cores; float32 q with C > 1
+on the FP32 cores.  The library is built with ``nvcc`` at first launch
+(``kernels.launch``); every launch adds one to :data:`launches`
+(bf16/f32 pool) or :data:`int8_launches` (int8 pool), whichever kernel it
+takes, and a tensor-core launch also to :data:`tc_launches`, a split-KV
+one to :data:`split_launches`.
 """
 from __future__ import annotations
 
@@ -49,31 +52,87 @@ launches = LaunchCounter()
 int8_launches = LaunchCounter()
 #: launches of the tensor-core kernel (either pool type)
 tc_launches = LaunchCounter()
+#: launches of the split-KV decode kernel (either pool type)
+split_launches = LaunchCounter()
 
-#: the two kernels :func:`route` chooses between
-TENSOR_CORES, FP32_CORES = "tensor_cores", "fp32_cores"
+#: the three kernels :func:`route` chooses between
+TENSOR_CORES, FP32_CORES, SPLIT_KV = "tensor_cores", "fp32_cores", "split_kv"
+#: per (device, stream), the split-KV kernel's float32 scratch for the
+#: partials and its tickets (zeros, which every launch leaves zero: the
+#: last block of a lane and kv head resets its own), grown as calls need:
+#: launches on one stream run one after another, so they can share them
+_split_buffers: dict = {}
 
 
 def route(q_dtype: torch.dtype, C: int) -> str:
     """The kernel a call with q of ``q_dtype`` and ``C`` query tokens per
-    lane takes: :data:`TENSOR_CORES` for bfloat16 q with C > 1 (mma.sync
-    with bf16 operands), :data:`FP32_CORES` for C = 1 (decode: bytes-bound,
-    one query token per lane) and for float32 q (its 1e-4 bar is out of
-    the tensor cores' reach), whatever the pool's type."""
-    if q_dtype == torch.bfloat16 and C > 1:
+    lane takes: :data:`SPLIT_KV` for C = 1 (decode: bytes-bound, one query
+    token per lane, a lane's tokens spread over blocks), whatever q's
+    type; :data:`TENSOR_CORES` for bfloat16 q with C > 1 (mma.sync with
+    bf16 operands); :data:`FP32_CORES` for float32 q with C > 1 (its 1e-4
+    bar is out of the tensor cores' reach); whatever the pool's type."""
+    if C == 1:
+        return SPLIT_KV
+    if q_dtype == torch.bfloat16:
         return TENSOR_CORES
     return FP32_CORES
+
+
+def split_count(n_pages: int, page: int, span: int) -> int:
+    """Splits of the split-KV grid for a block table of ``n_pages``
+    columns: enough spans of ``span`` tokens (the kernel's, which the
+    library reports) to cover every token the table can map."""
+    return -(-n_pages * page // span)
+
+
+@functools.lru_cache(maxsize=None)
+def _split_plan(q_code: int, B: int, H: int, Kv: int, hd: int, page: int,
+                n_pages: int) -> tuple:
+    """(splits, float32 words of the (m, l) partials rounded up to 16
+    bytes, scratch words, tickets) of a split-KV call, with the span and
+    the heads per block of q's branch as the library reports them."""
+    lib = _library()
+    span = lib.paged_decode_split_tokens(q_code)
+    heads = lib.paged_decode_split_heads(q_code)
+    n_splits = split_count(n_pages, page, span)
+    # the acc rows start on a 16-byte boundary: the kernel reads them 16
+    # bytes at a time
+    n_ml = -(-B * H * n_splits * 2 // 4) * 4
+    return (n_splits, n_ml, n_ml + B * H * n_splits * hd,
+            B * Kv * -(-(H // Kv) // heads))
+
+
+def _split_scratch(device: torch.device, stream: int, words: int,
+                   n_tickets: int) -> tuple:
+    """The (scratch, tickets) of ``stream`` on ``device``, at least
+    ``words`` float32 and ``n_tickets`` int32 long."""
+    key = (device, stream)
+    bufs = _split_buffers.get(key)
+    if bufs is None or bufs[0].numel() < words \
+            or bufs[1].numel() < n_tickets:
+        bufs = _split_buffers[key] = (
+            torch.empty(max(words, 256), dtype=torch.float32, device=device),
+            torch.zeros(max(n_tickets, 256), dtype=torch.int32,
+                        device=device))
+    return bufs
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
     fn = lib.paged_prefill_launch
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                    + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.paged_prefill_tc_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    for name in ("paged_decode_split_tokens", "paged_decode_split_heads"):
+        getattr(lib, name).argtypes = [ctypes.c_int]
+        getattr(lib, name).restype = ctypes.c_int
+    fn = lib.paged_decode_split_launch
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 11
                    + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -156,7 +215,7 @@ def paged_prefill_fwd(q: torch.Tensor, kv_pages: torch.Tensor,
 
     ``pages_per_step`` is accepted for parity with the TPU kernel, whose
     grid step it sets; these kernels' tiling does not depend on it (they
-    stage 32 or 64 tokens per step whatever the page size)."""
+    stage 32 to 128 tokens per step whatever the page size)."""
     del pages_per_step
     B, C, H, hd, P, page, Kv = _check(q, kv_pages, block_table, page_counts,
                                       lengths, q_start, kv_scales)
@@ -173,19 +232,32 @@ def paged_prefill_fwd(q: torch.Tensor, kv_pages: torch.Tensor,
     sizes = (B, C, H, Kv, hd, page, block_table.shape[1], P, sc)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        if kernel == TENSOR_CORES:
+        if kernel == SPLIT_KV:
+            n_splits, n_ml, words, n_tickets = _split_plan(
+                _DTYPES[q.dtype], B, H, Kv, hd, page, block_table.shape[1])
+            # the partials, (m, l) pairs then acc rows, in one buffer
+            part, tickets = _split_scratch(q.device, stream, words,
+                                           n_tickets)
+            err = lib.paged_decode_split_launch(
+                _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], *pointers,
+                part.data_ptr(), part.data_ptr() + 4 * n_ml,
+                tickets.data_ptr(),
+                B, H, Kv, hd, page, block_table.shape[1], P, n_splits, sc,
+                stream)
+        elif kernel == TENSOR_CORES:
             err = lib.paged_prefill_tc_launch(
                 _DTYPES[kv_pages.dtype], *pointers, *sizes, stream)
         else:
             err = lib.paged_prefill_launch(
-                _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], *pointers,
-                *sizes, stream)
+                _DTYPES[kv_pages.dtype], *pointers, *sizes, stream)
     if err:
         raise RuntimeError(f"paged attention kernel ({kernel}) launch "
                            f"failed: CUDA error {err}")
     (int8_launches if kv_scales is not None else launches).n += 1
     if kernel == TENSOR_CORES:
         tc_launches.n += 1
+    elif kernel == SPLIT_KV:
+        split_launches.n += 1
     return out
 
 

@@ -213,24 +213,131 @@ def test_attend_fullseq_refuses_offset_positions():
 
 def test_cpu_tensors_take_the_plain_version_and_never_the_kernel():
     q, k, v = _port(_qkv(2, 32, 32, 16), "float32")
-    for c in (K.launches, ops.plain_forwards, ops.backward_recomputes):
+    for c in (K.launches, K.tc_launches, ops.plain_forwards,
+              ops.backward_recomputes):
         c.reset()
     q.requires_grad_(True)
     flash_attention(q, k, v).sum().backward()
-    assert (K.launches.n, ops.plain_forwards.n,
-            ops.backward_recomputes.n) == (0, 1, 1)
+    assert (K.launches.n, K.tc_launches.n, ops.plain_forwards.n,
+            ops.backward_recomputes.n) == (0, 0, 1, 1)
     with pytest.raises(ValueError, match="must be a CUDA tensor"):
         K.flash_attention_fwd(q.detach(), k, v)
     with pytest.raises(TypeError, match="float32"):
         flash_attention(q.double(), k.double(), v.double())
 
 
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 256, "tensor_cores"),   # gemma2-2b
+    (torch.bfloat16, 128, "tensor_cores"),   # yi-6b, qwen3-32b
+    (torch.bfloat16, 64, "tensor_cores"),
+    (torch.bfloat16, 32, "fp32_cores"),      # under one 128-byte TMA box
+    (torch.bfloat16, 16, "fp32_cores"),
+    (torch.float32, 256, "fp32_cores"),      # the 2e-4 bar
+    (torch.float32, 64, "fp32_cores"),
+    (torch.float32, 16, "fp32_cores"),
+])
+def test_route_by_dtype_and_head_dim(dtype, hd, want):
+    assert K.route(dtype, hd) == want
+
+
+def tc_emulation(q, k, v, causal, window, cap, groups=1):
+    """The tensor-core kernel's arithmetic and tile order, for the tests
+    only: blocks of 128 query rows walk the block's visible keys from k_lo
+    (the window's first key, not tile-aligned) to k_hi in 64-key tiles;
+    each 64-row half skips the tiles none of its rows can see; scores
+    float32 from bf16 operands, times scale, the cap in float32, then
+    log2-scaled for exp2; the online softmax's m and l in float32; p
+    rounded to bf16 for P.V while l sums it unrounded; out = O / l (0
+    where l is 0), rounded to bf16.  q (BH,S,d), k/v (BH/groups,T,d)
+    bf16."""
+    BH, S, d = q.shape
+    T = k.shape[1]
+    scale, log2e = 1.0 / np.sqrt(d), 1.4426950408889634
+    qf = q.float()
+    kf = torch.cat([k.float(), torch.zeros(k.shape[0], 64, d)], 1)
+    vf = torch.cat([v.float(), torch.zeros(v.shape[0], 64, d)], 1)
+    kf = kf.repeat_interleave(groups, 0)
+    vf = vf.repeat_interleave(groups, 0)
+    out = torch.zeros(BH, S, d)
+    for q0 in range(0, S, 128):
+        last = min(q0 + 128, S) - 1
+        k_hi = min(T, last + 1) if causal else T
+        k_lo = max(0, q0 - window + 1) if window else 0
+        for r0 in (q0, q0 + 64):
+            if r0 >= S:
+                continue
+            rows = torch.arange(r0, min(r0 + 64, S))
+            k_first = r0 - window + 1 if window else 0
+            k_last = r0 + 63 if causal else T - 1
+            m = torch.full((BH, len(rows)), -1e30)
+            l_sum = torch.zeros(BH, len(rows))
+            o = torch.zeros(BH, len(rows), d)
+            for k0 in range(k_lo, k_hi, 64):
+                if not (k0 <= k_last and k0 + 64 > k_first):
+                    continue
+                keys = torch.arange(k0, k0 + 64)
+                s = torch.einsum("brd,btd->brt", qf[:, rows],
+                                 kf[:, k0:k0 + 64]) * scale
+                if cap:
+                    s = cap * torch.tanh(s / cap)
+                s = s * log2e
+                mask = (keys[None, :] < T).expand(len(rows), 64)
+                if causal:
+                    mask = mask & (keys[None, :] <= rows[:, None])
+                if window:
+                    mask = mask & (rows[:, None] - keys[None, :] < window)
+                s = torch.where(mask[None], s, torch.tensor(-1e30))
+                m_new = torch.maximum(m, s.max(-1).values)
+                p = torch.where(mask[None], torch.exp2(s - m_new[..., None]),
+                                torch.tensor(0.0))
+                alpha = torch.exp2(m - m_new)
+                l_sum = l_sum * alpha + p.sum(-1)
+                o = o * alpha[..., None] + torch.einsum(
+                    "brt,btd->brd", p.to(torch.bfloat16).float(),
+                    vf[:, k0:k0 + 64])
+                m = m_new
+            out[:, rows] = o / torch.where(l_sum == 0, torch.ones_like(l_sum),
+                                           l_sum)[..., None]
+    return out.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("qk", [0.3, SHARP])
+@pytest.mark.parametrize("causal,window,cap", MASKS)
+@pytest.mark.parametrize("d,groups", [(64, 1), (256, 2)])
+def test_tensor_core_arithmetic_matches_the_pallas_kernel(d, groups, causal,
+                                                          window, cap, qk):
+    """The tensor-core kernel's tile order and rounding (``tc_emulation``)
+    against the reference's Pallas kernel in interpret mode at hd 64 and
+    256 (GQA there), the five masks, flat and sharp, within the bf16
+    bar."""
+    BH, S, T = 4, 256, 256
+    arrs = _qkv(BH, S, T, d, seed=8, kv_rows=BH // groups, qk=qk)
+    ref = j_flash(*_jax(arrs, "bfloat16"), causal, window, cap, True, groups)
+    emu = tc_emulation(*_port(arrs, "bfloat16"), causal, window, cap, groups)
+    np.testing.assert_allclose(emu.float().numpy(),
+                               np.asarray(ref, np.float32), **TOL["bfloat16"])
+
+
+def test_tensor_core_emulation_takes_partial_tiles():
+    """S and T that are not multiples of the tiles, against the
+    reference's oracle (its kernel asserts that its tiles divide them)."""
+    for causal, window, cap in MASKS:
+        arrs = _qkv(2, 200, 130, 64, seed=9, qk=SHARP)
+        ref = j_ref(*_jax(arrs, "bfloat16"), causal=causal, window=window,
+                    cap=cap)
+        emu = tc_emulation(*_port(arrs, "bfloat16"), causal, window, cap)
+        np.testing.assert_allclose(emu.float().numpy(),
+                                   np.asarray(ref, np.float32),
+                                   **TOL["bfloat16"])
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
-    """The hand-written kernel against its plain version on the card:
+    """The hand-written kernels against their plain version on the card:
     every head dim, both types, the five masks, GQA, partial tiles, at
-    test_kernels' scale and at ``SHARP``, and the autograd gradients
-    against plain autograd."""
+    test_kernels' scale and at ``SHARP``, each call on the kernel its
+    route names (bf16 at hd 64-256 on the tensor cores), and the autograd
+    gradients against plain autograd."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine: "
                     "pytest -m cuda tests/test_torch_flash_attention.py)")
@@ -242,11 +349,13 @@ def test_cuda_kernel_matches_plain_version():
             arrs = _qkv(BH, S, T, d, kv_rows=BH // G, qk=qk)
             for dtype in ("float32", "bfloat16"):
                 q, k, v = (t.cuda() for t in _port(arrs, dtype))
+                tc = K.route(q.dtype, d) == K.TENSOR_CORES
                 for causal, window, cap in MASKS:
-                    before = K.launches.n
+                    before = (K.launches.n, K.tc_launches.n)
                     out = flash_attention(q, k, v, causal, window, cap, G)
                     torch.cuda.synchronize()
-                    assert K.launches.n == before + 1
+                    assert (K.launches.n, K.tc_launches.n) == (
+                        before[0] + 1, before[1] + int(tc))
                     ref = flash_attention_ref(
                         q, k.repeat_interleave(G, 0),
                         v.repeat_interleave(G, 0), causal=causal,
@@ -273,13 +382,19 @@ def test_cuda_kernel_matches_plain_version():
 
 
 #: deliberately broken copies of the kernel, made from its source at test
-#: time: (text replaced, replacement), each found exactly once
+#: time: (text replaced, replacement), each found exactly once.  They
+#: break the tensor-core kernel, the one gemma2-2b's bf16 hd-256 calls
+#: take: its cap line, and its tile walk (both consumer warpgroups skip
+#: the second key tile for rows past 2,048; the ring's barriers still
+#: turn, so the broken kernel ends)
 MUTANTS = {
-    "no_cap": ("        if (cap != 0.f) x = cap * tanhf(x / cap);\n", ""),
+    "no_cap": (
+        "        if (cap != 0.f) x = cap - __fdividef(two_cap, exp2f(x * k2) "
+        "+ 1.f);\n", ""),
     "late_rows_skip_a_key_tile": (
-        "  for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {\n",
-        "  for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {\n"
-        "    if (q0 >= 2048 && k0 == k_lo + kBK) continue;\n"),
+        "    bool live = wg_live && k0 <= k_last_w && k0 + kBK > k_first_w;\n",
+        "    bool live = wg_live && k0 <= k_last_w && k0 + kBK > k_first_w;\n"
+        "    if (q0 >= 2048 && it == 1) live = false;\n"),
 }
 
 
@@ -302,6 +417,7 @@ def test_sharp_inputs_catch_a_broken_kernel(mutant, tmp_path, monkeypatch):
     src.write_text(text.replace(old, new))
     broken = K.bind(launch.load(src))
     BH, S, d, G = 16, 4096, 256, 2
+    assert K.route(torch.bfloat16, d) == K.TENSOR_CORES
     errs = {}
     for qk in (0.3, SHARP):
         q, k, v = (t.cuda() for t in _port(

@@ -483,9 +483,10 @@ def test_sharp_inputs_catch_a_dropped_tile():
     (torch.bfloat16, 128, "tensor_cores"),   # the chunk step
     (torch.bfloat16, 5, "tensor_cores"),     # the verify step, spec_k = 4
     (torch.bfloat16, 2, "tensor_cores"),
-    (torch.bfloat16, 1, "fp32_cores"),       # decode
+    (torch.bfloat16, 1, "split_kv"),         # decode
     (torch.float32, 128, "fp32_cores"),      # the 1e-4 bar
-    (torch.float32, 1, "fp32_cores"),
+    (torch.float32, 1, "split_kv"),
+    (torch.float32, 5, "fp32_cores"),
 ])
 def test_route_by_q_dtype_and_chunk(q_dtype, C, want):
     assert K.route(q_dtype, C) == want
@@ -493,18 +494,22 @@ def test_route_by_q_dtype_and_chunk(q_dtype, C, want):
 
 def test_cpu_calls_count_no_kernel_launch():
     """On the CPU the ops take the plain version: no kernel counter
-    moves, the tensor-core one included."""
+    moves, the tensor-core and split-KV ones included."""
     q, kv, _, bt, lengths, q_start = _tc_inputs("bf16", "flat")
     tq = torch.from_numpy(q).to(torch.bfloat16)
     tkv = torch.from_numpy(kv).to(torch.bfloat16)
     counts = page_counts_for(torch.from_numpy(lengths), kv.shape[2])
-    for c in (K.launches, K.int8_launches, K.tc_launches):
+    for c in (K.launches, K.int8_launches, K.tc_launches, K.split_launches):
         c.reset()
     out = paged_prefill_fused(tq, tkv, pad_block_table(torch.from_numpy(bt),
                                                        counts),
                               counts, *_i32(lengths, q_start))
     assert out.dtype == torch.bfloat16
-    assert (K.launches.n, K.int8_launches.n, K.tc_launches.n) == (0, 0, 0)
+    out = paged_decode_fused(tq[:, 0], tkv, pad_block_table(
+        torch.from_numpy(bt), counts), counts, *_i32(lengths))
+    assert out.dtype == torch.bfloat16
+    assert (K.launches.n, K.int8_launches.n, K.tc_launches.n,
+            K.split_launches.n) == (0, 0, 0, 0)
 
 
 @pytest.mark.cuda
@@ -546,3 +551,197 @@ def test_tensor_core_kernel_matches_plain_on_card(pool):
                                    ref.float().numpy(), **TOL["bfloat16"])
         assert float(out[-1].abs().max()) == 0.0
     assert K.tc_launches.n == n
+
+
+# ------------------------------------------------ the split-KV kernel --
+def split_partials(q, kv, kv_scales, block_table, lengths, span=64,
+                   round_p=False):
+    """The split-KV decode kernel's arithmetic (C = 1), for the tests
+    only: float32 math on the pool's values, each lane's visible tokens
+    (t < len, as q_start = len - 1) cut into spans of ``span`` tokens, each
+    span's own softmax giving a partial (m, l, acc) per query head: the
+    int8 K scale of a token's page on its score, the V scale on its p, l
+    summing p unscaled; with ``round_p`` (the kernel's bf16-q branch, on
+    the tensor cores) p times the V scale is rounded to bf16 for P.V.
+    q (B,H,hd); kv (P,2,page,Kv,hd); block_table -1-marked numpy.
+    Returns, per lane, a list of (m, l, acc) of shapes (H,), (H,),
+    (H, hd)."""
+    B, H, hd = q.shape
+    page, Kv = kv.shape[2], kv.shape[3]
+    G = H // Kv
+    scale = 1.0 / np.sqrt(hd)
+    lanes = []
+    for b in range(B):
+        n = int(lengths[b])
+        t = torch.arange(n)
+        phys = torch.as_tensor(block_table[b])[t // page].long()
+        k = kv[phys, 0, t % page].float()                   # (n, Kv, hd)
+        v = kv[phys, 1, t % page].float()
+        ones = torch.ones(n, Kv)
+        ks = kv_scales[phys, 0] if kv_scales is not None else ones
+        vs = kv_scales[phys, 1] if kv_scales is not None else ones
+        qb = q[b].float().reshape(Kv, G, hd)
+        parts = []
+        for t0 in range(0, n, span):
+            sl = slice(t0, min(t0 + span, n))
+            s = torch.einsum("kgd,tkd->kgt", qb, k[sl]) * scale \
+                * ks[sl].T[:, None, :]
+            m = s.max(-1).values
+            p = torch.exp(s - m[..., None])
+            pv = p * vs[sl].T[:, None, :]
+            if round_p:
+                pv = pv.to(torch.bfloat16).float()
+            acc = torch.einsum("kgt,tkd->kgd", pv, v[sl])
+            parts.append((m.reshape(H), p.sum(-1).reshape(H),
+                          acc.reshape(H, hd)))
+        lanes.append(parts)
+    return lanes
+
+
+def split_combine(parts, H, hd):
+    """The kernel's log-sum-exp combine of one lane's partials: m = max
+    m_i, l = sum l_i e^(m_i - m), acc = sum acc_i e^(m_i - m), out = acc / l
+    (0 where l is 0: an empty split has m_i = NEG_INF, l_i = 0, acc_i = 0,
+    and a lane with none at all gives 0)."""
+    if not parts:
+        return torch.zeros(H, hd)
+    m = torch.stack([p[0] for p in parts]).max(0).values
+    w = [torch.exp(p[0] - m) for p in parts]
+    lsum = sum(p[1] * wi for p, wi in zip(parts, w))
+    acc = sum(p[2] * wi[:, None] for p, wi in zip(parts, w))
+    return acc / torch.where(lsum == 0, torch.ones_like(lsum), lsum)[:, None]
+
+
+def split_emulation(q, kv, kv_scales, block_table, lengths, span=64,
+                    drop=None):
+    """Partials per span combined per lane (p rounded to bf16 for P.V
+    when q is bf16, as the kernel's tensor-core branch does); ``drop`` =
+    (lane, split) leaves one partial out.  Returns (B, H, hd) float32."""
+    B, H, hd = q.shape
+    lanes = split_partials(q, kv, kv_scales, block_table, lengths, span,
+                           round_p=q.dtype == torch.bfloat16)
+    return torch.stack([
+        split_combine([p for i, p in enumerate(parts) if (b, i) != drop],
+                      H, hd)
+        for b, parts in enumerate(lanes)])
+
+
+def _decode_case(pool, q_dtype, sharpness):
+    """Phase-3-like decode inputs (``_tc_inputs`` at C = 1: ragged lanes of
+    150, 67, 3 and 0 tokens, two aliased prefix pages) in both frameworks,
+    with the reference's fused decode kernel (Pallas, interpret mode) on
+    them.  The pool is int8 with scales or in q's type."""
+    q, kv, sc, bt, lengths, _ = _tc_inputs(
+        "int8" if pool == "int8" else "bf16", sharpness, C=1)
+    jdt = jnp.dtype(q_dtype)
+    jq = jnp.asarray(q[:, 0]).astype(jdt)
+    tq = torch.from_numpy(np.array(jq.astype(jnp.float32))).to(
+        getattr(torch, q_dtype))
+    if pool == "int8":
+        jkv, tkv = jnp.asarray(kv), torch.from_numpy(kv)
+    else:
+        jkv = jnp.asarray(kv).astype(jdt)
+        tkv = torch.from_numpy(np.array(jkv.astype(jnp.float32))).to(
+            getattr(torch, q_dtype))
+    counts = page_counts_for(torch.from_numpy(lengths), kv.shape[2])
+    padded = pad_block_table(torch.from_numpy(bt), counts)
+    ker = j_paged_decode_fused(
+        jq, jkv, jnp.asarray(padded.numpy()), jnp.asarray(counts.numpy()),
+        jnp.asarray(lengths), interpret=True,
+        kv_scales=None if sc is None else jnp.asarray(sc))
+    tsc = None if sc is None else torch.from_numpy(sc)
+    return tq, tkv, tsc, bt, lengths, np.asarray(ker, np.float32)
+
+
+@pytest.mark.parametrize("span", [8, 32, 64, 128, 256])
+@pytest.mark.parametrize("sharpness", ["flat", "sharp"])
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool", ["same", "int8"])
+def test_split_kv_arithmetic_matches_the_pallas_decode(pool, q_dtype,
+                                                       sharpness, span):
+    """Partials per span combined by log-sum-exp (the split-KV kernel's
+    arithmetic) against the reference's fused decode kernel in interpret
+    mode, on a pool in q's type and on an int8 pool, flat and sharp, with
+    spans of one page (8 tokens), of the kernel's 32 (float32 q) and 128
+    (bf16 q), 64, and of more tokens than the longest lane holds (256 >
+    150),
+    an empty lane and aliased prefix pages; bars 1e-4 (float32 q) and 2e-2
+    (bf16 q)."""
+    tq, tkv, tsc, bt, lengths, ref = _decode_case(pool, q_dtype, sharpness)
+    emu = split_emulation(tq, tkv, tsc, bt, lengths, span=span)
+    if sharpness == "sharp":
+        assert np.abs(ref).max() > 1.0
+    _close(ref, emu.to(tq.dtype), q_dtype)
+    assert float(emu[-1].abs().max()) == 0.0     # the empty lane
+
+
+def test_sharp_inputs_catch_a_dropped_split():
+    """Leaving out one split's partial of the longest lane (what a wrong
+    ticket count or split walk would do) moves its outputs far past the
+    bf16 bar on sharp scores."""
+    tq, tkv, _, bt, lengths, _ = _decode_case("same", "bfloat16", "sharp")
+    full = split_emulation(tq, tkv, None, bt, lengths)
+    dropped = split_emulation(tq, tkv, None, bt, lengths, drop=(0, 0))
+    assert float((full[0] - dropped[0]).abs().max()) > 0.5
+    torch.testing.assert_close(full[1:], dropped[1:], rtol=0, atol=0)
+
+
+def test_split_combine_of_empty_splits_is_zero_not_nan():
+    """Splits that saw nothing carry (NEG_INF, 0, 0): beside a live split
+    they weigh 0, and a lane with only such splits gives 0, not NaN."""
+    H, hd = 2, 4
+    empty = (torch.full((H,), -1e30), torch.zeros(H), torch.zeros(H, hd))
+    live = (torch.tensor([0.5, -1.0]), torch.tensor([2.0, 4.0]),
+            torch.arange(H * hd, dtype=torch.float32).reshape(H, hd))
+    torch.testing.assert_close(split_combine([empty, live, empty], H, hd),
+                               live[2] / live[1][:, None])
+    out = split_combine([empty, empty], H, hd)
+    assert torch.isfinite(out).all() and not out.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool", ["same", "int8"])
+def test_split_kv_kernel_matches_plain_on_card(pool, q_dtype):
+    """The split-KV decode kernel against the plain version on the card,
+    flat and sharp, every head dim, G in {1, 2, 4, 8, 32} (32: more heads
+    than one block takes), on a pool in q's type
+    and on an int8 pool; lanes of 150, 67, 3 and 0 tokens (3, 2, 1 and no
+    splits) with aliased prefix pages; every call must take the split-KV
+    kernel, and twice in a row (its tickets go back to 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the H100: "
+                    "pytest -m cuda tests/test_torch_paged_attention.py)")
+    from repro_torch.kernels.paged_attention import ref as R
+    dtype = getattr(torch, q_dtype)
+    n = 0
+    K.split_launches.reset()
+    for H, Kv, hd, sharp in [(4, 4, 16, "flat"), (8, 2, 32, "sharp"),
+                             (8, 1, 64, "flat"), (16, 2, 64, "sharp"),
+                             (32, 4, 128, "flat"), (32, 4, 128, "sharp"),
+                             (8, 8, 128, "sharp"), (16, 4, 16, "sharp"),
+                             (32, 1, 64, "sharp")]:
+        q, kv, sc, bt, lengths, _ = _tc_inputs(
+            "int8" if pool == "int8" else "bf16", sharp, C=1, H=H, Kv=Kv,
+            hd=hd)
+        tq = torch.from_numpy(q[:, 0]).to(dtype)
+        tkv = torch.from_numpy(kv) if pool == "int8" else \
+            torch.from_numpy(kv).to(dtype)
+        tsc = None if sc is None else torch.from_numpy(sc)
+        ln, table = _i32(lengths, bt)
+        counts = page_counts_for(ln, kv.shape[2])
+        scales = {} if tsc is None else dict(k_scales=tsc[:, 0],
+                                             v_scales=tsc[:, 1])
+        ref = R.paged_prefill_ref(tq[:, None], tkv[:, 0], tkv[:, 1], table,
+                                  ln, ln - 1, **scales)[:, 0]
+        dev = [x.cuda() for x in (tq, tkv, pad_block_table(table, counts),
+                                  counts, ln)]
+        for _ in range(2):
+            out = K.paged_decode_fwd(
+                *dev, kv_scales=None if tsc is None else tsc.cuda())
+            torch.cuda.synchronize()
+            n += 1
+            np.testing.assert_allclose(out.float().cpu().numpy(),
+                                       ref.float().numpy(), **TOL[q_dtype])
+            assert float(out[-1].abs().max()) == 0.0
+    assert K.split_launches.n == n
