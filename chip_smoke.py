@@ -14,11 +14,11 @@ non-zero without printing the final result line):
 3. kernel vs plain: the paged-attention kernels against their
    plain-PyTorch version at yi-6b attention geometry (B=8, H=32, Kv=4,
    hd=128, page 16, a 1,024-page pool, ragged lengths 1..1,024 with an
-   empty lane and aliased shared-prefix pages), C in {1, 128} with q in
-   float32 and bfloat16 and C=5 (the verify width) with bfloat16 q, on a
-   pool in q's type and on an int8 pool with its scales, and every
-   bfloat16 case again with q scaled so that scores have std 4
-   (``PAGED_SHARP``); each case prints the kernel it took (split-KV for
+   empty lane and aliased shared-prefix pages), C in {1, 5, 128} (5: the
+   verify width) with q in float32 and bfloat16, on a pool in q's type
+   and on an int8 pool with its scales, and every case but float32 C=1
+   again with q scaled so that scores have std 4 (``PAGED_SHARP``); each
+   case prints the kernel it took (split-KV for
    C = 1, tensor cores for bf16 q with C > 1, FP32 cores for f32 q with
    C > 1; the counts must agree), its times, bytes, FLOPs and roofline
    bound.
@@ -44,16 +44,21 @@ non-zero without printing the final result line):
    shapes, 64^3, the demo's 256^3, Fig.5's 768^3, 4096^3, yi-6b's MLP
    product (1024 x 4096 @ 4096 x 11008), 100 x 36 x 20 (which breaks
    TMA's 16-byte rule) and 1000 x 1032 x 776 (partial tiles in every
-   dimension), with the branch each took (wgmma for bf16 with k, n
-   multiples of 8, general otherwise) and times beside
-   ``torch.matmul``'s and the roofline bound.
+   dimension), 127^3 (rows of no whole 16-byte chunks), and 4096^3 and
+   yi-6b's product in float32 with A 4 bytes past a 16-byte boundary,
+   with the branch each took (wgmma for bf16 with k, n multiples of 8,
+   the float32 ring for float32 with k, n multiples of 4, both with
+   16-byte-aligned bases; general otherwise: the counts must agree) and
+   times beside ``torch.matmul``'s and the roofline bound.
 8. offload path: the offload demo (copy-based vs zero-copy SVM through
    the cluster matmul, 256^2 float32), the same two modes at 4096^2 in
-   float32 and bfloat16, Fig.5's four benchmarks on the card and Fig.6's
-   traced RAB programs (host only, its assertions must hold); the kernel
-   must carry every product (two launches per demo run, the bf16 ones on
-   its wgmma branch) and the plain version must never run; each of these
-   outputs is then held against the plain version.
+   float32 and bfloat16 and at 127^2 in float32, Fig.5's four benchmarks
+   on the card and Fig.6's traced RAB programs (host only, its assertions
+   must hold); the kernel must carry every product (two launches per
+   run: the bf16 ones on its wgmma branch, the float32 ones on its ring
+   branch but 127^2's on the general one) and the plain version must
+   never run; each of these outputs is then held against the plain
+   version.
 9. flash kernels vs plain: the flash-attention CUDA kernels against
    their plain version at ``tests/test_kernels.py``'s three shapes x five
    (causal, window, cap) masks x {float32, bfloat16}, at gemma2-2b's
@@ -81,7 +86,8 @@ non-zero without printing the final result line):
 
 Then one JSON line ``{"kernels": [...]}`` (the paged-attention split-KV
 decode kernel, FP32-core kernel and tensor-core kernel, each on both pool
-types; the cluster matmul's general and wgmma branches; the flash kernel
+types; the cluster matmul's general, float32 ring and wgmma branches; the
+flash kernel
 on the tensor cores and on the FP32 cores) and, last, the result line
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the
 repository's ``src/`` beside it.
@@ -122,14 +128,22 @@ MATMUL_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
 #: (m, k, n): tests/test_kernels.py's three, 64^3, the offload demo's
 #: 256^3, Fig.5's 768^3, 4096^3, yi-6b's MLP up/gate product at 1,024
 #: tokens (d 4096, d_ff 11008), one that breaks TMA's 16-byte rule (k, n
-#: not multiples of 8) and one with partial tiles in every dimension
+#: not multiples of 8), one with partial tiles in every dimension
 #: (outside the reference's tile contract, so called through ``kernel``)
+#: and phase 8's 127^3, whose rows are no whole 16-byte chunks
 MATMUL_SHAPES = [(128, 128, 128), (256, 384, 512), (384, 256, 128),
                  (64, 64, 64), (256, 256, 256), (768, 768, 768),
                  (4096, 4096, 4096), (1024, 4096, 11008), (100, 36, 20),
-                 (1000, 1032, 776)]
+                 (1000, 1032, 776), (127, 127, 127)]
+#: shapes whose rows are no whole 16-byte chunks, so both types take the
+#: general branch (the other float32 shapes: the ring branch)
+MATMUL_ODD = {(127, 127, 127)}
 #: the branch each bf16 shape must take (the rest of MATMUL_SHAPES: wgmma)
-MATMUL_GENERAL_BF16 = {(100, 36, 20)}
+MATMUL_GENERAL_BF16 = {(100, 36, 20)} | MATMUL_ODD
+#: a float32 product with A 4 bytes past a 16-byte boundary, which must
+#: send it to the general branch (the alignment half of the route): the
+#: offload demo's 256^3
+MATMUL_OFFSET_F32 = [(256, 256, 256)]
 #: score std of phase 3's "sharp" cases (q scaled by PAGED_SHARP / rms of
 #: the pool's K): a dropped or misplaced K tile then moves an output by
 #: O(|v|); at q*0.3 the scores have std 0.15, nearly flat, and a
@@ -286,12 +300,10 @@ def sdpa_call(case: dict, C: int):
 
 
 #: phase 3's (C, q dtype, sharp) cases, each on both pool types
-PAGED_CASES = [(C, dtype, sharp)
-               for C, dtypes in ((1, (torch.float32, torch.bfloat16)),
-                                 (5, (torch.bfloat16,)),
-                                 (128, (torch.float32, torch.bfloat16)))
-               for dtype in dtypes for sharp in (False, True)
-               if not sharp or dtype == torch.bfloat16]
+PAGED_CASES = [(C, dtype, sharp) for C in (1, 5, 128)
+               for dtype in (torch.float32, torch.bfloat16)
+               for sharp in (False, True)
+               if not sharp or dtype == torch.bfloat16 or C > 1]
 
 
 def phase_kernel(timer: Timer) -> list:
@@ -324,13 +336,15 @@ def kernel_case(timer: Timer, C: int, dtype: torch.dtype, int8: bool,
         return R.paged_prefill_ref(c["q"], c["kv"][:, 0], c["kv"][:, 1],
                                    masked, c["lens"], c["q_start"], **scales)
 
-    before = (K.tc_launches.n, K.split_launches.n)
+    pool = K.int8_launches if int8 else K.launches
+    counters = (pool, K.tc_launches, K.split_launches)
+    before = [c.n for c in counters]
     out = kernel()
     torch.cuda.synchronize()
-    got = (K.tc_launches.n - before[0], K.split_launches.n - before[1])
-    check(got == (int(route == K.TENSOR_CORES), int(route == K.SPLIT_KV)),
-          f"{name}: route {route} but (tensor-core, split-KV) launches "
-          f"{got}")
+    got = tuple(c.n - n0 for c, n0 in zip(counters, before))
+    check(got == (1, int(route == K.TENSOR_CORES), int(route == K.SPLIT_KV)),
+          f"{name}: route {route} but (pool, tensor-core, split-KV) "
+          f"launches {got}")
     ref = plain()
     err = (out.float() - ref.float()).abs().max().item()
     tol = TOL[dtype]
@@ -693,31 +707,42 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
 
 # --------------------------------------------------------------- phase 7 --
 def matmul_case(timer: Timer, m: int, k: int, n: int, dtype: torch.dtype,
-                seed: int = 0) -> dict:
+                seed: int = 0, offset: bool = False) -> dict:
     """One case of phase 7: the cluster-matmul kernel (the branch its
     route picks, checked by the counts) against its plain version on A ~
     N(0, 1), B ~ N(0, 1/k) (an initialised weight's scale, so C is of unit
     scale and two valid float32 summation orders differ far below the
     bar), then timed beside the plain version and ``torch.matmul``, with
-    its bytes, operations and roofline bound."""
+    its bytes, operations and roofline bound.  With ``offset`` A lies 4
+    bytes past a 16-byte boundary (same values), which routes it to the
+    general branch."""
     from repro_torch.kernels.cluster_matmul import kernel as CK
     from repro_torch.kernels.cluster_matmul import ref as CR
     g = torch.Generator(device="cuda").manual_seed(seed)
     a = torch.randn(m, k, generator=g, device="cuda").to(dtype)
     b = (torch.randn(k, n, generator=g, device="cuda")
          / math.sqrt(k)).to(dtype)
+    if offset:
+        a = torch.empty(m * k + 1, dtype=dtype, device="cuda")[1:] \
+            .view(m, k).copy_(a)
     dt = str(dtype).replace("torch.", "")
-    name = f"cluster_matmul {m}x{k}x{n} {dt}"
-    branch = CK.route(dtype, m, k, n)
-    want = CK.GENERAL if dtype == torch.float32 \
-        or (m, k, n) in MATMUL_GENERAL_BF16 else CK.WGMMA
+    name = f"cluster_matmul {m}x{k}x{n} {dt}{' offset' if offset else ''}"
+    branch = CK.route(dtype, m, k, n, aligned=not offset)
+    if offset or (m, k, n) in MATMUL_ODD:
+        want = CK.GENERAL
+    elif dtype == torch.float32:
+        want = CK.F32_RING
+    else:
+        want = CK.GENERAL if (m, k, n) in MATMUL_GENERAL_BF16 else CK.WGMMA
     check(branch == want, f"{name}: routed to {branch}, want {want}")
-    before = (CK.launches.n, CK.wgmma_launches.n)
+    counters = (CK.launches, CK.wgmma_launches, CK.ring_launches)
+    before = [c.n for c in counters]
     out = CK.matmul(a, b)
     torch.cuda.synchronize()
-    check((CK.launches.n - before[0], CK.wgmma_launches.n - before[1])
-          == (1, int(branch == CK.WGMMA)),
-          f"{name}: counts do not show one {branch} launch")
+    got = tuple(c.n - n0 for c, n0 in zip(counters, before))
+    check(got == (1, int(branch == CK.WGMMA), int(branch == CK.F32_RING)),
+          f"{name}: counts (all, wgmma, ring) {got} do not show one "
+          f"{branch} launch")
     ref = CR.cluster_matmul_ref(a, b)
     err = (out.float() - ref.float()).abs().max().item()
     tol = MATMUL_TOL[dtype]
@@ -735,14 +760,16 @@ def matmul_case(timer: Timer, m: int, k: int, n: int, dtype: torch.dtype,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
     bound_ms = max(t_bytes, t_ops)
-    row = dict(m=m, k=k, n=n, dtype=dt, branch=branch, max_abs_err=err,
+    row = dict(m=m, k=k, n=n, dtype=dt, offset=offset, branch=branch,
+               launches=got, max_abs_err=err,
                tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bytes=nbytes,
                flops=flops, bound_ms=bound_ms,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                share_of_bound=bound_ms / ms,
                tflops=flops / (ms * 1e-3) / 1e12)
-    print(f"kernel {name}: branch={branch} ms={ms:.4f} "
+    print(f"kernel {name}: branch={branch} launches(all, wgmma, ring)="
+          f"{got} ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
           f"bytes={nbytes} flops={flops} "
           f"bound_ms={bound_ms:.5f} ({row['bound_by']}) "
@@ -755,7 +782,9 @@ def matmul_case(timer: Timer, m: int, k: int, n: int, dtype: torch.dtype,
 def phase_matmul(timer: Timer) -> list:
     return [matmul_case(timer, m, k, n, dtype)
             for (m, k, n) in MATMUL_SHAPES
-            for dtype in (torch.float32, torch.bfloat16)]
+            for dtype in (torch.float32, torch.bfloat16)] + [
+        matmul_case(timer, m, k, n, torch.float32, offset=True)
+        for (m, k, n) in MATMUL_OFFSET_F32]
 
 
 # --------------------------------------------------------------- phase 8 --
@@ -807,35 +836,39 @@ def offload_pair(dtype: torch.dtype, size: int = 4096, seed: int = 1
 
 def phase_offload(smi: str) -> dict:
     """The offload path on the card: the demo, then 4096^2 in float32 and
-    bfloat16; the kernel's counts are read from 0 just before and just
-    after, and must be two per run (on the wgmma branch for bfloat16, the
-    general one for float32) with the plain version never called; then
-    each run's output is held against the plain version.  Then Fig.5 on
-    the card and Fig.6 on the host."""
+    bfloat16, then 127^2 in float32; the kernel's counts are read from 0
+    just before and just after, and must be two per run (on the wgmma
+    branch for bfloat16, the ring branch for float32 but 127^2's, whose
+    rows are no whole 16-byte chunks, on the general one) with the plain
+    version never called; then each run's output is held against the
+    plain version.  Then Fig.5 on the card and Fig.6 on the host."""
     from repro_torch.hero import (fig5_svm_offload, fig6_event_tracing,
                                   svm_offload_demo)
     from repro_torch.kernels.cluster_matmul import kernel as CK
     from repro_torch.kernels.cluster_matmul import ref as CR
-    for counter in (CK.launches, CK.wgmma_launches, CR.calls):
+    counters = (CK.launches, CK.wgmma_launches, CK.ring_launches)
+    for counter in counters + (CR.calls,):
         counter.reset()
     rep_c, rep_z, (a, b), demo_out = svm_offload_demo.main()
-    check((CK.launches.n, CK.wgmma_launches.n) == (2, 0),
-          f"demo: {CK.launches.n} kernel launches ({CK.wgmma_launches.n} "
-          "wgmma), want 2 general")
+    got = tuple(c.n for c in counters)
+    check(got == (2, 0, 2), f"demo: (launches, wgmma, ring) {got}, want "
+                            "2 on the ring branch")
     demo = dict(size=256, dtype="float32", zero=demo_out,
                 inputs=[torch.from_numpy(x).cuda() for x in (a, b)],
                 copy_total_ms=rep_c.total_s * 1e3,
                 zero_copy_total_ms=rep_z.total_s * 1e3)
     pairs = []
-    for dtype in (torch.float32, torch.bfloat16):
-        before = (CK.launches.n, CK.wgmma_launches.n)
-        pairs.append(offload_pair(dtype))
-        got = (CK.launches.n - before[0], CK.wgmma_launches.n - before[1])
-        want = (2, 2 if dtype == torch.bfloat16 else 0)
-        check(got == want, f"offload 4096^2 {dtype}: (launches, wgmma "
-                           f"launches) {got}, want {want}")
+    for dtype, size in ((torch.float32, 4096), (torch.bfloat16, 4096),
+                        (torch.float32, 127)):
+        before = [c.n for c in counters]
+        pairs.append(offload_pair(dtype, size))
+        got = tuple(c.n - n0 for c, n0 in zip(counters, before))
+        bf16, odd = dtype == torch.bfloat16, size % 4 != 0
+        want = (2, 2 * bf16, 2 * (not bf16 and not odd))
+        check(got == want, f"offload {size}^2 {dtype}: (launches, wgmma, "
+                           f"ring) {got}, want {want}")
     launches, plain_calls = CK.launches.n, CR.calls.n
-    wgmma_launches = CK.wgmma_launches.n
+    wgmma_launches, ring_launches = CK.wgmma_launches.n, CK.ring_launches.n
     check(plain_calls == 0, f"plain matmul called {plain_calls} times")
     # the path's outputs against the plain version (after the count)
     for p in [demo] + pairs:
@@ -851,8 +884,8 @@ def phase_offload(smi: str) -> dict:
               f"max_abs_err={p['max_abs_err']:.3g} tol={tol}", flush=True)
     print(f"offload: demo copy total {rep_c.total_s * 1e3:.4f} ms, "
           f"zero-copy total {rep_z.total_s * 1e3:.4f} ms; "
-          f"kernel launches={launches} (wgmma {wgmma_launches}) "
-          f"plain_calls={plain_calls}", flush=True)
+          f"kernel launches={launches} (wgmma {wgmma_launches}, f32 ring "
+          f"{ring_launches}) plain_calls={plain_calls}", flush=True)
     rows = fig5_svm_offload.run_benchmarks()
     for r in rows:
         check(r["copy_total_s"] > 0 and r["svm_total_s"] > 0,
@@ -867,6 +900,7 @@ def phase_offload(smi: str) -> dict:
     print(f"fig6 (host): {len(text.getvalue().splitlines())} lines, "
           f"assertions {results}", flush=True)
     return dict(launches=launches, wgmma_launches=wgmma_launches,
+                ring_launches=ring_launches,
                 plain_calls=plain_calls, demo=demo,
                 pairs=pairs, fig5=rows, fig6=results)
 
@@ -1421,14 +1455,20 @@ def main() -> int:
         entry("paged_attention_prefill_tc_int8", TENSOR_CORES, "int8", 128,
               "bfloat16", serve8["tc_launches"], quant),
     ]
-    for name, branch, dtype, launches in (
-            ("cluster_matmul", CK.GENERAL, "float32",
-             offload["launches"] - offload["wgmma_launches"]),
+    # the cluster matmul's branches: each one's main-path case (the
+    # general branch's is phase 8's 127^2 float32 offload), its error the
+    # largest of its cases
+    for name, branch, dtype, shape, launches in (
+            ("cluster_matmul", CK.GENERAL, "float32", (127, 127, 127),
+             offload["launches"] - offload["wgmma_launches"]
+             - offload["ring_launches"]),
+            ("cluster_matmul_f32_ring", CK.F32_RING, "float32",
+             (4096, 4096, 4096), offload["ring_launches"]),
             ("cluster_matmul_wgmma", CK.WGMMA, "bfloat16",
-             offload["wgmma_launches"])):
+             (4096, 4096, 4096), offload["wgmma_launches"])):
         own = [c for c in mm_cases if c["branch"] == branch]
-        head = next(c for c in own if (c["m"], c["k"], c["n"])
-                    == (4096, 4096, 4096) and c["dtype"] == dtype)
+        head = next(c for c in own if (c["m"], c["k"], c["n"]) == shape
+                    and c["dtype"] == dtype)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/cluster_matmul/csrc/"

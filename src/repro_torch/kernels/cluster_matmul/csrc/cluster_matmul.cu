@@ -10,8 +10,8 @@
 // accumulator to that type (round to nearest even for bfloat16, as
 // .astype does).
 //
-// Two branches, chosen by the wrapper (kernel.py::route) from the type
-// and the shape alone, never on a failure:
+// Three branches, chosen by the wrapper (kernel.py::route) from the type,
+// the shape and the base addresses alone, never on a failure:
 //
 // The wgmma branch (bfloat16, k and n multiples of 8: TMA's 16-byte row
 // pitch for A, B and C).  What bounds it: at the shapes the offload path
@@ -59,30 +59,72 @@
 //     every other bf16 shape to the general branch, and the C entry
 //     refuses them.
 //
-// The general branch (float32, and bf16 shapes the wgmma branch cannot
-// take), simple and exact: one thread block of 256 threads owns a 128 x
-// 128 tile of C and walks K in steps; each step stages the A and B tiles
-// in shared memory (the scratchpad), zero-filled past the edges of the
-// matrices, so every shape is right whatever it is (the wrapper's shape
-// contract, tiles of min(128, dim) dividing each dim, is not needed
-// here).  The Pallas grid's sequential K dimension, which carries the sum
-// in VMEM scratch, becomes the loop inside the block; the sum stays in
-// registers.
+// The float32 ring branch (namespace ring; float32 with k and n multiples
+// of 4 and 16-byte-aligned bases, so every row of A, B and C is a whole
+// number of 16-byte chunks).  What bounds it: 2mnk operations on the FP32
+// cores (67 TFLOP/s; no TF32, the reference is a float32 jnp.dot, and its
+// 2e-4 bar holds true float32 FMAs).  The general kernel below reached 55%
+// of that because its loads were synchronous: every step loaded a tile,
+// waited at a barrier, ran its FMAs and waited again, with no load in
+// flight under the FMAs.  This design keeps them in flight:
+//   * a block of 256 threads owns a 128 x 128 tile of C (grid in
+//     wg::kGroupM's grouped order, so neighbouring blocks share A and B
+//     panels in L2); 8 warps as 2 x 4 warp tiles of 64 x 32, a warp's lanes
+//     as 8 x 4, each thread an 8 x 8 block of accumulators; two blocks an
+//     SM (128 registers a thread);
+//   * a ring of 4 shared-memory stages of 16-deep K slices: B's tiles are
+//     copied by cp.async.cg 16-byte copies, one commit group per stage,
+//     three stages in flight while the fourth is computed; the zero-fill
+//     form (src-size 0) covers columns past n and K past its end, so the
+//     FMAs need no masks;
+//   * cp.async cannot transpose, and the FMAs want A's 8 rows of one k in
+//     two 16-byte reads, so A goes through registers: each thread loads
+//     its two 16-byte chunks of the next tile at the start of a stage and
+//     stores them transposed (At[k][m], rows of 132 floats, a warp's
+//     stores one 128-byte row) after the stage's FMAs.  A through the ring
+//     as in memory (A[m][k], 8 rows a thread read as float4 along k) was
+//     timed against it in one A/B call and was 3-4% slower (PERF.md §6);
+//   * the inner loop reads the fragments of kk + 1 while the 64 FMAs of kk
+//     run (two register sets), so shared-memory latency hides under the
+//     FMAs of the same warp;
+//   * C leaves by 16-byte stores, masked per 4-column group.
+// What still holds it back (PERF.md §6): it reaches ~60% of the FP32 bound
+// at 4096^3 with the SM clock at 1,980 MHz, against cuBLAS's 77% at the
+// same clock.  Its inner loop is 64 FFMA and 4 LDS.128 per k (the SASS);
+// the loads hide under the FMAs.  What it lacks is warps and reuse: two
+// blocks of 8 warps an SM fill the 128 registers a thread may have, one
+// block an SM (163 registers) or 8 x 16 accumulators a thread (235
+// registers, one block) measured slower, K slices of 8 no faster, of 32
+// (3 stages) or 3 stages of 16 slower.  The shared reads
+// are the cost: the same kernel with its fragments made in registers
+// instead (wrong values, timing only) takes 2.47 ms at 4096^3, against
+// 3.38.  Next step: fewer shared reads per FMA (a larger tile a thread)
+// without losing the warps that hide their latency.
+//
+// The general branch (float32 shapes the ring branch cannot take, and bf16
+// shapes the wgmma branch cannot take), simple and exact: one thread block of
+// 256 threads owns a 128 x 128 tile of C and walks K in steps; each step stages
+// the A and B tiles in shared memory (the scratchpad), zero-filled past the
+// edges of the matrices, so every shape is right whatever it is (the wrapper's
+// shape contract, tiles of min(128, dim) dividing each dim, is not needed
+// here).  The Pallas grid's sequential K dimension, which carries the sum in
+// VMEM scratch, becomes the loop inside the block; the sum stays in registers.
 //   * float32: 16 K per step; each thread keeps an 8 x 8 block of C in
 //     registers (rows ty*4+{0..3} and 64+ty*4+{0..3}, columns likewise
 //     from tx, so its shared-memory reads are 16-byte and conflict-free)
 //     and accumulates with true FP32 FMAs (no TF32: the reference is a
 //     float32 jnp.dot).  Bound by the 67 TFLOP/s of the FP32 cores; this
 //     design reaches about half (synchronous staging, scalar loads).
+//     Only shapes whose rows break the 16-byte rule take it now.
 //   * bfloat16: 32 K per step on the tensor cores through WMMA
 //     (mma.sync, 16 x 16 x 16 bf16 fragments, float32 accumulators in
 //     registers); 8 warps as 2 x 4, each owning 64 x 32 of C.  The
 //     epilogue stages each 16 x 16 fragment through shared memory to
 //     round and bounds-check it.  Only odd shapes take it now.
 //
-// Plain C interface (loaded with ctypes): cluster_matmul_launch (general)
-// and cluster_matmul_wgmma_launch return cudaGetLastError() after the
-// launch; 0 means launched.
+// Plain C interface (loaded with ctypes): cluster_matmul_launch (general),
+// cluster_matmul_f32_ring_launch and cluster_matmul_wgmma_launch return
+// cudaGetLastError() after the launch; 0 means launched.
 
 #include <cuda.h>   // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
@@ -248,6 +290,218 @@ matmul_bf16_kernel(const __nv_bfloat16* __restrict__ A,
 }
 
 }  // namespace
+
+// ---------------------------------------------- f32, cp.async ring --
+namespace ring {
+
+constexpr int kThreads = 256;
+constexpr int kBM = 128;             // rows of C per block
+constexpr int kBN = 128;             // columns of C per block
+constexpr int kTN = kBN / 16;        // columns of C per thread
+constexpr int kBK = 16;              // K per stage
+constexpr int kStages = 4;           // ring depth: 3 tiles in flight
+constexpr int kGroupM = 8;           // tile rows per L2 group
+// 16-byte chunks a thread copies per stage, of A and of B
+constexpr int kAChunks = kBM * kBK / 4 / kThreads;
+constexpr int kBChunks = kBK * kBN / 4 / kThreads;
+static_assert(kAChunks * kThreads * 4 == kBM * kBK &&
+              kBChunks * kThreads * 4 == kBK * kBN, "whole chunks");
+// A transposed, At[k][m] (row of kBM + 4 floats: the transposing stores
+// hit 32 banks, the fragment reads stay 16-byte), B as in memory
+constexpr int kAtLd = kBM + 4;
+constexpr int kBLd = kBN;
+constexpr int kA = kBK * kAtLd;                           // floats
+constexpr int kStage = kA + kBK * kBLd;                   // floats
+constexpr size_t kSmemBytes = size_t(kStages) * kStage * 4;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously, through L2 only; bytes = 0
+// writes 16 zeros (the zero-fill form: columns past N and K past its end,
+// each chunk wholly in or out since n % 4 == 0)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void fma_outer(float (&acc)[8][kTN],
+                                          const float (&a)[8],
+                                          const float (&b)[kTN]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+}
+
+// A reaches shared memory through registers (a 16-byte load one stage
+// ahead, stored transposed after the stage's FMAs), B through the
+// cp.async ring.
+__global__ void __launch_bounds__(kThreads, 2)
+matmul_f32_ring_kernel(const float* __restrict__ A,
+                       const float* __restrict__ B, float* __restrict__ C,
+                       int M, int N, int K) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // 8 warps as 2 x 4, each owning 64 x kBN/4 of C; a warp's lanes as
+  // 8 x 4, each owning 8 rows x kTN columns (4-column groups 16 apart)
+  const int wm = warp / 4, wn = warp % 4, lm = lane / 4, ln = lane % 4;
+
+  // grouped tile order: kGroupM tile rows walk the tile columns together
+  const int tiles_m = (M + kBM - 1) / kBM, tiles_n = (N + kBN - 1) / kBN;
+  const int per_group = kGroupM * tiles_n;
+  const int first_m = (int(blockIdx.x) / per_group) * kGroupM;
+  const int group_rows = min(tiles_m - first_m, kGroupM);
+  const int in_group = int(blockIdx.x) % per_group;
+  const int m0 = (first_m + in_group % group_rows) * kBM;
+  const int n0 = (in_group / group_rows) * kBN;
+  const int k_tiles = (K + kBK - 1) / kBK;
+
+  // the thread's rows of the block tile, i = 0..7: two runs of 4
+  // (16-byte fragment reads along m)
+  auto row_of = [&](int i) {
+    return wm * 64 + (i / 4) * 32 + lm * 4 + i % 4;
+  };
+  const int col0 = wn * (kBN / 4) + ln * 4;   // and + 16, + 32, ...
+
+  auto a_tile = [&](int slot) { return smem + slot * kStage; };
+  auto b_tile = [&](int slot) { return smem + slot * kStage + kA; };
+
+  // B's tile kt (kBK x 128 in 16-byte chunks; a warp copies one 512-byte
+  // row)
+  auto load_async = [&](int kt, int slot) {
+    const int k0 = kt * kBK;
+#pragma unroll
+    for (int j = 0; j < kBChunks; ++j) {
+      const int c = tid + j * kThreads;
+      const int kr = c / (kBN / 4), cn = (c % (kBN / 4)) * 4;
+      const bool in = k0 + kr < K && n0 + cn < N;
+      cp_async16(b_tile(slot) + kr * kBLd + cn,
+                 in ? B + size_t(k0 + kr) * N + n0 + cn : B, in ? 16 : 0);
+    }
+  };
+  // A transposed: chunk c of the tile is row c % 128, k c / 128 * 4, so a
+  // warp's transposing stores write 32 consecutive floats of one k row
+  float4 a_next[kAChunks];
+  auto load_a_regs = [&](int kt) {
+    const int k0 = kt * kBK;
+#pragma unroll
+    for (int j = 0; j < kAChunks; ++j) {
+      const int c = tid + j * kThreads;
+      const int r = c % kBM, ck = (c / kBM) * 4;
+      a_next[j] = m0 + r < M && k0 + ck < K
+                      ? *reinterpret_cast<const float4*>(
+                            A + size_t(m0 + r) * K + k0 + ck)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  auto store_a_regs = [&](int slot) {
+    float* at = a_tile(slot);
+#pragma unroll
+    for (int j = 0; j < kAChunks; ++j) {
+      const int c = tid + j * kThreads;
+      const int r = c % kBM, ck = (c / kBM) * 4;
+      at[(ck + 0) * kAtLd + r] = a_next[j].x;
+      at[(ck + 1) * kAtLd + r] = a_next[j].y;
+      at[(ck + 2) * kAtLd + r] = a_next[j].z;
+      at[(ck + 3) * kAtLd + r] = a_next[j].w;
+    }
+  };
+
+  float acc[8][kTN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+
+  // prologue: tiles 0 .. kStages-2 in flight (one commit group each, empty
+  // past the last tile, so the wait below counts groups uniformly)
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < k_tiles) load_async(s, s);
+    cp_async_commit();
+  }
+  if (k_tiles > 0) {
+    load_a_regs(0);
+    store_a_regs(0);
+  }
+
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int slot = kt % kStages;
+    cp_async_wait<kStages - 2>();   // tile kt's copies have landed
+    __syncthreads();                // ... for every thread; and tile kt-1,
+                                    // whose slot is refilled next, is read
+    const int nt = kt + kStages - 1;
+    if (nt < k_tiles) load_async(nt, nt % kStages);
+    cp_async_commit();
+    if (kt + 1 < k_tiles) load_a_regs(kt + 1);     // lands during the FMAs
+
+    const float* at = a_tile(slot);
+    const float* bt = b_tile(slot);
+    float b[2][kTN];
+    auto load_b = [&](float (&dst)[kTN], int kk) {
+#pragma unroll
+      for (int g = 0; g < kTN / 4; ++g) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            bt + kk * kBLd + col0 + 16 * g);
+        dst[4 * g] = v.x; dst[4 * g + 1] = v.y;
+        dst[4 * g + 2] = v.z; dst[4 * g + 3] = v.w;
+      }
+    };
+    // fragments of kk+1 are read while the FMAs of kk run
+    float a[2][8];
+    auto load_a = [&](float (&dst)[8], int kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(
+          at + kk * kAtLd + row_of(0));
+      const float4 a1 = *reinterpret_cast<const float4*>(
+          at + kk * kAtLd + row_of(4));
+      dst[0] = a0.x; dst[1] = a0.y; dst[2] = a0.z; dst[3] = a0.w;
+      dst[4] = a1.x; dst[5] = a1.y; dst[6] = a1.z; dst[7] = a1.w;
+    };
+    load_a(a[0], 0);
+    load_b(b[0], 0);
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      if (kk + 1 < kBK) {
+        load_a(a[(kk + 1) & 1], kk + 1);
+        load_b(b[(kk + 1) & 1], kk + 1);
+      }
+      fma_outer(acc, a[kk & 1], b[kk & 1]);
+    }
+    // tile kt+1's A into its slot, last read for tile kt+1-kStages
+    if (kt + 1 < k_tiles) store_a_regs((kt + 1) % kStages);
+  }
+  cp_async_wait<0>();
+
+  // C: a float4 store per row and group (n % 4 == 0: a group is all in
+  // or out)
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + row_of(i);
+    if (gm >= M) continue;
+#pragma unroll
+    for (int h = 0; h < kTN / 4; ++h) {
+      const int gn = n0 + col0 + 16 * h;
+      if (gn < N)
+        *reinterpret_cast<float4*>(C + size_t(gm) * N + gn) = make_float4(
+            acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+            acc[i][4 * h + 3]);
+    }
+  }
+}
+
+}  // namespace ring
 
 // ------------------------------------------------------- bf16, wgmma --
 namespace wg {
@@ -586,5 +840,36 @@ extern "C" int cluster_matmul_wgmma_launch(const void* a, const void* b,
   wg::matmul_bf16_wgmma_kernel<<<unsigned(tiles), wg::kThreads, wg::kSmem,
                                  static_cast<cudaStream_t>(stream)>>>(
       map_a, map_b, static_cast<__nv_bfloat16*>(c), m, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float32 ring branch: float32 A (m, k), B (k, n), C (m, n),
+// row-major, with k % 4 == 0, n % 4 == 0 and 16-byte-aligned bases (its
+// 16-byte copies, loads and stores; anything else is refused with
+// cudaErrorInvalidValue: the wrapper's route sends such shapes to
+// cluster_matmul_launch).  Launches on `stream`; does not synchronise.
+extern "C" int cluster_matmul_f32_ring_launch(const void* a, const void* b,
+                                              void* c, int m, int n, int k,
+                                              void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || k % 4 || n % 4 ||
+      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+       reinterpret_cast<uintptr_t>(c)) % 16)
+    return int(cudaErrorInvalidValue);
+  auto kernel = ring::matmul_f32_ring_kernel;
+  constexpr size_t smem = ring::kSmemBytes;
+  static bool opted_in = false;
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return int(e);
+    opted_in = true;
+  }
+  const long long tiles = (long long)((m + ring::kBM - 1) / ring::kBM) *
+                          ((n + ring::kBN - 1) / ring::kBN);
+  if (tiles > 0x7fffffffLL) return int(cudaErrorInvalidValue);
+  kernel<<<unsigned(tiles), ring::kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b),
+      static_cast<float*>(c), m, n, k);
   return static_cast<int>(cudaGetLastError());
 }

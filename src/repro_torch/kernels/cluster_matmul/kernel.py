@@ -8,14 +8,16 @@ caller's cue to use the plain version (``ops`` dispatches), never this
 module's.  The kernel tiles C itself and masks the ragged edge, so it
 takes any shape; the reference's tile contract is checked in ``ops``.
 
-Two branches, chosen by :func:`route` from the type, the shape and the
+Three branches, chosen by :func:`route` from the type, the shape and the
 base addresses alone (never on a failure): bfloat16 products whose rows
 TMA can address (k and n multiples of 8, 16-byte-aligned bases) go to the
-TMA-fed, warp-specialised wgmma kernel; float32, and bfloat16 shapes that
-break that 16-byte rule (3 x 5 @ 5 x 7 is legal), to the general kernel.
-The library is built with ``nvcc`` at first launch (``kernels.launch``);
-every launch adds one to :data:`launches`, and a launch of the wgmma
-branch also to :data:`wgmma_launches`.
+TMA-fed, warp-specialised wgmma kernel; float32 products whose rows are
+whole 16-byte chunks (k and n multiples of 4, 16-byte-aligned bases) to
+the float32 kernel fed by a cp.async ring; shapes that break those
+16-byte rules (3 x 5 @ 5 x 7 is legal) to the general kernel.  The
+library is built with ``nvcc`` at first launch (``kernels.launch``);
+every launch adds one to :data:`launches`, and a launch of the wgmma or
+the ring branch also to :data:`wgmma_launches` or :data:`ring_launches`.
 """
 from __future__ import annotations
 
@@ -37,9 +39,11 @@ MAX_ROWS = 65535 * 128
 launches = LaunchCounter()
 #: launches of its wgmma branch
 wgmma_launches = LaunchCounter()
+#: launches of its float32 ring branch
+ring_launches = LaunchCounter()
 
-#: the two branches :func:`route` chooses between
-WGMMA, GENERAL = "wgmma", "general"
+#: the three branches :func:`route` chooses between
+WGMMA, F32_RING, GENERAL = "wgmma", "f32_ring", "general"
 
 
 def route(dtype: torch.dtype, m: int, k: int, n: int,
@@ -48,10 +52,14 @@ def route(dtype: torch.dtype, m: int, k: int, n: int,
     for bfloat16 when TMA can address its rows (k and n multiples of 8,
     so A's, B's and C's row pitches are multiples of 16 bytes; k > 0;
     ``aligned``: every base address a multiple of 16 bytes),
-    :data:`GENERAL` otherwise (every float32 product)."""
-    if dtype == torch.bfloat16 and k > 0 and k % 8 == 0 and n % 8 == 0 \
-            and aligned:
-        return WGMMA
+    :data:`F32_RING` for float32 when its rows are whole 16-byte chunks
+    (k and n multiples of 4; k > 0; ``aligned``), :data:`GENERAL`
+    otherwise."""
+    if k > 0 and aligned:
+        if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0:
+            return WGMMA
+        if dtype == torch.float32 and k % 4 == 0 and n % 4 == 0:
+            return F32_RING
     return GENERAL
 
 
@@ -62,10 +70,12 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    fn = lib.cluster_matmul_wgmma_launch
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for name in ("cluster_matmul_wgmma_launch",
+                 "cluster_matmul_f32_ring_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -103,6 +113,9 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if branch == WGMMA:
             err = lib.cluster_matmul_wgmma_launch(
                 a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, stream)
+        elif branch == F32_RING:
+            err = lib.cluster_matmul_f32_ring_launch(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, stream)
         else:
             err = lib.cluster_matmul_launch(
                 _DTYPES[a.dtype], a.data_ptr(), b.data_ptr(),
@@ -113,4 +126,6 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     launches.n += 1
     if branch == WGMMA:
         wgmma_launches.n += 1
+    elif branch == F32_RING:
+        ring_launches.n += 1
     return out

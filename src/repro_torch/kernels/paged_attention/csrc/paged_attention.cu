@@ -113,32 +113,57 @@
 // of the 4 warps re-reads the whole K and V tile from shared memory;
 // splitting a long lane's walk across blocks, or wgmma, is the next step.
 //
-// The FP32-core kernel (simple and exact first):
-//   * one thread block of 8 warps per (tile of up to 32 query rows, kv
-//     head k, lane b); a "row" is one (c, g) pair, so a block's rows all
-//     read kv head k;
-//   * the block's rows are spread over its warps (1..4 rows per warp),
-//     each keeping its rows' (m, l, acc) in registers; the q rows sit in
-//     shared memory as float32;
-//   * the block walks the tokens its rows can see, kTile = 32 at a time
-//     (one token per lane): all 256 threads stage that tile's K and V for
-//     head k in shared memory as float32, with 16-byte loads (K rows
-//     padded by one word so the lanes' column reads hit 32 different
-//     banks); an int8 pool is read 16 elements per load and each row is
-//     multiplied by its page's scale as it is staged, so everything after
-//     the staging is the same for every pool type (the scales add 8 bytes
-//     per page and kv head; an int8 row is half a bf16 row's bytes);
-//     each lane scores its token against a row, the warp reduces
-//     max and sum with shuffles, and the probabilities are broadcast lane
-//     by lane into the V accumulation;
+// The FP32-core kernel (namespace f32; float32 q, C > 1: the float32
+// engine's chunk and verify steps).  What bounds it: a chunk does 4 hd
+// operations per visible (query, key) pair, and its 1e-4 bar keeps them
+// on the FP32 cores (67 TFLOP/s, no TF32), so it is bound by operations
+// (0.076 ms at phase 3's C = 128).  The first kernel reached 10% of that:
+// each lane scored one token against one row, so every K value read from
+// shared memory fed 4 FMAs, and its staging waited on synchronous loads
+// at a barrier per 32-token tile.  This design register-tiles both
+// products, as a float32 GEMM does:
+//   * a block of 256 threads (a 16 x 16 grid) takes one lane b, one kv
+//     head k and 64 rows of the chunk's (c, g) grid (a row is one (c, g)
+//     pair, head k*G + g of token c); grid (rows / 64, Kv, B);
+//   * q's 64 rows are staged once; K/V tiles of 64 tokens go through a
+//     two-stage cp.async ring (tile t+1 is copied while tile t is
+//     computed), each 16-byte copy finding its token's page through the
+//     lane's block-table row (aliased prefix pages are found as mapped),
+//     zero-filled past the block's last visible token.  K and q rows keep
+//     d contiguous and carry a 16-byte pad, so a quarter-warp's 16-byte
+//     reads of 8 rows hit 8 bank groups;
+//   * S = q.K^T: each thread computes 4 rows x 4 tokens (rows ty + 16i,
+//     tokens tx + 16j), reading q and K 16 bytes along d at a time: 8
+//     float4 reads feed 64 FMAs, against 4 FMAs per read before;
+//   * the online softmax runs per row across the row's 16 threads (one
+//     half-warp) with shuffles: scores in log2 units, exp2, the
+//     reference's NEG_INF; the causal and length masks are applied only on
+//     tiles that cross the limit of some row of the block; p goes to
+//     shared memory (rows of 80 floats) and l sums it;
+//   * O += P.V: each thread accumulates 4 rows x hd/16 dims, p read 4
+//     tokens at a time, V 16 bytes at a time (at hd 128, 12 reads feed 128
+//     FMAs); (m, l, acc) stay in registers for the whole walk;
+//   * an int8 pool's stage holds the raw int8 K and V and each token's
+//     two page scales (cp.async too); a pass then dequantizes it into one
+//     float32 K/V pair, int8 value times scale, before any product, as
+//     the reference's fetch does (optim/compress.py's
+//     dequantize-then-attend), so the products are the float32 pool's;
 //   * the walk stops at the last token any of the block's rows can see,
 //     min(len, page_counts*page, q_start + last row + 1), so empty lanes
-//     (len = 0) and rows before any visible token cost nothing.
-// What bounds it on the card: a float32 chunk does 4 hd operations per
-// visible (query, key) pair on the FP32 cores (67 TFLOP/s), so it is bound
-// by operations; since the split-KV kernel took decode it runs only f32 q
-// with C > 1 (the CPU-parity path).  It does not reach its bound: the
-// staging loop is synchronous.  Next step: a cp.async ring.
+//     and rows before any visible token cost nothing; a row that saw
+//     nothing writes 0, never NaN.
+// Shared memory at hd 128: q 33 KB, P 20 KB, two float32 K/V stages 130
+// KB (an int8 pool: two raw stages 33 KB and one float32 pair 65 KB);
+// one block an SM.  What still holds it back (PERF.md §6, variants of
+// this source timed by scripts/ab_kernel_variants.py): a tile takes ~9 us
+// at hd 128, about half the FMA rate of one SM; the two products take
+// three quarters of the call, the copies a tenth.  A 4 x 4 tile a thread
+// issues 8 16-byte shared reads per 64 FMAs (S) and 12 per 128 (P.V);
+// 8 or 2 rows a thread (128 or 512 threads) measured slower, as did
+// starting the lanes interleaved.  And the longest lane's blocks walk
+// their 16 tiles one after another (0.14 ms at C = 5, where 28 blocks
+// run).  Next step: split a long lane's walk over blocks, combined as
+// split-KV decode does.
 //
 // Plain C interface (loaded with ctypes): paged_prefill_launch (FP32
 // cores), paged_prefill_tc_launch (tensor cores) and
@@ -157,9 +182,6 @@
 
 namespace {
 
-constexpr int kRowsPerWarp = 4;
-constexpr int kMaxWarps = 8;
-constexpr int kTile = 32;            // tokens staged per tile: one per lane
 constexpr float kNegInf = -1e30f;    // the reference's NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -190,223 +212,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
-}
-
-// Shared memory a block with `rows_per_block` rows needs, in bytes.
-template <int HD>
-constexpr size_t smem_bytes(int rows_per_block) {
-  return sizeof(float) *
-         (size_t(kTile) * (HD + 1) + size_t(kTile) * HD +
-          size_t(rows_per_block) * HD);
-}
-
-// TQ: q/out element type (float or bf16); TKV: pool element type (TQ, or
-// int8_t with kv_scales).
-template <typename TQ, typename TKV, int HD>
-__global__ void __launch_bounds__(kMaxWarps * 32)
-paged_prefill_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kv,
-                     const float* __restrict__ kv_scales,
-                     const int* __restrict__ block_table,
-                     const int* __restrict__ page_counts,
-                     const int* __restrict__ lengths,
-                     const int* __restrict__ q_start, TQ* __restrict__ out,
-                     int C, int H, int Kv, int page, int n_pages,
-                     int pool_pages, int rows_per_block, float scale) {
-  constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
-  constexpr int kDimsPerLane = (HD + 31) / 32;
-  constexpr int kKStride = HD + 1;   // padded K row: conflict-free columns
-  constexpr int kVec = 16 / sizeof(TKV);        // elements per 16-byte load
-  constexpr int kVecPerRow = HD / kVec;
-  const int G = H / Kv;
-  const int b = blockIdx.z;
-  const int kh = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int rows = C * G;
-  const int row0 = blockIdx.x * rows_per_block;
-  // this warp's rows: slots [warp * rpw, warp * rpw + rpw) of the block
-  const int rpw = (rows_per_block + kMaxWarps - 1) / kMaxWarps;
-
-  extern __shared__ float smem[];
-  float* ks = smem;                     // [kTile][kKStride]
-  float* vs = ks + kTile * kKStride;    // [kTile][HD]
-  float* qs = vs + kTile * HD;          // [rows_per_block][HD]
-
-  const int len = lengths[b];
-  const int q0 = q_start[b];
-  const int npages = page_counts[b];
-
-  for (int i = threadIdx.x; i < rows_per_block * HD; i += blockDim.x) {
-    const int slot = i / HD;
-    const int d = i - slot * HD;
-    const int row = row0 + slot;
-    float val = 0.f;
-    if (row < rows) {
-      const int c = row / G;
-      const int h = kh * G + (row - c * G);
-      val = to_f32(q[((size_t(b) * C + c) * H + h) * HD + d]);
-    }
-    qs[i] = val;
-  }
-
-  // the last token any row of this block may see (block-uniform)
-  const int last_row = min(row0 + rows_per_block, rows) - 1;
-  const int kv_end = min(min(len, npages * page), q0 + last_row / G + 1);
-
-  float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][kDimsPerLane];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kDimsPerLane; ++j) acc[r][j] = 0.f;
-  }
-
-  const size_t page_elems = size_t(page) * Kv * HD;   // one of K or V
-  for (int t0 = 0; t0 < kv_end; t0 += kTile) {
-    __syncthreads();   // q staged (first tile) / previous tile consumed
-    for (int i = threadIdx.x; i < kTile * kVecPerRow; i += blockDim.x) {
-      const int tt = i / kVecPerRow;
-      const int d0 = (i - tt * kVecPerRow) * kVec;
-      const int t = t0 + tt;
-      float kf[kVec], vf[kVec];
-      if (t < kv_end) {
-        const int lp = min(t / page, n_pages - 1);
-        int phys = block_table[size_t(b) * n_pages + lp];
-        phys = min(max(phys, 0), pool_pages - 1);
-        const TKV* src = kv + size_t(phys) * 2 * page_elems +
-                         (size_t(t - (t / page) * page) * Kv + kh) * HD + d0;
-        const uint4 kraw = *reinterpret_cast<const uint4*>(src);
-        const uint4 vraw = *reinterpret_cast<const uint4*>(src + page_elems);
-        const TKV* kp = reinterpret_cast<const TKV*>(&kraw);
-        const TKV* vp = reinterpret_cast<const TKV*>(&vraw);
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) {
-          kf[e] = to_f32(kp[e]);
-          vf[e] = to_f32(vp[e]);
-        }
-        if constexpr (kInt8) {
-          const float ksc = kv_scales[(size_t(phys) * 2) * Kv + kh];
-          const float vsc = kv_scales[(size_t(phys) * 2 + 1) * Kv + kh];
-#pragma unroll
-          for (int e = 0; e < kVec; ++e) {
-            kf[e] *= ksc;
-            vf[e] *= vsc;
-          }
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) kf[e] = vf[e] = 0.f;
-      }
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) {
-        ks[tt * kKStride + d0 + e] = kf[e];
-        vs[tt * HD + d0 + e] = vf[e];
-      }
-    }
-    __syncthreads();
-
-    const int t = t0 + lane;
-    const int n_tok = min(kTile, kv_end - t0);
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int slot = warp * rpw + r;
-      const int row = row0 + slot;
-      if (r >= rpw || slot >= rows_per_block || row >= rows) break;  // uniform
-      const int qpos = q0 + row / G;
-      const bool valid = t < kv_end && t <= qpos;   // t < kv_end <= len
-      float s = kNegInf;
-      if (valid) {
-        const float* qr = qs + slot * HD;
-        const float* kr = ks + lane * kKStride;
-        float dot = 0.f;
-#pragma unroll 16
-        for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * scale;
-      }
-      const float m_new = fmaxf(m[r], warp_max(s));
-      const float p = valid ? expf(s - m_new) : 0.f;
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(p);
-#pragma unroll
-      for (int j = 0; j < kDimsPerLane; ++j) acc[r][j] *= alpha;
-      for (int tt = 0; tt < n_tok; ++tt) {
-        const float pt = __shfl_sync(kFull, p, tt);
-#pragma unroll
-        for (int j = 0; j < kDimsPerLane; ++j) {
-          const int d = lane + 32 * j;
-          if (d < HD) acc[r][j] = fmaf(pt, vs[tt * HD + d], acc[r][j]);
-        }
-      }
-      m[r] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int slot = warp * rpw + r;
-    const int row = row0 + slot;
-    if (r >= rpw || slot >= rows_per_block || row >= rows) break;
-    const int c = row / G;
-    const int h = kh * G + (row - c * G);
-    const float denom = l[r] == 0.f ? 1.f : l[r];   // fully masked -> 0
-    TQ* dst = out + ((size_t(b) * C + c) * H + h) * HD;
-#pragma unroll
-    for (int j = 0; j < kDimsPerLane; ++j) {
-      const int d = lane + 32 * j;
-      if (d < HD) dst[d] = from_f32<TQ>(acc[r][j] / denom);
-    }
-  }
-}
-
-template <typename TQ, typename TKV, int HD>
-cudaError_t launch(const void* q, const void* kv, const float* kv_scales,
-                   const int* block_table, const int* page_counts,
-                   const int* lengths, const int* q_start, void* out, int B,
-                   int C, int H, int Kv, int page, int n_pages,
-                   int pool_pages, float scale, cudaStream_t stream) {
-  const int rows = C * (H / Kv);
-  const int rows_per_block =
-      rows < kMaxWarps * kRowsPerWarp ? rows : kMaxWarps * kRowsPerWarp;
-  const dim3 grid((rows + rows_per_block - 1) / rows_per_block, Kv, B);
-  const size_t smem = smem_bytes<HD>(rows_per_block);
-  auto kernel = paged_prefill_kernel<TQ, TKV, HD>;
-  // above 48 KB a block needs the opt-in; set it once per instantiation
-  // to the most any launch of it asks for
-  static bool opted_in = false;
-  if (!opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem_bytes<HD>(kMaxWarps * kRowsPerWarp)));
-    if (e != cudaSuccess) return e;
-    opted_in = true;
-  }
-  kernel<<<grid, kMaxWarps * 32, smem, stream>>>(
-      static_cast<const TQ*>(q), static_cast<const TKV*>(kv), kv_scales,
-      block_table, page_counts, lengths, q_start, static_cast<TQ*>(out), C,
-      H, Kv, page, n_pages, pool_pages, rows_per_block, scale);
-  return cudaGetLastError();
-}
-
-template <typename TQ, typename TKV>
-cudaError_t dispatch_hd(int hd, const void* q, const void* kv,
-                        const float* kv_scales, const int* block_table,
-                        const int* page_counts, const int* lengths,
-                        const int* q_start, void* out, int B, int C, int H,
-                        int Kv, int page, int n_pages, int pool_pages,
-                        float scale, cudaStream_t stream) {
-#define PAGED_LAUNCH(HD_)                                                   \
-  launch<TQ, TKV, HD_>(q, kv, kv_scales, block_table, page_counts, lengths, \
-                       q_start, out, B, C, H, Kv, page, n_pages, pool_pages, \
-                       scale, stream)
-  switch (hd) {
-    case 16: return PAGED_LAUNCH(16);
-    case 32: return PAGED_LAUNCH(32);
-    case 64: return PAGED_LAUNCH(64);
-    case 128: return PAGED_LAUNCH(128);
-    default: return cudaErrorInvalidValue;
-  }
-#undef PAGED_LAUNCH
 }
 
 // ---------------------------------------------- tensor-core prefill --
@@ -1528,6 +1333,403 @@ cudaError_t dispatch_tc_hd(int hd, const void* q, const void* kv,
 
 }  // namespace split
 
+// ------------------------------------------------ FP32-core prefill --
+// q float32, C > 1 (the float32 engine's chunk and verify steps), on a
+// float32 or an int8 pool; see the design note at the top of the file.
+namespace f32 {
+
+constexpr int kThreads = 256;        // a kTY x 16 thread grid
+constexpr int kRows = 64;            // query rows per block
+constexpr int kTok = 64;             // tokens per K/V tile
+constexpr int kTY = kThreads / 16;   // thread rows of the grid
+constexpr int kRT = kRows / kTY;     // query rows of a thread
+
+// Shared memory of one block, in bytes: the q tile, P, two stages of the
+// K/V ring (float32 pool: float32 K and V; int8 pool: raw int8 K and V and
+// each token's two scales) and, on an int8 pool, the float32 K and V the
+// stage is dequantized into.  q and K rows carry a 16-byte pad, so the 8
+// rows a quarter-warp reads 16 bytes of start in 8 different bank groups;
+// P rows are 80 floats, so a warp's two rows of p land in disjoint banks.
+template <typename TKV, int HD>
+struct Smem {
+  static constexpr bool kInt8 = std::is_same<TKV, int8_t>::value;
+  static constexpr int kLd = HD + 4;                  // q and K rows
+  static constexpr int kPLd = kTok + 16;              // P rows
+  static constexpr int kQ = kRows * kLd * 4;
+  static constexpr int kP = kRows * kPLd * 4;
+  static constexpr int kK = kTok * kLd * 4;           // float32 K tile
+  static constexpr int kV = kTok * HD * 4;            // float32 V tile
+  static constexpr int kRaw = kTok * HD;              // int8 K or V tile
+  static constexpr int kStage = kInt8 ? 2 * kRaw + 2 * kTok * 4 : kK + kV;
+  static constexpr int kBytes = kQ + kP + 2 * kStage + (kInt8 ? kK + kV : 0);
+};
+
+// Four int8 values (one word, little-endian) -> four exact floats without
+// the quarter-rate integer conversion, as tc::int8x4_to_bf16 does: the
+// byte with its sign bit flipped, x + 128, in the low mantissa of 2^23,
+// less 2^23 + 128
+__device__ __forceinline__ void int8x4_to_f32(uint32_t w, float (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+  constexpr float kMagic = 8388736.f;             // 2^23 + 128
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - kMagic;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - kMagic;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - kMagic;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - kMagic;
+}
+
+// N consecutive floats from shared memory, 16, 8 or 4 bytes at once
+template <int N>
+__device__ __forceinline__ void load_vec(float (&d)[N], const float* s) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(s);
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(s);
+    d[0] = v.x; d[1] = v.y;
+  } else {
+    d[0] = s[0];
+  }
+}
+
+template <typename TKV, int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+paged_prefill_kernel(const float* __restrict__ q, const TKV* __restrict__ kv,
+                     const float* __restrict__ kv_scales,
+                     const int* __restrict__ block_table,
+                     const int* __restrict__ page_counts,
+                     const int* __restrict__ lengths,
+                     const int* __restrict__ q_start, float* __restrict__ out,
+                     int C, int H, int Kv, int page, int n_pages,
+                     int pool_pages, float scale_log2) {
+  using S = Smem<TKV, HD>;
+  constexpr bool kInt8 = S::kInt8;
+  constexpr int kLd = S::kLd, kPLd = S::kPLd;
+  constexpr int kChunks = HD * int(sizeof(TKV)) / 16;   // per K/V row
+  constexpr int kD = HD / 16;              // P.V dims of a thread
+  constexpr int kVec = kD < 4 ? kD : 4;    // ... read kVec at a time
+  constexpr int kGroups = kD / kVec;       // ... in groups 16*kVec apart
+  const int G = H / Kv;
+  const int b = blockIdx.z, kh = blockIdx.y;
+  const int rows = C * G;
+  const int row0 = blockIdx.x * kRows;
+  // thread (ty, tx): rows ty + kTY i of the block, tokens tx + 16j of a
+  // tile; a row's 16 threads are one half-warp
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int len = lengths[b], q0 = q_start[b], npages = page_counts[b];
+  const int kv_lim = min(len, npages * page);
+  // the last token any row of this block may see, and the last every row
+  // may see (block-uniform): tiles past the first are skipped, tiles
+  // before the second need no mask
+  const int last_row = min(row0 + kRows, rows) - 1;
+  const int kv_end = min(kv_lim, q0 + last_row / G + 1);
+  const int kv_full = min(kv_lim, q0 + row0 / G + 1);
+  const int n_tiles = kv_end > 0 ? (kv_end + kTok - 1) / kTok : 0;
+
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* ps = reinterpret_cast<float*>(smem + S::kQ);
+  uint8_t* stages = smem + S::kQ + S::kP;
+  // the float32 K and V tiles the products read: stage st's own (float32
+  // pool) or the pair every int8 stage is dequantized into
+  auto k_tile = [&](int st) {
+    return reinterpret_cast<float*>(kInt8 ? stages + 2 * S::kStage
+                                          : stages + st * S::kStage);
+  };
+  auto v_tile = [&](int st) {
+    return reinterpret_cast<float*>(
+        kInt8 ? stages + 2 * S::kStage + S::kK
+              : stages + st * S::kStage + S::kK);
+  };
+  auto scales = [&](int st) {     // int8: [kTok] K scales, then V's
+    return reinterpret_cast<float*>(stages + st * S::kStage + 2 * S::kRaw);
+  };
+
+  // q rows (row = c*G + g reads head kh*G + g of token c), zero past rows
+  constexpr int kQCopies = kRows * (HD / 4);
+#pragma unroll
+  for (int j = 0; j < (kQCopies + kThreads - 1) / kThreads; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    if (kQCopies % kThreads && i >= kQCopies) break;
+    const int r = i / (HD / 4), ch = i - r * (HD / 4);
+    const int row = row0 + r;
+    const float* src = q;
+    int bytes = 0;
+    if (row < rows) {
+      const int c = row / G;
+      src = q + ((size_t(b) * C + c) * H + kh * G + (row - c * G)) * HD +
+            ch * 4;
+      bytes = 16;
+    }
+    tc::cp_async16(qs + r * kLd + ch * 4, src, bytes);
+  }
+
+  // tile `it` of the visible tokens into stage st.  Copy i of the tile is
+  // chunk i % kChunks of token i / kChunks, so a warp copies whole rows
+  // (512 contiguous bytes of a float32 row at hd 128) and a thread's
+  // copies are kStep tokens apart: its first token's (page, slot) is
+  // divided out once a tile, then stepped on.  Each copy reads its
+  // token's page from the lane's own block-table row; zeros past kv_end
+  static_assert(kThreads % kChunks == 0, "a thread keeps one chunk");
+  constexpr int kStep = kThreads / kChunks;          // tokens per pass
+  const size_t page_elems = size_t(page) * Kv * HD;  // one of K or V
+  const int* bt_row = block_table + size_t(b) * n_pages;
+  auto phys_of = [&](int lp) {
+    return min(max(bt_row[min(lp, n_pages - 1)], 0), pool_pages - 1);
+  };
+  auto load_tile = [&](int it, int st) {
+    uint8_t* base = stages + st * S::kStage;
+    const int ch = threadIdx.x % kChunks;
+    int tt = threadIdx.x / kChunks;
+    int t = it * kTok + tt;
+    int lp = t / page, slot = t - lp * page;
+    // unrolled, so the block-table reads of all passes are in flight
+    // together
+#pragma unroll
+    for (int j = 0; j < (kTok + kStep - 1) / kStep; ++j) {
+      if (kTok % kStep && tt >= kTok) break;
+      const bool valid = t < kv_end;
+      const TKV* row =
+          valid ? kv + size_t(phys_of(lp)) * 2 * page_elems +
+                      (size_t(slot) * Kv + kh) * HD
+                : kv;
+      constexpr int kElems = 16 / int(sizeof(TKV));
+#pragma unroll
+      for (int sel = 0; sel < 2; ++sel) {                // K, then V
+        const TKV* src = valid ? row + sel * page_elems + ch * kElems : kv;
+        void* dst =
+            kInt8 ? static_cast<void*>(base + sel * S::kRaw + tt * HD +
+                                       ch * 16)
+                  : static_cast<void*>(
+                        reinterpret_cast<float*>(base + sel * S::kK) +
+                        tt * (sel ? HD : kLd) + ch * 4);
+        tc::cp_async16(dst, src, valid ? 16 : 0);
+      }
+      tt += kStep;
+      t += kStep;
+      for (slot += kStep; slot >= page; slot -= page) ++lp;
+    }
+    if constexpr (kInt8) {   // threads 0-63: K scales; 64-127: V scales
+      if (threadIdx.x < 2 * kTok) {
+        const int tk = threadIdx.x % kTok, sel = threadIdx.x / kTok;
+        const int tok = it * kTok + tk;
+        const bool valid = tok < kv_end;
+        tc::cp_async4(scales(st) + sel * kTok + tk,
+                      valid ? kv_scales +
+                                  (size_t(phys_of(tok / page)) * 2 + sel) *
+                                      Kv + kh
+                            : kv_scales,
+                      valid ? 4 : 0);
+      }
+    }
+  };
+
+  if (n_tiles > 0) load_tile(0, 0);
+  tc::cp_async_commit();          // q and tile 0
+
+  // this thread's rows: their causal limits (rows past the chunk see the
+  // whole resident sequence, as in the reference), (m, l) and acc
+  int lim[kRT];
+  float m[kRT], l[kRT], acc[kRT][kD];
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    lim[i] = min(kv_lim, q0 + (row0 + ty + kTY * i) / G + 1);
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) acc[i][d] = 0.f;
+  }
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    tc::cp_async_wait<0>();   // tile it (and q) landed ...
+    __syncthreads();          // ... for every thread; tile it-1 is consumed
+    if (it + 1 < n_tiles) {   // so its stage takes tile it+1
+      load_tile(it + 1, st ^ 1);
+      tc::cp_async_commit();
+    }
+    if constexpr (kInt8) {
+      // dequantize before any product, as the reference's fetch does:
+      // K = k_int8 * s_k of the token's page, V likewise
+      const int8_t* raw = reinterpret_cast<const int8_t*>(
+          stages + st * S::kStage);
+      const float* sc = scales(st);
+      for (int i = threadIdx.x; i < 2 * kTok * (HD / 16); i += kThreads) {
+        const int sel = i / (kTok * (HD / 16));
+        const int rem = i - sel * kTok * (HD / 16);
+        const int tt = rem / (HD / 16), ch = rem - tt * (HD / 16);
+        const uint4 v = *reinterpret_cast<const uint4*>(
+            raw + sel * S::kRaw + tt * HD + ch * 16);
+        const float s = sc[sel * kTok + tt];
+        float* dst = (sel ? v_tile(st) + tt * HD : k_tile(st) + tt * kLd) +
+                     ch * 16;
+        const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float f[4];
+          int8x4_to_f32(w[e], f);
+          *reinterpret_cast<float4*>(dst + 4 * e) =
+              make_float4(f[0] * s, f[1] * s, f[2] * s, f[3] * s);
+        }
+      }
+      __syncthreads();
+    }
+    const float* ks = k_tile(st);
+    const float* vs = v_tile(st);
+
+    // S = q . K^T: kRT rows x 4 tokens a thread, 16 bytes of q and of K
+    // at a time
+    float s[kRT][4];
+#pragma unroll
+    for (int i = 0; i < kRT; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll
+    for (int d = 0; d < HD; d += 4) {
+      float qv[kRT][4], kv4[4][4];
+#pragma unroll
+      for (int i = 0; i < kRT; ++i)
+        load_vec(qv[i], qs + (ty + kTY * i) * kLd + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        load_vec(kv4[j], ks + (tx + 16 * j) * kLd + d);
+#pragma unroll
+      for (int i = 0; i < kRT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[i][j] = fmaf(qv[i][e], kv4[j][e], s[i][j]);
+    }
+
+    // scale to log2 units, mask (only a tile that crosses some row's
+    // limit), online softmax across the row's 16 threads
+    const int t0 = it * kTok;
+    const bool masked = t0 + kTok > kv_full;
+#pragma unroll
+    for (int i = 0; i < kRT; ++i) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float x = s[i][j] * scale_log2;
+        if (masked && t0 + tx + 16 * j >= lim[i]) x = kNegInf;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = exp2f(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = s[i][j] == kNegInf ? 0.f : exp2f(s[i][j] - m_new);
+        sum += p;
+        ps[(ty + kTY * i) * kPLd + tx + 16 * j] = p;
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int d = 0; d < kD; ++d) acc[i][d] *= alpha;
+    }
+    __syncthreads();          // P complete
+
+    // O += P . V: kRT rows x kD dims a thread, p 4 tokens at a time
+#pragma unroll 4
+    for (int t4 = 0; t4 < kTok; t4 += 4) {
+      float pv[kRT][4];
+#pragma unroll
+      for (int i = 0; i < kRT; ++i)
+        load_vec(pv[i], ps + (ty + kTY * i) * kPLd + t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) {
+          float v[kVec];
+          load_vec(v, vs + (t4 + e) * HD + g * 16 * kVec + tx * kVec);
+#pragma unroll
+          for (int i = 0; i < kRT; ++i)
+#pragma unroll
+            for (int x = 0; x < kVec; ++x)
+              acc[i][g * kVec + x] =
+                  fmaf(pv[i][e], v[x], acc[i][g * kVec + x]);
+        }
+      }
+    }
+  }
+  tc::cp_async_wait<0>();    // an empty lane's q copies are still in flight
+
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    const int row = row0 + ty + kTY * i;
+    if (row >= rows) continue;
+    const int c = row / G;
+    const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);   // nothing seen: 0
+    float* dst = out + ((size_t(b) * C + c) * H + kh * G + (row - c * G)) * HD;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      float* o = dst + g * 16 * kVec + tx * kVec;
+      if constexpr (kVec == 4) {
+        *reinterpret_cast<float4*>(o) = make_float4(
+            acc[i][4 * g] * inv, acc[i][4 * g + 1] * inv,
+            acc[i][4 * g + 2] * inv, acc[i][4 * g + 3] * inv);
+      } else {
+#pragma unroll
+        for (int x = 0; x < kVec; ++x) o[x] = acc[i][g * kVec + x] * inv;
+      }
+    }
+  }
+}
+
+template <typename TKV, int HD>
+cudaError_t launch(const void* q, const void* kv, const float* kv_scales,
+                   const int* block_table, const int* page_counts,
+                   const int* lengths, const int* q_start, void* out, int B,
+                   int C, int H, int Kv, int page, int n_pages,
+                   int pool_pages, float scale, cudaStream_t stream) {
+  const int rows = C * (H / Kv);
+  const dim3 grid((rows + kRows - 1) / kRows, Kv, B);
+  auto kernel = paged_prefill_kernel<TKV, HD>;
+  constexpr int smem = Smem<TKV, HD>::kBytes;
+  static bool opted_in = false;   // above 48 KB a block needs the opt-in
+  if (!opted_in) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const TKV*>(kv), kv_scales,
+      block_table, page_counts, lengths, q_start, static_cast<float*>(out),
+      C, H, Kv, page, n_pages, pool_pages, scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+template <typename TKV>
+cudaError_t dispatch_hd(int hd, const void* q, const void* kv,
+                        const float* kv_scales, const int* block_table,
+                        const int* page_counts, const int* lengths,
+                        const int* q_start, void* out, int B, int C, int H,
+                        int Kv, int page, int n_pages, int pool_pages,
+                        float scale, cudaStream_t stream) {
+#define PAGED_LAUNCH(HD_)                                                   \
+  launch<TKV, HD_>(q, kv, kv_scales, block_table, page_counts, lengths,     \
+                   q_start, out, B, C, H, Kv, page, n_pages, pool_pages,    \
+                   scale, stream)
+  switch (hd) {
+    case 16: return PAGED_LAUNCH(16);
+    case 32: return PAGED_LAUNCH(32);
+    case 64: return PAGED_LAUNCH(64);
+    case 128: return PAGED_LAUNCH(128);
+    default: return cudaErrorInvalidValue;
+  }
+#undef PAGED_LAUNCH
+}
+
+}  // namespace f32
+
 }  // namespace
 
 // Element-type codes: 0 = float32, 1 = bfloat16, 2 = int8 (pool only).
@@ -1558,12 +1760,12 @@ extern "C" int paged_prefill_launch(int kv_dtype, const void* q,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t e =
       int8_pool
-          ? dispatch_hd<float, int8_t>(hd, q, kv, sc, bt, cnt, len, qs, out,
-                                       B, C, H, Kv, page, n_pages, pool_pages,
-                                       scale, s)
-          : dispatch_hd<float, float>(hd, q, kv, sc, bt, cnt, len, qs, out, B,
-                                      C, H, Kv, page, n_pages, pool_pages,
-                                      scale, s);
+          ? f32::dispatch_hd<int8_t>(hd, q, kv, sc, bt, cnt, len, qs, out, B,
+                                     C, H, Kv, page, n_pages, pool_pages,
+                                     scale, s)
+          : f32::dispatch_hd<float>(hd, q, kv, sc, bt, cnt, len, qs, out, B,
+                                    C, H, Kv, page, n_pages, pool_pages,
+                                    scale, s);
   return static_cast<int>(e);
 }
 

@@ -159,8 +159,16 @@ def test_cuda_kernel_matches_plain_version():
     (torch.bfloat16, 3, 5, 7, True, "general"),
     (torch.bfloat16, 8, 0, 8, True, "general"),           # empty k
     (torch.bfloat16, 256, 256, 256, False, "general"),    # a base off 16
-    (torch.float32, 4096, 4096, 4096, True, "general"),
-    (torch.float32, 128, 128, 128, True, "general"),
+    (torch.float32, 4096, 4096, 4096, True, "f32_ring"),
+    (torch.float32, 128, 128, 128, True, "f32_ring"),
+    (torch.float32, 1024, 4096, 11008, True, "f32_ring"),  # yi-6b's MLP
+    (torch.float32, 100, 36, 20, True, "f32_ring"),       # k, n % 4 == 0
+    (torch.float32, 1000, 1032, 776, True, "f32_ring"),   # ragged tiles
+    (torch.float32, 128, 130, 128, True, "general"),      # k % 4 == 2
+    (torch.float32, 64, 64, 62, True, "general"),         # n % 4 == 2
+    (torch.float32, 127, 127, 127, True, "general"),      # odd everything
+    (torch.float32, 8, 0, 8, True, "general"),            # empty k
+    (torch.float32, 256, 256, 256, False, "general"),     # a base off 16
 ])
 def test_route_by_type_shape_and_alignment(dtype, m, k, n, aligned, want):
     assert K.route(dtype, m, k, n, aligned=aligned) == want
@@ -202,3 +210,40 @@ def test_wgmma_branch_matches_plain_version():
         np.testing.assert_allclose(out.float().cpu().numpy(),
                                    ref.float().cpu().numpy(),
                                    **TOL["bfloat16"])
+
+
+@pytest.mark.cuda
+def test_f32_ring_branch_matches_plain_version():
+    """The float32 ring branch against the plain version on the card at
+    aligned shapes, at ragged ones (m, n and k not multiples of the 128 x
+    128 x 16 tile: the zero-filled copies at every edge) and at k < 16;
+    the same products with a base address off 16 bytes, or k or n not a
+    multiple of 4, take the general branch.  Each branch's launches are
+    counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine: "
+                    "pytest -m cuda tests/test_torch_cluster_matmul.py)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for (m, k, n) in [(128, 128, 128), (256, 384, 512), (1024, 512, 768),
+                      (1000, 1032, 776), (72, 200, 48), (300, 4, 520),
+                      (5, 8, 12), (130, 36, 20), (100, 37, 20),
+                      (64, 64, 62)]:
+        a, b = _inputs(m, k, n, seed=4)
+        ta = torch.from_numpy(a).cuda()
+        tb = (torch.from_numpy(b) / np.sqrt(k)).cuda()
+        ref = R.cluster_matmul_ref(ta, tb)
+        # the same values at a base 4 bytes past a 16-byte boundary
+        off = torch.empty(m * k + 1, device="cuda")[1:].view(m, k)
+        off.copy_(ta)
+        for x, aligned in ((ta, True), (off, False)):
+            want = K.route(torch.float32, m, k, n, aligned=aligned)
+            assert want == (K.F32_RING if aligned and k % 4 == 0
+                            and n % 4 == 0 else K.GENERAL), (m, k, n)
+            before = (K.launches.n, K.ring_launches.n)
+            out = K.matmul(x, tb)
+            torch.cuda.synchronize()
+            assert (K.launches.n - before[0],
+                    K.ring_launches.n - before[1]) == \
+                (1, int(want == K.F32_RING)), (m, k, n, aligned)
+            np.testing.assert_allclose(out.cpu().numpy(),
+                                       ref.cpu().numpy(), **TOL["float32"])

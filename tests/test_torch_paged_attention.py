@@ -479,6 +479,118 @@ def test_sharp_inputs_catch_a_dropped_tile():
     assert float((full[0].float() - dropped[0].float()).abs().max()) > 0.5
 
 
+# ------------------------------------------- the FP32-core kernel --
+def fp32_tile_emulation(q, kv, kv_scales, block_table, lengths, q_start,
+                        rows_per_block=64, tile=64, drop=None):
+    """The FP32-core kernel's tile order, for the tests only: float32
+    math; per lane and kv head, the chunk's (c, g) rows in blocks of 64,
+    each block walking 64-token tiles up to the last token any of its
+    rows can see, scores in log2 units (exp2), the online rescale once per
+    tile, masks only on tiles that cross some row's limit, an int8 pool's
+    K and V dequantized (value times its page's scale) before any product.
+    q (B,C,H,hd) float32; kv (P,2,page,Kv,hd) float32 or int8; kv_scales
+    (P,2,Kv) or None; block_table -1-marked numpy.  ``drop`` = (lane,
+    tile) leaves that tile of the lane's walk out.  Returns (B,C,H,hd)."""
+    B, C, H, hd = q.shape
+    page, Kv = kv.shape[2], kv.shape[3]
+    G = H // Kv
+    scale_log2 = np.float32(1.0 / np.sqrt(hd)) * np.float32(1.4426950408889634)
+    neg = torch.tensor(-1e30)
+    out = torch.zeros(B, C, H, hd)
+    for b in range(B):
+        n = int(lengths[b])
+        if n == 0:
+            continue
+        t = torch.arange(n)
+        phys = torch.as_tensor(block_table[b])[t // page].long()
+        k = kv[phys, 0, t % page].float()                   # (n, Kv, hd)
+        v = kv[phys, 1, t % page].float()
+        if kv_scales is not None:
+            k = k * kv_scales[phys, 0][..., None]
+            v = v * kv_scales[phys, 1][..., None]
+        for kh in range(Kv):
+            qb = q[b, :, kh * G:(kh + 1) * G].float().reshape(C * G, hd)
+            for r0 in range(0, C * G, rows_per_block):
+                r1 = min(r0 + rows_per_block, C * G)
+                rows = torch.arange(r0, r1)
+                lim = torch.clamp(int(q_start[b]) + rows // G + 1, max=n)
+                kv_end, kv_full = int(lim.max()), int(lim.min())
+                m = torch.full((r1 - r0,), -1e30)
+                l_sum = torch.zeros(r1 - r0)
+                o = torch.zeros(r1 - r0, hd)
+                for it, t0 in enumerate(range(0, kv_end, tile)):
+                    if drop == (b, it):
+                        continue
+                    sl = slice(t0, min(t0 + tile, kv_end))
+                    s = (qb[r0:r1] @ k[sl, kh].T) * scale_log2
+                    if t0 + tile > kv_full:
+                        s = torch.where(t[sl][None, :] < lim[:, None], s,
+                                        neg)
+                    m_new = torch.maximum(m, s.max(-1).values)
+                    p = torch.where(s == neg, torch.tensor(0.0),
+                                    torch.exp2(s - m_new[:, None]))
+                    alpha = torch.exp2(m - m_new)
+                    l_sum = l_sum * alpha + p.sum(-1)
+                    o = o * alpha[:, None] + p @ v[sl, kh]
+                    m = m_new
+                o = o / torch.where(l_sum == 0, torch.ones_like(l_sum),
+                                    l_sum)[:, None]
+                for i, row in enumerate(range(r0, r1)):
+                    c, g = divmod(row, G)
+                    out[b, c, kh * G + g] = o[i]
+    return out
+
+
+def _fp32_case(pool, sharpness, C):
+    """Phase-3-like float32-q inputs (``_tc_inputs``: lanes of 150, 67, 3
+    and 0 tokens, two aliased prefix pages) on a float32 or an int8 pool,
+    and the reference's fused prefill kernel (Pallas, interpret mode) on
+    them."""
+    q, kv, sc, bt, lengths, q_start = _tc_inputs(
+        "int8" if pool == "int8" else "bf16", sharpness, C=C)
+    counts = page_counts_for(torch.from_numpy(lengths), kv.shape[2])
+    padded = pad_block_table(torch.from_numpy(bt), counts)
+    ker = j_paged_prefill_fused(
+        jnp.asarray(q), jnp.asarray(kv), jnp.asarray(padded.numpy()),
+        jnp.asarray(counts.numpy()), jnp.asarray(lengths),
+        jnp.asarray(q_start), interpret=True,
+        kv_scales=None if sc is None else jnp.asarray(sc))
+    tsc = None if sc is None else torch.from_numpy(sc)
+    return (torch.from_numpy(q), torch.from_numpy(kv), tsc, bt, lengths,
+            q_start, np.asarray(ker, np.float32))
+
+
+@pytest.mark.parametrize("C", [2, 5, 128])
+@pytest.mark.parametrize("sharpness", ["flat", "sharp"])
+@pytest.mark.parametrize("pool", ["f32", "int8"])
+def test_fp32_core_tile_order_matches_the_pallas_kernel(pool, sharpness, C):
+    """The FP32-core kernel's tile order (64-row blocks, 64-token tiles,
+    online rescale per tile, masks only where a tile crosses a row's
+    limit, int8 scales applied before the products) against the
+    reference's Pallas kernel in interpret mode at float32 q, within the
+    1e-4 bar, on both pools, flat and sharp, at the verify step's C=5,
+    the chunk's C=128 (8 row blocks a kv head) and C=2, with an empty lane
+    and aliased prefix pages."""
+    q, kv, sc, bt, lengths, q_start, ref = _fp32_case(pool, sharpness, C)
+    emu = fp32_tile_emulation(q, kv, sc, bt, lengths, q_start)
+    if sharpness == "sharp":
+        assert np.abs(ref).max() > 1.0
+    _close(ref, emu, "float32")
+    assert float(emu[-1].abs().max()) == 0.0     # the empty lane
+
+
+def test_sharp_inputs_catch_a_dropped_fp32_tile():
+    """Leaving one 64-token tile out of the longest lane's walk (a wrong
+    tile count or stage in the FP32-core kernel) moves its outputs far
+    past the 1e-4 bar on sharp scores; the other lanes do not move."""
+    q, kv, sc, bt, lengths, q_start, _ = _fp32_case("f32", "sharp", 128)
+    full = fp32_tile_emulation(q, kv, sc, bt, lengths, q_start)
+    dropped = fp32_tile_emulation(q, kv, sc, bt, lengths, q_start,
+                                  drop=(0, 1))
+    assert float((full[0] - dropped[0]).abs().max()) > 0.5
+    torch.testing.assert_close(full[1:], dropped[1:], rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("q_dtype,C,want", [
     (torch.bfloat16, 128, "tensor_cores"),   # the chunk step
     (torch.bfloat16, 5, "tensor_cores"),     # the verify step, spec_k = 4
@@ -551,6 +663,51 @@ def test_tensor_core_kernel_matches_plain_on_card(pool):
                                    ref.float().numpy(), **TOL["bfloat16"])
         assert float(out[-1].abs().max()) == 0.0
     assert K.tc_launches.n == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["f32", "int8"])
+def test_fp32_core_kernel_matches_plain_on_card(pool):
+    """The FP32-core kernel against the plain version on the card, flat
+    and sharp, at C in {2, 5, 128} and every head dim (G in {1, 2, 4, 8}),
+    on a float32 and an int8 pool; every call must take the FP32-core
+    kernel (no tensor-core or split-KV launch), and the empty lane stays
+    0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (runs on the H100: "
+                    "pytest -m cuda tests/test_torch_paged_attention.py)")
+    from repro_torch.kernels.paged_attention import ref as R
+    counter = K.int8_launches if pool == "int8" else K.launches
+    before = (counter.n, K.tc_launches.n, K.split_launches.n)
+    n = 0
+    for C, H, Kv, hd in [(2, 8, 1, 16), (5, 8, 2, 32), (128, 8, 4, 64),
+                         (5, 32, 4, 128), (128, 32, 4, 128),
+                         (2, 8, 8, 128)]:
+        for sharp in ("flat", "sharp"):
+            q, kv, sc, bt, lengths, q_start = _tc_inputs(
+                "int8" if pool == "int8" else "bf16", sharp, C=C, H=H,
+                Kv=Kv, hd=hd)
+            assert K.route(torch.float32, C) == K.FP32_CORES
+            tq, tkv = torch.from_numpy(q), torch.from_numpy(kv)
+            tsc = None if sc is None else torch.from_numpy(sc)
+            ln, st, table = _i32(lengths, q_start, bt)
+            counts = page_counts_for(ln, kv.shape[2])
+            scales = {} if tsc is None else dict(k_scales=tsc[:, 0],
+                                                 v_scales=tsc[:, 1])
+            ref = R.paged_prefill_ref(tq, tkv[:, 0], tkv[:, 1], table, ln,
+                                      st, **scales)
+            dev = [x.cuda() for x in (tq, tkv, pad_block_table(table,
+                                                               counts),
+                                      counts, ln, st)]
+            out = K.paged_prefill_fwd(
+                *dev, kv_scales=None if tsc is None else tsc.cuda())
+            torch.cuda.synchronize()
+            n += 1
+            np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(),
+                                       **TOL["float32"])
+            assert float(out[-1].abs().max()) == 0.0
+    assert (counter.n - before[0], K.tc_launches.n - before[1],
+            K.split_launches.n - before[2]) == (n, 0, 0)
 
 
 # ------------------------------------------------ the split-KV kernel --
