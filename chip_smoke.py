@@ -44,21 +44,23 @@ non-zero without printing the final result line):
    shapes, 64^3, the demo's 256^3, Fig.5's 768^3, 4096^3, yi-6b's MLP
    product (1024 x 4096 @ 4096 x 11008), 100 x 36 x 20 (which breaks
    TMA's 16-byte rule) and 1000 x 1032 x 776 (partial tiles in every
-   dimension), 127^3 (rows of no whole 16-byte chunks), and 4096^3 and
-   yi-6b's product in float32 with A 4 bytes past a 16-byte boundary,
-   with the branch each took (wgmma for bf16 with k, n multiples of 8,
-   the float32 ring for float32 with k, n multiples of 4, both with
-   16-byte-aligned bases; general otherwise: the counts must agree) and
-   times beside ``torch.matmul``'s and the roofline bound.
+   dimension), 127^3 (rows of no whole 16-byte chunks), and 256^3,
+   768^3, 1000 x 1032 x 776, 4096^3 and yi-6b's product in float32 with
+   A 4 bytes past a 16-byte boundary, with the branch each took (wgmma
+   for bf16 with k, n multiples of 8 and 16-byte-aligned bases; general
+   otherwise and for every float32 product, in float32 with the tile and
+   K splits its plan picks: the counts must agree) and times beside
+   ``torch.matmul``'s and the roofline bound.
 8. offload path: the offload demo (copy-based vs zero-copy SVM through
    the cluster matmul, 256^2 float32), the same two modes at 4096^2 in
    float32 and bfloat16 and at 127^2 in float32, Fig.5's four benchmarks
    on the card and Fig.6's traced RAB programs (host only, its assertions
    must hold); the kernel must carry every product (two launches per
-   run: the bf16 ones on its wgmma branch, the float32 ones on its ring
-   branch but 127^2's on the general one) and the plain version must
-   never run; each of these outputs is then held against the plain
-   version.
+   run: the bf16 ones on its wgmma branch, the float32 ones on the
+   general one: 4096^2 on 128 x 128 tiles, the demo's 256^2 and 127^2
+   with K split over blocks) and the plain version must never run; each
+   of these
+   outputs is then held against the plain version.
 9. flash kernels vs plain: the flash-attention CUDA kernels against
    their plain version at ``tests/test_kernels.py``'s three shapes x five
    (causal, window, cap) masks x {float32, bfloat16}, at gemma2-2b's
@@ -69,12 +71,14 @@ non-zero without printing the final result line):
    range (``FLASH_SHARP``); each case prints the kernel its route picked
    (the counts must agree), with times beside the plain version and the
    library call (SDPA without a cap, the compiled ``flex_attention`` with
-   a softcap score_mod with one); then the op's gradients against plain
-   autograd.
+   a softcap score_mod with one; an FP32-core case also prints the key
+   splits its plan picks, and the counts must show them); then the op's
+   gradients against plain autograd.
 10. train parity: one ``make_train_step`` on the same float32 weights at
    gemma2-2b's widths (d 2304, 8/4 heads, hd 256, d_ff 9216) with one
    local/global pair, on the card (kernel) and on the CPU (plain); every
-   flash forward on the card takes the FP32-core kernel.
+   flash forward on the card takes the FP32-core kernel, its key walks
+   split over blocks as its plan says.
 11. trainer: ``Trainer.run_with_recovery`` at phase 10's size (bf16) on
    the card with an injected failure; it must restart from the last
    commit and end at ``total_steps``.
@@ -86,7 +90,8 @@ non-zero without printing the final result line):
 
 Then one JSON line ``{"kernels": [...]}`` (the paged-attention split-KV
 decode kernel, FP32-core kernel and tensor-core kernel, each on both pool
-types; the cluster matmul's general, float32 ring and wgmma branches; the
+types; the cluster matmul's general kernel (K split, and on 128 x 128
+tiles) and its wgmma branch; the
 flash kernel
 on the tensor cores and on the FP32 cores) and, last, the result line
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the
@@ -136,14 +141,17 @@ MATMUL_SHAPES = [(128, 128, 128), (256, 384, 512), (384, 256, 128),
                  (4096, 4096, 4096), (1024, 4096, 11008), (100, 36, 20),
                  (1000, 1032, 776), (127, 127, 127)]
 #: shapes whose rows are no whole 16-byte chunks, so both types take the
-#: general branch (the other float32 shapes: the ring branch)
+#: general branch (every float32 shape takes it)
 MATMUL_ODD = {(127, 127, 127)}
 #: the branch each bf16 shape must take (the rest of MATMUL_SHAPES: wgmma)
 MATMUL_GENERAL_BF16 = {(100, 36, 20)} | MATMUL_ODD
-#: a float32 product with A 4 bytes past a 16-byte boundary, which must
-#: send it to the general branch (the alignment half of the route): the
-#: offload demo's 256^3
-MATMUL_OFFSET_F32 = [(256, 256, 256)]
+#: float32 products with A 4 bytes past a 16-byte boundary, which must
+#: send them to the general branch (the alignment half of the route): the
+#: offload demo's 256^3, Fig.5's 768^3 and 1000 x 1032 x 776 (grids under
+#: a wave: 64 x 64 tiles, K split), 4096^3 and yi-6b's MLP product (128 x
+#: 128 tiles)
+MATMUL_OFFSET_F32 = [(256, 256, 256), (768, 768, 768), (1000, 1032, 776),
+                     (4096, 4096, 4096), (1024, 4096, 11008)]
 #: score std of phase 3's "sharp" cases (q scaled by PAGED_SHARP / rms of
 #: the pool's K): a dropped or misplaced K tile then moves an output by
 #: O(|v|); at q*0.3 the scores have std 0.15, nearly flat, and a
@@ -715,7 +723,9 @@ def matmul_case(timer: Timer, m: int, k: int, n: int, dtype: torch.dtype,
     bar), then timed beside the plain version and ``torch.matmul``, with
     its bytes, operations and roofline bound.  With ``offset`` A lies 4
     bytes past a 16-byte boundary (same values), which routes it to the
-    general branch."""
+    general branch.  A float32 product on the general branch prints its
+    tile and K splits (``general_plan``), and the counts show whether it
+    split."""
     from repro_torch.kernels.cluster_matmul import kernel as CK
     from repro_torch.kernels.cluster_matmul import ref as CR
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -728,21 +738,21 @@ def matmul_case(timer: Timer, m: int, k: int, n: int, dtype: torch.dtype,
     dt = str(dtype).replace("torch.", "")
     name = f"cluster_matmul {m}x{k}x{n} {dt}{' offset' if offset else ''}"
     branch = CK.route(dtype, m, k, n, aligned=not offset)
-    if offset or (m, k, n) in MATMUL_ODD:
+    if offset or dtype == torch.float32 or (m, k, n) in MATMUL_GENERAL_BF16:
         want = CK.GENERAL
-    elif dtype == torch.float32:
-        want = CK.F32_RING
     else:
-        want = CK.GENERAL if (m, k, n) in MATMUL_GENERAL_BF16 else CK.WGMMA
+        want = CK.WGMMA
     check(branch == want, f"{name}: routed to {branch}, want {want}")
-    counters = (CK.launches, CK.wgmma_launches, CK.ring_launches)
+    tile, splits = CK.general_plan(m, k, n) \
+        if branch == CK.GENERAL and dtype == torch.float32 else (0, 1)
+    counters = (CK.launches, CK.wgmma_launches, CK.split_launches)
     before = [c.n for c in counters]
     out = CK.matmul(a, b)
     torch.cuda.synchronize()
     got = tuple(c.n - n0 for c, n0 in zip(counters, before))
-    check(got == (1, int(branch == CK.WGMMA), int(branch == CK.F32_RING)),
-          f"{name}: counts (all, wgmma, ring) {got} do not show one "
-          f"{branch} launch")
+    check(got == (1, int(branch == CK.WGMMA), int(splits > 1)),
+          f"{name}: counts (all, wgmma, split) {got} do not show one "
+          f"{branch} launch with {splits} splits")
     ref = CR.cluster_matmul_ref(a, b)
     err = (out.float() - ref.float()).abs().max().item()
     tol = MATMUL_TOL[dtype]
@@ -761,15 +771,15 @@ def matmul_case(timer: Timer, m: int, k: int, n: int, dtype: torch.dtype,
     t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
     bound_ms = max(t_bytes, t_ops)
     row = dict(m=m, k=k, n=n, dtype=dt, offset=offset, branch=branch,
-               launches=got, max_abs_err=err,
+               tile=tile, splits=splits, launches=got, max_abs_err=err,
                tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bytes=nbytes,
                flops=flops, bound_ms=bound_ms,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                share_of_bound=bound_ms / ms,
                tflops=flops / (ms * 1e-3) / 1e12)
-    print(f"kernel {name}: branch={branch} launches(all, wgmma, ring)="
-          f"{got} ms={ms:.4f} "
+    print(f"kernel {name}: branch={branch} tile={tile} splits={splits} "
+          f"launches(all, wgmma, split)={got} ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
           f"bytes={nbytes} flops={flops} "
           f"bound_ms={bound_ms:.5f} ({row['bound_by']}) "
@@ -834,25 +844,40 @@ def offload_pair(dtype: torch.dtype, size: int = 4096, seed: int = 1
                 inputs=[tgt.svm.deref(h) for h in handles], **rows)
 
 
+def offload_counts(dtype: torch.dtype, size: int) -> tuple:
+    """The (launches, wgmma, split) counts one offload run of a
+    ``size``^2 product must add: two launches (copy mode, zero-copy), on
+    the branch the route picks for aligned bases (tensors fresh from the
+    allocator) and, on the general branch in float32, split as its plan
+    says."""
+    from repro_torch.kernels.cluster_matmul import kernel as CK
+    branch = CK.route(dtype, size, size, size)
+    split = branch == CK.GENERAL and dtype == torch.float32 \
+        and CK.general_plan(size, size, size)[1] > 1
+    return (2, 2 * (branch == CK.WGMMA), 2 * split)
+
+
 def phase_offload(smi: str) -> dict:
     """The offload path on the card: the demo, then 4096^2 in float32 and
     bfloat16, then 127^2 in float32; the kernel's counts are read from 0
     just before and just after, and must be two per run (on the wgmma
-    branch for bfloat16, the ring branch for float32 but 127^2's, whose
-    rows are no whole 16-byte chunks, on the general one) with the plain
-    version never called; then each run's output is held against the
-    plain version.  Then Fig.5 on the card and Fig.6 on the host."""
+    branch for bfloat16, the general one for float32: unsplit on 128 x
+    128 tiles for 4096^2, with K split over blocks for the demo's 256^2
+    and 127^2, whose grids are under a wave) with the
+    plain version never called; then each run's output is held against
+    the plain version.  Then Fig.5 on the card and Fig.6 on the host."""
     from repro_torch.hero import (fig5_svm_offload, fig6_event_tracing,
                                   svm_offload_demo)
     from repro_torch.kernels.cluster_matmul import kernel as CK
     from repro_torch.kernels.cluster_matmul import ref as CR
-    counters = (CK.launches, CK.wgmma_launches, CK.ring_launches)
+    counters = (CK.launches, CK.wgmma_launches, CK.split_launches)
     for counter in counters + (CR.calls,):
         counter.reset()
     rep_c, rep_z, (a, b), demo_out = svm_offload_demo.main()
     got = tuple(c.n for c in counters)
-    check(got == (2, 0, 2), f"demo: (launches, wgmma, ring) {got}, want "
-                            "2 on the ring branch")
+    want = offload_counts(torch.float32, 256)
+    check(got == want, f"demo: (launches, wgmma, split) {got}, want "
+                       f"{want}")
     demo = dict(size=256, dtype="float32", zero=demo_out,
                 inputs=[torch.from_numpy(x).cuda() for x in (a, b)],
                 copy_total_ms=rep_c.total_s * 1e3,
@@ -863,12 +888,16 @@ def phase_offload(smi: str) -> dict:
         before = [c.n for c in counters]
         pairs.append(offload_pair(dtype, size))
         got = tuple(c.n - n0 for c, n0 in zip(counters, before))
-        bf16, odd = dtype == torch.bfloat16, size % 4 != 0
-        want = (2, 2 * bf16, 2 * (not bf16 and not odd))
+        want = offload_counts(dtype, size)
         check(got == want, f"offload {size}^2 {dtype}: (launches, wgmma, "
-                           f"ring) {got}, want {want}")
+                           f"split) {got}, want {want}")
+    for size in (127, 256):
+        check(offload_counts(torch.float32, size) == (2, 0, 2),
+              f"{size}^2 float32 must take the general branch, K split")
+    check(CK.general_plan(4096, 4096, 4096) == (128, 1),
+          "4096^2 float32 must take the general branch's 128 x 128 tiles")
     launches, plain_calls = CK.launches.n, CR.calls.n
-    wgmma_launches, ring_launches = CK.wgmma_launches.n, CK.ring_launches.n
+    wgmma_launches, split_launches = CK.wgmma_launches.n, CK.split_launches.n
     check(plain_calls == 0, f"plain matmul called {plain_calls} times")
     # the path's outputs against the plain version (after the count)
     for p in [demo] + pairs:
@@ -884,8 +913,9 @@ def phase_offload(smi: str) -> dict:
               f"max_abs_err={p['max_abs_err']:.3g} tol={tol}", flush=True)
     print(f"offload: demo copy total {rep_c.total_s * 1e3:.4f} ms, "
           f"zero-copy total {rep_z.total_s * 1e3:.4f} ms; "
-          f"kernel launches={launches} (wgmma {wgmma_launches}, f32 ring "
-          f"{ring_launches}) plain_calls={plain_calls}", flush=True)
+          f"kernel launches={launches} (wgmma {wgmma_launches}, general "
+          f"split-K {split_launches}) "
+          f"plain_calls={plain_calls}", flush=True)
     rows = fig5_svm_offload.run_benchmarks()
     for r in rows:
         check(r["copy_total_s"] > 0 and r["svm_total_s"] > 0,
@@ -900,7 +930,7 @@ def phase_offload(smi: str) -> dict:
     print(f"fig6 (host): {len(text.getvalue().splitlines())} lines, "
           f"assertions {results}", flush=True)
     return dict(launches=launches, wgmma_launches=wgmma_launches,
-                ring_launches=ring_launches,
+                split_launches=split_launches,
                 plain_calls=plain_calls, demo=demo,
                 pairs=pairs, fig5=rows, fig6=results)
 
@@ -978,13 +1008,16 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
             q, k.repeat_interleave(groups, 0), v.repeat_interleave(groups, 0),
             causal=causal, window=window, cap=cap)
 
-    before = (FK.launches.n, FK.tc_launches.n)
+    span, splits = FK.fp32_plan(BH, S, T, d, causal, window) \
+        if route == FK.FP32_CORES else (0, 1)
+    counters = (FK.launches, FK.tc_launches, FK.split_launches)
+    before = [c.n for c in counters]
     out = kernel()
     torch.cuda.synchronize()
-    got = (FK.launches.n - before[0], FK.tc_launches.n - before[1])
-    check(got == (1, int(route == FK.TENSOR_CORES)),
-          f"{name}: route {route} but (launches, tensor-core launches) "
-          f"{got}")
+    got = tuple(c.n - n0 for c, n0 in zip(counters, before))
+    check(got == (1, int(route == FK.TENSOR_CORES), int(splits > 1)),
+          f"{name}: route {route} with {splits} splits but (launches, "
+          f"tensor-core, split) {got}")
     ref = plain()
     err = (out.float() - ref.float()).abs().max().item()
     ref_max = ref.float().abs().max().item()
@@ -1014,7 +1047,8 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
     bound_ms = max(t_bytes, t_ops)
     row = dict(BH=BH, S=S, T=T, d=d, groups=groups, dtype=dt,
                causal=causal, window=window, cap=cap, qk=qk, kernel=route,
-               max_abs_err=err, ref_max_abs=ref_max, tol=tol, ms=ms,
+               span_keys=span, splits=splits, max_abs_err=err,
+               ref_max_abs=ref_max, tol=tol, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms,
                library="flex_attention" if cap else "sdpa",
                library_max_abs_err=library_err,
@@ -1023,8 +1057,8 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                share_of_bound=bound_ms / ms,
                tflops=flops / (ms * 1e-3) / 1e12)
-    print(f"kernel {name}: kernel={route} ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} "
+    print(f"kernel {name}: kernel={route} splits={splits} "
+          f"span_keys={span} ms={ms:.4f} plain_ms={plain_ms:.4f} "
           f"library_ms={library_ms:.4f} ({row['library']}, max_abs_err "
           f"{library_err:.3g}, first call {library_first_s:.2f} s) "
           f"bytes={nbytes} flops={flops} "
@@ -1159,8 +1193,8 @@ def phase_train_parity() -> dict:
     batch = train_small_batch(cfg)
     opt = ST.default_opt_cfg(cfg)
     from repro_torch.kernels.flash_attention import kernel as FK
-    FK.launches.reset()
-    FK.tc_launches.reset()
+    for counter in (FK.launches, FK.tc_launches, FK.split_launches):
+        counter.reset()
     out = {}
     for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
         state = ST.init_train_state(cfg, opt, params=model)
@@ -1200,12 +1234,20 @@ def phase_train_parity() -> dict:
           f"train parity: loss {gm['loss']} vs {cm['loss']}")
     check(rel_norm <= 1e-4,
           f"train parity: grad norm {gm['grad_norm']} vs {cm['grad_norm']}")
-    flash = (FK.launches.n, FK.tc_launches.n)
-    check(flash == (2 * cfg.num_layers, 0),
-          f"train parity: flash (launches, tensor-core launches) {flash}, "
-          f"want {2 * cfg.num_layers} on the FP32 cores")
+    flash = (FK.launches.n, FK.tc_launches.n, FK.split_launches.n)
+    # each layer's forward runs twice (forward, checkpoint recompute)
+    heads = TRAIN_SMALL_B * cfg.num_heads
+    want = (2 * cfg.num_layers, 0, 2 * sum(
+        FK.fp32_plan(heads, TRAIN_SMALL_S, TRAIN_SMALL_S,
+                     cfg.resolved_head_dim, True,
+                     M._layer_window(cfg, i))[1] > 1
+        for i in range(cfg.num_layers)))
+    check(flash == want,
+          f"train parity: flash (launches, tensor-core, split) {flash}, "
+          f"want {want}: every one on the FP32 cores")
     row = dict(loss_cuda=gm["loss"], loss_cpu=cm["loss"], rel_loss=rel_loss,
                flash_fp32_core_launches=flash[0],
+               flash_fp32_split_launches=flash[2],
                grad_norm_cuda=gm["grad_norm"], grad_norm_cpu=cm["grad_norm"],
                rel_grad_norm=rel_norm, lr=lr,
                max_param_diff_over_lr=worst_p, params_beyond_1e3_lr=loose,
@@ -1455,18 +1497,23 @@ def main() -> int:
         entry("paged_attention_prefill_tc_int8", TENSOR_CORES, "int8", 128,
               "bfloat16", serve8["tc_launches"], quant),
     ]
-    # the cluster matmul's branches: each one's main-path case (the
-    # general branch's is phase 8's 127^2 float32 offload), its error the
-    # largest of its cases
-    for name, branch, dtype, shape, launches in (
-            ("cluster_matmul", CK.GENERAL, "float32", (127, 127, 127),
-             offload["launches"] - offload["wgmma_launches"]
-             - offload["ring_launches"]),
-            ("cluster_matmul_f32_ring", CK.F32_RING, "float32",
-             (4096, 4096, 4096), offload["ring_launches"]),
-            ("cluster_matmul_wgmma", CK.WGMMA, "bfloat16",
-             (4096, 4096, 4096), offload["wgmma_launches"])):
-        own = [c for c in mm_cases if c["branch"] == branch]
+    # the cluster matmul: the general kernel split (64 x 64 tiles; its
+    # main-path case phase 8's 127^2 float32 offload) and on 128 x 128
+    # tiles (phase 8's 4096^2 float32 offload: the general launches
+    # without a split, which phase 8's counts tie to it), and the wgmma
+    # branch; each with its main-path case and the largest error of its
+    # cases
+    general = offload["launches"] - offload["wgmma_launches"]
+    for name, branch, tiles, dtype, shape, launches, split in (
+            ("cluster_matmul", CK.GENERAL, (0, 64), "float32",
+             (127, 127, 127), offload["split_launches"],
+             offload["split_launches"]),
+            ("cluster_matmul_f32_tile128", CK.GENERAL, (128,), "float32",
+             (4096, 4096, 4096), general - offload["split_launches"], 0),
+            ("cluster_matmul_wgmma", CK.WGMMA, (0,), "bfloat16",
+             (4096, 4096, 4096), offload["wgmma_launches"], 0)):
+        own = [c for c in mm_cases
+               if c["branch"] == branch and c["tile"] in tiles]
         head = next(c for c in own if (c["m"], c["k"], c["n"]) == shape
                     and c["dtype"] == dtype)
         kernels.append({
@@ -1474,7 +1521,7 @@ def main() -> int:
             "source": "src/repro_torch/kernels/cluster_matmul/csrc/"
                       "cluster_matmul.cu",
             "replaces": "src/repro/kernels/cluster_matmul/kernel.py:48",
-            "launches": launches,
+            "launches": launches, "split_launches": split,
             "max_abs_err": max(c["max_abs_err"] for c in own),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
@@ -1486,18 +1533,19 @@ def main() -> int:
     # global (window 0) layer, its error the largest of gemma2's four
     # cases (both scales, both windows); on the FP32 cores: phase 10's
     # float32 global layer, its error the largest of its float32 cases
-    for name, kernel, head, launches in (
+    for name, kernel, head, launches, split in (
             ("flash_attention_tc", "tensor_cores", flash["gemma"][0],
-             train["flash_tc_launches"]),
+             train["flash_tc_launches"], 0),
             ("flash_attention", "fp32_cores", flash["small"][0],
-             parity_train["flash_fp32_core_launches"])):
+             parity_train["flash_fp32_core_launches"],
+             parity_train["flash_fp32_split_launches"])):
         own = [c for c in flash["cases"] if c["kernel"] == kernel]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/"
                       "flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
-            "launches": launches,
+            "launches": launches, "split_launches": split,
             "max_abs_err": max(c["max_abs_err"] for c in (
                 flash["gemma"] if kernel == "tensor_cores" else own)),
             "ms": head["ms"], "plain_ms": head["plain_ms"],

@@ -3,9 +3,9 @@
 against an earlier commit's kernels.
 
     python3 scripts/ab_kernel_variants.py \
-        [--parts flash,split,matmul_f32,prefill_f32_variants]
+        [--parts flash,split,prefill_f32_variants]
     python3 scripts/ab_kernel_variants.py --parent DIR \
-        [--parts prefill_f32,decode,serve]
+        [--parts prefill_f32,decode,serve,matmul_f32_general,flash_f32]
 
 Each variant is a kernel source of the checkout with one text edit, built
 with ``nvcc`` like the kernel itself (``kernels.launch``) under a name of
@@ -26,21 +26,6 @@ process, in turns (A, B, ..., B, A), so all numbers come from one card.
   ticket, no combine); ``exit_only`` (every block exits after reading
   its lane's lengths).  Only ``as_is``, ``tanhf`` and ``fp32_cores``
   compute the function; the others time what is left without a part.
-* The float32 cluster matmul at 4096^3 and yi-6b's MLP product (1024 x
-  4096 x 11008), ms per call by ``chip_smoke.Timer`` and max |err|
-  against the plain version: ``ring`` (the ring branch as built),
-  ``ring_bk8``, ``ring_bk32_s3`` (K slices of 8, or of 32 in 3 stages),
-  ``ring_one_block`` (one block an SM, registers uncapped), and, timing
-  only, ``ring_bcast`` (every lane's fragment reads from one address)
-  and ``ring_no_smem_reads`` (fragments made in registers); ``general``
-  (the kernel the ring branch replaced: the same product with A 4 bytes
-  past a 16-byte boundary, which the route sends there) and
-  ``torch.matmul`` (TF32 off), in turns (the ring variants, general,
-  general, the ring variants reversed); then the SM clock and power draw
-  under 300 back-to-back calls of the ring and of ``torch.matmul``.  At
-  the smaller float32 shapes the route also sends to the ring (the
-  offload demo's 256^3, Fig.5's 768^3 and 1000 x 1032 x 776): ``ring``,
-  ``general``, ``general``, ``ring`` and ``torch.matmul``.
 * The FP32-core paged prefill (``prefill_f32_variants``) at phase 3's
   float32-q cases on the float32 pool, C=5 and C=128, ms by
   ``chip_smoke.Timer`` and max |err| against the plain version:
@@ -51,8 +36,37 @@ process, in turns (A, B, ..., B, A), so all numbers come from one card.
   ``no_stage`` (no K/V copies after tile 0), ``no_softmax`` (no shuffles
   or exp2).
 
+* The general float32 cluster matmul (``matmul_f32_general``): 127^3,
+  and 256^3, 768^3, 1000 x 1032 x 776, 4096^3 and yi-6b's MLP product
+  with A 4 bytes past a 16-byte boundary (the route's general branch),
+  ms by ``chip_smoke.Timer`` and max |err| against the plain version, in
+  turns: the parent's kernel (with ``--parent``), then the plan variants
+  ``as_is``, ``min_split_1`` / ``min_split_2`` (splits of at least 1 or
+  2 K tiles, not 4), ``no_split`` (64 x 64 tiles, K not split) and ``tile_128``
+  (128 x 128 tiles, K not split), and, timing only, ``exit_only`` (every
+  block exits at once), ``no_fma`` (no FMAs) and ``no_copies`` (no copies
+  past the first stages; at the three small shapes only), then the same
+  reversed; then, at the
+  five shapes with aligned A, ``general_aligned`` (the route's pick:
+  the general kernel as planned) and, with ``--parent``,
+  ``parent_aligned`` (the parent's route and kernel: in a checkout that
+  still has the float32 ring branch, the ring) in turns, and
+  ``torch.matmul`` at every shape.
+* The FP32-core flash forward (``flash_f32``): phase 10's two float32
+  calls (BH=16, S=T=512, hd 256, G=2, cap 50, window 0 / 128),
+  ``tests/test_kernels.py``'s three shapes x five masks in float32 and at
+  hd 32 in bfloat16, ms by ``chip_smoke.Timer`` and max |err| against
+  the plain version, in turns: the parent's kernel (with ``--parent``),
+  then ``as_is``, ``no_split`` (one block a query tile), ``one_slot``
+  (one K and one V slot at every hd) and ``tanhf`` (the cap through
+  ``cap * tanhf(x / cap)``),
+  and, timing only, ``no_s``, ``no_pv`` (without a product) and
+  ``no_copies`` (no K/V copies past the first slots), then the same
+  reversed; then the library call (SDPA or the compiled
+  ``flex_attention``, ``chip_smoke.flash_library``) once a case.
+
 With ``--parent DIR`` (a checkout of an earlier commit, e.g. unpacked by
-``git archive``) it runs only this: the paged-attention wrapper of DIR
+``git archive``) it runs this: the paged-attention wrapper of DIR
 (its module and its ``.cu``) against this checkout's, in turns (parent,
 change, change, parent).  ``prefill_f32``: phase 3's float32-q cases
 at C=5 and C=128, flat and sharp, on both pools (the FP32-core kernel),
@@ -119,31 +133,41 @@ SPLIT_VARIANTS = {
          "lane's end\n", "  return;\n", 2)],
 }
 
-MATMUL_VARIANTS = {
-    "ring": [],
-    "ring_bk8": [("constexpr int kBK = 16;", "constexpr int kBK = 8;", 1)],
-    "ring_bk32_s3": [("constexpr int kBK = 16;", "constexpr int kBK = 32;", 1),
-                     ("constexpr int kStages = 4;           // ring",
-                      "constexpr int kStages = 3;           // ring", 1)],
-    "ring_one_block": [("__launch_bounds__(kThreads, 2)\nmatmul_f32_ring",
-                        "__launch_bounds__(kThreads, 1)\nmatmul_f32_ring", 1)],
-    # timing only (wrong values): every lane reads one address per load;
-    # the fragments made in registers, no shared reads at all
-    "ring_bcast": [
-        ("bt + kk * kBLd + col0 + 16 * g);", "bt + kk * kBLd + 4 * g);", 1),
-        ("at + kk * kAtLd + row_of(0));", "at + kk * kAtLd);", 1),
-        ("at + kk * kAtLd + row_of(4));", "at + kk * kAtLd + 4);", 1)],
-    "ring_no_smem_reads": [
-        ("*reinterpret_cast<const float4*>(\n            bt + kk * kBLd + "
-         "col0 + 16 * g);", "make_float4(kk * 0.5f, g, tid, 1.f);", 1),
-        ("*reinterpret_cast<const float4*>(\n          at + kk * kAtLd + "
-         "row_of(0));", "make_float4(kk, tid * 0.25f, 1.f, 3.f);", 1),
-        ("*reinterpret_cast<const float4*>(\n          at + kk * kAtLd + "
-         "row_of(4));", "make_float4(kk, tid * 0.75f, 2.f, 5.f);", 1)],
+#: source variants of the general float32 cluster matmul; all but as_is
+#: time what is left without a part (wrong values)
+MATMUL_GENERAL_VARIANTS = {
+    "as_is": [],
+    "exit_only": [
+        ("  const int n_kt = max(0, min(k_tiles, kt0 + per) - kt0);\n",
+         "  const int n_kt = max(0, min(k_tiles, kt0 + per) - kt0);\n"
+         "  if (n_kt >= 0) return;\n", 1)],
+    "no_fma": [("      fma_outer(acc, a[kk & 1], b[kk & 1]);\n", "", 1)],
+    "no_copies": [("    if (nt < n_kt) load_tile(kt0 + nt, nt % kStages);\n",
+                   "", 1)],
+}
+#: source variants of the FP32-core flash kernel
+FLASH_F32_VARIANTS = {
+    "as_is": [],
+    "one_slot": [("  static constexpr int kSlots = HD * int(sizeof(T)) >= "
+                  "1024 ? 1 : 2;", "  static constexpr int kSlots = 1;", 1)],
+    "tanhf": [("        if (cap != 0.f) x = cap - __fdividef(two_cap, 1.f + "
+               "exp2f(k2 * x));\n",
+               "        if (cap != 0.f) x = cap * tanhf(x / cap);\n", 1)],
+    # timing only (wrong values): no S products, no P.V, no K/V copies
+    # past the first slots
+    "no_s": [("    for (int d = 0; d < HD; d += 4) {\n      float "
+              "qv[kRT][4], kv4[4][4];", "    for (int d = 0; d < 0; d += 4) "
+              "{\n      float qv[kRT][4], kv4[4][4];", 1)],
+    "no_pv": [("    for (int t4 = 0; t4 < kTok; t4 += 4) {\n      float "
+               "pv[kRT][4];", "    for (int t4 = 0; t4 < 0; t4 += 4) {\n      "
+               "float pv[kRT][4];", 1)],
+    "no_copies": [("    if (it > 0) stage_v(it - 1 + kSlots);", "", 1),
+                  ("    stage_k(it + kSlots);", "", 1)],
 }
 #: variants whose values are wrong by design: they time what is left
-TIMING_ONLY = {"ring_bcast", "ring_no_smem_reads", "s_bcast", "no_s",
-               "no_pv", "no_s_pv", "no_stage", "no_softmax"}
+TIMING_ONLY = {"s_bcast", "no_s",
+               "no_pv", "no_s_pv", "no_stage", "no_softmax", "exit_only",
+               "no_fma", "no_copies", "no_s", "no_pv"}
 _NO_S = [("    for (int d = 0; d < HD; d += 4) {\n      float qv[kRT][4]",
           "    for (int d = 0; d < 0; d += 4) {\n      float qv[kRT][4]", 1)]
 _NO_PV = [("    for (int t4 = 0; t4 < kTok; t4 += 4) {\n      float pv[kRT]",
@@ -353,81 +377,6 @@ def serve_ab(sides: dict, K, card: str) -> None:
         ops.K = K
 
 
-def matmul_f32_ab(card: str) -> None:
-    """The float32 ring branch and its variants, the general branch it
-    replaced and ``torch.matmul`` (see the module docstring)."""
-    import chip_smoke as CS
-    from repro_torch.kernels import launch
-    from repro_torch.kernels.cluster_matmul import kernel as CK
-    from repro_torch.kernels.cluster_matmul import ref as CR
-    src = CK.SOURCE
-    ring = {n: variant_source(src, e, n) for n, e in MATMUL_VARIANTS.items()}
-    launch.build(ring.values())
-    timer = CS.Timer()
-    large = [*ring, "general", "general", *list(ring)[::-1]]
-    small = ["ring", "general", "general", "ring"]
-    for m, k, n in ((4096, 4096, 4096), (1024, 4096, 11008),
-                    (256, 256, 256), (768, 768, 768), (1000, 1032, 776)):
-        order = large if m * n * k >= 1024 ** 3 else small
-        g = torch.Generator(device="cuda").manual_seed(0)
-        a = torch.randn(m, k, generator=g, device="cuda")
-        b = torch.randn(k, n, generator=g, device="cuda") / k ** 0.5
-        # the same A 4 bytes past a 16-byte boundary: the general branch
-        a_off = torch.empty(m * k + 1, device="cuda")[1:].view(m, k)
-        a_off.copy_(a)
-        ref = CR.cluster_matmul_ref(a, b)
-        for name in order:
-            x = a_off if name == "general" else a
-            if name != "general":
-                CK.SOURCE = ring[name]
-                CK._library.cache_clear()
-            branch = CK.route(torch.float32, m, k, n,
-                              aligned=x.data_ptr() % 16 == 0)
-            out = CK.matmul(x, b)
-            torch.cuda.synchronize()
-            print(json.dumps({
-                "card": card, "kernel": "cluster_matmul_f32",
-                "variant": name, "timing_only": name in TIMING_ONLY,
-                "branch": branch, "m": m, "k": k, "n": n,
-                "ms": timer.ms(lambda: CK.matmul(x, b)),
-                "max_abs_err": (out - ref).abs().max().item()}),
-                flush=True)
-        print(json.dumps({
-            "card": card, "kernel": "torch.matmul", "m": m, "k": k, "n": n,
-            "ms": timer.ms(lambda: torch.matmul(a, b))}), flush=True)
-        CK.SOURCE = ring["ring"]
-        CK._library.cache_clear()
-        if order is small:   # too short a call for 50-ms samples
-            continue
-        for name, fn in (("ring", lambda: CK.matmul(a, b)),
-                         ("torch.matmul", lambda: torch.matmul(a, b))):
-            print(json.dumps({"card": card, "clocks_under": name, "m": m,
-                              **clocks_under(fn)}), flush=True)
-    CK.SOURCE = src
-    CK._library.cache_clear()
-
-
-def clocks_under(fn, calls: int = 300) -> dict:
-    """The SM clock (MHz) and power draw (W) nvidia-smi samples every 50
-    ms while ``calls`` calls of ``fn`` run back to back: medians and the
-    largest draw, over the samples drawing more than 200 W."""
-    smi = subprocess.Popen(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
-         "--format=csv,noheader,nounits", "-lms", "50"],
-        stdout=subprocess.PIPE, text=True)
-    time.sleep(0.3)
-    for _ in range(calls):
-        fn()
-    torch.cuda.synchronize()
-    smi.terminate()
-    rows = [tuple(float(x) for x in line.split(","))
-            for line in smi.communicate()[0].splitlines() if line.strip()]
-    busy = [r for r in rows if r[1] > 200] or rows
-    return {"sm_mhz_median": statistics.median(r[0] for r in busy),
-            "power_w_median": statistics.median(r[1] for r in busy),
-            "power_w_max": max(r[1] for r in busy), "samples": len(busy)}
-
-
 def prefill_f32_variants_ab(card: str) -> None:
     """The FP32-core paged prefill against variants of its source at
     phase 3's float32-q cases (see the module docstring)."""
@@ -466,6 +415,192 @@ def prefill_f32_variants_ab(card: str) -> None:
     K._library.cache_clear()
 
 
+def _parent_module(parent: Path, package: str, name: str):
+    """The wrapper module ``kernels/<package>/kernel.py`` of the checkout
+    ``parent``, loaded under ``name`` (its source is the parent's own)."""
+    path = (parent / "src" / "repro_torch" / "kernels" / package
+            / "kernel.py").resolve()
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def matmul_f32_general_ab(card: str, parent) -> None:
+    """The general float32 branch against the parent's and its plan
+    variants (see the module docstring)."""
+    import chip_smoke as CS
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.cluster_matmul import kernel as CK
+    from repro_torch.kernels.cluster_matmul import ref as CR
+    PK = _parent_module(parent, "cluster_matmul", "parent_matmul") \
+        if parent else None
+    src = CK.SOURCE
+    sources = {n: variant_source(src, e, "general_" + n)
+               for n, e in MATMUL_GENERAL_VARIANTS.items()}
+    launch.build(list(sources.values()) + ([PK.SOURCE] if PK else []))
+    timer = CS.Timer()
+    plan, min_tiles = CK.general_plan, CK.MIN_SPLIT_TILES
+    # (source, plan, fewest K tiles a split)
+    variants = {
+        "as_is": ("as_is", plan, min_tiles),
+        "min_split_1": ("as_is", plan, 1), "min_split_2": ("as_is", plan, 2),
+        "no_split": ("as_is", lambda m, k, n: (64, 1)
+                     if plan(m, k, n)[0] == 64 else (128, 1), 1),
+        "tile_128": ("as_is", lambda m, k, n: (128, 1), 1),
+        **{n: (n, plan, 1) for n in MATMUL_GENERAL_VARIANTS if n != "as_is"}}
+    order = (["parent"] if PK else []) + list(variants) \
+        + list(variants)[::-1] + (["parent"] if PK else [])
+    shapes = [((127, 127, 127), False), ((256, 256, 256), True),
+              ((768, 768, 768), True), ((1000, 1032, 776), True),
+              ((4096, 4096, 4096), True), ((1024, 4096, 11008), True)]
+    try:
+        for (m, k, n), offset in shapes:
+            g = torch.Generator(device="cuda").manual_seed(0)
+            a = torch.randn(m, k, generator=g, device="cuda")
+            b = torch.randn(k, n, generator=g, device="cuda") / k ** 0.5
+            x = a
+            if offset:
+                x = torch.empty(m * k + 1, device="cuda")[1:].view(m, k)
+                x.copy_(a)
+            ref = CR.cluster_matmul_ref(a, b)
+            for name in order:
+                if name in TIMING_ONLY and m * n * k >= 1024 ** 3:
+                    continue     # their parts are read at the small shapes
+                mod = PK if name == "parent" else CK
+                if name != "parent":
+                    source, CK.general_plan, CK.MIN_SPLIT_TILES = \
+                        variants[name]
+                    CK.SOURCE = sources[source]
+                    CK._library.cache_clear()
+                assert mod.route(torch.float32, m, k, n,
+                                 aligned=not offset) == "general"
+                out = mod.matmul(x, b)
+                torch.cuda.synchronize()
+                print(json.dumps({
+                    "card": card, "kernel": "cluster_matmul_f32_general",
+                    "variant": name, "timing_only": name in TIMING_ONLY,
+                    "m": m, "k": k, "n": n,
+                    "a_offset_bytes": 4 * offset,
+                    "plan": None if name == "parent"
+                    else CK.general_plan(m, k, n),
+                    "ms": timer.ms(lambda: mod.matmul(x, b)),
+                    "max_abs_err": (out - ref).abs().max().item()}),
+                    flush=True)
+            CK.general_plan, CK.MIN_SPLIT_TILES = plan, min_tiles
+            CK.SOURCE = sources["as_is"]
+            CK._library.cache_clear()
+            if offset:
+                # aligned A: the general kernel as planned (the route's
+                # pick) and the parent's route and kernel, in turns
+                for name in (["parent_aligned"] if PK else []) \
+                        + ["general_aligned", "general_aligned"] \
+                        + (["parent_aligned"] if PK else []):
+                    mod = PK if name == "parent_aligned" else CK
+                    out = mod.matmul(a, b)
+                    torch.cuda.synchronize()
+                    print(json.dumps({
+                        "card": card, "kernel": "cluster_matmul_f32",
+                        "variant": name, "m": m, "k": k, "n": n,
+                        "branch": mod.route(torch.float32, m, k, n),
+                        "ms": timer.ms(lambda: mod.matmul(a, b)),
+                        "max_abs_err": (out - ref).abs().max().item()}),
+                        flush=True)
+            print(json.dumps({
+                "card": card, "kernel": "torch.matmul", "m": m, "k": k,
+                "n": n, "ms": timer.ms(lambda: torch.matmul(a, b))}),
+                flush=True)
+    finally:
+        CK.general_plan, CK.MIN_SPLIT_TILES = plan, min_tiles
+        CK.SOURCE = src
+        CK._library.cache_clear()
+
+
+def flash_f32_ab(card: str, parent) -> None:
+    """The FP32-core flash forward against the parent's and its variants
+    (see the module docstring)."""
+    import chip_smoke as CS
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+    PK = _parent_module(parent, "flash_attention", "parent_flash") \
+        if parent else None
+    src = FK.SOURCE
+    sources = {n: variant_source(src, e, "f32_" + n)
+               for n, e in FLASH_F32_VARIANTS.items()}
+    launch.build(list(sources.values()) + ([PK.SOURCE] if PK else []))
+    timer = CS.Timer()
+    plan = FK.fp32_plan
+    # (source, plan)
+    variants = {"as_is": ("as_is", plan),
+                "no_split": ("as_is", lambda *a: (0, 1)),
+                **{n: (n, plan) for n in ("one_slot", "tanhf", "no_s",
+                                          "no_pv", "no_copies")}}
+    order = (["parent"] if PK else []) + list(variants) \
+        + list(variants)[::-1] + (["parent"] if PK else [])
+    cases = [(16, 512, 512, 256, 2, torch.float32, True, w, 50.0)
+             for w in (0, 128)]
+    cases += [(BH, S, T, d, 1, dtype, causal, window, cap)
+              for (BH, S, T, d) in CS.FLASH_SHAPES
+              for (causal, window, cap) in CS.FLASH_MASKS
+              for dtype in (torch.float32, torch.bfloat16)
+              if dtype == torch.float32 or d == 32]
+    inputs = []
+    for BH, S, T, d, G, dtype, causal, window, cap in cases:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        q = (torch.randn(BH, S, d, generator=g, device="cuda") * 0.3
+             ).to(dtype)
+        k = (torch.randn(BH // G, T, d, generator=g, device="cuda") * 0.3
+             ).to(dtype)
+        v = torch.randn(BH // G, T, d, generator=g, device="cuda").to(dtype)
+        ref = FR.flash_attention_ref(
+            q, k.repeat_interleave(G, 0), v.repeat_interleave(G, 0),
+            causal=causal, window=window, cap=cap)
+        inputs.append((q, k, v, ref))
+    try:
+        for name in order:
+            mod = PK if name == "parent" else FK
+            if name != "parent":
+                source, FK.fp32_plan = variants[name]
+                FK.SOURCE = sources[source]
+                FK._library.cache_clear()
+            for (BH, S, T, d, G, dtype, causal, window, cap), (
+                    q, k, v, ref) in zip(cases, inputs):
+                def run(q=q, k=k, v=v, mod=mod, causal=causal,
+                        window=window, cap=cap, G=G):
+                    return mod.flash_attention_fwd(
+                        q, k, v, causal=causal, window=window, cap=cap,
+                        groups=G)
+                out = run()
+                torch.cuda.synchronize()
+                print(json.dumps({
+                    "card": card, "kernel": "flash_fp32_cores",
+                    "variant": name, "timing_only": name in TIMING_ONLY,
+                    "BH": BH, "S": S, "T": T, "d": d,
+                    "G": G, "dtype": str(dtype).replace("torch.", ""),
+                    "causal": causal, "window": window, "cap": cap,
+                    "plan": None if name == "parent"
+                    else FK.fp32_plan(BH, S, T, d, causal, window),
+                    "ms": timer.ms(run),
+                    "max_abs_err": (out.float() - ref.float()).abs().max()
+                    .item()}), flush=True)
+    finally:
+        FK.SOURCE, FK.fp32_plan = src, plan
+        FK._library.cache_clear()
+    from torch import _dynamo
+    with _dynamo.config.patch(recompile_limit=64,
+                              fail_on_recompile_limit_hit=True):
+        for (BH, S, T, d, G, dtype, causal, window, cap), (
+                q, k, v, _) in zip(cases, inputs):
+            library = CS.flash_library(q, k, v, causal, window, cap)
+            print(json.dumps({
+                "card": card, "kernel": "flex_attention" if cap else "sdpa",
+                "BH": BH, "S": S, "T": T, "d": d, "G": G,
+                "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+                "window": window, "cap": cap, "ms": timer.ms(library)}),
+                flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None,
@@ -473,13 +608,15 @@ def main() -> int:
                     "attention against this one instead of the variants")
     ap.add_argument("--parts", default=None,
                     help="comma-separated parts to run (default: all of "
-                    "the mode's: flash, split, matmul_f32, "
-                    "prefill_f32_variants; with --parent prefill_f32, "
-                    "decode, serve)")
+                    "the mode's: flash, split, "
+                    "prefill_f32_variants, matmul_f32_general, "
+                    "flash_f32; with --parent prefill_f32, decode, serve, "
+                    "matmul_f32_general, flash_f32)")
     args = ap.parse_args()
-    modes = {False: ("flash", "split", "matmul_f32",
-                     "prefill_f32_variants"),
-             True: ("prefill_f32", "decode", "serve")}[args.parent is not None]
+    modes = {False: ("flash", "split", "prefill_f32_variants",
+                     "matmul_f32_general", "flash_f32"),
+             True: ("prefill_f32", "decode", "serve", "matmul_f32_general",
+                    "flash_f32")}[args.parent is not None]
     parts = modes if args.parts is None else tuple(args.parts.split(","))
     if not set(parts) <= set(modes):
         ap.error(f"--parts {args.parts}: this mode runs {modes}")
@@ -493,11 +630,14 @@ def main() -> int:
                           text=True, check=True).stdout.strip()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
+    if "matmul_f32_general" in parts:
+        matmul_f32_general_ab(card, args.parent)
+    if "flash_f32" in parts:
+        flash_f32_ab(card, args.parent)
     if args.parent is not None:
-        parent_ab(args.parent, card, parts)
+        if set(parts) & {"prefill_f32", "decode", "serve"}:
+            parent_ab(args.parent, card, parts)
         return 0
-    if "matmul_f32" in parts:
-        matmul_f32_ab(card)
     if "flash" in parts:
         flash_ab(card)
     if "split" in parts:

@@ -10,7 +10,7 @@
 // accumulator to that type (round to nearest even for bfloat16, as
 // .astype does).
 //
-// Three branches, chosen by the wrapper (kernel.py::route) from the type,
+// Two branches, chosen by the wrapper (kernel.py::route) from the type,
 // the shape and the base addresses alone, never on a failure:
 //
 // The wgmma branch (bfloat16, k and n multiples of 8: TMA's 16-byte row
@@ -59,72 +59,65 @@
 //     every other bf16 shape to the general branch, and the C entry
 //     refuses them.
 //
-// The float32 ring branch (namespace ring; float32 with k and n multiples
-// of 4 and 16-byte-aligned bases, so every row of A, B and C is a whole
-// number of 16-byte chunks).  What bounds it: 2mnk operations on the FP32
-// cores (67 TFLOP/s; no TF32, the reference is a float32 jnp.dot, and its
-// 2e-4 bar holds true float32 FMAs).  The general kernel below reached 55%
-// of that because its loads were synchronous: every step loaded a tile,
-// waited at a barrier, ran its FMAs and waited again, with no load in
-// flight under the FMAs.  This design keeps them in flight:
-//   * a block of 256 threads owns a 128 x 128 tile of C (grid in
-//     wg::kGroupM's grouped order, so neighbouring blocks share A and B
-//     panels in L2); 8 warps as 2 x 4 warp tiles of 64 x 32, a warp's lanes
-//     as 8 x 4, each thread an 8 x 8 block of accumulators; two blocks an
-//     SM (128 registers a thread);
-//   * a ring of 4 shared-memory stages of 16-deep K slices: B's tiles are
-//     copied by cp.async.cg 16-byte copies, one commit group per stage,
-//     three stages in flight while the fourth is computed; the zero-fill
-//     form (src-size 0) covers columns past n and K past its end, so the
-//     FMAs need no masks;
-//   * cp.async cannot transpose, and the FMAs want A's 8 rows of one k in
-//     two 16-byte reads, so A goes through registers: each thread loads
-//     its two 16-byte chunks of the next tile at the start of a stage and
-//     stores them transposed (At[k][m], rows of 132 floats, a warp's
-//     stores one 128-byte row) after the stage's FMAs.  A through the ring
-//     as in memory (A[m][k], 8 rows a thread read as float4 along k) was
-//     timed against it in one A/B call and was 3-4% slower (PERF.md §6);
-//   * the inner loop reads the fragments of kk + 1 while the 64 FMAs of kk
-//     run (two register sets), so shared-memory latency hides under the
+// The general branch: every float32 product (namespace gen), and the
+// bfloat16 shapes the wgmma branch cannot take.  What bounds the float32
+// half: 2mnk operations on the FP32 cores (67 TFLOP/s; no TF32, the
+// reference is a float32 jnp.dot, and its 2e-4 bar holds true float32
+// FMAs), and below a wave of the card, the depth of K one block walks.
+// The first kernel here reached 55% of that bound at 4096^3 because its
+// loads were synchronous (a tile staged, a barrier, 16 k of FMAs, a
+// barrier: no load in flight under the FMAs), and with fixed 128 x 128
+// tiles 127^3 ran on 1 block of 132 SMs and 256^3 to 1000 x 1032 x 776
+// on 4-56, each walking K alone (2.6-3.9x behind cuBLAS there).  A
+// second float32 kernel for aligned shapes (16-byte cp.async.cg copies of
+// B, A through registers) fixed the loads only where rows were whole
+// 16-byte chunks; this kernel beat it at every shape timed, aligned ones
+// included (PERF.md §6), and took its place.  The design:
+//   * a cp.async ring of 4-byte copies: cp.async.ca 4-byte copies need
+//     only the 4-byte alignment every float has, so A and B go through a
+//     4-stage ring (3 tiles of 16 k in flight) at any base and row
+//     pitch, with no 16-byte global access anywhere; the zero-fill form
+//     (src-size 0) covers rows past m, columns past n and K past its end,
+//     so the FMAs are unmasked.  A 4-byte copy can transpose, so A lands
+//     as At[k][m] directly (a warp copies 16 k of two rows: 64 contiguous
+//     bytes each; rows of BM + 4 floats keep the fragment reads 16-byte);
+//   * warps of 64 x 32 of C, lanes as 8 x 4, each thread an 8 x 8 block
+//     of accumulators: two 16-byte shared reads of A and two of B per k
+//     (64 FFMA to 4 LDS.128), the fragments of k+1 read under the FMAs of
+//     k (two register sets), so shared-memory latency hides under the
 //     FMAs of the same warp;
-//   * C leaves by 16-byte stores, masked per 4-column group.
-// What still holds it back (PERF.md §6): it reaches ~60% of the FP32 bound
-// at 4096^3 with the SM clock at 1,980 MHz, against cuBLAS's 77% at the
-// same clock.  Its inner loop is 64 FFMA and 4 LDS.128 per k (the SASS);
-// the loads hide under the FMAs.  What it lacks is warps and reuse: two
-// blocks of 8 warps an SM fill the 128 registers a thread may have, one
-// block an SM (163 registers) or 8 x 16 accumulators a thread (235
-// registers, one block) measured slower, K slices of 8 no faster, of 32
-// (3 stages) or 3 stages of 16 slower.  The shared reads
-// are the cost: the same kernel with its fragments made in registers
-// instead (wrong values, timing only) takes 2.47 ms at 4096^3, against
-// 3.38.  Next step: fewer shared reads per FMA (a larger tile a thread)
-// without losing the warps that hide their latency.
+//   * tiles from the grid (kernel.py::general_plan): 128 x 128 (8 warps,
+//     two blocks an SM, 128 registers a thread) where those tiles fill a
+//     wave of 132 SMs, in a grouped order (8 tile rows walk the tile
+//     columns together, so neighbouring blocks share A and B panels in
+//     L2); else 64 x 64 (2 warps, up to 6 blocks an SM), with K split
+//     over about four blocks an SM, no split empty;
+//   * split-K in one launch, deterministic: a split writes its float32
+//     partial tile to scratch, takes a ticket (__threadfence, atomicAdd),
+//     and the tile's last split sums the partials in split order, ((p_0 +
+//     p_1) + p_2) + ..., whichever finishes last, then resets the ticket
+//     to 0; no float atomics on C, so a product repeats bit for bit (the
+//     offload path's copy-mode and zero-copy outputs must be equal);
+//   * C leaves by 4-byte stores, masked per element.
+// What still holds it back (PERF.md §6): at 4096^3 it reaches ~65% of the
+// FP32 bound, against cuBLAS's ~77%.  The shared reads are the cost: the
+// aligned kernel it replaced, with the same inner loop, took 2.47 ms at
+// 4096^3 with its fragments made in registers (wrong values, timing
+// only) against 3.38 with them read.  Next step: fewer shared reads per
+// FMA (a larger tile a thread) without losing the warps that hide their
+// latency.  The small products sit at 1.24-1.41x cuBLAS: what is left
+// there is the launch and the split's partials, a few microseconds each.
+//   bfloat16 shapes the wgmma branch cannot take run a separate kernel:
+//   32 K per step on the tensor cores through WMMA (mma.sync, 16 x 16 x
+//   16 bf16 fragments, float32 accumulators in registers), 8 warps as 2 x
+//   4, each owning 64 x 32 of C of a 128 x 128 tile, operands staged
+//   synchronously in shared memory and zero-filled past the edges; the
+//   epilogue stages each 16 x 16 fragment through shared memory to round
+//   and bounds-check it.
 //
-// The general branch (float32 shapes the ring branch cannot take, and bf16
-// shapes the wgmma branch cannot take), simple and exact: one thread block of
-// 256 threads owns a 128 x 128 tile of C and walks K in steps; each step stages
-// the A and B tiles in shared memory (the scratchpad), zero-filled past the
-// edges of the matrices, so every shape is right whatever it is (the wrapper's
-// shape contract, tiles of min(128, dim) dividing each dim, is not needed
-// here).  The Pallas grid's sequential K dimension, which carries the sum in
-// VMEM scratch, becomes the loop inside the block; the sum stays in registers.
-//   * float32: 16 K per step; each thread keeps an 8 x 8 block of C in
-//     registers (rows ty*4+{0..3} and 64+ty*4+{0..3}, columns likewise
-//     from tx, so its shared-memory reads are 16-byte and conflict-free)
-//     and accumulates with true FP32 FMAs (no TF32: the reference is a
-//     float32 jnp.dot).  Bound by the 67 TFLOP/s of the FP32 cores; this
-//     design reaches about half (synchronous staging, scalar loads).
-//     Only shapes whose rows break the 16-byte rule take it now.
-//   * bfloat16: 32 K per step on the tensor cores through WMMA
-//     (mma.sync, 16 x 16 x 16 bf16 fragments, float32 accumulators in
-//     registers); 8 warps as 2 x 4, each owning 64 x 32 of C.  The
-//     epilogue stages each 16 x 16 fragment through shared memory to
-//     round and bounds-check it.  Only odd shapes take it now.
-//
-// Plain C interface (loaded with ctypes): cluster_matmul_launch (general),
-// cluster_matmul_f32_ring_launch and cluster_matmul_wgmma_launch return
-// cudaGetLastError() after the launch; 0 means launched.
+// Plain C interface (loaded with ctypes): cluster_matmul_launch (general,
+// both types) and cluster_matmul_wgmma_launch return cudaGetLastError()
+// after the launch; 0 means launched.
 
 #include <cuda.h>   // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
@@ -139,74 +132,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBM = 128;             // rows of C per block
 constexpr int kBN = 128;             // columns of C per block
-
-// ---------------------------------------------------------------- f32 --
-constexpr int kBK32 = 16;            // K per step
-constexpr int kPadA = 4;             // As row padding: 2-way, not 16-way,
-                                     // conflicts on the transposed store
-
-__global__ void __launch_bounds__(kThreads)
-matmul_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                  float* __restrict__ C, int M, int N, int K) {
-  // A tile stored transposed, As[k][m], so a thread's 8 rows at one k are
-  // two 16-byte reads
-  __shared__ __align__(16) float As[kBK32][kBM + kPadA];
-  __shared__ __align__(16) float Bs[kBK32][kBN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK32) {
-#pragma unroll
-    for (int i = 0; i < kBM * kBK32 / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int r = e / kBK32, c = e % kBK32;
-      const int gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kBK32 * kBN / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int r = e / kBN, c = e % kBN;
-      const int gk = k0 + r, gn = n0 + c;
-      Bs[r][c] = (gk < K && gn < N) ? B[(size_t)gk * N + gn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK32; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (gn < N) C[(size_t)gm * N + gn] = acc[i][j];
-    }
-  }
-}
 
 // --------------------------------------------------------------- bf16 --
 constexpr int kBK16 = 32;            // K per step
@@ -291,40 +216,46 @@ matmul_bf16_kernel(const __nv_bfloat16* __restrict__ A,
 
 }  // namespace
 
-// ---------------------------------------------- f32, cp.async ring --
-namespace ring {
+// --------------------------------------------- f32, general (any shape) --
+namespace gen {
 
-constexpr int kThreads = 256;
-constexpr int kBM = 128;             // rows of C per block
-constexpr int kBN = 128;             // columns of C per block
-constexpr int kTN = kBN / 16;        // columns of C per thread
 constexpr int kBK = 16;              // K per stage
 constexpr int kStages = 4;           // ring depth: 3 tiles in flight
 constexpr int kGroupM = 8;           // tile rows per L2 group
-// 16-byte chunks a thread copies per stage, of A and of B
-constexpr int kAChunks = kBM * kBK / 4 / kThreads;
-constexpr int kBChunks = kBK * kBN / 4 / kThreads;
-static_assert(kAChunks * kThreads * 4 == kBM * kBK &&
-              kBChunks * kThreads * 4 == kBK * kBN, "whole chunks");
-// A transposed, At[k][m] (row of kBM + 4 floats: the transposing stores
-// hit 32 banks, the fragment reads stay 16-byte), B as in memory
-constexpr int kAtLd = kBM + 4;
-constexpr int kBLd = kBN;
-constexpr int kA = kBK * kAtLd;                           // floats
-constexpr int kStage = kA + kBK * kBLd;                   // floats
-constexpr size_t kSmemBytes = size_t(kStages) * kStage * 4;
+
+// A block owns a BM x BN tile of C: warps of 64 x 32 (lanes as 8 x 4,
+// each thread 8 rows x 8 columns), so 128 x 128 is
+// 8 warps and 64 x 64 two.
+template <int BM, int BN>
+struct Cfg {
+  static constexpr int kWarpsN = BN / 32;
+  static constexpr int kThreads = (BM / 64) * kWarpsN * 32;
+  // A transposed, At[k][m] (rows of BM + 4 floats, the fragment reads
+  // stay 16-byte), B as in memory
+  static constexpr int kAtLd = BM + 4;
+  static constexpr int kA = kBK * kAtLd;                   // floats
+  static constexpr int kStage = kA + kBK * BN;             // floats
+  static constexpr size_t kSmem = size_t(kStages) * kStage * 4;
+  // 4-byte copies a thread issues per stage, of A and of B
+  static constexpr int kACopies = BM * kBK / kThreads;
+  static constexpr int kBCopies = kBK * BN / kThreads;
+  static_assert(kACopies * kThreads == BM * kBK &&
+                kBCopies * kThreads == kBK * BN &&
+                kThreads % kBK == 0 && kThreads % BN == 0, "whole copies");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, asynchronously, through L2 only; bytes = 0
-// writes 16 zeros (the zero-fill form: columns past N and K past its end,
-// each chunk wholly in or out since n % 4 == 0)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                   smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+// 4 bytes global -> shared (a shared-space address), asynchronously,
+// through L1; bytes = 0 writes a zero (the zero-fill form: rows past M,
+// columns past N, K past its end).  4-byte copies need only the 4-byte
+// alignment every float has.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst),
+               "l"(src), "r"(bytes) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -336,172 +267,242 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void fma_outer(float (&acc)[8][kTN],
+__device__ __forceinline__ void fma_outer(float (&acc)[8][8],
                                           const float (&a)[8],
-                                          const float (&b)[kTN]) {
+                                          const float (&b)[8]) {
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
 }
 
-// A reaches shared memory through registers (a 16-byte load one stage
-// ahead, stored transposed after the stage's FMAs), B through the
-// cp.async ring.
-__global__ void __launch_bounds__(kThreads, 2)
-matmul_f32_ring_kernel(const float* __restrict__ A,
-                       const float* __restrict__ B, float* __restrict__ C,
-                       int M, int N, int K) {
+// The next of a thread's copies: p + step, opaque to the compiler, so it
+// keeps one running address and does not hoist one per copy (which cost
+// the registers the accumulators need)
+__device__ __forceinline__ const float* step_ptr(const float* p,
+                                                 size_t step) {
+  p += step;
+  asm volatile("" : "+l"(p));
+  return p;
+}
+
+// Whether this block is the last of its tile's `splits` blocks to finish:
+// its ticket is taken after its partial is visible device-wide, and the
+// last block puts the counter back to 0 for the next launch.  Every
+// thread of the block calls it.
+__device__ __forceinline__ bool last_split(int* ticket, int splits,
+                                           int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *flag = atomicAdd(ticket, 1) == splits - 1;
+    if (*flag) *ticket = 0;
+  }
+  __syncthreads();
+  const bool last = *flag;
+  if (last) __threadfence();
+  return last;
+}
+
+// Block (tile, split) = (blockIdx.x / splits, blockIdx.x % splits): the
+// splits of a tile are neighbours in the grid, so they run together.
+// With splits == 1 the block writes its tile of C; otherwise (64 x 64
+// tiles only) it writes its float32 partial to part[blockIdx.x], and the
+// tile's last block to finish sums the partials in split order (0, 1,
+// ...) into C.
+template <int BM, int BN>
+__global__ void __launch_bounds__(Cfg<BM, BN>::kThreads,
+                                  512 / Cfg<BM, BN>::kThreads)
+matmul_f32_general_kernel(const float* __restrict__ A,
+                          const float* __restrict__ B, float* __restrict__ C,
+                          float* __restrict__ part, int* __restrict__ tickets,
+                          int M, int N, int K, int splits) {
+  using G = Cfg<BM, BN>;
   extern __shared__ __align__(16) float smem[];
+  __shared__ int last_flag;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  // 8 warps as 2 x 4, each owning 64 x kBN/4 of C; a warp's lanes as
-  // 8 x 4, each owning 8 rows x kTN columns (4-column groups 16 apart)
-  const int wm = warp / 4, wn = warp % 4, lm = lane / 4, ln = lane % 4;
+  const int wm = warp / G::kWarpsN, wn = warp % G::kWarpsN;
+  const int lm = lane / 4, ln = lane % 4;
+  const int tile = int(blockIdx.x) / splits, split = int(blockIdx.x) % splits;
 
   // grouped tile order: kGroupM tile rows walk the tile columns together
-  const int tiles_m = (M + kBM - 1) / kBM, tiles_n = (N + kBN - 1) / kBN;
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
   const int per_group = kGroupM * tiles_n;
-  const int first_m = (int(blockIdx.x) / per_group) * kGroupM;
+  const int first_m = (tile / per_group) * kGroupM;
   const int group_rows = min(tiles_m - first_m, kGroupM);
-  const int in_group = int(blockIdx.x) % per_group;
-  const int m0 = (first_m + in_group % group_rows) * kBM;
-  const int n0 = (in_group / group_rows) * kBN;
+  const int in_group = tile % per_group;
+  const int m0 = (first_m + in_group % group_rows) * BM;
+  const int n0 = (in_group / group_rows) * BN;
+  // this split's K tiles (the wrapper leaves no split empty)
   const int k_tiles = (K + kBK - 1) / kBK;
+  const int per = (k_tiles + splits - 1) / splits;
+  const int kt0 = split * per;
+  const int n_kt = max(0, min(k_tiles, kt0 + per) - kt0);
 
-  // the thread's rows of the block tile, i = 0..7: two runs of 4
-  // (16-byte fragment reads along m)
   auto row_of = [&](int i) {
     return wm * 64 + (i / 4) * 32 + lm * 4 + i % 4;
   };
-  const int col0 = wn * (kBN / 4) + ln * 4;   // and + 16, + 32, ...
+  const int col0 = wn * 32 + ln * 4;   // and + 16
 
-  auto a_tile = [&](int slot) { return smem + slot * kStage; };
-  auto b_tile = [&](int slot) { return smem + slot * kStage + kA; };
-
-  // B's tile kt (kBK x 128 in 16-byte chunks; a warp copies one 512-byte
-  // row)
-  auto load_async = [&](int kt, int slot) {
+  // A: a warp copies 16 k of two rows (64 contiguous bytes each) and
+  // writes them transposed; B: a warp copies 32 contiguous columns of one
+  // k.  A thread's k (A) and column (B) are fixed, its rows step by
+  // kARows (A) and kBRows (B).
+  constexpr int kARows = G::kThreads / kBK, kBRows = G::kThreads / BN;
+  const int a_k = tid % kBK, a_r = tid / kBK;
+  const int b_n = tid % BN, b_k = tid / BN;
+  const uint32_t smem0 = smem_u32(smem);
+  const size_t a_step = size_t(kARows) * K, b_step = size_t(kBRows) * N;
+  const bool b_col = n0 + b_n < N;
+  auto load_tile = [&](int kt, int slot) {
+    const uint32_t at = smem0 + 4 * (slot * G::kStage);
+    const uint32_t bt = at + 4 * G::kA;
     const int k0 = kt * kBK;
+    const bool a_in = k0 + a_k < K;
+    const float* pa = A + (size_t(m0 + a_r) * K + k0 + a_k);
 #pragma unroll
-    for (int j = 0; j < kBChunks; ++j) {
-      const int c = tid + j * kThreads;
-      const int kr = c / (kBN / 4), cn = (c % (kBN / 4)) * 4;
-      const bool in = k0 + kr < K && n0 + cn < N;
-      cp_async16(b_tile(slot) + kr * kBLd + cn,
-                 in ? B + size_t(k0 + kr) * N + n0 + cn : B, in ? 16 : 0);
+    for (int j = 0; j < G::kACopies; ++j) {
+      const bool in = a_in && m0 + a_r + j * kARows < M;
+      cp_async4(at + 4 * (a_k * G::kAtLd + a_r + j * kARows), in ? pa : A,
+                in ? 4 : 0);
+      pa = step_ptr(pa, a_step);
     }
-  };
-  // A transposed: chunk c of the tile is row c % 128, k c / 128 * 4, so a
-  // warp's transposing stores write 32 consecutive floats of one k row
-  float4 a_next[kAChunks];
-  auto load_a_regs = [&](int kt) {
-    const int k0 = kt * kBK;
+    const float* pb = B + (size_t(k0 + b_k) * N + n0 + b_n);
 #pragma unroll
-    for (int j = 0; j < kAChunks; ++j) {
-      const int c = tid + j * kThreads;
-      const int r = c % kBM, ck = (c / kBM) * 4;
-      a_next[j] = m0 + r < M && k0 + ck < K
-                      ? *reinterpret_cast<const float4*>(
-                            A + size_t(m0 + r) * K + k0 + ck)
-                      : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-  auto store_a_regs = [&](int slot) {
-    float* at = a_tile(slot);
-#pragma unroll
-    for (int j = 0; j < kAChunks; ++j) {
-      const int c = tid + j * kThreads;
-      const int r = c % kBM, ck = (c / kBM) * 4;
-      at[(ck + 0) * kAtLd + r] = a_next[j].x;
-      at[(ck + 1) * kAtLd + r] = a_next[j].y;
-      at[(ck + 2) * kAtLd + r] = a_next[j].z;
-      at[(ck + 3) * kAtLd + r] = a_next[j].w;
+    for (int j = 0; j < G::kBCopies; ++j) {
+      const bool in = b_col && k0 + b_k + j * kBRows < K;
+      cp_async4(bt + 4 * ((b_k + j * kBRows) * BN + b_n), in ? pb : B,
+                in ? 4 : 0);
+      pb = step_ptr(pb, b_step);
     }
   };
 
-  float acc[8][kTN];
+  float acc[8][8];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   // prologue: tiles 0 .. kStages-2 in flight (one commit group each, empty
   // past the last tile, so the wait below counts groups uniformly)
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < k_tiles) load_async(s, s);
+    if (s < n_kt) load_tile(kt0 + s, s);
     cp_async_commit();
   }
-  if (k_tiles > 0) {
-    load_a_regs(0);
-    store_a_regs(0);
-  }
 
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int slot = kt % kStages;
-    cp_async_wait<kStages - 2>();   // tile kt's copies have landed
-    __syncthreads();                // ... for every thread; and tile kt-1,
-                                    // whose slot is refilled next, is read
-    const int nt = kt + kStages - 1;
-    if (nt < k_tiles) load_async(nt, nt % kStages);
+  for (int it = 0; it < n_kt; ++it) {
+    const int slot = it % kStages;
+    cp_async_wait<kStages - 2>();   // tile it's copies have landed
+    __syncthreads();                      // ... for every thread; and tile
+                                          // it-1, whose slot is refilled
+                                          // next, is read
+    const int nt = it + kStages - 1;
+    if (nt < n_kt) load_tile(kt0 + nt, nt % kStages);
     cp_async_commit();
-    if (kt + 1 < k_tiles) load_a_regs(kt + 1);     // lands during the FMAs
 
-    const float* at = a_tile(slot);
-    const float* bt = b_tile(slot);
-    float b[2][kTN];
-    auto load_b = [&](float (&dst)[kTN], int kk) {
-#pragma unroll
-      for (int g = 0; g < kTN / 4; ++g) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            bt + kk * kBLd + col0 + 16 * g);
-        dst[4 * g] = v.x; dst[4 * g + 1] = v.y;
-        dst[4 * g + 2] = v.z; dst[4 * g + 3] = v.w;
-      }
-    };
+    const float* at = smem + slot * G::kStage;
+    const float* bt = at + G::kA;
     // fragments of kk+1 are read while the FMAs of kk run
-    float a[2][8];
-    auto load_a = [&](float (&dst)[8], int kk) {
+    float a[2][8], b[2][8];
+    auto load_frag = [&](float (&da)[8], float (&db)[8], int kk) {
       const float4 a0 = *reinterpret_cast<const float4*>(
-          at + kk * kAtLd + row_of(0));
+          at + kk * G::kAtLd + row_of(0));
       const float4 a1 = *reinterpret_cast<const float4*>(
-          at + kk * kAtLd + row_of(4));
-      dst[0] = a0.x; dst[1] = a0.y; dst[2] = a0.z; dst[3] = a0.w;
-      dst[4] = a1.x; dst[5] = a1.y; dst[6] = a1.z; dst[7] = a1.w;
+          at + kk * G::kAtLd + row_of(4));
+      const float4 b0 = *reinterpret_cast<const float4*>(bt + kk * BN + col0);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(bt + kk * BN + col0 + 16);
+      da[0] = a0.x; da[1] = a0.y; da[2] = a0.z; da[3] = a0.w;
+      da[4] = a1.x; da[5] = a1.y; da[6] = a1.z; da[7] = a1.w;
+      db[0] = b0.x; db[1] = b0.y; db[2] = b0.z; db[3] = b0.w;
+      db[4] = b1.x; db[5] = b1.y; db[6] = b1.z; db[7] = b1.w;
     };
-    load_a(a[0], 0);
-    load_b(b[0], 0);
+    load_frag(a[0], b[0], 0);
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
-      if (kk + 1 < kBK) {
-        load_a(a[(kk + 1) & 1], kk + 1);
-        load_b(b[(kk + 1) & 1], kk + 1);
-      }
+      if (kk + 1 < kBK) load_frag(a[(kk + 1) & 1], b[(kk + 1) & 1], kk + 1);
       fma_outer(acc, a[kk & 1], b[kk & 1]);
     }
-    // tile kt+1's A into its slot, last read for tile kt+1-kStages
-    if (kt + 1 < k_tiles) store_a_regs((kt + 1) % kStages);
   }
   cp_async_wait<0>();
 
-  // C: a float4 store per row and group (n % 4 == 0: a group is all in
-  // or out)
+  // C (n % 4 may be anything: 4-byte stores, masked per element)
+  auto store_c = [&]() {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + row_of(i);
-    if (gm >= M) continue;
+    for (int i = 0; i < 8; ++i) {
+      const int gm = m0 + row_of(i);
+      if (gm >= M) continue;
 #pragma unroll
-    for (int h = 0; h < kTN / 4; ++h) {
-      const int gn = n0 + col0 + 16 * h;
-      if (gn < N)
-        *reinterpret_cast<float4*>(C + size_t(gm) * N + gn) = make_float4(
-            acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
-            acc[i][4 * h + 3]);
+      for (int j = 0; j < 8; ++j) {
+        const int gn = n0 + col0 + 16 * (j / 4) + j % 4;
+        if (gn < N) C[size_t(gm) * N + gn] = acc[i][j];
+      }
     }
+  };
+  // 128 x 128 tiles fill the card unsplit (the wrapper's plan), so only
+  // the 64 x 64 kernel compiles the split path (its combine's loads in
+  // flight cost the larger kernel's main loop registers: 3.47 ms against
+  // 3.27 at 4096^3)
+  if (BM == 128 || splits == 1) {
+    store_c();
+    return;
   }
+  // the partial, 16 bytes at a time, into this block's slot
+  float* mine = part + size_t(blockIdx.x) * BM * BN;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<float4*>(mine + row_of(i) * BN + col0 + 16 * h) =
+          make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                      acc[i][4 * h + 3]);
+  if (!last_split(tickets + tile, splits, &last_flag)) return;
+  // the last block: C = ((p_0 + p_1) + p_2) + ..., the same order
+  // whichever block finishes last, so the result repeats run to run.
+  // Partials are read past L1 (__ldcg): other SMs wrote them.
+  // A split's 16 loads are independent of each other, so they are in
+  // flight together.
+  for (int s = 0; s < splits; ++s) {
+    const float* slot = part + (size_t(tile) * splits + s) * BM * BN;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 p = __ldcg(reinterpret_cast<const float4*>(
+            slot + row_of(i) * BN + col0 + 16 * h));
+        float* c = &acc[i][4 * h];
+        c[0] = s ? c[0] + p.x : p.x;
+        c[1] = s ? c[1] + p.y : p.y;
+        c[2] = s ? c[2] + p.z : p.z;
+        c[3] = s ? c[3] + p.w : p.w;
+      }
+  }
+  store_c();
 }
 
-}  // namespace ring
+template <int BM, int BN>
+cudaError_t launch(const float* a, const float* b, float* c, float* part,
+                   int* tickets, int m, int n, int k, int splits,
+                   cudaStream_t stream) {
+  using G = Cfg<BM, BN>;
+  auto kernel = matmul_f32_general_kernel<BM, BN>;
+  static bool opted_in = false;   // above 48 KB a block needs the opt-in
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(G::kSmem));
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  const long long blocks =
+      (long long)((m + BM - 1) / BM) * ((n + BN - 1) / BN) * splits;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<unsigned(blocks), G::kThreads, G::kSmem, stream>>>(
+      a, b, c, part, tickets, m, n, k, splits);
+  return cudaGetLastError();
+}
+
+}  // namespace gen
 
 // ------------------------------------------------------- bf16, wgmma --
 namespace wg {
@@ -785,25 +786,47 @@ bool encode_2d(EncodeTiled fn, CUtensorMap* map, const void* base, int rows,
 
 }  // namespace wg
 
-// dtype: 0 = float32, 1 = bfloat16 (A, B and C alike).
+// The general branch, any shape and any 4-byte-aligned bases.  dtype: 0 =
+// float32, 1 = bfloat16 (A, B and C alike).  float32 takes `tile` 128
+// (128 x 128 tiles, splits 1) or 64 (64 x 64) and `splits` >= 1 K
+// splits; with splits > 1, `part` holds tiles * splits * tile^2 float32 partials and
+// `tickets` tiles int32 zeros (every launch leaves them zero), and no
+// split may be empty: (splits - 1) * ceil(k_tiles / splits) < k_tiles for
+// k_tiles = ceil(k / 16).  bfloat16 takes tile 128 and splits 1 only.
+// Anything else is refused with cudaErrorInvalidValue.  Launches on
+// `stream`; does not synchronise.
 extern "C" int cluster_matmul_launch(int dtype, const void* a, const void* b,
-                                     void* c, int m, int n, int k,
+                                     void* c, int m, int n, int k, int tile,
+                                     int splits, void* part, void* tickets,
                                      void* stream) {
-  if (m <= 0 || n <= 0 || k < 0) return int(cudaErrorInvalidValue);
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  if (m <= 0 || n <= 0 || k < 0 || splits < 1)
+    return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    matmul_f32_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b),
-        static_cast<float*>(c), m, n, k);
-  } else if (dtype == 1) {
-    matmul_bf16_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a),
-        static_cast<const __nv_bfloat16*>(b),
-        static_cast<__nv_bfloat16*>(c), m, n, k);
-  } else {
-    return int(cudaErrorInvalidValue);
+    const int k_tiles = (k + gen::kBK - 1) / gen::kBK;
+    if (splits > 1 &&
+        (!part || !tickets ||
+         (splits - 1) * ((k_tiles + splits - 1) / splits) >= k_tiles))
+      return int(cudaErrorInvalidValue);
+    const float* fa = static_cast<const float*>(a);
+    const float* fb = static_cast<const float*>(b);
+    float* fc = static_cast<float*>(c);
+    float* fp = static_cast<float*>(part);
+    int* tk = static_cast<int*>(tickets);
+    cudaError_t e = cudaErrorInvalidValue;
+    if (tile == 128 && splits == 1)
+      e = gen::launch<128, 128>(fa, fb, fc, fp, tk, m, n, k, splits, s);
+    else if (tile == 64)
+      e = gen::launch<64, 64>(fa, fb, fc, fp, tk, m, n, k, splits, s);
+    return int(e);
   }
+  if (dtype != 1 || tile != 128 || splits != 1)
+    return int(cudaErrorInvalidValue);
+  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  matmul_bf16_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(c),
+      m, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -840,36 +863,5 @@ extern "C" int cluster_matmul_wgmma_launch(const void* a, const void* b,
   wg::matmul_bf16_wgmma_kernel<<<unsigned(tiles), wg::kThreads, wg::kSmem,
                                  static_cast<cudaStream_t>(stream)>>>(
       map_a, map_b, static_cast<__nv_bfloat16*>(c), m, n, k);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The float32 ring branch: float32 A (m, k), B (k, n), C (m, n),
-// row-major, with k % 4 == 0, n % 4 == 0 and 16-byte-aligned bases (its
-// 16-byte copies, loads and stores; anything else is refused with
-// cudaErrorInvalidValue: the wrapper's route sends such shapes to
-// cluster_matmul_launch).  Launches on `stream`; does not synchronise.
-extern "C" int cluster_matmul_f32_ring_launch(const void* a, const void* b,
-                                              void* c, int m, int n, int k,
-                                              void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || k % 4 || n % 4 ||
-      (reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
-       reinterpret_cast<uintptr_t>(c)) % 16)
-    return int(cudaErrorInvalidValue);
-  auto kernel = ring::matmul_f32_ring_kernel;
-  constexpr size_t smem = ring::kSmemBytes;
-  static bool opted_in = false;
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return int(e);
-    opted_in = true;
-  }
-  const long long tiles = (long long)((m + ring::kBM - 1) / ring::kBM) *
-                          ((n + ring::kBN - 1) / ring::kBN);
-  if (tiles > 0x7fffffffLL) return int(cudaErrorInvalidValue);
-  kernel<<<unsigned(tiles), ring::kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(c), m, n, k);
   return static_cast<int>(cudaGetLastError());
 }

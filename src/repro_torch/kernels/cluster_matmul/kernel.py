@@ -8,16 +8,20 @@ caller's cue to use the plain version (``ops`` dispatches), never this
 module's.  The kernel tiles C itself and masks the ragged edge, so it
 takes any shape; the reference's tile contract is checked in ``ops``.
 
-Three branches, chosen by :func:`route` from the type, the shape and the
+Two branches, chosen by :func:`route` from the type, the shape and the
 base addresses alone (never on a failure): bfloat16 products whose rows
 TMA can address (k and n multiples of 8, 16-byte-aligned bases) go to the
-TMA-fed, warp-specialised wgmma kernel; float32 products whose rows are
-whole 16-byte chunks (k and n multiples of 4, 16-byte-aligned bases) to
-the float32 kernel fed by a cp.async ring; shapes that break those
-16-byte rules (3 x 5 @ 5 x 7 is legal) to the general kernel.  The
-library is built with ``nvcc`` at first launch (``kernels.launch``);
-every launch adds one to :data:`launches`, and a launch of the wgmma or
-the ring branch also to :data:`wgmma_launches` or :data:`ring_launches`.
+TMA-fed, warp-specialised wgmma kernel; every float32 product, and bf16
+shapes that break the 16-byte rules (3 x 5 @ 5 x 7 is legal), to the
+general kernel.  A float32 product there takes the tile and the K splits
+:func:`general_plan` picks from its shape: 128 x 128 tiles where they fill
+a wave of the card, else 64 x 64 tiles with K split over blocks, the
+partials summed in split order by the tile's last block (one launch; the
+float32 partials and the tickets are scratch this module keeps per device
+and stream).  The library is built with ``nvcc`` at first launch
+(``kernels.launch``); every launch adds one to :data:`launches`, a launch
+of the wgmma branch also to :data:`wgmma_launches`, and a general launch
+with K split to :data:`split_launches`.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.launch import LaunchCounter, load
+from repro_torch.kernels.launch import SMS, LaunchCounter, load, \
+    split_scratch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "cluster_matmul.cu"
 #: element-type codes of the C interface
@@ -39,11 +44,19 @@ MAX_ROWS = 65535 * 128
 launches = LaunchCounter()
 #: launches of its wgmma branch
 wgmma_launches = LaunchCounter()
-#: launches of its float32 ring branch
-ring_launches = LaunchCounter()
+#: launches of its general branch with K split over blocks
+split_launches = LaunchCounter()
 
-#: the three branches :func:`route` chooses between
-WGMMA, F32_RING, GENERAL = "wgmma", "f32_ring", "general"
+#: the two branches :func:`route` chooses between
+WGMMA, GENERAL = "wgmma", "general"
+#: the general kernel's K per stage
+BK = 16
+#: the fewest K tiles (of :data:`BK`) a split of the general kernel takes
+MIN_SPLIT_TILES = 4
+#: per (device, stream), the general kernel's float32 partials and its
+#: tickets (``launch.split_scratch``; a tile's last block resets its own
+#: ticket)
+_general_buffers: dict = {}
 
 
 def route(dtype: torch.dtype, m: int, k: int, n: int,
@@ -52,15 +65,34 @@ def route(dtype: torch.dtype, m: int, k: int, n: int,
     for bfloat16 when TMA can address its rows (k and n multiples of 8,
     so A's, B's and C's row pitches are multiples of 16 bytes; k > 0;
     ``aligned``: every base address a multiple of 16 bytes),
-    :data:`F32_RING` for float32 when its rows are whole 16-byte chunks
-    (k and n multiples of 4; k > 0; ``aligned``), :data:`GENERAL`
-    otherwise."""
-    if k > 0 and aligned:
-        if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0:
-            return WGMMA
-        if dtype == torch.float32 and k % 4 == 0 and n % 4 == 0:
-            return F32_RING
+    :data:`GENERAL` otherwise (every float32 product among them)."""
+    if dtype == torch.bfloat16 and k > 0 and aligned \
+            and k % 8 == 0 and n % 8 == 0:
+        return WGMMA
     return GENERAL
+
+
+def fills_a_wave(m: int, n: int) -> bool:
+    """Whether an (m, n) output in 128 x 128 tiles gives every SM a block
+    (:data:`SMS` tiles or more)."""
+    return -(-m // 128) * -(-n // 128) >= SMS
+
+
+def general_plan(m: int, k: int, n: int) -> tuple:
+    """(tile, splits) of a float32 product on the general kernel: 128 x 128
+    tiles and no split where they give a wave (:data:`SMS` blocks); else
+    64 x 64 tiles, with K (in :data:`BK`-deep tiles) split so that the
+    grid holds about four blocks an SM, each split at least
+    :data:`MIN_SPLIT_TILES` tiles deep, no split empty."""
+    if fills_a_wave(m, n):
+        return 128, 1
+    tiles = -(-m // 64) * -(-n // 64)
+    k_tiles = -(-k // BK)
+    splits = min(k_tiles // MIN_SPLIT_TILES, 4 * SMS // tiles)
+    if splits <= 1:
+        return 64, 1
+    per = -(-k_tiles // splits)
+    return 64, -(-k_tiles // per)
 
 
 @functools.lru_cache(maxsize=None)
@@ -68,14 +100,12 @@ def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
     fn = lib.cluster_matmul_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
-    for name in ("cluster_matmul_wgmma_launch",
-                 "cluster_matmul_f32_ring_launch"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = lib.cluster_matmul_wgmma_launch
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return lib
 
 
@@ -113,19 +143,26 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if branch == WGMMA:
             err = lib.cluster_matmul_wgmma_launch(
                 a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, stream)
-        elif branch == F32_RING:
-            err = lib.cluster_matmul_f32_ring_launch(
-                a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, stream)
         else:
+            tile, splits = general_plan(m, k, n) \
+                if a.dtype == torch.float32 else (128, 1)
+            part = tickets = None
+            if splits > 1:
+                tiles = -(-m // tile) * -(-n // tile)
+                part, tickets = split_scratch(
+                    _general_buffers, a.device, stream,
+                    tiles * splits * tile * tile, tiles)
             err = lib.cluster_matmul_launch(
                 _DTYPES[a.dtype], a.data_ptr(), b.data_ptr(),
-                out.data_ptr(), m, n, k, stream)
+                out.data_ptr(), m, n, k, tile, splits,
+                part.data_ptr() if part is not None else None,
+                tickets.data_ptr() if tickets is not None else None, stream)
     if err:
         raise RuntimeError(f"cluster matmul kernel ({branch} branch) launch "
                            f"failed: CUDA error {err}")
     launches.n += 1
     if branch == WGMMA:
         wgmma_launches.n += 1
-    elif branch == F32_RING:
-        ring_launches.n += 1
+    elif splits > 1:
+        split_launches.n += 1
     return out

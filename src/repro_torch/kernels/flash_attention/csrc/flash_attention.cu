@@ -21,7 +21,8 @@
 // Two kernels, chosen by the wrapper (kernel.py::route) from the type and
 // hd alone, never on a failure: bfloat16 with hd in {64, 128, 256} runs on
 // the tensor cores (namespace tc); float32 (whose 2e-4 bar is out of bf16
-// and TF32 reach) and bf16 at hd 16 and 32 run on the FP32 cores.
+// and TF32 reach) and bf16 at hd 16 and 32 run on the FP32 cores
+// (namespace fp32).
 //
 // What bounds it on the card: attention at S = 4096 reuses every K/V tile
 // across 64 query rows, so it is bound by operations (4 hd per visible
@@ -65,30 +66,50 @@
 //   FlashAttention-3 ping-pong (S of tile j + 1 issued before the softmax
 //   of tile j) and a TMA store of O.
 //
-// The FP32-core kernel (simple and exact first):
-//   * The Pallas grid carries (m, l, acc) across its sequential K axis in
-//     VMEM; CUDA blocks run unordered.  So one block of 256 threads owns a
-//     tile of kBQ = 64 query rows of one flat head and walks that head's
-//     K/V itself, kBK = 32 keys at a time, from its first visible key (a
-//     window starts the walk at q0 - window + 1) to its last (causal
-//     stops it at the tile's last row).  Partial tiles are masked, so
-//     any S and T are right.  Tiles are issued last-first, so the causal
-//     grid's heaviest blocks start first.
-//   * The Q tile sits in shared memory as float32 for the whole walk; K
-//     and V tiles take turns in one float32 buffer (rows padded by 4
-//     floats, so 16-byte reads of 8 different rows hit 32 banks).
-//   * Scores: thread (ty, tx) computes rows {ty, ty+32} x keys {tx + 8j}
-//     with 16-byte shared loads and FP32 FMAs; the 8 threads of a row
-//     reduce its max and sum with shuffles and keep (m, l) in registers.
-//   * P.V: thread (rg, dg) owns rows {rg + 16i} x dims {dg + 16c} of the
-//     float32 accumulator in registers (64 values at hd 256), rescaled by
-//     each tile's alpha, then summed over the tile's P (shared) and V.
-//   * Shared memory: (64 + 32) x (hd + 4) + 64 x 33 + 128 floats = 106 KB
-//     at hd 256 (above the 48 KB default: dynamic shared memory with the
-//     opt-in), so two blocks fit on an SM.
-//   It runs on the FP32 cores (67 TFLOP/s peak) with synchronous staging,
-//   far above the operations bound; it stays for float32, whose bar the
-//   tensor cores cannot meet.  Next step: a cp.async ring.
+// The FP32-core kernel (namespace fp32): float32 at every hd (its 2e-4
+// bar is out of bf16's and TF32's reach) and bf16 at hd 16 and 32.  What
+// bounds it: 4 hd operations per visible (query, key) pair on the FP32
+// cores (67 TFLOP/s).  Its first kernel ran at 14-15% of that: it staged
+// K, waited, scored, staged V into the same buffer, waited (four
+// barriers a 32-key tile, no copy in flight), read 6 shared words per 32
+// FMAs in S and 20 per 64 in P.V at hd 256, took tanhf and expf per
+// score, and its grid (ceil(S / 64) x BH blocks) filled 2-128 of 132 SMs
+// with the causal tiles' walks in turn.  This design (row 1f's, the
+// paged FP32-core kernel's, for dense K/V):
+//   * a block of 256 threads (a 16 x 16 grid) owns 64 query rows of one
+//     flat head; S = q.K^T in 64-key tiles, each thread 4 rows x 4 keys
+//     (rows ty + 16i, keys tx + 16j), q and K read 16 bytes along d at a
+//     time: 8 reads feed 64 FMAs; P goes to shared memory; O += P.V with
+//     each thread 4 rows x hd/16 dims, p read 4 keys at a time and V 16
+//     bytes at a time (20 reads feed 256 FMAs at hd 256);
+//   * K and V in separate cp.async stages, each with its own commit
+//     group: K of tile j+1 is issued once S of tile j has read K, and
+//     lands under P.V of j; V of j+1 is issued once P.V of j is done and
+//     lands under S of j+1.  Two slots each where they fit, one each at
+//     hd 256 in float32 (q 66.6 KB + K 66.6 + V 65.5 + P 20.5 = 219 KB, one
+//     block an SM); bf16 tiles stay bf16 in shared memory (whole 16-byte
+//     chunks of 32- or 64-byte rows) and are widened as fragments are
+//     read.  Two barriers a tile;
+//   * the online softmax per row across the row's 16 threads (a half-warp)
+//     with shuffles, in log2 units with exp2, the cap through the tensor-
+//     core kernel's cap - 2 cap / (e^(2x/cap) + 1) (a few float32 ulps of
+//     cap from tanhf); masks only on tiles some (row, key) of the block
+//     may not see; p rounded to v's type for P.V while l sums it
+//     unrounded; a row that sees nothing writes 0;
+//   * split-KV where the grid is under a wave (kernel.py::fp32_plan): a
+//     query tile's walk is cut into spans of whole key tiles, one block a
+//     span; a block with one live span writes the output, otherwise it
+//     writes its float32 partial (m, l, acc) and takes a ticket
+//     (__threadfence, atomicAdd), and the tile's last span to finish
+//     combines the partials by log-sum-exp in span order (a span that saw
+//     nothing of a row weighs 0, a row that saw nothing stays 0, never
+//     NaN) and resets the ticket.  Query tiles are issued last-first, so
+//     the causal grid's heaviest tiles start first.
+//   What still holds it back (PERF.md §6): a 64 x 64 tile at hd 256 takes
+//   ~18 us, ~40% of an SM's FMA rate, and one block fits an SM there; at
+//   phase 10's global call S is ~0.042 ms and P.V ~0.031 of 0.128.  A
+//   warp of 4 rows x 8 keys (fewer shared wavefronts) timed the same, so
+//   shared bandwidth is not what bounds it.
 //
 // Plain C interface (loaded with ctypes): flash_attention_launch (FP32
 // cores) and flash_attention_tc_launch (tensor cores) return
@@ -106,17 +127,8 @@
 
 namespace {
 
-constexpr int kBQ = 64;              // query rows per block
-constexpr int kBK = 32;              // keys per tile
-constexpr int kThreads = 256;
-constexpr int kPS = kBK + 1;         // padded P row (floats)
 constexpr float kNegInf = -1e30f;    // the reference's NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -130,244 +142,471 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 // p as the reference's p.astype(v.dtype) leaves it, back in float32
 template <typename T>
 __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
+  if constexpr (sizeof(T) == 4) return x;
+  else return __bfloat162float(__float2bfloat16(x));
 }
 
-// max / sum over the 8 lanes of a row group (lanes 8g .. 8g+7)
-__device__ __forceinline__ float group8_max(float v) {
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-__device__ __forceinline__ float group8_sum(float v) {
-#pragma unroll
-  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
+// ----------------------------------------------------------- FP32 cores --
+// float32 q, k, v at every head dim and bfloat16 at hd 16 and 32; see the
+// design note at the top of the file.
+namespace fp32 {
 
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t(kBQ + kBK) * (HD + 4) + size_t(kBQ) * kPS +
-                          2 * kBQ);
-}
+constexpr int kThreads = 256;        // a 16 x 16 thread grid
+constexpr int kRows = 64;            // query rows per block
+constexpr int kTok = 64;             // keys per K/V tile
+constexpr int kTY = kThreads / 16;   // thread rows of the grid
+constexpr int kRT = kRows / kTY;     // query rows of a thread
+constexpr int kPLd = kTok + 16;      // P rows (floats): a warp's two rows
+                                     // of p land in disjoint banks
+constexpr float kLog2e = 1.4426950408889634f;
 
-// rows [row0, row0 + n_rows) of a (rows_total, HD) matrix of T into a
-// float32 (n_rows, HD + 4) shared tile, zero past rows_total
+// Shared memory of one block, in bytes: the q tile, P, and kSlots K slots
+// and kSlots V slots, all in the inputs' own type (bf16 rows are widened
+// as fragments are read).  q and K rows carry a 16-byte pad, so the 8
+// rows a quarter-warp reads 16 bytes of start in 8 different bank groups.
+// Two slots of each where they fit; at hd 256 in float32 one of each
+// (q 66.6 KB, K 66.6 KB, V 65.5 KB, P 20.5 KB: 219 KB).
 template <typename T, int HD>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src,
-                                           int row0, int n_rows,
-                                           int rows_total, float* dst) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kVecPerRow = HD / kVec;
-  constexpr int kStride = HD + 4;
-  for (int i = threadIdx.x; i < n_rows * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int d0 = (i - r * kVecPerRow) * kVec;
-    float f[kVec];
-    if (row0 + r < rows_total) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          src + size_t(row0 + r) * HD + d0);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) f[j] = to_f32(e[j]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) f[j] = 0.f;
-    }
-    float4* out = reinterpret_cast<float4*>(dst + r * kStride + d0);
-#pragma unroll
-    for (int j = 0; j < kVec / 4; ++j)
-      out[j] = make_float4(f[4 * j], f[4 * j + 1], f[4 * j + 2],
-                           f[4 * j + 3]);
+struct Smem {
+  static constexpr int kSlots = HD * int(sizeof(T)) >= 1024 ? 1 : 2;
+  static constexpr int kLd = HD + 16 / int(sizeof(T));   // q and K rows
+  static constexpr int kQ = kRows * kLd * int(sizeof(T));
+  static constexpr int kP = kRows * kPLd * 4;
+  static constexpr int kK = kTok * kLd * int(sizeof(T));
+  static constexpr int kV = kTok * HD * int(sizeof(T));
+  static constexpr int kBytes = kQ + kP + kSlots * (kK + kV);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously, through L2 only; bytes = 0
+// writes 16 zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// N consecutive elements of shared memory, widened to float32: float32
+// 16, 8 or 4 bytes at once, bf16 8, 4 or 2
+template <int N>
+__device__ __forceinline__ void load_vec(float (&d)[N], const float* s) {
+  if constexpr (N == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(s);
+    d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
+  } else if constexpr (N == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(s);
+    d[0] = v.x; d[1] = v.y;
+  } else {
+    d[0] = s[0];
+  }
+}
+template <int N>
+__device__ __forceinline__ void load_vec(float (&d)[N],
+                                         const __nv_bfloat16* s) {
+  if constexpr (N == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(s);
+    const float2 lo = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 hi = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    d[0] = lo.x; d[1] = lo.y; d[2] = hi.x; d[3] = hi.y;
+  } else if constexpr (N == 2) {
+    const float2 v = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(s));
+    d[0] = v.x; d[1] = v.y;
+  } else {
+    d[0] = __bfloat162float(s[0]);
   }
 }
 
+// kRows rows [row0, row0 + kRows) of a (rows, HD) matrix of T into a
+// shared tile of row pitch LD (elements), by 16-byte cp.async; rows at or
+// past `limit` are zero-filled
+template <typename T, int HD, int LD>
+__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
+                                      int row0, int limit) {
+  constexpr int kE = 16 / int(sizeof(T));          // elements a copy
+  constexpr int kChunks = HD / kE;                 // copies a row
+  constexpr int kCopies = kRows * kChunks;
+#pragma unroll
+  for (int j = 0; j < (kCopies + kThreads - 1) / kThreads; ++j) {
+    const int i = threadIdx.x + j * kThreads;
+    if (kCopies % kThreads && i >= kCopies) break;
+    const int r = i / kChunks, ch = i - r * kChunks;
+    const bool in = row0 + r < limit;
+    cp_async16(dst + r * LD + ch * kE,
+               in ? src + size_t(row0 + r) * HD + ch * kE : src,
+               in ? 16 : 0);
+  }
+}
+
+// Whether this block is the last of its query tile's n_live live splits
+// to finish: its ticket is taken after its partials are visible
+// device-wide, and the last block puts the counter back to 0 for the next
+// launch.  Every thread of the block calls it.
+__device__ __forceinline__ bool last_split(int* ticket, int n_live,
+                                           int* flag) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    *flag = atomicAdd(ticket, 1) == n_live - 1;
+    if (*flag) *ticket = 0;
+  }
+  __syncthreads();
+  const bool last = *flag;
+  if (last) __threadfence();
+  return last;
+}
+
+// Block (blockIdx.x, blockIdx.y) = (query tile x split, flat head b): the
+// query tiles are issued last-first (the heaviest causal ones start
+// first), each tile's splits together.  A split walks `span` key tiles of
+// its query tile's walk; with one live split it writes the output, with
+// more it writes its partial (m, l, acc) and the tile's last split to
+// finish combines them in split order.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int S,
-                 int T_len, int groups, int causal, int window, float cap,
-                 float scale) {
-  constexpr int kStride = HD + 4;
-  constexpr int kDims = HD / 16;     // accumulator dims per thread
-  const int tile = gridDim.x - 1 - blockIdx.x;   // heaviest causal first
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ out,
+                      float* __restrict__ part_ml,
+                      float* __restrict__ part_acc, int* __restrict__ tickets,
+                      int S, int T_len, int groups, int causal, int window,
+                      float cap, float scale, int span) {
+  using L = Smem<T, HD>;
+  constexpr int kLd = L::kLd;
+  constexpr int kSlots = L::kSlots;
+  constexpr int kD = HD / 16;              // P.V dims of a thread
+  constexpr int kVec = kD < 4 ? kD : 4;    // ... read kVec at a time
+  constexpr int kGroups = kD / kVec;       // ... in groups 16*kVec apart
+  const int q_tiles = (S + kRows - 1) / kRows;
+  const int n_splits = int(gridDim.x) / q_tiles;
+  const int tile = q_tiles - 1 - int(blockIdx.x) / n_splits;
+  const int split = int(blockIdx.x) % n_splits;
   const int b = blockIdx.y;
-  const int q0 = tile * kBQ;
-  const int tid = threadIdx.x;
+  const int q0 = tile * kRows;
+  // thread (ty, tx): rows ty + kTY i of the tile, keys tx + 16j of a key
+  // tile; a row's 16 threads are one half-warp
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 
-  extern __shared__ float smem[];
-  float* qs = smem;                          // [kBQ][kStride]
-  float* kv = qs + kBQ * kStride;            // [kBK][kStride], K then V
-  float* ps = kv + kBK * kStride;            // [kBQ][kPS]
-  float* alpha_s = ps + kBQ * kPS;           // [kBQ]
-  float* l_s = alpha_s + kBQ;                // [kBQ]
-
-  const T* qb = q + size_t(b) * S * HD;
-  const T* kb = k + size_t(b / groups) * T_len * HD;
-  const T* vb = v + size_t(b / groups) * T_len * HD;
-
-  // the keys any row of this tile may see
-  const int last_row = min(q0 + kBQ, S) - 1;
+  // the keys any row of this tile may see, in kTok tiles from k_lo; this
+  // split's share of them
+  const int last_row = min(q0 + kRows, S) - 1;
   const int k_hi = causal ? min(T_len, last_row + 1) : T_len;
   const int k_lo = window ? max(0, q0 - window + 1) : 0;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kTok - 1) / kTok : 0;
+  const int per = n_splits > 1 ? span : max(n_tiles, 1);
+  const int n_live = max(1, (n_tiles + per - 1) / per);
+  if (split >= n_live) return;                 // past the walk's end
+  const int t0 = split * per;
+  const int n_it = max(0, min(n_tiles, t0 + per) - t0);
 
-  stage_rows<T, HD>(qb, q0, kBQ, S, qs);
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int last_flag;
+  T* qs = reinterpret_cast<T*>(smem);
+  float* ps = reinterpret_cast<float*>(smem + L::kQ);
+  uint8_t* ring = smem + L::kQ + L::kP;
+  auto k_slot = [&](int s) {
+    return reinterpret_cast<T*>(ring + s * (L::kK + L::kV));
+  };
+  auto v_slot = [&](int s) {
+    return reinterpret_cast<T*>(ring + s * (L::kK + L::kV) + L::kK);
+  };
+  const T* kb = k + size_t(b / groups) * T_len * HD;
+  const T* vb = v + size_t(b / groups) * T_len * HD;
+  auto stage_k = [&](int it) {
+    if (it < n_it)
+      stage<T, HD, kLd>(k_slot(it % kSlots), kb, k_lo + (t0 + it) * kTok,
+                        k_hi);
+  };
+  auto stage_v = [&](int it) {
+    if (it < n_it)
+      stage<T, HD, HD>(v_slot(it % kSlots), vb, k_lo + (t0 + it) * kTok,
+                       k_hi);
+  };
 
-  // score layout: rows {ty, ty + 32} x keys {tx + 8j}
-  const int ty = tid >> 3;
-  const int tx = tid & 7;
-  float m_run[2] = {kNegInf, kNegInf};
-  float l_run[2] = {0.f, 0.f};
-  // P.V layout: rows {rg + 16i} x dims {dg + 16c}
-  const int rg = tid >> 4;
-  const int dg = tid & 15;
-  float acc[4][kDims];
+  // commit groups, in order: q and K0, V0, ..., K(kSlots-1), V(kSlots-1);
+  // then in step it, V(it-1+kSlots) (none at it = 0) and K(it+kSlots).
+  // Counting them, K(it) and V(it) have landed once at most 2 kSlots - 2
+  // younger groups are pending, and K(it) alone, for it < kSlots (the
+  // prologue's), once 2 kSlots - 1 are: the first S does not wait for V0
+  stage<T, HD, kLd>(qs, q + size_t(b) * S * HD, q0, S);
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < kDims; ++c) acc[i][c] = 0.f;
+  for (int s = 0; s < kSlots; ++s) {
+    stage_k(s);
+    cp_async_commit();
+    stage_v(s);
+    cp_async_commit();
+  }
 
-  for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {
-    __syncthreads();   // Q staged / the previous tile's V and P consumed
-    stage_rows<T, HD>(kb, k0, kBK, k_hi, kv);
-    __syncthreads();
+  // the softcap as cap - 2 cap / (e^(2x/cap) + 1) through exp2 and a fast
+  // divide (the tensor-core kernel's), scores then in log2 units
+  const float two_cap = 2.f * cap;
+  const float k2 = cap != 0.f ? 2.f * kLog2e / cap : 0.f;
+  float m[kRT], l[kRT], acc[kRT][kD];
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) acc[i][d] = 0.f;
+  }
 
-    float s[2][4];
+  for (int it = 0; it < n_it; ++it) {
+    const T* ks = k_slot(it % kSlots);
+    const T* vs = v_slot(it % kSlots);
+    if (it < kSlots)
+      cp_async_wait<2 * kSlots - 1>();   // K(it) (and q) landed ...
+    else
+      cp_async_wait<2 * kSlots - 2>();
+    __syncthreads();   // ... for every thread; P.V of it-1 is done, so
+    if (it > 0) stage_v(it - 1 + kSlots);   // its V slot takes a tile
+    cp_async_commit();
+
+    // S = q . K^T: kRT rows x 4 keys a thread, 4 elements of q and of K
+    // at a time
+    float s[kRT][4];
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
+    for (int i = 0; i < kRT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[r][j] = 0.f;
-    const float* qr0 = qs + ty * kStride;
-    const float* qr1 = qs + (ty + 32) * kStride;
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
     for (int d = 0; d < HD; d += 4) {
-      const float4 a0 = *reinterpret_cast<const float4*>(qr0 + d);
-      const float4 a1 = *reinterpret_cast<const float4*>(qr1 + d);
+      float qv[kRT][4], kv4[4][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float4 kk =
-            *reinterpret_cast<const float4*>(kv + (tx + 8 * j) * kStride + d);
-        s[0][j] = fmaf(a0.x, kk.x, s[0][j]);
-        s[0][j] = fmaf(a0.y, kk.y, s[0][j]);
-        s[0][j] = fmaf(a0.z, kk.z, s[0][j]);
-        s[0][j] = fmaf(a0.w, kk.w, s[0][j]);
-        s[1][j] = fmaf(a1.x, kk.x, s[1][j]);
-        s[1][j] = fmaf(a1.y, kk.y, s[1][j]);
-        s[1][j] = fmaf(a1.z, kk.z, s[1][j]);
-        s[1][j] = fmaf(a1.w, kk.w, s[1][j]);
-      }
+      for (int i = 0; i < kRT; ++i)
+        load_vec(qv[i], qs + (ty + kTY * i) * kLd + d);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        load_vec(kv4[j], ks + (tx + 16 * j) * kLd + d);
+#pragma unroll
+      for (int i = 0; i < kRT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[i][j] = fmaf(qv[i][e], kv4[j][e], s[i][j]);
     }
 
+    // scale, cap, log2 units; mask only a tile that some (row, key) of
+    // the block may not see: keys past k_hi, the causal diagonal, the
+    // window's edge; online softmax across the row's 16 threads
+    const int k0 = k_lo + (t0 + it) * kTok;
+    const bool edge = k0 + kTok > k_hi || (causal && k0 + kTok - 1 > q0) ||
+                      (window && last_row - k0 >= window);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = ty + 32 * r;
-      const int qpos = q0 + row;
-      bool valid[4];
+    for (int i = 0; i < kRT; ++i) {
+      const int row = ty + kTY * i, qpos = q0 + row;
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 8 * j;
-        valid[j] = qpos < S && kpos < k_hi && (!causal || kpos <= qpos) &&
-                   (!window || qpos - kpos < window);
-        float x = s[r][j] * scale;
-        if (cap != 0.f) x = cap * tanhf(x / cap);
-        s[r][j] = valid[j] ? x : kNegInf;
-        mx = fmaxf(mx, s[r][j]);
+        float x = s[i][j] * scale;
+        if (cap != 0.f) x = cap - __fdividef(two_cap, 1.f + exp2f(k2 * x));
+        x *= kLog2e;
+        if (edge) {
+          const int key = k0 + tx + 16 * j;
+          const bool ok = key < T_len && (!causal || key <= qpos) &&
+                          (!window || qpos - key < window);
+          x = ok ? x : kNegInf;
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
       }
-      const float m_new = fmaxf(m_run[r], group8_max(mx));
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, o));
+      const float m_new = fmaxf(m[i], mx);
+      const float alpha = exp2f(m[i] - m_new);
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const float p = valid[j] ? expf(s[r][j] - m_new) : 0.f;
+        // p = exp(s - m), 0 where masked; l sums it as is, P.V takes it
+        // rounded to v's type (the reference's p.astype(v.dtype))
+        const float p = s[i][j] == kNegInf ? 0.f : exp2f(s[i][j] - m_new);
         sum += p;
-        ps[row * kPS + tx + 8 * j] = round_to<T>(p);
+        ps[row * kPLd + tx + 16 * j] = round_to<T>(p);
       }
-      const float alpha = expf(m_run[r] - m_new);
-      l_run[r] = l_run[r] * alpha + group8_sum(sum);
-      m_run[r] = m_new;
-      if (tx == 0) alpha_s[row] = alpha;
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(kFull, sum, o);
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int d = 0; d < kD; ++d) acc[i][d] *= alpha;
     }
-    __syncthreads();   // P and alpha written; K no longer read
-    stage_rows<T, HD>(vb, k0, kBK, k_hi, kv);
-    __syncthreads();
+    cp_async_wait<2 * kSlots - 2>();   // V(it) landed ...
+    __syncthreads();   // ... for every thread, P is complete, and K(it)
+    stage_k(it + kSlots);              // is read: its slot takes a tile
+    cp_async_commit();
 
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float a = alpha_s[rg + 16 * i];
-#pragma unroll
-      for (int c = 0; c < kDims; ++c) acc[i][c] *= a;
-    }
+    // O += P . V: kRT rows x kD dims a thread, p 4 keys at a time
 #pragma unroll 4
-    for (int t = 0; t < kBK; ++t) {
-      float p[4];
+    for (int t4 = 0; t4 < kTok; t4 += 4) {
+      float pv[kRT][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(rg + 16 * i) * kPS + t];
+      for (int i = 0; i < kRT; ++i)
+        load_vec(pv[i], ps + (ty + kTY * i) * kPLd + t4);
 #pragma unroll
-      for (int c = 0; c < kDims; ++c) {
-        const float vv = kv[t * kStride + dg + 16 * c];
+      for (int e = 0; e < 4; ++e) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
+        for (int g = 0; g < kGroups; ++g) {
+          float vv[kVec];
+          load_vec(vv, vs + (t4 + e) * HD + g * 16 * kVec + tx * kVec);
+#pragma unroll
+          for (int i = 0; i < kRT; ++i)
+#pragma unroll
+            for (int x = 0; x < kVec; ++x)
+              acc[i][g * kVec + x] =
+                  fmaf(pv[i][e], vv[x], acc[i][g * kVec + x]);
+        }
       }
     }
   }
+  cp_async_wait<0>();   // an empty walk's q copies are still in flight
 
-  if (tx == 0) {
-    l_s[ty] = l_run[0];
-    l_s[ty + 32] = l_run[1];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = rg + 16 * i;
-    if (q0 + row >= S) continue;
-    const float l = l_s[row];
-    const float denom = l == 0.f ? 1.f : l;   // fully masked -> 0
+  // this thread's dims of a row: g * 16 kVec + tx kVec + x
+  auto store_row = [&](int row, const float (&o)[kD], float l_row) {
+    const float inv = 1.f / (l_row == 0.f ? 1.f : l_row);   // nothing seen
     T* dst = out + (size_t(b) * S + q0 + row) * HD;
 #pragma unroll
-    for (int c = 0; c < kDims; ++c)
-      dst[dg + 16 * c] = from_f32<T>(acc[i][c] / denom);
+    for (int g = 0; g < kGroups; ++g) {
+      T* d = dst + g * 16 * kVec + tx * kVec;
+      if constexpr (sizeof(T) == 4 && kVec == 4) {   // 16-byte rows
+        *reinterpret_cast<float4*>(d) =
+            make_float4(o[4 * g] * inv, o[4 * g + 1] * inv,
+                        o[4 * g + 2] * inv, o[4 * g + 3] * inv);
+      } else {
+#pragma unroll
+        for (int x = 0; x < kVec; ++x)
+          d[x] = from_f32<T>(o[g * kVec + x] * inv);
+      }
+    }
+  };
+  if (n_live == 1) {
+#pragma unroll
+    for (int i = 0; i < kRT; ++i)
+      if (q0 + ty + kTY * i < S) store_row(ty + kTY * i, acc[i], l[i]);
+    return;
   }
+
+  // the partial (m in log2 units, l, acc) of this split, in float32
+  const size_t slot0 = (size_t(b) * q_tiles + tile) * n_splits;
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    const size_t r = (slot0 + split) * kRows + ty + kTY * i;
+    if (tx == 0) {
+      part_ml[2 * r] = m[i];
+      part_ml[2 * r + 1] = l[i];
+    }
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+      for (int x = 0; x < kVec; ++x)
+        part_acc[r * HD + g * 16 * kVec + tx * kVec + x] =
+            acc[i][g * kVec + x];
+  }
+  if (!last_split(tickets + size_t(b) * q_tiles + tile, n_live, &last_flag))
+    return;
+  // log-sum-exp combine in split order: m = max m_s, l = sum l_s 2^(m_s -
+  // m), acc = sum acc_s 2^(m_s - m).  A split that saw nothing of a row
+  // (m_s = NEG_INF, l_s = 0, acc_s = 0) weighs 0, or 1 times zeros if all
+  // did: the row is 0, never NaN.  Partials are read past L1 (__ldcg):
+  // other SMs wrote them; a split's loads for all the thread's rows and
+  // dims are independent, so they are in flight together.
+  float mx[kRT];
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    mx[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) acc[i][d] = 0.f;
+  }
+  for (int sp = 0; sp < n_live; ++sp)
+#pragma unroll
+    for (int i = 0; i < kRT; ++i)
+      mx[i] = fmaxf(mx[i], __ldcg(part_ml +
+                                  2 * ((slot0 + sp) * kRows + ty + kTY * i)));
+  for (int sp = 0; sp < n_live; ++sp) {
+#pragma unroll
+    for (int i = 0; i < kRT; ++i) {
+      const size_t r = (slot0 + sp) * kRows + ty + kTY * i;
+      const float w = exp2f(__ldcg(part_ml + 2 * r) - mx[i]);
+      l[i] = fmaf(__ldcg(part_ml + 2 * r + 1), w, l[i]);
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g)
+#pragma unroll
+        for (int x = 0; x < kVec; ++x)
+          acc[i][g * kVec + x] = fmaf(
+              __ldcg(part_acc + r * HD + g * 16 * kVec + tx * kVec + x), w,
+              acc[i][g * kVec + x]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRT; ++i)
+    if (q0 + ty + kTY * i < S) store_row(ty + kTY * i, acc[i], l[i]);
+}
+
+// The largest number of key tiles any query tile walks (the grid needs
+// ceil(that / span) splits)
+inline int max_walk(int S, int T_len, int causal, int window) {
+  int most = 0;
+  for (int q0 = 0; q0 < S; q0 += kRows) {
+    const int last_row = min(q0 + kRows, S) - 1;
+    const int k_hi = causal ? min(T_len, last_row + 1) : T_len;
+    const int k_lo = window ? max(0, q0 - window + 1) : 0;
+    if (k_hi > k_lo) most = max(most, (k_hi - k_lo + kTok - 1) / kTok);
+  }
+  return most;
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int BH, int S, int T_len, int groups, int causal,
-                   int window, float cap, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, HD>;
-  constexpr size_t smem = smem_bytes<HD>();
+                   float* part_ml, float* part_acc, int* tickets, int BH,
+                   int S, int T_len, int groups, int causal, int window,
+                   float cap, float scale, int span_keys, int n_splits,
+                   cudaStream_t stream) {
+  const int q_tiles = (S + kRows - 1) / kRows;
+  int span = 0;
+  if (n_splits > 1) {
+    // whole key tiles a split, enough splits for the longest walk, and
+    // the partials' scratch
+    if (span_keys < kTok || span_keys % kTok || !part_ml || !part_acc ||
+        !tickets)
+      return cudaErrorInvalidValue;
+    span = span_keys / kTok;
+    if ((long long)n_splits * span < max_walk(S, T_len, causal, window))
+      return cudaErrorInvalidValue;
+  }
+  if ((long long)q_tiles * n_splits > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_fp32_kernel<T, HD>;
+  constexpr int smem = Smem<T, HD>::kBytes;
   static bool opted_in = false;   // above 48 KB a block needs the opt-in
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
     opted_in = true;
   }
-  const dim3 grid((S + kBQ - 1) / kBQ, BH);
+  const dim3 grid(q_tiles * n_splits, BH);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, T_len, groups,
-      causal, window, cap, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), part_ml, part_acc,
+      tickets, S, T_len, groups, causal, window, cap, scale, span);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        void* out, int BH, int S, int T_len, int groups,
-                        int causal, int window, float cap, float scale,
-                        cudaStream_t stream) {
-#define FLASH_LAUNCH(HD_)                                                    \
-  launch<T, HD_>(q, k, v, out, BH, S, T_len, groups, causal, window, cap,   \
-                 scale, stream)
-  switch (hd) {
-    case 16: return FLASH_LAUNCH(16);
-    case 32: return FLASH_LAUNCH(32);
-    case 64: return FLASH_LAUNCH(64);
-    case 128: return FLASH_LAUNCH(128);
-    case 256: return FLASH_LAUNCH(256);
-    default: return cudaErrorInvalidValue;
-  }
-#undef FLASH_LAUNCH
-}
+}  // namespace fp32
 
 // -------------------------------------------------- tensor cores, bf16 --
 // q, k, v bfloat16 with hd in {64, 128, 256}; see the design note at the
@@ -901,33 +1140,50 @@ cudaError_t launch(EncodeTiled fn, const void* q, const void* k,
 
 }  // namespace
 
-// Element-type codes: 0 = float32, 1 = bfloat16 (q, k, v and out share
-// it).  q/out are (BH, S, hd), k/v (BH / groups, T, hd), contiguous device
-// tensors; window = 0 and cap = 0 switch those masks off.  bfloat16 takes
-// hd 16 and 32 only (wider heads run on the tensor cores, below); any
-// other call is refused with cudaErrorInvalidValue.  Launches on
-// `stream`; does not synchronise.
+// The FP32-core kernel.  Element-type codes: 0 = float32, 1 = bfloat16
+// (q, k, v and out share it).  q/out are (BH, S, hd), k/v (BH / groups, T,
+// hd), contiguous device tensors; window = 0 and cap = 0 switch those
+// masks off.  bfloat16 takes hd 16 and 32 only (wider heads run on the
+// tensor cores, below).  n_splits > 1 splits each query tile's walk into
+// spans of span_keys keys (a multiple of 64), n_splits of them enough for
+// the longest walk; then part_ml holds BH * ceil(S / 64) * n_splits * 64 *
+// 2 float32, part_acc the same times hd / 2, and tickets BH * ceil(S / 64)
+// int32 zeros (every launch leaves them zero).  Any other call is refused
+// with cudaErrorInvalidValue.  Launches on `stream`; does not synchronise.
 extern "C" int flash_attention_launch(int dtype, const void* q,
                                       const void* k, const void* v,
-                                      void* out, int BH, int S, int T_len,
-                                      int hd, int groups, int causal,
-                                      int window, float cap, float scale,
-                                      void* stream) {
+                                      void* out, void* part_ml,
+                                      void* part_acc, void* tickets, int BH,
+                                      int S, int T_len, int hd, int groups,
+                                      int causal, int window, float cap,
+                                      float scale, int span_keys,
+                                      int n_splits, void* stream) {
   if (BH < 1 || BH > 65535 || S < 1 || T_len < 0 || groups < 1 ||
-      BH % groups)
+      BH % groups || n_splits < 1)
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* ml = static_cast<float*>(part_ml);
+  float* acc = static_cast<float*>(part_acc);
+  int* tk = static_cast<int*>(tickets);
+#define FLASH_FP32(T_, HD_)                                                 \
+  fp32::launch<T_, HD_>(q, k, v, out, ml, acc, tk, BH, S, T_len, groups,    \
+                        causal, window, cap, scale, span_keys, n_splits, s)
   cudaError_t e = cudaErrorInvalidValue;
   if (dtype == 0) {
-    e = dispatch_hd<float>(hd, q, k, v, out, BH, S, T_len, groups, causal,
-                           window, cap, scale, s);
+    switch (hd) {
+      case 16: e = FLASH_FP32(float, 16); break;
+      case 32: e = FLASH_FP32(float, 32); break;
+      case 64: e = FLASH_FP32(float, 64); break;
+      case 128: e = FLASH_FP32(float, 128); break;
+      case 256: e = FLASH_FP32(float, 256); break;
+      default: break;
+    }
   } else if (dtype == 1 && hd == 16) {
-    e = launch<__nv_bfloat16, 16>(q, k, v, out, BH, S, T_len, groups, causal,
-                                  window, cap, scale, s);
+    e = FLASH_FP32(__nv_bfloat16, 16);
   } else if (dtype == 1 && hd == 32) {
-    e = launch<__nv_bfloat16, 32>(q, k, v, out, BH, S, T_len, groups, causal,
-                                  window, cap, scale, s);
+    e = FLASH_FP32(__nv_bfloat16, 32);
   }
+#undef FLASH_FP32
   return static_cast<int>(e);
 }
 

@@ -15,21 +15,27 @@ reference asserts that its tiles divide S and T).
 The source holds two kernels, and :func:`route` picks one from the type
 and the head dim alone (never on a failure): bfloat16 at hd 64, 128 and
 256 runs on the tensor cores (TMA + wgmma), float32 and bf16 at hd 16
-and 32 on the FP32 cores.  The library is built with ``nvcc`` at first
-launch (``kernels.launch``); every launch adds one to :data:`launches`,
-and a tensor-core launch also to :data:`tc_launches`.
+and 32 on the FP32 cores.  Where the FP32-core grid is under a wave of
+the card, :func:`fp32_plan` splits each query tile's key walk over
+blocks, combined in one launch (the float32 partials and the tickets are
+scratch this module keeps per device and stream).  The library is built
+with ``nvcc`` at first launch (``kernels.launch``); every launch adds one
+to :data:`launches`, a tensor-core launch also to :data:`tc_launches`,
+and an FP32-core launch with its walks split to :data:`split_launches`.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 import math
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels.launch import LaunchCounter, load
+from repro_torch.kernels.launch import SMS, LaunchCounter, load, \
+    split_scratch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -45,9 +51,22 @@ MAX_HEADS = 65535
 launches = LaunchCounter()
 #: launches of the tensor-core kernel
 tc_launches = LaunchCounter()
+#: launches of the FP32-core kernel with its key walks split over blocks
+split_launches = LaunchCounter()
 
 #: the two kernels :func:`route` chooses between
 TENSOR_CORES, FP32_CORES = "tensor_cores", "fp32_cores"
+#: the FP32-core kernel's query rows a block and keys a K/V tile
+FP32_ROWS, FP32_KEYS = 64, 64
+#: what a split block costs beyond its key tiles (its q tile staged, its
+#: partial written, the last one's combine), in key tiles of head dim 100
+#: (about 9 us on the H100, where a 64 x 64 tile at hd 256 takes ~18 us;
+#: ``scripts/ab_kernel_variants.py --parts flash_f32``)
+FP32_SPLIT_COST = 100
+#: per (device, stream), the FP32-core kernel's float32 partials and its
+#: tickets (``launch.split_scratch``; a query tile's last split resets its
+#: own ticket)
+_fp32_buffers: dict = {}
 
 
 def route(dtype: torch.dtype, hd: int) -> str:
@@ -61,13 +80,66 @@ def route(dtype: torch.dtype, hd: int) -> str:
     return FP32_CORES
 
 
+def fp32_walks(S: int, T: int, causal: bool, window: int) -> list:
+    """Key tiles (:data:`FP32_KEYS` keys) each query tile of the FP32-core
+    kernel walks: from its first visible key (a window starts it at q0 -
+    window + 1) to its last (causal stops it at the tile's last row)."""
+    walks = []
+    for q0 in range(0, S, FP32_ROWS):
+        last = min(q0 + FP32_ROWS, S) - 1
+        hi = min(T, last + 1) if causal else T
+        lo = max(0, q0 - window + 1) if window else 0
+        walks.append(-(-(hi - lo) // FP32_KEYS) if hi > lo else 0)
+    return walks
+
+
+def _makespan(sizes) -> float:
+    """Time the card takes for blocks of these sizes, issued in this order,
+    one at a time an SM as SMs free up (the block scheduler's greedy
+    order)."""
+    free = [0.0] * min(SMS, len(sizes))
+    for size in sizes:
+        heapq.heapreplace(free, free[0] + size)
+    return max(free)
+
+
+@functools.lru_cache(maxsize=1024)
+def fp32_plan(BH: int, S: int, T: int, hd: int, causal: bool,
+              window: int) -> tuple:
+    """(span_keys, splits) of an FP32-core call: (0, 1), one block a query
+    tile, where the grid fills two waves (2 x :data:`SMS` blocks); else
+    the span of whole key tiles whose blocks finish first on :data:`SMS`
+    SMs as :func:`_makespan` models them: a block costs its key tiles,
+    plus :data:`FP32_SPLIT_COST` / hd of a tile when its query tile is
+    split, and no split wins ties."""
+    walks = fp32_walks(S, T, causal, window)
+    longest = max(walks)
+    if len(walks) * BH >= 2 * SMS:
+        return 0, 1
+    # issue order: head by head, each head's query tiles last-first
+    order = walks[::-1] * BH
+    best, plan = _makespan(order), (0, 1)
+    for span in range(1, longest):
+        splits = -(-longest // span)
+        sizes = []
+        for w in order:
+            live = max(1, -(-w // span))
+            extra = FP32_SPLIT_COST / hd if live > 1 else 0.0
+            sizes += [min(span, w - s * span) + extra for s in range(live)]
+            sizes += [0.0] * (splits - live)
+        cost = _makespan(sizes)
+        if cost < best:
+            best, plan = cost, (span * FP32_KEYS, splits)
+    return plan
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C interface of a library built from a flash-attention
     source (this one, or a deliberately broken copy in the tests)."""
     fn = lib.flash_attention_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
                    + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.flash_attention_tc_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
@@ -137,14 +209,29 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 S, T, d, groups, int(bool(causal)), int(window), float(cap),
                 float(sc), stream)
         else:
+            span, splits = fp32_plan(BH, S, T, d, bool(causal), int(window))
+            ml = acc = tickets = 0
+            if splits > 1:
+                # the partials: (m, l) pairs, then acc rows (16-byte
+                # aligned), per (head, query tile, split, row)
+                rows = BH * -(-S // FP32_ROWS) * splits * FP32_ROWS
+                part, tk = split_scratch(_fp32_buffers, q.device, stream,
+                                         rows * (2 + d),
+                                         BH * -(-S // FP32_ROWS))
+                ml, acc, tickets = (part.data_ptr(),
+                                    part.data_ptr() + 4 * 2 * rows,
+                                    tk.data_ptr())
             err = lib.flash_attention_launch(
                 _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), BH, S, T, d, groups, int(bool(causal)),
-                int(window), float(cap), float(sc), stream)
+                out.data_ptr(), ml, acc, tickets, BH, S, T, d, groups,
+                int(bool(causal)), int(window), float(cap), float(sc), span,
+                splits, stream)
     if err:
         raise RuntimeError(f"flash attention kernel ({kernel}) launch "
                            f"failed: CUDA error {err}")
     launches.n += 1
     if kernel == TENSOR_CORES:
         tc_launches.n += 1
+    elif splits > 1:
+        split_launches.n += 1
     return out

@@ -24,6 +24,10 @@ REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+#: the SMs of the H100 SXM the kernels are built for (sm_90a): a grid
+#: under this many blocks leaves SMs idle.  The wrappers' split plans
+#: read it, so a plan is a function of the shape alone.
+SMS = 132
 
 
 class LaunchCounter:
@@ -80,6 +84,26 @@ def build(sources: Iterable[Path]) -> None:
             os.replace(tmp, library_path(src))
     if failed:
         raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+
+
+def split_scratch(buffers: dict, device, stream: int, words: int,
+                  n_tickets: int) -> tuple:
+    """The (float32 partials, int32 tickets) a kernel that splits its work
+    over blocks uses on ``stream`` of ``device``, kept in ``buffers`` (the
+    kernel's own dict) and grown to at least ``words`` and ``n_tickets``
+    as calls need.  The tickets start at zero and every launch leaves them
+    zero (a split group's last block resets its own); launches on one
+    stream run one after another, so they can share both."""
+    import torch
+    key = (device, stream)
+    bufs = buffers.get(key)
+    if bufs is None or bufs[0].numel() < words \
+            or bufs[1].numel() < n_tickets:
+        bufs = buffers[key] = (
+            torch.empty(max(words, 256), dtype=torch.float32, device=device),
+            torch.zeros(max(n_tickets, 256), dtype=torch.int32,
+                        device=device))
+    return bufs
 
 
 @functools.lru_cache(maxsize=None)

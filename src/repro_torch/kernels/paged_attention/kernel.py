@@ -39,7 +39,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.launch import LaunchCounter, load
+from repro_torch.kernels.launch import LaunchCounter, load, split_scratch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128)
@@ -57,10 +57,9 @@ split_launches = LaunchCounter()
 
 #: the three kernels :func:`route` chooses between
 TENSOR_CORES, FP32_CORES, SPLIT_KV = "tensor_cores", "fp32_cores", "split_kv"
-#: per (device, stream), the split-KV kernel's float32 scratch for the
-#: partials and its tickets (zeros, which every launch leaves zero: the
-#: last block of a lane and kv head resets its own), grown as calls need:
-#: launches on one stream run one after another, so they can share them
+#: per (device, stream), the split-KV kernel's float32 partials and its
+#: tickets (``launch.split_scratch``; the last block of a lane and kv head
+#: resets its own ticket)
 _split_buffers: dict = {}
 
 
@@ -100,21 +99,6 @@ def _split_plan(q_code: int, B: int, H: int, Kv: int, hd: int, page: int,
     n_ml = -(-B * H * n_splits * 2 // 4) * 4
     return (n_splits, n_ml, n_ml + B * H * n_splits * hd,
             B * Kv * -(-(H // Kv) // heads))
-
-
-def _split_scratch(device: torch.device, stream: int, words: int,
-                   n_tickets: int) -> tuple:
-    """The (scratch, tickets) of ``stream`` on ``device``, at least
-    ``words`` float32 and ``n_tickets`` int32 long."""
-    key = (device, stream)
-    bufs = _split_buffers.get(key)
-    if bufs is None or bufs[0].numel() < words \
-            or bufs[1].numel() < n_tickets:
-        bufs = _split_buffers[key] = (
-            torch.empty(max(words, 256), dtype=torch.float32, device=device),
-            torch.zeros(max(n_tickets, 256), dtype=torch.int32,
-                        device=device))
-    return bufs
 
 
 @functools.lru_cache(maxsize=None)
@@ -236,8 +220,8 @@ def paged_prefill_fwd(q: torch.Tensor, kv_pages: torch.Tensor,
             n_splits, n_ml, words, n_tickets = _split_plan(
                 _DTYPES[q.dtype], B, H, Kv, hd, page, block_table.shape[1])
             # the partials, (m, l) pairs then acc rows, in one buffer
-            part, tickets = _split_scratch(q.device, stream, words,
-                                           n_tickets)
+            part, tickets = split_scratch(_split_buffers, q.device,
+                                          stream, words, n_tickets)
             err = lib.paged_decode_split_launch(
                 _DTYPES[q.dtype], _DTYPES[kv_pages.dtype], *pointers,
                 part.data_ptr(), part.data_ptr() + 4 * n_ml,

@@ -159,11 +159,14 @@ def test_cuda_kernel_matches_plain_version():
     (torch.bfloat16, 3, 5, 7, True, "general"),
     (torch.bfloat16, 8, 0, 8, True, "general"),           # empty k
     (torch.bfloat16, 256, 256, 256, False, "general"),    # a base off 16
-    (torch.float32, 4096, 4096, 4096, True, "f32_ring"),
-    (torch.float32, 128, 128, 128, True, "f32_ring"),
-    (torch.float32, 1024, 4096, 11008, True, "f32_ring"),  # yi-6b's MLP
-    (torch.float32, 100, 36, 20, True, "f32_ring"),       # k, n % 4 == 0
-    (torch.float32, 1000, 1032, 776, True, "f32_ring"),   # ragged tiles
+    (torch.float32, 4096, 4096, 4096, True, "general"),   # every float32
+    (torch.float32, 128, 128, 128, True, "general"),      # one 128^2 tile
+    (torch.float32, 1024, 4096, 11008, True, "general"),  # yi-6b's MLP
+    (torch.float32, 100, 36, 20, True, "general"),        # one tile
+    (torch.float32, 1000, 1032, 776, True, "general"),    # 56 tiles
+    (torch.float32, 2048, 128, 1152, True, "general"),    # 144 tiles
+    (torch.float32, 1000, 1032, 2200, True, "general"),   # 144, ragged
+    (torch.float32, 1000, 1032, 2048, True, "general"),   # 128 tiles
     (torch.float32, 128, 130, 128, True, "general"),      # k % 4 == 2
     (torch.float32, 64, 64, 62, True, "general"),         # n % 4 == 2
     (torch.float32, 127, 127, 127, True, "general"),      # odd everything
@@ -214,17 +217,20 @@ def test_wgmma_branch_matches_plain_version():
 
 @pytest.mark.cuda
 def test_f32_ring_branch_matches_plain_version():
-    """The float32 ring branch against the plain version on the card at
-    aligned shapes, at ragged ones (m, n and k not multiples of the 128 x
-    128 x 16 tile: the zero-filled copies at every edge) and at k < 16;
-    the same products with a base address off 16 bytes, or k or n not a
-    multiple of 4, take the general branch.  Each branch's launches are
-    counted."""
+    """Aligned float32 products, the shapes a 16-byte-copy ring kernel once
+    took (grids that fill a wave, ragged edges: m, n and k not multiples of
+    the 128 x 128 x 16 tile, so the zero-filled copies at every edge; k <
+    16; tile-crossing small ones), against the plain version on the card,
+    with A aligned and 4 bytes past a 16-byte boundary: every one takes
+    the general branch, on the tile and K splits its plan picks, as the
+    launches (all, split) show."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine: "
                     "pytest -m cuda tests/test_torch_cluster_matmul.py)")
     torch.backends.cuda.matmul.allow_tf32 = False
-    for (m, k, n) in [(128, 128, 128), (256, 384, 512), (1024, 512, 768),
+    for (m, k, n) in [(2048, 128, 1152), (1000, 1032, 2200),
+                      (2100, 4, 1040), (1700, 36, 1548), (1900, 200, 1300),
+                      (128, 128, 128), (256, 384, 512), (1024, 512, 768),
                       (1000, 1032, 776), (72, 200, 48), (300, 4, 520),
                       (5, 8, 12), (130, 36, 20), (100, 37, 20),
                       (64, 64, 62)]:
@@ -235,15 +241,123 @@ def test_f32_ring_branch_matches_plain_version():
         # the same values at a base 4 bytes past a 16-byte boundary
         off = torch.empty(m * k + 1, device="cuda")[1:].view(m, k)
         off.copy_(ta)
+        splits = K.general_plan(m, k, n)[1]
         for x, aligned in ((ta, True), (off, False)):
-            want = K.route(torch.float32, m, k, n, aligned=aligned)
-            assert want == (K.F32_RING if aligned and k % 4 == 0
-                            and n % 4 == 0 else K.GENERAL), (m, k, n)
-            before = (K.launches.n, K.ring_launches.n)
+            assert K.route(torch.float32, m, k, n, aligned=aligned) \
+                == K.GENERAL, (m, k, n)
+            before = (K.launches.n, K.split_launches.n)
             out = K.matmul(x, tb)
             torch.cuda.synchronize()
             assert (K.launches.n - before[0],
-                    K.ring_launches.n - before[1]) == \
-                (1, int(want == K.F32_RING)), (m, k, n, aligned)
+                    K.split_launches.n - before[1]) == \
+                (1, int(splits > 1)), (m, k, n, aligned)
             np.testing.assert_allclose(out.cpu().numpy(),
                                        ref.cpu().numpy(), **TOL["float32"])
+
+
+def split_k_emulation(a: np.ndarray, b: np.ndarray, splits: int
+                      ) -> np.ndarray:
+    """The general float32 kernel's arithmetic, for the tests only: K in
+    16-deep tiles dealt to ``splits`` splits of ceil(k_tiles / splits)
+    tiles each; within a split every element of C is a chain of float32
+    FMAs in k order (each FMA rounded once: the float64 product of two
+    float32 values is exact); the partials are then summed in split order,
+    ((p_0 + p_1) + p_2) + ..., in float32."""
+    m, k = a.shape
+    k_tiles = -(-k // K.BK)
+    per = -(-k_tiles // splits) if k_tiles else 0
+    out = np.zeros((m, b.shape[1]), np.float32)
+    for s in range(splits):
+        part = np.zeros_like(out)
+        for kk in range(s * per * K.BK, min(k, (s + 1) * per * K.BK)):
+            part = (np.outer(a[:, kk], b[kk]).astype(np.float64)
+                    + part).astype(np.float32)
+        out = part if s == 0 else (out + part).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("m,k,n", [(127, 127, 127), (3, 5, 7),
+                                   (100, 36, 20)])
+@pytest.mark.parametrize("splits", [None, 1, 3, 8])
+def test_split_k_order_matches_reference_kernel(m, k, n, splits):
+    """The general kernel's split-K summation order (its plan's splits, or
+    forced ones) against the reference's Pallas kernel in interpret mode,
+    within the float32 bar: a different summation order, well inside it
+    for A ~ N(0, 1), B ~ N(0, 1/k)."""
+    a, b = _inputs(m, k, n, seed=5)
+    b = b / np.float32(np.sqrt(k))
+    if splits is None:
+        splits = K.general_plan(m, k, n)[1]
+    k_tiles = -(-k // K.BK)
+    splits = min(splits, k_tiles)
+    emu = split_k_emulation(a, b, splits)
+    ref = np.asarray(j_matmul(jnp.asarray(a), jnp.asarray(b),
+                              interpret=True), np.float32)
+    np.testing.assert_allclose(emu, ref, **TOL["float32"])
+
+
+@pytest.mark.parametrize("m,k,n,want", [
+    (4096, 4096, 4096, (128, 1)),      # 1,024 tiles of 128 x 128
+    (1024, 4096, 11008, (128, 1)),     # yi-6b's MLP: 688 tiles
+    (127, 127, 127, (64, 2)),          # 4 tiles of 64 x 64, 8 k-tiles
+    (256, 256, 256, (64, 4)),          # 16 tiles, 16 k-tiles
+    (768, 768, 768, (64, 3)),          # 144 tiles: 432 blocks
+    (1000, 1032, 776, (64, 2)),        # 208 tiles: 416 blocks
+    (100, 36, 20, (64, 1)),            # 3 k-tiles: too few to split
+    (3, 5, 7, (64, 1)),                # one k-tile
+    (8, 0, 8, (64, 1)),                # empty k
+])
+def test_general_plan_by_shape(m, k, n, want):
+    assert K.general_plan(m, k, n) == want
+
+
+def test_general_plan_leaves_no_split_empty():
+    """Every split the plan asks for gets K tiles: (splits - 1) *
+    ceil(k_tiles / splits) < k_tiles, the C entry's own check."""
+    for m in (1, 63, 64, 127, 500, 1500):
+        for n in (1, 65, 300, 2000):
+            for k in (1, 15, 16, 17, 100, 333, 4096, 20000):
+                tile, splits = K.general_plan(m, k, n)
+                assert tile in (64, 128) and splits >= 1
+                k_tiles = -(-k // K.BK)
+                assert (splits - 1) * -(-k_tiles // splits) < k_tiles, \
+                    (m, k, n, splits)
+                if tile == 128:
+                    assert splits == 1
+
+
+@pytest.mark.cuda
+def test_general_f32_branch_matches_plain_version():
+    """The general float32 branch against the plain version on the card
+    at odd shapes and at shapes with A 4 bytes past a 16-byte boundary,
+    K split over blocks and not; the launches (all, split) are counted and
+    two calls give equal outputs (the split order is fixed)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine: "
+                    "pytest -m cuda tests/test_torch_cluster_matmul.py)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for (m, k, n, offset) in [(127, 127, 127, False), (3, 5, 7, False),
+                              (1, 1, 1, False), (100, 37, 21, False),
+                              (8, 0, 8, False), (100, 36, 20, True),
+                              (256, 256, 256, True), (768, 768, 768, True),
+                              (1000, 1032, 776, True),
+                              (1024, 512, 1030, True), (65, 4001, 67, True)]:
+        a, b = _inputs(m, k, n, seed=6)
+        ta = torch.from_numpy(a).cuda()
+        tb = (torch.from_numpy(b) / np.sqrt(max(k, 1))).cuda()
+        if offset:
+            off = torch.empty(m * k + 1, device="cuda")[1:].view(m, k)
+            ta = off.copy_(ta)
+        assert K.route(torch.float32, m, k, n,
+                       aligned=not offset) == K.GENERAL, (m, k, n)
+        splits = K.general_plan(m, k, n)[1]
+        before = (K.launches.n, K.split_launches.n)
+        out = K.matmul(ta, tb)
+        again = K.matmul(ta, tb)
+        torch.cuda.synchronize()
+        assert (K.launches.n - before[0], K.split_launches.n - before[1]) \
+            == (2, 2 * int(splits > 1)), (m, k, n)
+        assert torch.equal(out, again), (m, k, n)
+        ref = R.cluster_matmul_ref(ta, tb)
+        np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(),
+                                   **TOL["float32"])

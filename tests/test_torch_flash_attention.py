@@ -331,6 +331,156 @@ def test_tensor_core_emulation_takes_partial_tiles():
                                    **TOL["bfloat16"])
 
 
+def fp32_emulation(q, k, v, causal, window, cap, groups=1, span=None):
+    """The FP32-core kernel's arithmetic, tile order and splits, for the
+    tests only: query tiles of 64 rows walk their visible keys from k_lo
+    (the window's first key) to k_hi in 64-key tiles; the walk is cut into
+    splits of ``span`` tiles (``kernel.fp32_plan``'s, unless given), each
+    with its own online softmax; scores float32 from the inputs widened
+    exactly, times scale, the cap as cap - 2 cap / (2^(2 log2e x / cap) +
+    1), then log2-scaled for exp2; p rounded to v's type for P.V while l
+    sums it unrounded; the splits combined in split order by log-sum-exp
+    (a split a row sees nothing of weighs 0); out = O / l (0 where l is 0)
+    in q's type.  q (BH,S,d), k/v (BH/groups,T,d)."""
+    BH, S, d = q.shape
+    T = k.shape[1]
+    scale, log2e = 1.0 / np.sqrt(d), 1.4426950408889634
+    if span is None:
+        span_keys, splits = K.fp32_plan(BH, S, T, d, causal, window)
+        span = span_keys // K.FP32_KEYS if splits > 1 else None
+    qf = q.float()
+    pad = torch.zeros(k.shape[0], 64, d)
+    kf = torch.cat([k.float(), pad], 1).repeat_interleave(groups, 0)
+    vf = torch.cat([v.float(), pad], 1).repeat_interleave(groups, 0)
+    neg = torch.tensor(-1e30)
+    out = torch.zeros(BH, S, d)
+    walks = K.fp32_walks(S, T, causal, window)
+    for ti, q0 in enumerate(range(0, S, 64)):
+        rows = torch.arange(q0, min(q0 + 64, S))
+        last = min(q0 + 64, S) - 1
+        k_hi = min(T, last + 1) if causal else T
+        k_lo = max(0, q0 - window + 1) if window else 0
+        n = walks[ti]
+        per = span or max(n, 1)
+        parts = []
+        for t0 in range(0, max(n, 1), per):
+            m = torch.full((BH, len(rows)), -1e30)
+            l_sum = torch.zeros(BH, len(rows))
+            o = torch.zeros(BH, len(rows), d)
+            for it in range(t0, min(n, t0 + per)):
+                k0 = k_lo + it * 64
+                keys = torch.arange(k0, k0 + 64)
+                # keys past k_hi are zero-filled, then masked
+                kt = torch.where((keys < k_hi)[None, :, None],
+                                 kf[:, k0:k0 + 64], torch.tensor(0.0))
+                vt = torch.where((keys < k_hi)[None, :, None],
+                                 vf[:, k0:k0 + 64], torch.tensor(0.0))
+                s = torch.einsum("brd,btd->brt", qf[:, rows], kt) * scale
+                if cap:
+                    s = cap - 2 * cap / (torch.exp2(s * (2 * log2e / cap))
+                                         + 1)
+                s = s * log2e
+                mask = (keys[None, :] < T).expand(len(rows), 64)
+                if causal:
+                    mask = mask & (keys[None, :] <= rows[:, None])
+                if window:
+                    mask = mask & (rows[:, None] - keys[None, :] < window)
+                s = torch.where(mask[None], s, neg)
+                m_new = torch.maximum(m, s.max(-1).values)
+                p = torch.where(mask[None], torch.exp2(s - m_new[..., None]),
+                                torch.tensor(0.0))
+                alpha = torch.exp2(m - m_new)
+                l_sum = l_sum * alpha + p.sum(-1)
+                o = o * alpha[..., None] + torch.einsum(
+                    "brt,btd->brd", p.to(v.dtype).float(), vt)
+                m = m_new
+            parts.append((m, l_sum, o))
+        if len(parts) == 1:
+            m, l_sum, o = parts[0]
+        else:
+            mx = torch.stack([pm for pm, _, _ in parts]).max(0).values
+            l_sum = torch.zeros_like(mx)
+            o = torch.zeros(BH, len(rows), d)
+            for pm, pl, po in parts:
+                w = torch.exp2(pm - mx)
+                l_sum = l_sum + pl * w
+                o = o + po * w[..., None]
+        out[:, rows] = o / torch.where(l_sum == 0, torch.ones_like(l_sum),
+                                       l_sum)[..., None]
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("qk", [0.3, SHARP])
+@pytest.mark.parametrize("causal,window,cap", MASKS + [(True, 1, 0.0)])
+@pytest.mark.parametrize("d,dtype,groups,span", [
+    (16, "bfloat16", 1, None), (32, "bfloat16", 2, 1),
+    (32, "float32", 1, None), (64, "float32", 2, 1), (256, "float32", 2, 2)])
+def test_fp32_core_arithmetic_matches_the_pallas_kernel(d, dtype, groups,
+                                                        span, causal,
+                                                        window, cap, qk):
+    """The FP32-core kernel's arithmetic, tile order and split-KV combine
+    (``fp32_emulation``; ``span`` forces splits of 1 or 2 key tiles)
+    against the reference's Pallas kernel in interpret mode: S=256 over
+    T=128 keys, so with a window rows past 128 + window see no key at all
+    (fully masked), window 1 leaves each row its own key, and a split a
+    row sees nothing of must weigh 0; flat and sharp scores, within the
+    type's bar."""
+    BH, S, T = 4, 256, 128
+    arrs = _qkv(BH, S, T, d, seed=10, kv_rows=BH // groups, qk=qk)
+    ref = j_flash(*_jax(arrs, dtype), causal, window, cap, True, groups)
+    emu = fp32_emulation(*_port(arrs, dtype), causal, window, cap, groups,
+                         span)
+    np.testing.assert_allclose(emu.float().numpy(),
+                               np.asarray(ref, np.float32), **TOL[dtype])
+
+
+def test_fp32_core_emulation_splits_and_partial_tiles():
+    """Partial tiles (S and T not multiples of 64) and every split size
+    against the reference's oracle, float32: the split-KV combine is
+    exact up to float32 rounding."""
+    for causal, window, cap in MASKS:
+        arrs = _qkv(2, 200, 330, 32, seed=11, qk=SHARP)
+        ref = np.asarray(j_ref(*_jax(arrs, "float32"), causal=causal,
+                               window=window, cap=cap))
+        for span in (1, 2, 3, None):
+            emu = fp32_emulation(*_port(arrs, "float32"), causal, window,
+                                 cap, span=span)
+            np.testing.assert_allclose(emu.numpy(), ref, **TOL["float32"])
+
+
+@pytest.mark.parametrize("BH,S,T,d,causal,window,want", [
+    (16, 512, 512, 256, True, 0, (128, 4)),   # phase 10's global layer
+    (16, 512, 512, 256, True, 128, (0, 1)),   # ... its local layer: 128
+                                              # blocks of <= 3 tiles
+    (2, 128, 128, 64, True, 0, (0, 1)),       # test_kernels' shapes
+    (4, 256, 128, 32, False, 0, (0, 1)),
+    (1, 128, 384, 128, False, 0, (64, 6)),    # two blocks of 6 tiles
+    (1, 128, 384, 128, True, 0, (64, 2)),
+    (4, 200, 330, 32, True, 0, (0, 1)),       # splits cost more at hd 32
+    (8, 200, 1000, 128, False, 0, (256, 4)),  # 128 blocks of 4 tiles
+    (16, 4096, 4096, 256, True, 0, (0, 1)),   # 1,024 blocks: two waves
+    (1, 64, 0, 64, False, 0, (0, 1)),         # no keys
+])
+def test_fp32_plan_by_shape(BH, S, T, d, causal, window, want):
+    assert K.fp32_plan(BH, S, T, d, causal, window) == want
+
+
+def test_fp32_plan_covers_every_walk():
+    """The splits a plan asks for cover the longest walk (the C entry
+    refuses fewer), in whole key tiles."""
+    for BH in (1, 4, 16):
+        for S, T in ((64, 64), (100, 37), (512, 512), (1000, 3000)):
+            for causal, window in ((True, 0), (False, 0), (True, 1),
+                                   (True, 128), (False, 100)):
+                span, splits = K.fp32_plan(BH, S, T, 64, causal, window)
+                walks = K.fp32_walks(S, T, causal, window)
+                if splits == 1:
+                    assert span == 0
+                    continue
+                assert span % K.FP32_KEYS == 0
+                assert splits * span // K.FP32_KEYS >= max(walks)
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """The hand-written kernels against their plain version on the card:
@@ -381,12 +531,55 @@ def test_cuda_kernel_matches_plain_version():
                                    **GRAD_TOL)
 
 
+@pytest.mark.cuda
+def test_fp32_core_splits_match_plain_version(monkeypatch):
+    """The FP32-core kernel with its key walks split over blocks (the
+    plan's splits at phase 10's geometry, and spans of one, two and three
+    key tiles forced at smaller ones) against the plain version on the
+    card, float32 and bf16 at hd 32, flat and sharp; split launches are
+    counted and two calls give equal outputs (the combine's order is
+    fixed)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine: "
+                    "pytest -m cuda tests/test_torch_flash_attention.py)")
+    plan = K.fp32_plan
+    cases = [((16, 512, 512, 256, 2), "float32", None)] + [
+        (shape, dtype, span)
+        for shape in ((4, 200, 330, 32, 2), (2, 256, 128, 64, 1))
+        for dtype in ("float32", "bfloat16") for span in (1, 2, 3)
+        if dtype == "float32" or shape[3] == 32]
+    for (BH, S, T, d, G), dtype, span in cases:
+        if span is not None:
+            monkeypatch.setattr(K, "fp32_plan", lambda BH, S, T, d, c, w: (
+                64 * span, -(-max(K.fp32_walks(S, T, c, w)) // span)))
+        for qk in (0.3, SHARP):
+            q, k, v = (t.cuda() for t in _port(
+                _qkv(BH, S, T, d, seed=12, kv_rows=BH // G, qk=qk), dtype))
+            for causal, window, cap in MASKS + [(True, 1, 0.0)]:
+                splits = K.fp32_plan(BH, S, T, d, causal, window)[1]
+                before = K.split_launches.n
+                out = flash_attention(q, k, v, causal, window, cap, G)
+                again = flash_attention(q, k, v, causal, window, cap, G)
+                torch.cuda.synchronize()
+                assert K.split_launches.n - before == 2 * int(splits > 1)
+                assert torch.equal(out, again)
+                ref = flash_attention_ref(
+                    q, k.repeat_interleave(G, 0), v.repeat_interleave(G, 0),
+                    causal=causal, window=window, cap=cap)
+                np.testing.assert_allclose(out.float().cpu().numpy(),
+                                           ref.float().cpu().numpy(),
+                                           **TOL[dtype])
+        monkeypatch.setattr(K, "fp32_plan", plan)
+
+
 #: deliberately broken copies of the kernel, made from its source at test
-#: time: (text replaced, replacement), each found exactly once.  They
-#: break the tensor-core kernel, the one gemma2-2b's bf16 hd-256 calls
+#: time: (text replaced, replacement), each found exactly once.  The first
+#: two break the tensor-core kernel, the one gemma2-2b's bf16 hd-256 calls
 #: take: its cap line, and its tile walk (both consumer warpgroups skip
 #: the second key tile for rows past 2,048; the ring's barriers still
-#: turn, so the broken kernel ends)
+#: turn, so the broken kernel ends).  The "fp32_" ones break the FP32-core
+#: kernel, the one phase 10's float32 calls take: its cap line, and its
+#: split walk (split 1 skips its last key tile)
 MUTANTS = {
     "no_cap": (
         "        if (cap != 0.f) x = cap - __fdividef(two_cap, exp2f(x * k2) "
@@ -395,6 +588,13 @@ MUTANTS = {
         "    bool live = wg_live && k0 <= k_last_w && k0 + kBK > k_first_w;\n",
         "    bool live = wg_live && k0 <= k_last_w && k0 + kBK > k_first_w;\n"
         "    if (q0 >= 2048 && it == 1) live = false;\n"),
+    "fp32_no_cap": (
+        "        if (cap != 0.f) x = cap - __fdividef(two_cap, 1.f + "
+        "exp2f(k2 * x));\n", ""),
+    "fp32_split_skips_a_tile": (
+        "  const int n_it = max(0, min(n_tiles, t0 + per) - t0);\n",
+        "  const int n_it = max(0, min(n_tiles, t0 + per) - t0) - "
+        "(split == 1);\n"),
 }
 
 
@@ -404,8 +604,10 @@ def test_sharp_inputs_catch_a_broken_kernel(mutant, tmp_path, monkeypatch):
     """At gemma2-2b's geometry (16 flat heads over 8 KV rows, S=T=4096,
     hd 256, bf16, causal, cap 50) a kernel built without the cap, or one
     that skips a key tile for rows past 2,048, fails the bf16 tolerance
-    on the sharp inputs; the kernel as built passes them.  The errors at
-    both scales are printed (``-s``)."""
+    on the sharp inputs; the kernel as built passes them.  The FP32-core
+    mutants are held the same way at phase 10's float32 geometry (S=T=512,
+    where the plan splits each walk) against the float32 tolerance.  The
+    errors at both scales are printed (``-s``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine: "
                     "pytest -m cuda tests/test_torch_flash_attention.py)")
@@ -416,12 +618,17 @@ def test_sharp_inputs_catch_a_broken_kernel(mutant, tmp_path, monkeypatch):
     src = tmp_path / "flash_attention.cu"
     src.write_text(text.replace(old, new))
     broken = K.bind(launch.load(src))
-    BH, S, d, G = 16, 4096, 256, 2
-    assert K.route(torch.bfloat16, d) == K.TENSOR_CORES
+    fp32 = mutant.startswith("fp32_")
+    dtype = "float32" if fp32 else "bfloat16"
+    BH, S, d, G = 16, 512 if fp32 else 4096, 256, 2
+    assert K.route(getattr(torch, dtype), d) == (
+        K.FP32_CORES if fp32 else K.TENSOR_CORES)
+    if fp32:
+        assert K.fp32_plan(BH, S, S, d, True, 0)[1] > 1
     errs = {}
     for qk in (0.3, SHARP):
         q, k, v = (t.cuda() for t in _port(
-            _qkv(BH, S, S, d, seed=7, kv_rows=BH // G, qk=qk), "bfloat16"))
+            _qkv(BH, S, S, d, seed=7, kv_rows=BH // G, qk=qk), dtype))
         ref = flash_attention_ref(q, k.repeat_interleave(G, 0),
                                   v.repeat_interleave(G, 0), cap=50.0)
         good = K.flash_attention_fwd(q, k, v, cap=50.0, groups=G)
@@ -431,7 +638,7 @@ def test_sharp_inputs_catch_a_broken_kernel(mutant, tmp_path, monkeypatch):
         for name, out in (("kernel", good), (mutant, bad)):
             errs[name, qk] = (out.float() - ref.float()).abs().max().item()
             errs[name, qk, "passes"] = torch.allclose(
-                out.float(), ref.float(), **TOL["bfloat16"])
+                out.float(), ref.float(), **TOL[dtype])
         del q, k, v, ref, good, bad
     print(f"\nflash mutant {mutant}: " + " ".join(
         f"{n}@qk={qk}: max_abs_err={errs[n, qk]:.4g} "
