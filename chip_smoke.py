@@ -43,24 +43,27 @@ non-zero without printing the final result line):
    plain version in float32 and bfloat16 at ``tests/test_kernels.py``'s
    shapes, 64^3, the demo's 256^3, Fig.5's 768^3, 4096^3, yi-6b's MLP
    product (1024 x 4096 @ 4096 x 11008), 100 x 36 x 20 (which breaks
-   TMA's 16-byte rule) and 1000 x 1032 x 776 (partial tiles in every
+   TMA's 16-byte rule), 1000 x 1032 x 776 (partial tiles in every
    dimension), 127^3 (rows of no whole 16-byte chunks), and 256^3,
-   768^3, 1000 x 1032 x 776, 4096^3 and yi-6b's product in float32 with
-   A 4 bytes past a 16-byte boundary, with the branch each took (wgmma
-   for bf16 with k, n multiples of 8 and 16-byte-aligned bases; general
-   otherwise and for every float32 product, in float32 with the tile and
-   K splits its plan picks: the counts must agree) and times beside
-   ``torch.matmul``'s and the roofline bound.
+   768^3, 1000 x 1032 x 776, 4096^3 and yi-6b's product with A one
+   element past a 16-byte boundary (4 bytes in float32, 2 in bfloat16;
+   in bfloat16 also 128 x 8192 x 128, K split), and 1024 x 4095 x 11007
+   in bfloat16 (k and n odd), with the branch each took (wgmma for bf16
+   with k, n multiples of 8 and 16-byte-aligned bases; general otherwise
+   and for every float32 product, with the tile and K splits its plan
+   picks and, in bf16, A's access width and K shift and B's access
+   width: the counts must agree) and times beside ``torch.matmul``'s and
+   the roofline bound.
 8. offload path: the offload demo (copy-based vs zero-copy SVM through
    the cluster matmul, 256^2 float32), the same two modes at 4096^2 in
-   float32 and bfloat16 and at 127^2 in float32, Fig.5's four benchmarks
-   on the card and Fig.6's traced RAB programs (host only, its assertions
-   must hold); the kernel must carry every product (two launches per
-   run: the bf16 ones on its wgmma branch, the float32 ones on the
-   general one: 4096^2 on 128 x 128 tiles, the demo's 256^2 and 127^2
-   with K split over blocks) and the plain version must never run; each
-   of these
-   outputs is then held against the plain version.
+   float32 and bfloat16 and at 127^2 in float32 and bfloat16, Fig.5's
+   four benchmarks on the card and Fig.6's traced RAB programs (host
+   only, its assertions must hold); the kernel must carry every product
+   (two launches per run: 4096^2 bf16 on its wgmma branch, the rest on
+   the general one: 4096^2 float32 on 128 x 128 tiles, the demo's 256^2
+   and 127^2 float32 with K split over blocks) and the plain version must
+   never run; copy-mode and zero-copy outputs must be equal, and each is
+   then held against the plain version.
 9. flash kernels vs plain: the flash-attention CUDA kernels against
    their plain version at ``tests/test_kernels.py``'s three shapes x five
    (causal, window, cap) masks x {float32, bfloat16}, at gemma2-2b's
@@ -90,8 +93,8 @@ non-zero without printing the final result line):
 
 Then one JSON line ``{"kernels": [...]}`` (the paged-attention split-KV
 decode kernel, FP32-core kernel and tensor-core kernel, each on both pool
-types; the cluster matmul's general kernel (K split, and on 128 x 128
-tiles) and its wgmma branch; the
+types; the cluster matmul's general float32 kernel (K split, and on 128
+x 128 tiles), its wgmma branch and its general bfloat16 kernel; the
 flash kernel
 on the tensor cores and on the FP32 cores) and, last, the result line
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the
@@ -152,6 +155,15 @@ MATMUL_GENERAL_BF16 = {(100, 36, 20)} | MATMUL_ODD
 #: 128 tiles)
 MATMUL_OFFSET_F32 = [(256, 256, 256), (768, 768, 768), (1000, 1032, 776),
                      (4096, 4096, 4096), (1024, 4096, 11008)]
+#: the same five in bfloat16 with A 2 bytes past a 16-byte boundary (the
+#: general kernel's A by 16-byte copies, its K tiles one element early),
+#: and one all-odd large product (k and n odd: both operands through
+#: registers)
+MATMUL_OFFSET_BF16 = MATMUL_OFFSET_F32
+MATMUL_ODD_BF16 = [(1024, 4095, 11007)]
+#: a deep product on a small grid in bfloat16 with A 2 bytes off: 4 tiles
+#: of 64 x 64, K split over blocks
+MATMUL_DEEP_BF16 = [(128, 8192, 128)]
 #: score std of phase 3's "sharp" cases (q scaled by PAGED_SHARP / rms of
 #: the pool's K): a dropped or misplaced K tile then moves an output by
 #: O(|v|); at q*0.3 the scores have std 0.15, nearly flat, and a
@@ -721,10 +733,12 @@ def matmul_case(timer: Timer, m: int, k: int, n: int, dtype: torch.dtype,
     N(0, 1), B ~ N(0, 1/k) (an initialised weight's scale, so C is of unit
     scale and two valid float32 summation orders differ far below the
     bar), then timed beside the plain version and ``torch.matmul``, with
-    its bytes, operations and roofline bound.  With ``offset`` A lies 4
-    bytes past a 16-byte boundary (same values), which routes it to the
-    general branch.  A float32 product on the general branch prints its
-    tile and K splits (``general_plan``), and the counts show whether it
+    its bytes, operations and roofline bound.  With ``offset`` A lies one
+    element (4 bytes in float32, 2 in bfloat16) past a 16-byte boundary
+    (same values), which routes it to the general branch.  A product on
+    the general branch prints its tile and K splits (``general_plan``)
+    and, in bfloat16, A's access width and K shift (``a_access``) and
+    B's access width (``access_width``); the counts show whether it
     split."""
     from repro_torch.kernels.cluster_matmul import kernel as CK
     from repro_torch.kernels.cluster_matmul import ref as CR
@@ -738,13 +752,19 @@ def matmul_case(timer: Timer, m: int, k: int, n: int, dtype: torch.dtype,
     dt = str(dtype).replace("torch.", "")
     name = f"cluster_matmul {m}x{k}x{n} {dt}{' offset' if offset else ''}"
     branch = CK.route(dtype, m, k, n, aligned=not offset)
-    if offset or dtype == torch.float32 or (m, k, n) in MATMUL_GENERAL_BF16:
+    if offset or dtype == torch.float32 or (m, k, n) in MATMUL_GENERAL_BF16 \
+            or (m, k, n) in MATMUL_ODD_BF16:
         want = CK.GENERAL
     else:
         want = CK.WGMMA
     check(branch == want, f"{name}: routed to {branch}, want {want}")
-    tile, splits = CK.general_plan(m, k, n) \
-        if branch == CK.GENERAL and dtype == torch.float32 else (0, 1)
+    # bf16 on the general branch: A's (width, K shift), B's width
+    widths = (CK.a_access(a.data_ptr(), 2 * k),
+              CK.access_width(b.data_ptr(), 2 * n)) \
+        if branch == CK.GENERAL and dtype == torch.bfloat16 else None
+    tile, splits = CK.general_plan(m, k + (widths[0][1] if widths else 0),
+                                   n, dtype) \
+        if branch == CK.GENERAL else (0, 1)
     counters = (CK.launches, CK.wgmma_launches, CK.split_launches)
     before = [c.n for c in counters]
     out = CK.matmul(a, b)
@@ -771,14 +791,15 @@ def matmul_case(timer: Timer, m: int, k: int, n: int, dtype: torch.dtype,
     t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
     bound_ms = max(t_bytes, t_ops)
     row = dict(m=m, k=k, n=n, dtype=dt, offset=offset, branch=branch,
-               tile=tile, splits=splits, launches=got, max_abs_err=err,
-               tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               tile=tile, splits=splits, widths=widths, launches=got,
+               max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bytes=nbytes,
                flops=flops, bound_ms=bound_ms,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                share_of_bound=bound_ms / ms,
                tflops=flops / (ms * 1e-3) / 1e12)
     print(f"kernel {name}: branch={branch} tile={tile} splits={splits} "
+          f"widths((a, shift), b)={widths} "
           f"launches(all, wgmma, split)={got} ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
           f"bytes={nbytes} flops={flops} "
@@ -794,7 +815,11 @@ def phase_matmul(timer: Timer) -> list:
             for (m, k, n) in MATMUL_SHAPES
             for dtype in (torch.float32, torch.bfloat16)] + [
         matmul_case(timer, m, k, n, torch.float32, offset=True)
-        for (m, k, n) in MATMUL_OFFSET_F32]
+        for (m, k, n) in MATMUL_OFFSET_F32] + [
+        matmul_case(timer, m, k, n, torch.bfloat16, offset=True)
+        for (m, k, n) in MATMUL_OFFSET_BF16 + MATMUL_DEEP_BF16] + [
+        matmul_case(timer, m, k, n, torch.bfloat16)
+        for (m, k, n) in MATMUL_ODD_BF16]
 
 
 # --------------------------------------------------------------- phase 8 --
@@ -848,24 +873,26 @@ def offload_counts(dtype: torch.dtype, size: int) -> tuple:
     """The (launches, wgmma, split) counts one offload run of a
     ``size``^2 product must add: two launches (copy mode, zero-copy), on
     the branch the route picks for aligned bases (tensors fresh from the
-    allocator) and, on the general branch in float32, split as its plan
-    says."""
+    allocator) and, on the general branch, split as its plan says."""
     from repro_torch.kernels.cluster_matmul import kernel as CK
     branch = CK.route(dtype, size, size, size)
-    split = branch == CK.GENERAL and dtype == torch.float32 \
-        and CK.general_plan(size, size, size)[1] > 1
+    split = branch == CK.GENERAL \
+        and CK.general_plan(size, size, size, dtype)[1] > 1
     return (2, 2 * (branch == CK.WGMMA), 2 * split)
 
 
 def phase_offload(smi: str) -> dict:
     """The offload path on the card: the demo, then 4096^2 in float32 and
-    bfloat16, then 127^2 in float32; the kernel's counts are read from 0
-    just before and just after, and must be two per run (on the wgmma
-    branch for bfloat16, the general one for float32: unsplit on 128 x
-    128 tiles for 4096^2, with K split over blocks for the demo's 256^2
-    and 127^2, whose grids are under a wave) with the
-    plain version never called; then each run's output is held against
-    the plain version.  Then Fig.5 on the card and Fig.6 on the host."""
+    bfloat16, then 127^2 in float32 and bfloat16; the kernel's counts are
+    read from 0 just before and just after, and must be two per run (on
+    the wgmma branch for 4096^2 bfloat16, the general one for the rest:
+    unsplit on 128 x 128 tiles for 4096^2 float32, with K split over
+    blocks for the demo's 256^2 and 127^2 float32, whose grids are under
+    a wave; 127^2 bfloat16 on the tensor cores, unsplit (4 K tiles of
+    32), both operands through registers, their rows no whole 4-byte
+    words) with the plain version never called; then
+    each run's output is held against the plain version.  Then Fig.5 on
+    the card and Fig.6 on the host."""
     from repro_torch.hero import (fig5_svm_offload, fig6_event_tracing,
                                   svm_offload_demo)
     from repro_torch.kernels.cluster_matmul import kernel as CK
@@ -881,19 +908,24 @@ def phase_offload(smi: str) -> dict:
     demo = dict(size=256, dtype="float32", zero=demo_out,
                 inputs=[torch.from_numpy(x).cuda() for x in (a, b)],
                 copy_total_ms=rep_c.total_s * 1e3,
-                zero_copy_total_ms=rep_z.total_s * 1e3)
+                zero_copy_total_ms=rep_z.total_s * 1e3, launches=got)
     pairs = []
     for dtype, size in ((torch.float32, 4096), (torch.bfloat16, 4096),
-                        (torch.float32, 127)):
+                        (torch.float32, 127), (torch.bfloat16, 127)):
         before = [c.n for c in counters]
         pairs.append(offload_pair(dtype, size))
         got = tuple(c.n - n0 for c, n0 in zip(counters, before))
         want = offload_counts(dtype, size)
         check(got == want, f"offload {size}^2 {dtype}: (launches, wgmma, "
                            f"split) {got}, want {want}")
+        pairs[-1]["launches"] = got
     for size in (127, 256):
         check(offload_counts(torch.float32, size) == (2, 0, 2),
               f"{size}^2 float32 must take the general branch, K split")
+    check(offload_counts(torch.bfloat16, 127) == (2, 0, 0),
+          "127^2 bfloat16 must take the general branch, K unsplit")
+    check(offload_counts(torch.bfloat16, 4096) == (2, 2, 0),
+          "4096^2 bfloat16 must take the wgmma branch")
     check(CK.general_plan(4096, 4096, 4096) == (128, 1),
           "4096^2 float32 must take the general branch's 128 x 128 tiles")
     launches, plain_calls = CK.launches.n, CR.calls.n
@@ -1497,25 +1529,28 @@ def main() -> int:
         entry("paged_attention_prefill_tc_int8", TENSOR_CORES, "int8", 128,
               "bfloat16", serve8["tc_launches"], quant),
     ]
-    # the cluster matmul: the general kernel split (64 x 64 tiles; its
-    # main-path case phase 8's 127^2 float32 offload) and on 128 x 128
-    # tiles (phase 8's 4096^2 float32 offload: the general launches
-    # without a split, which phase 8's counts tie to it), and the wgmma
-    # branch; each with its main-path case and the largest error of its
-    # cases
-    general = offload["launches"] - offload["wgmma_launches"]
+    # the cluster matmul: the general float32 kernel split (64 x 64 tiles;
+    # its main-path cases phase 8's demo and 127^2 float32 offload) and on
+    # 128 x 128 tiles (phase 8's 4096^2 float32 offload), the wgmma branch
+    # (4096^2 bfloat16) and the general bfloat16 kernel (127^2 bfloat16);
+    # each with the launches of its phase-8 runs, its main-path
+    # case and the largest error of its cases
+    f32_big, bf16_big, f32_odd, bf16_odd = (
+        p["launches"] for p in offload["pairs"])
+    demo = offload["demo"]["launches"]
     for name, branch, tiles, dtype, shape, launches, split in (
-            ("cluster_matmul", CK.GENERAL, (0, 64), "float32",
-             (127, 127, 127), offload["split_launches"],
-             offload["split_launches"]),
+            ("cluster_matmul", CK.GENERAL, (64,), "float32",
+             (127, 127, 127), demo[0] + f32_odd[0], demo[2] + f32_odd[2]),
             ("cluster_matmul_f32_tile128", CK.GENERAL, (128,), "float32",
-             (4096, 4096, 4096), general - offload["split_launches"], 0),
+             (4096, 4096, 4096), f32_big[0], f32_big[2]),
             ("cluster_matmul_wgmma", CK.WGMMA, (0,), "bfloat16",
-             (4096, 4096, 4096), offload["wgmma_launches"], 0)):
-        own = [c for c in mm_cases
-               if c["branch"] == branch and c["tile"] in tiles]
+             (4096, 4096, 4096), bf16_big[1], 0),
+            ("cluster_matmul_bf16", CK.GENERAL, (64, 128), "bfloat16",
+             (127, 127, 127), bf16_odd[0], bf16_odd[2])):
+        own = [c for c in mm_cases if c["branch"] == branch
+               and c["tile"] in tiles and c["dtype"] == dtype]
         head = next(c for c in own if (c["m"], c["k"], c["n"]) == shape
-                    and c["dtype"] == dtype)
+                    and not c["offset"])
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/cluster_matmul/csrc/"

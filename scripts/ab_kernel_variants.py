@@ -3,9 +3,10 @@
 against an earlier commit's kernels.
 
     python3 scripts/ab_kernel_variants.py \
-        [--parts flash,split,prefill_f32_variants]
+        [--parts flash,split,prefill_f32_variants,matmul_bf16_general]
     python3 scripts/ab_kernel_variants.py --parent DIR \
-        [--parts prefill_f32,decode,serve,matmul_f32_general,flash_f32]
+        [--parts prefill_f32,decode,serve,matmul_f32_general,flash_f32,
+                 matmul_bf16_general]
 
 Each variant is a kernel source of the checkout with one text edit, built
 with ``nvcc`` like the kernel itself (``kernels.launch``) under a name of
@@ -52,6 +53,31 @@ process, in turns (A, B, ..., B, A), so all numbers come from one card.
   ``parent_aligned`` (the parent's route and kernel: in a checkout that
   still has the float32 ring branch, the ring) in turns, and
   ``torch.matmul`` at every shape.
+* The general bfloat16 cluster matmul (``matmul_bf16_general``): phase
+  7's bf16 general shapes (100 x 36 x 20, 127^3, 1024 x 4095 x 11007)
+  and 256^3, 768^3, 1000 x 1032 x 776, 4096^3, yi-6b's MLP product and
+  128 x 8192 x 128 with A 2 bytes past a 16-byte boundary, ms by
+  ``chip_smoke.Timer`` and max |err| against the plain version, in
+  turns: the parent's kernel
+  (with ``--parent``), then ``as_is``, ``u16_loads`` (an operand whose
+  rows allow no 4-byte access loaded by 2-byte loads instead of aligned
+  4-byte words realigned with ``__byte_perm``; only where one does),
+  ``a_regs`` (A's width from its base and row pitch, K not shifted: a
+  base 2 bytes off takes A through registers; only where that changes
+  A's access),
+  the plan variants ``split_2`` (splits of at least 2 K tiles of 32
+  aiming at four blocks an SM, not 8 tiles and one block), ``no_split``
+  and ``tile_128`` (only where their plan differs) and, timing only at
+  shapes of 768^3 or more, ``no_mma`` and ``no_regs``, then the
+  same reversed (a variant whose launch fails is recorded as such); then
+  the route's A/B at phase 7's aligned bf16 shapes whose grids are under
+  a wave (128^3 to 1000 x 1032 x 776), and at 4096^3 and the MLP
+  product: the general kernel as planned and the wgmma kernel, each
+  forced, in turns (G, W, W, G); and ``torch.matmul`` at every shape.
+  With ``--parent`` it then times every case phase 7 had before this
+  part existed (``MATMUL_SHAPES`` in both types, ``MATMUL_OFFSET_F32``
+  with A 4 bytes off) through the parent's wrapper and this one's, each
+  on its own route, in turns (P, N, N, P).
 * The FP32-core flash forward (``flash_f32``): phase 10's two float32
   calls (BH=16, S=T=512, hd 256, G=2, cap 50, window 0 / 128),
   ``tests/test_kernels.py``'s three shapes x five masks in float32 and at
@@ -145,6 +171,37 @@ MATMUL_GENERAL_VARIANTS = {
     "no_copies": [("    if (nt < n_kt) load_tile(kt0 + nt, nt % kStages);\n",
                    "", 1)],
 }
+#: source variants of the general bfloat16 cluster matmul: ``u16_loads``
+#: fills a register chunk by eight 2-byte loads, not four or five aligned
+#: 4-byte words (it computes the function); timing only: ``no_mma`` (no
+#: products) and ``no_regs`` (no register-path loads or stores past the
+#: first tile)
+MATMUL_BF16_VARIANTS = {
+    "as_is": [],
+    "no_mma": [("          mma_16816(acc[mi][ni], af[mi], bfr[ni][0], "
+                "bfr[ni][1]);\n", "          ;\n", 1)],
+    "no_regs": [("    if (next) load_regs(kt0 + it + 1);\n", "", 1),
+                ("    if (next) store_regs((it + 1) % kStages);\n", "", 1)],
+    "u16_loads": [
+        ("  static constexpr int kWords = 5;",
+         "  static constexpr int kWords = 8;", 1),
+        ("      const unsigned int* q = reinterpret_cast<const unsigned int*>"
+         "(g - mis);\n#pragma unroll\n      for (int i = 0; i < 5; ++i)\n"
+         "        w[j][i] = v > 0 && 2 * i - mis < v ? __ldg(q + i) : 0u;\n",
+         "      const unsigned short* q = reinterpret_cast<const unsigned "
+         "short*>(g);\n#pragma unroll\n      for (int i = 0; i < 8; ++i)\n"
+         "        w[j][i] = i < v ? __ldg(q + i) : 0u;\n", 1),
+        ("      info |= uint32_t(v | mis << 4) << (5 * j);",
+         "      info |= uint32_t(v) << (5 * j);", 1),
+        ("        o[i] = mis ? __byte_perm(w[j][i], w[j][i + 1], 0x5432) : "
+         "w[j][i];",
+         "        o[i] = w[j][2 * i] | w[j][2 * i + 1] << 16;", 1)],
+}
+#: aligned bf16 products the route A/B runs on both branches: phase 7's
+#: whose 128 x 128 grids are under a wave, then two that fill waves
+ROUTE_SHAPES = [(64, 64, 64), (128, 128, 128), (256, 256, 256),
+                (256, 384, 512), (384, 256, 128), (768, 768, 768),
+                (1000, 1032, 776), (4096, 4096, 4096), (1024, 4096, 11008)]
 #: source variants of the FP32-core flash kernel
 FLASH_F32_VARIANTS = {
     "as_is": [],
@@ -167,7 +224,7 @@ FLASH_F32_VARIANTS = {
 #: variants whose values are wrong by design: they time what is left
 TIMING_ONLY = {"s_bcast", "no_s",
                "no_pv", "no_s_pv", "no_stage", "no_softmax", "exit_only",
-               "no_fma", "no_copies", "no_s", "no_pv"}
+               "no_fma", "no_copies", "no_s", "no_pv", "no_mma", "no_regs"}
 _NO_S = [("    for (int d = 0; d < HD; d += 4) {\n      float qv[kRT][4]",
           "    for (int d = 0; d < 0; d += 4) {\n      float qv[kRT][4]", 1)]
 _NO_PV = [("    for (int t4 = 0; t4 < kTok; t4 += 4) {\n      float pv[kRT]",
@@ -516,6 +573,160 @@ def matmul_f32_general_ab(card: str, parent) -> None:
         CK._library.cache_clear()
 
 
+def matmul_bf16_general_ab(card: str, parent) -> None:
+    """The general bfloat16 branch against the parent's, its variants and
+    the wgmma branch (see the module docstring)."""
+    import chip_smoke as CS
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.cluster_matmul import kernel as CK
+    from repro_torch.kernels.cluster_matmul import ref as CR
+    PK = _parent_module(parent, "cluster_matmul", "parent_matmul_bf16") \
+        if parent else None
+    src = CK.SOURCE
+    sources = {n: variant_source(src, e, "bf16_" + n)
+               for n, e in MATMUL_BF16_VARIANTS.items()}
+    launch.build(list(sources.values()) + ([PK.SOURCE] if PK else []))
+    timer = CS.Timer()
+    bf16 = torch.bfloat16
+    plan, route = CK.general_plan, CK.route
+    split_rule = (CK.MIN_SPLIT_TILES_BF16, CK.SPLIT_BLOCKS_PER_SM_BF16)
+    a_access = CK.a_access
+
+    def unshifted(address, row_bytes):
+        return CK.access_width(address, row_bytes), 0
+
+    # (source, plan, (fewest K tiles a split, blocks an SM), A's access)
+    variants = {
+        "as_is": ("as_is", plan, split_rule, a_access),
+        "u16_loads": ("u16_loads", plan, split_rule, a_access),
+        "a_regs": ("as_is", plan, split_rule, unshifted),
+        "split_2": ("as_is", plan, (2, 4), a_access),
+        "no_split": ("as_is", lambda m, k, n, dtype: (64, 1)
+                     if plan(m, k, n, dtype)[0] == 64 else (128, 1),
+                     split_rule, a_access),
+        "tile_128": ("as_is", lambda m, k, n, dtype: (128, 1), split_rule,
+                     a_access),
+        "no_mma": ("no_mma", plan, split_rule, a_access),
+        "no_regs": ("no_regs", plan, split_rule, a_access)}
+
+    def use(name):
+        source, CK.general_plan, (CK.MIN_SPLIT_TILES_BF16,
+                                  CK.SPLIT_BLOCKS_PER_SM_BF16), \
+            CK.a_access = variants[name]
+        CK.SOURCE = sources[source]
+        CK._library.cache_clear()
+
+    def planned(name, m, k, n, x):
+        use(name)
+        shift = CK.a_access(x.data_ptr(), 2 * k)[1]
+        return CK.general_plan(m, k + shift, n, bf16)
+
+    def inputs(m, k, n, a_off):
+        g = torch.Generator(device="cuda").manual_seed(0)
+        a = torch.randn(m, k, generator=g, device="cuda").to(bf16)
+        b = (torch.randn(k, n, generator=g, device="cuda")
+             / k ** 0.5).to(bf16)
+        x = a
+        if a_off:
+            x = torch.empty(m * k + a_off // 2, dtype=bf16,
+                            device="cuda")[a_off // 2:].view(m, k)
+            x.copy_(a)
+        return x, b, CR.cluster_matmul_ref(a, b).float()
+
+    def record(kernel, name, m, k, n, a_off, fn, ref, **extra):
+        row = {"card": card, "kernel": kernel, "variant": name, "m": m,
+               "k": k, "n": n, "a_offset_bytes": a_off,
+               "timing_only": name in TIMING_ONLY, **extra}
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        except RuntimeError as e:      # a variant's launch refused
+            print(json.dumps({**row, "error": str(e)}), flush=True)
+            return
+        print(json.dumps({
+            **row, "ms": timer.ms(fn),
+            "max_abs_err": (out.float() - ref).abs().max().item()}),
+            flush=True)
+
+    shapes = [(100, 36, 20, 0), (127, 127, 127, 0), (256, 256, 256, 2),
+              (768, 768, 768, 2), (1000, 1032, 776, 2),
+              (4096, 4096, 4096, 2), (1024, 4096, 11008, 2),
+              (1024, 4095, 11007, 0), (128, 8192, 128, 2)]
+    try:
+        for m, k, n, a_off in shapes:
+            x, b, ref = inputs(m, k, n, a_off)
+            access = {v: (variants[v][3](x.data_ptr(), 2 * k),
+                          CK.access_width(b.data_ptr(), 2 * n))
+                      for v in variants}
+            # variants that change nothing at this shape are not run
+            base = planned("as_is", m, k, n, x)
+            names = [v for v in variants if v == "as_is"
+                     or (v == "u16_loads" and 2 in (access[v][0][0],
+                                                    access[v][1]))
+                     or (v == "a_regs" and access[v] != access["as_is"])
+                     or (variants[v][0] == "as_is" and v != "a_regs"
+                         and planned(v, m, k, n, x) != base)
+                     or (v in TIMING_ONLY and m * k * n >= 768 ** 3)]
+            order = (["parent"] if PK else []) + names + names[::-1] \
+                + (["parent"] if PK else [])
+            for name in order:
+                mod = PK if name == "parent" else CK
+                if name != "parent":
+                    use(name)
+                assert mod.route(bf16, m, k, n, aligned=not a_off) \
+                    == "general"
+                record("cluster_matmul_bf16_general", name, m, k, n, a_off,
+                       lambda: mod.matmul(x, b), ref,
+                       access=None if name == "parent" else access[name],
+                       plan=None if name == "parent"
+                       else planned(name, m, k, n, x))
+            use("as_is")
+            record("torch.matmul", None, m, k, n, a_off,
+                   lambda: torch.matmul(x, b), ref)
+        # the route: aligned products under a wave, and two that fill
+        # waves, on either branch
+        for m, k, n in ROUTE_SHAPES:
+            x, b, ref = inputs(m, k, n, 0)
+            for branch in (CK.GENERAL, CK.WGMMA, CK.WGMMA, CK.GENERAL):
+                CK.route = lambda *_, branch=branch, **__: branch
+                record("cluster_matmul_bf16_route", branch, m, k, n, 0,
+                       lambda: CK.matmul(x, b), ref,
+                       plan=planned("as_is", m, k, n, x)
+                       if branch == CK.GENERAL else None)
+            CK.route = route
+            record("torch.matmul", None, m, k, n, 0,
+                   lambda: torch.matmul(x, b), ref)
+        if not PK:
+            return
+        # every earlier phase-7 case: the parent's route and kernel
+        # against this checkout's, in turns
+        cases = [(m, k, n, dt, 0) for (m, k, n) in CS.MATMUL_SHAPES
+                 for dt in (torch.float32, bf16)]
+        cases += [(m, k, n, torch.float32, 4)
+                  for (m, k, n) in CS.MATMUL_OFFSET_F32]
+        for m, k, n, dt, a_off in cases:
+            g = torch.Generator(device="cuda").manual_seed(0)
+            a = torch.randn(m, k, generator=g, device="cuda").to(dt)
+            b = (torch.randn(k, n, generator=g, device="cuda")
+                 / k ** 0.5).to(dt)
+            x = a
+            if a_off:
+                x = torch.empty(m * k + 1, dtype=dt, device="cuda")[1:] \
+                    .view(m, k).copy_(a)
+            ref = CR.cluster_matmul_ref(a, b).float()
+            for name in ("parent", "new", "new", "parent"):
+                mod = PK if name == "parent" else CK
+                record("cluster_matmul_phase7", name, m, k, n, a_off,
+                       lambda: mod.matmul(x, b), ref,
+                       dtype=str(dt).replace("torch.", ""),
+                       branch=mod.route(dt, m, k, n, aligned=not a_off))
+    finally:
+        CK.general_plan, CK.route, CK.a_access = plan, route, a_access
+        CK.MIN_SPLIT_TILES_BF16, CK.SPLIT_BLOCKS_PER_SM_BF16 = split_rule
+        CK.SOURCE = src
+        CK._library.cache_clear()
+
+
 def flash_f32_ab(card: str, parent) -> None:
     """The FP32-core flash forward against the parent's and its variants
     (see the module docstring)."""
@@ -610,13 +821,16 @@ def main() -> int:
                     help="comma-separated parts to run (default: all of "
                     "the mode's: flash, split, "
                     "prefill_f32_variants, matmul_f32_general, "
-                    "flash_f32; with --parent prefill_f32, decode, serve, "
-                    "matmul_f32_general, flash_f32)")
+                    "flash_f32, matmul_bf16_general; with --parent "
+                    "prefill_f32, decode, serve, matmul_f32_general, "
+                    "flash_f32, matmul_bf16_general)")
     args = ap.parse_args()
     modes = {False: ("flash", "split", "prefill_f32_variants",
-                     "matmul_f32_general", "flash_f32"),
+                     "matmul_f32_general", "flash_f32",
+                     "matmul_bf16_general"),
              True: ("prefill_f32", "decode", "serve", "matmul_f32_general",
-                    "flash_f32")}[args.parent is not None]
+                    "flash_f32", "matmul_bf16_general")}[
+        args.parent is not None]
     parts = modes if args.parts is None else tuple(args.parts.split(","))
     if not set(parts) <= set(modes):
         ap.error(f"--parts {args.parts}: this mode runs {modes}")
@@ -634,6 +848,8 @@ def main() -> int:
         matmul_f32_general_ab(card, args.parent)
     if "flash_f32" in parts:
         flash_f32_ab(card, args.parent)
+    if "matmul_bf16_general" in parts:
+        matmul_bf16_general_ab(card, args.parent)
     if args.parent is not None:
         if set(parts) & {"prefill_f32", "decode", "serve"}:
             parent_ab(args.parent, card, parts)

@@ -107,13 +107,46 @@
 // FMA (a larger tile a thread) without losing the warps that hide their
 // latency.  The small products sit at 1.24-1.41x cuBLAS: what is left
 // there is the launch and the split's partials, a few microseconds each.
-//   bfloat16 shapes the wgmma branch cannot take run a separate kernel:
-//   32 K per step on the tensor cores through WMMA (mma.sync, 16 x 16 x
-//   16 bf16 fragments, float32 accumulators in registers), 8 warps as 2 x
-//   4, each owning 64 x 32 of C of a 128 x 128 tile, operands staged
-//   synchronously in shared memory and zero-filled past the edges; the
-//   epilogue stages each 16 x 16 fragment through shared memory to round
-//   and bounds-check it.
+//
+// The bfloat16 half (namespace bf) takes every bf16 product the wgmma
+// branch does not: any m, k, n (k = 0 too) and bases aligned only to 2
+// bytes.  What bounds it: 2mnk operations on the tensor cores, which
+// mma.sync reaches at about half of wgmma's 989 TFLOP/s, and below a wave
+// of the card the depth of K one block walks.  The design, mirroring the
+// float32 half:
+//   * mma.sync.m16n8k16 (bf16 in, float32 accumulators in registers), fed
+//     by ldmatrix.x4 for A (As[m][k]) and ldmatrix.x4.trans for the
+//     row-major B (Bs[k][n]); rows padded by 16 bytes so ldmatrix's 8 rows
+//     hit distinct banks.  4 warps as 2 x 2: 64 x 64 of C a warp in 128 x
+//     128 tiles (8 ldmatrix.x4 per 32 MMAs), 32 x 32 in 64 x 64 tiles;
+//   * loads in flight at any alignment: the wrapper passes each
+//     operand's access width w in {16, 8, 4, 2} bytes and the kernel is
+//     templated on the pair.  B's w divides its base and row pitch; A's
+//     divides its row pitch, and A's K tiles start (base mod w) / 2
+//     elements early, so a base 2 bytes off 16 with rows of whole
+//     16-byte chunks still copies 16 bytes at a time (A's neighbours
+//     outside [0, K) are zeroed, never multiplied: a NaN there would
+//     survive B's zero rows).  w >= 4 goes through a 4-stage cp.async
+//     ring (3 tiles of 32 k in flight) of w-byte copies, zero-filled past
+//     the edges, so the MMAs are unmasked.  w = 2 (rows of an odd number
+//     of elements, or B's base 2 bytes off 4) cannot use cp.async: the
+//     operand's next tile is loaded into registers before this tile's
+//     MMAs as aligned 4-byte words and stored after them, realigned with
+//     __byte_perm, 16 bytes a store (2-byte loads instead were slower at
+//     every shape timed);
+//   * tiles and split-K from the grid (general_plan with the dtype:
+//     32-deep K tiles, splits of at least 4 of them, up to one block an
+//     SM, since a split's partial costs more than a 64 x 64 tile's walk
+//     on the tensor cores saves), and the float32 half's one-launch
+//     deterministic combine of float32 partials, then one rounding to
+//     bf16;
+//   * C straight from registers: each accumulator pair rounded to a
+//     __nv_bfloat162 and stored as 4 bytes where C's rows start 4-byte
+//     aligned (n even), else 2 bytes, masked per element.
+// What still holds it back (PERF.md §6, row 3e): mma.sync itself, which
+// cannot pass half of wgmma's rate; and for rows of an odd number of
+// elements the register path, whose loads for a tile have only the
+// previous tile's MMAs to hide under.
 //
 // Plain C interface (loaded with ctypes): cluster_matmul_launch (general,
 // both types) and cluster_matmul_wgmma_launch return cudaGetLastError()
@@ -122,99 +155,9 @@
 #include <cuda.h>   // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <stddef.h>
 #include <stdint.h>
-
-namespace {
-
-constexpr int kThreads = 256;
-constexpr int kBM = 128;             // rows of C per block
-constexpr int kBN = 128;             // columns of C per block
-
-// --------------------------------------------------------------- bf16 --
-constexpr int kBK16 = 32;            // K per step
-constexpr int kLdA = kBK16 + 8;      // As row stride (elements): a multiple
-constexpr int kLdB = kBN + 8;        // of 8, and 16-row fragment offsets
-                                     // stay 32-byte aligned
-
-__global__ void __launch_bounds__(kThreads)
-matmul_bf16_kernel(const __nv_bfloat16* __restrict__ A,
-                   const __nv_bfloat16* __restrict__ B,
-                   __nv_bfloat16* __restrict__ C, int M, int N, int K) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 As[kBM * kLdA];
-  __shared__ __align__(32) __nv_bfloat16 Bs[kBK16 * kLdB];
-  __shared__ __align__(32) float Cs[kThreads / 32][16 * 16];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;   // warp's C: rows wm*64, cols wn*32
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += kBK16) {
-#pragma unroll
-    for (int i = 0; i < kBM * kBK16 / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int r = e / kBK16, c = e % kBK16;
-      const int gm = m0 + r, gk = k0 + c;
-      As[r * kLdA + c] = (gm < M && gk < K) ? A[(size_t)gm * K + gk] : zero;
-    }
-#pragma unroll
-    for (int i = 0; i < kBK16 * kBN / kThreads; ++i) {
-      const int e = tid + i * kThreads;
-      const int r = e / kBN, c = e % kBN;
-      const int gk = k0 + r, gn = n0 + c;
-      Bs[r * kLdB + c] = (gk < K && gn < N) ? B[(size_t)gk * N + gn] : zero;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK16; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], As + (wm * 64 + i * 16) * kLdA + kk,
-                               kLdA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], Bs + kk * kLdB + wn * 32 + j * 16,
-                               kLdB);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(Cs[warp], acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 16 * 16; e += 32) {
-        const int gm = m0 + wm * 64 + i * 16 + e / 16;
-        const int gn = n0 + wn * 32 + j * 16 + e % 16;
-        if (gm < M && gn < N)
-          C[(size_t)gm * N + gn] = __float2bfloat16_rn(Cs[warp][e]);
-      }
-      __syncwarp();
-    }
-  }
-}
-
-}  // namespace
 
 // --------------------------------------------- f32, general (any shape) --
 namespace gen {
@@ -279,8 +222,8 @@ __device__ __forceinline__ void fma_outer(float (&acc)[8][8],
 // The next of a thread's copies: p + step, opaque to the compiler, so it
 // keeps one running address and does not hoist one per copy (which cost
 // the registers the accumulators need)
-__device__ __forceinline__ const float* step_ptr(const float* p,
-                                                 size_t step) {
+template <typename T>
+__device__ __forceinline__ const T* step_ptr(const T* p, size_t step) {
   p += step;
   asm volatile("" : "+l"(p));
   return p;
@@ -503,6 +446,455 @@ cudaError_t launch(const float* a, const float* b, float* c, float* part,
 }
 
 }  // namespace gen
+
+// ------------------------------------------- bf16, general (any shape) --
+namespace bf {
+
+using bf16 = __nv_bfloat16;
+using gen::smem_u32;
+
+constexpr int kBK = 32;              // K per stage: two m16n8k16 steps
+constexpr int kStages = 4;           // ring depth: 3 tiles in flight
+constexpr int kThreads = 128;        // 4 warps as 2 x 2
+constexpr int kPad = 8;              // row padding (elements): 16 bytes, so
+                                     // ldmatrix's 8 rows hit distinct banks
+constexpr int kGroupM = 8;           // tile rows per L2 group
+
+// A block owns a BM x BN tile of C, its 4 warps BM/2 x BN/2 each (kMI x
+// kNI mma tiles of 16 x 8).  A stage holds A as in memory, As[m][k] in
+// rows of kBK + 8 elements, then B as in memory, Bs[k][n] in rows of BN +
+// 8: both row pitches are 16 bytes past a multiple of 128, so the 8 rows
+// an ldmatrix reads lie in distinct banks.
+template <int BM, int BN>
+struct Cfg {
+  static constexpr int kWM = BM / 2, kWN = BN / 2;
+  static constexpr int kMI = kWM / 16, kNI = kWN / 8;
+  static constexpr int kALd = kBK + kPad, kBLd = BN + kPad;
+  static constexpr int kA = BM * kALd;                  // elements
+  static constexpr int kStage = kA + kBK * kBLd;        // elements
+  static constexpr size_t kSmem = size_t(kStages) * kStage * 2;
+  static_assert(kNI % 2 == 0 && (kA * 2) % 16 == 0 &&
+                (kStage * 2) % 16 == 0, "16-byte rows and stages");
+};
+
+// W-byte copy global -> shared (a shared-space address), asynchronously;
+// bytes = 0 writes zeros (the zero-fill form).  16 bytes bypass L1 (.cg),
+// 8 and 4 go through it (.ca: .cg takes 16 only).
+template <int W>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         int bytes) {
+  if constexpr (W == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+                 "l"(src), "r"(bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(dst),
+                 "l"(src), "n"(W), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
+                                            const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row) . b (16 x 8, bf16, col)
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One operand's ROWS x COLS tile of a row-major matrix (COLS along its
+// rows) into a stage with rows of LD elements, by accesses of W bytes.  W
+// = 16, 8 or 4: cp.async copies of kE = W / 2 elements, the columns from
+// `cols` on zero-filled (the src-size form); a copy that starts before
+// column 0 (a shifted A) is made whole: an aligned access never leaves
+// the page of an element it holds.  W = 2 (rows of an odd number of elements):
+// cp.async cannot copy, so a thread loads chunks of 8 elements into
+// registers as the aligned 4-byte words that hold them (five when the
+// chunk starts 2 bytes past a word, four otherwise; a word that holds no
+// element of the matrix is not read), and later realigns them with
+// __byte_perm, zeroes the elements outside the matrix and stores each
+// chunk with one 16-byte shared store.  A thread's column is fixed; its
+// rows step by kRowStep.  `g` is its first element's address, `row0`
+// that element's row in the matrix (negative above it), `n_rows` the
+// matrix's rows, `cols` the columns left from the thread's column;
+// `pitch` the matrix's row length.
+template <int ROWS, int COLS, int LD, int W>
+struct Operand {
+  static constexpr bool kRegs = W == 2;
+  static constexpr int kE = kRegs ? 8 : W / 2;
+  static constexpr int kPerRow = COLS / kE;
+  static constexpr int kRowStep = kThreads / kPerRow;
+  static constexpr int kCopies = ROWS / kRowStep;
+  static constexpr int kWords = 5;     // registers a chunk's loads fill
+  static_assert(kPerRow * kE == COLS && kRowStep * kPerRow == kThreads &&
+                kCopies * kRowStep == ROWS, "whole copies");
+  static_assert(!kRegs || kCopies * 5 <= 32, "info: 5 bits a chunk");
+
+  static __device__ __forceinline__ void copy(uint32_t dst, const bf16* g,
+                                              const bf16* base, size_t pitch,
+                                              int row0, int n_rows,
+                                              int cols) {
+#pragma unroll
+    for (int j = 0; j < kCopies; ++j) {
+      const int r = row0 + j * kRowStep;
+      const bool in = cols > 0 && r >= 0 && r < n_rows;
+      cp_async<W>(dst + 2 * j * kRowStep * LD, in ? g : base,
+                  in ? 2 * min(cols, kE) : 0);
+      g = gen::step_ptr(g, kRowStep * pitch);
+    }
+  }
+
+  // info: per chunk j, bits 5j.. hold its elements inside the matrix (0-8)
+  // and bit 5j + 4 whether it starts 2 bytes past a word
+  static __device__ __forceinline__ void load(
+      uint32_t (&w)[kCopies][kWords], uint32_t& info, const bf16* g,
+      size_t pitch, int row0, int n_rows, int cols) {
+    info = 0;
+#pragma unroll
+    for (int j = 0; j < kCopies; ++j) {
+      const int r = row0 + j * kRowStep;
+      const int v = r >= 0 && r < n_rows ? min(max(cols, 0), 8) : 0;
+      const int mis = int(reinterpret_cast<uintptr_t>(g) >> 1) & 1;
+      const unsigned int* q = reinterpret_cast<const unsigned int*>(g - mis);
+#pragma unroll
+      for (int i = 0; i < 5; ++i)
+        w[j][i] = v > 0 && 2 * i - mis < v ? __ldg(q + i) : 0u;
+      info |= uint32_t(v | mis << 4) << (5 * j);
+      g = gen::step_ptr(g, kRowStep * pitch);
+    }
+  }
+
+  static __device__ __forceinline__ void store(
+      uint32_t dst, const uint32_t (&w)[kCopies][kWords], uint32_t info) {
+#pragma unroll
+    for (int j = 0; j < kCopies; ++j) {
+      const int v = (info >> (5 * j)) & 15, mis = (info >> (5 * j + 4)) & 1;
+      uint32_t o[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        o[i] = mis ? __byte_perm(w[j][i], w[j][i + 1], 0x5432) : w[j][i];
+        if (v < 8)
+          o[i] &= (2 * i < v ? 0xFFFFu : 0u) |
+                  (2 * i + 1 < v ? 0xFFFF0000u : 0u);
+      }
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(
+                       dst + 2 * j * kRowStep * LD), "r"(o[0]), "r"(o[1]),
+                   "r"(o[2]), "r"(o[3]) : "memory");
+    }
+  }
+};
+
+// Block (tile, split) = (blockIdx.x / splits, blockIdx.x % splits), as in
+// gen: with splits == 1 the block writes its tile of C; otherwise (64 x 64
+// tiles only) it writes its float32 partial to part[blockIdx.x], and the
+// tile's last block to finish sums the partials in split order into C.
+// WA, WB: the access widths (bytes) of A and B.  WB divides B's base
+// address and row pitch; WA divides A's row pitch, and A's K tiles start
+// `sa` elements early (K tile kt covers k in [32kt - sa, 32kt - sa +
+// 32)), sa = (A's base mod WA) / 2, so that every copy of A is
+// WA-aligned: a base 2 bytes off 16 with rows of whole 16-byte chunks
+// still copies 16 bytes at a time.  B's rows follow the same k; A's
+// elements outside [0, K) are zeroed, not copied (B's rows there are
+// zero, but A's neighbours may hold any bits, a NaN among them): past K by
+// the copies' src-size, before 0 in shared memory by the thread that
+// copied them.
+template <int BM, int BN, int WA, int WB>
+__global__ void __launch_bounds__(kThreads, BM == 128 ? 2 : 4)
+matmul_bf16_general_kernel(const bf16* __restrict__ A,
+                           const bf16* __restrict__ B, bf16* __restrict__ C,
+                           float* __restrict__ part, int* __restrict__ tickets,
+                           int M, int N, int K, int sa, int splits) {
+  using G = Cfg<BM, BN>;
+  using OA = Operand<BM, kBK, G::kALd, WA>;
+  using OB = Operand<kBK, BN, G::kBLd, WB>;
+  extern __shared__ __align__(16) bf16 smem[];
+  __shared__ int last_flag;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int tile = int(blockIdx.x) / splits, split = int(blockIdx.x) % splits;
+
+  // grouped tile order: kGroupM tile rows walk the tile columns together
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+  const int per_group = kGroupM * tiles_n;
+  const int first_m = (tile / per_group) * kGroupM;
+  const int group_rows = min(tiles_m - first_m, kGroupM);
+  const int in_group = tile % per_group;
+  const int m0 = (first_m + in_group % group_rows) * BM;
+  const int n0 = (in_group / group_rows) * BN;
+  // this split's K tiles (the wrapper leaves no split empty)
+  const int k_tiles = (K + sa + kBK - 1) / kBK;
+  const int per = (k_tiles + splits - 1) / splits;
+  const int kt0 = split * per;
+  const int n_kt = max(0, min(k_tiles, kt0 + per) - kt0);
+
+  // this thread's row and column in each operand's tile, and where they
+  // land in a stage (a byte offset); K tile kt starts at k = 32kt - sa
+  const int a_r = tid / OA::kPerRow, a_c = (tid % OA::kPerRow) * OA::kE;
+  const int b_r = tid / OB::kPerRow, b_c = (tid % OB::kPerRow) * OB::kE;
+  const uint32_t smem0 = smem_u32(smem);
+  const uint32_t a_dst = 2 * (a_r * G::kALd + a_c);
+  const uint32_t b_dst = 2 * (G::kA + b_r * G::kBLd + b_c);
+  auto a_src = [&](int kt) {
+    return A + (ptrdiff_t(m0 + a_r) * K + ptrdiff_t(kt) * kBK + a_c - sa);
+  };
+  auto b_src = [&](int kt) {
+    return B + (ptrdiff_t(kt * kBK - sa + b_r) * N + n0 + b_c);
+  };
+  // the cp.async operands of K tile kt into stage `slot`
+  auto copy_tile = [&](int kt, int slot) {
+    const uint32_t st = smem0 + 2 * slot * G::kStage;
+    const int k0 = kt * kBK - sa;
+    if constexpr (!OA::kRegs)
+      OA::copy(st + a_dst, a_src(kt), A, K, m0 + a_r, M, K - k0 - a_c);
+    if constexpr (!OB::kRegs)
+      OB::copy(st + b_dst, b_src(kt), B, N, k0 + b_r, K, N - n0 - b_c);
+  };
+  // the register operands: loads of K tile kt, then their stores
+  uint32_t ra[OA::kCopies][OA::kWords], rb[OB::kCopies][OB::kWords];
+  uint32_t ia = 0, ib = 0;
+  auto load_regs = [&](int kt) {
+    const int k0 = kt * kBK - sa;
+    if constexpr (OA::kRegs)
+      OA::load(ra, ia, a_src(kt), K, m0 + a_r, M, K - k0 - a_c);
+    if constexpr (OB::kRegs)
+      OB::load(rb, ib, b_src(kt), N, k0 + b_r, K, N - n0 - b_c);
+  };
+  auto store_regs = [&](int slot) {
+    const uint32_t st = smem0 + 2 * slot * G::kStage;
+    if constexpr (OA::kRegs) OA::store(st + a_dst, ra, ia);
+    if constexpr (OB::kRegs) OB::store(st + b_dst, rb, ib);
+  };
+  constexpr bool kAnyRegs = OA::kRegs || OB::kRegs;
+
+  float acc[G::kMI][G::kNI][4];
+#pragma unroll
+  for (int mi = 0; mi < G::kMI; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < G::kNI; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+  // prologue: the cp.async operands of tiles 0 .. kStages-2 in flight (one
+  // commit group each, empty past the last tile, so the wait below counts
+  // groups uniformly); the register operands of tile 0 stored
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_kt) copy_tile(kt0 + s, s);
+    gen::cp_async_commit();
+  }
+  if (kAnyRegs && n_kt > 0) {
+    load_regs(kt0);
+    store_regs(0);
+  }
+  // a shifted A's first tile: a thread whose copies straddle k = 0 zeroes
+  // the sa elements before it once its own copies have landed (the loop's
+  // first barrier publishes them); copies that straddle k = K were cut at
+  // K by their src-size
+  if constexpr (!OA::kRegs) {
+    if (sa > 0 && kt0 == 0 && n_kt > 0 && a_c == 0) {
+      gen::cp_async_wait<kStages - 2>();
+#pragma unroll
+      for (int j = 0; j < OA::kCopies; ++j)
+        for (int c = 0; c < sa; ++c)
+          smem[(a_r + j * OA::kRowStep) * G::kALd + c] =
+              __float2bfloat16(0.f);
+    }
+  }
+
+  for (int it = 0; it < n_kt; ++it) {
+    const int slot = it % kStages;
+    gen::cp_async_wait<kStages - 2>();   // tile it's copies have landed
+    __syncthreads();                     // ... for every thread, with its
+                                         // register stores; and tile it-1,
+                                         // whose slot is refilled next, is
+                                         // read
+    const int nt = it + kStages - 1;
+    if (nt < n_kt) copy_tile(kt0 + nt, nt % kStages);
+    gen::cp_async_commit();
+    // the register operands of tile it+1 are loaded before this tile's
+    // MMAs and stored after them, so their loads are in flight under them
+    const bool next = kAnyRegs && it + 1 < n_kt;
+    if (next) load_regs(kt0 + it + 1);
+
+    const bf16* as = smem + slot * G::kStage;
+    const bf16* bs = as + G::kA;
+#pragma unroll
+    for (int ks = 0; ks < kBK / 16; ++ks) {
+      uint32_t af[G::kMI][4], bfr[G::kNI][2];
+#pragma unroll
+      for (int mi = 0; mi < G::kMI; ++mi)
+        ldmatrix_x4(af[mi], as + (wm * G::kWM + mi * 16 + lane % 8 +
+                                  ((lane / 8) % 2) * 8) * G::kALd +
+                                ks * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int nj = 0; nj < G::kNI / 2; ++nj) {
+        uint32_t r[4];   // k lo / hi of columns 16nj..+7, then +8..+15
+        ldmatrix_x4_trans(r, bs + (ks * 16 + lane % 8 +
+                                   ((lane / 8) % 2) * 8) * G::kBLd +
+                                 wn * G::kWN + nj * 16 + (lane / 16) * 8);
+        bfr[2 * nj][0] = r[0];
+        bfr[2 * nj][1] = r[1];
+        bfr[2 * nj + 1][0] = r[2];
+        bfr[2 * nj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < G::kMI; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < G::kNI; ++ni)
+          mma_16816(acc[mi][ni], af[mi], bfr[ni][0], bfr[ni][1]);
+    }
+    if (next) store_regs((it + 1) % kStages);
+  }
+  gen::cp_async_wait<0>();
+
+  // accumulator (mi, ni, 2h + e) holds row row_of(mi, h), column
+  // col_of(ni) + e of the block's tile
+  auto row_of = [&](int mi, int h) {
+    return wm * G::kWM + mi * 16 + lane / 4 + 8 * h;
+  };
+  auto col_of = [&](int ni) { return wn * G::kWN + ni * 8 + 2 * (lane % 4); };
+  // C straight from registers, rounded to bf16 (nearest even): a pair of
+  // columns as one 4-byte store where C's rows start 4-byte aligned (n
+  // even), else element by element; masked at the edges
+  auto store_c = [&]() {
+    const bool pairs =
+        N % 2 == 0 && reinterpret_cast<uintptr_t>(C) % 4 == 0;
+#pragma unroll
+    for (int mi = 0; mi < G::kMI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gm = m0 + row_of(mi, h);
+        if (gm >= M) continue;
+        bf16* crow = C + size_t(gm) * N;
+#pragma unroll
+        for (int ni = 0; ni < G::kNI; ++ni) {
+          const int gn = n0 + col_of(ni);
+          const float x = acc[mi][ni][2 * h], y = acc[mi][ni][2 * h + 1];
+          if (pairs) {
+            if (gn < N)
+              *reinterpret_cast<__nv_bfloat162*>(crow + gn) =
+                  __floats2bfloat162_rn(x, y);
+          } else {
+            if (gn < N) crow[gn] = __float2bfloat16_rn(x);
+            if (gn + 1 < N) crow[gn + 1] = __float2bfloat16_rn(y);
+          }
+        }
+      }
+  };
+  // 128 x 128 tiles fill the card unsplit (the wrapper's plan), so only
+  // the 64 x 64 kernel compiles the split path, as in gen
+  if (BM == 128 || splits == 1) {
+    store_c();
+    return;
+  }
+  float* mine = part + size_t(blockIdx.x) * BM * BN;
+#pragma unroll
+  for (int mi = 0; mi < G::kMI; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int ni = 0; ni < G::kNI; ++ni)
+        *reinterpret_cast<float2*>(mine + row_of(mi, h) * BN + col_of(ni)) =
+            make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+  if (!gen::last_split(tickets + tile, splits, &last_flag)) return;
+  // the last block: C = ((p_0 + p_1) + p_2) + ... in float32, whichever
+  // block finishes last, then one rounding to bf16; partials read past L1
+  for (int s = 0; s < splits; ++s) {
+    const float* slot = part + (size_t(tile) * splits + s) * BM * BN;
+#pragma unroll
+    for (int mi = 0; mi < G::kMI; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int ni = 0; ni < G::kNI; ++ni) {
+          const float2 p = __ldcg(reinterpret_cast<const float2*>(
+              slot + row_of(mi, h) * BN + col_of(ni)));
+          float* c = &acc[mi][ni][2 * h];
+          c[0] = s ? c[0] + p.x : p.x;
+          c[1] = s ? c[1] + p.y : p.y;
+        }
+  }
+  store_c();
+}
+
+struct Args {
+  const bf16* a;
+  const bf16* b;
+  bf16* c;
+  float* part;
+  int* tickets;
+  int m, n, k, sa, splits;
+  cudaStream_t stream;
+};
+
+template <int BM, int WA, int WB>
+cudaError_t launch(const Args& p) {
+  using G = Cfg<BM, BM>;
+  auto kernel = matmul_bf16_general_kernel<BM, BM, WA, WB>;
+  static bool opted_in = false;   // above 48 KB a block needs the opt-in
+  if (!opted_in) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(G::kSmem));
+    if (e != cudaSuccess) return e;
+    opted_in = true;
+  }
+  const long long blocks = (long long)((p.m + BM - 1) / BM) *
+                           ((p.n + BM - 1) / BM) * p.splits;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<unsigned(blocks), kThreads, G::kSmem, p.stream>>>(
+      p.a, p.b, p.c, p.part, p.tickets, p.m, p.n, p.k, p.sa, p.splits);
+  return cudaGetLastError();
+}
+
+template <int BM, int WA>
+cudaError_t launch_wb(int wb, const Args& p) {
+  switch (wb) {
+    case 16: return launch<BM, WA, 16>(p);
+    case 8: return launch<BM, WA, 8>(p);
+    case 4: return launch<BM, WA, 4>(p);
+    default: return launch<BM, WA, 2>(p);
+  }
+}
+
+template <int BM>
+cudaError_t launch_wa(int wa, int wb, const Args& p) {
+  switch (wa) {
+    case 16: return launch_wb<BM, 16>(wb, p);
+    case 8: return launch_wb<BM, 8>(wb, p);
+    case 4: return launch_wb<BM, 4>(wb, p);
+    default: return launch_wb<BM, 2>(wb, p);
+  }
+}
+
+// Whether w is an access width (2, 4, 8 or 16 bytes) that divides both a
+// matrix's row pitch and its base address, that base taken `shift`
+// elements early (0 <= shift < w / 2).
+inline bool access_fits(int w, const void* base, long long pitch_bytes,
+                        int shift) {
+  return (w == 2 || w == 4 || w == 8 || w == 16) && shift >= 0 &&
+         (shift == 0 || 2 * shift < w) && pitch_bytes % w == 0 &&
+         (reinterpret_cast<uintptr_t>(base) - 2 * shift) % w == 0;
+}
+
+}  // namespace bf
 
 // ------------------------------------------------------- bf16, wgmma --
 namespace wg {
@@ -786,33 +1178,40 @@ bool encode_2d(EncodeTiled fn, CUtensorMap* map, const void* base, int rows,
 
 }  // namespace wg
 
-// The general branch, any shape and any 4-byte-aligned bases.  dtype: 0 =
-// float32, 1 = bfloat16 (A, B and C alike).  float32 takes `tile` 128
-// (128 x 128 tiles, splits 1) or 64 (64 x 64) and `splits` >= 1 K
-// splits; with splits > 1, `part` holds tiles * splits * tile^2 float32 partials and
-// `tickets` tiles int32 zeros (every launch leaves them zero), and no
-// split may be empty: (splits - 1) * ceil(k_tiles / splits) < k_tiles for
-// k_tiles = ceil(k / 16).  bfloat16 takes tile 128 and splits 1 only.
+// The general branch, any shape.  dtype: 0 = float32, 1 = bfloat16 (A, B
+// and C alike).  `tile` 128 (128 x 128 tiles, splits 1) or 64 (64 x 64)
+// and `splits` >= 1 K splits; with splits > 1, `part` holds tiles *
+// splits * tile^2 float32 partials and `tickets` tiles int32 zeros (every
+// launch leaves them zero), and no split may be empty: (splits - 1) *
+// ceil(k_tiles / splits) < k_tiles for k_tiles = ceil(k / 16) (float32)
+// or ceil((k + sa) / 32) (bfloat16).  float32 needs 4-byte-aligned bases
+// and ignores wa, wb, sa; bfloat16 takes wa and wb, the access widths (2,
+// 4, 8 or 16 bytes) of A and B: wb divides B's base address and row pitch
+// (2n bytes), wa divides A's row pitch (2k bytes) and A's base address
+// taken sa elements early (0 <= sa < wa / 2; sa = 0 with wa = 2).
 // Anything else is refused with cudaErrorInvalidValue.  Launches on
 // `stream`; does not synchronise.
 extern "C" int cluster_matmul_launch(int dtype, const void* a, const void* b,
                                      void* c, int m, int n, int k, int tile,
-                                     int splits, void* part, void* tickets,
+                                     int splits, int wa, int wb, int sa,
+                                     void* part, void* tickets,
                                      void* stream) {
-  if (m <= 0 || n <= 0 || k < 0 || splits < 1)
+  if (m <= 0 || n <= 0 || k < 0 || splits < 1 || (dtype != 0 && dtype != 1))
+    return int(cudaErrorInvalidValue);
+  if (dtype == 0) sa = 0;
+  const int bk = dtype == 0 ? gen::kBK : bf::kBK;
+  const int k_tiles = (k + sa + bk - 1) / bk;
+  if (splits > 1 &&
+      (!part || !tickets ||
+       (splits - 1) * ((k_tiles + splits - 1) / splits) >= k_tiles))
     return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* fp = static_cast<float*>(part);
+  int* tk = static_cast<int*>(tickets);
   if (dtype == 0) {
-    const int k_tiles = (k + gen::kBK - 1) / gen::kBK;
-    if (splits > 1 &&
-        (!part || !tickets ||
-         (splits - 1) * ((k_tiles + splits - 1) / splits) >= k_tiles))
-      return int(cudaErrorInvalidValue);
     const float* fa = static_cast<const float*>(a);
     const float* fb = static_cast<const float*>(b);
     float* fc = static_cast<float*>(c);
-    float* fp = static_cast<float*>(part);
-    int* tk = static_cast<int*>(tickets);
     cudaError_t e = cudaErrorInvalidValue;
     if (tile == 128 && splits == 1)
       e = gen::launch<128, 128>(fa, fb, fc, fp, tk, m, n, k, splits, s);
@@ -820,14 +1219,16 @@ extern "C" int cluster_matmul_launch(int dtype, const void* a, const void* b,
       e = gen::launch<64, 64>(fa, fb, fc, fp, tk, m, n, k, splits, s);
     return int(e);
   }
-  if (dtype != 1 || tile != 128 || splits != 1)
+  if (!(tile == 64 || (tile == 128 && splits == 1)) ||
+      !bf::access_fits(wa, a, 2LL * k, sa) ||
+      !bf::access_fits(wb, b, 2LL * n, 0) ||
+      reinterpret_cast<uintptr_t>(c) % 2)
     return int(cudaErrorInvalidValue);
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  matmul_bf16_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(a),
-      static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(c),
-      m, n, k);
-  return static_cast<int>(cudaGetLastError());
+  const bf::Args p{static_cast<const bf::bf16*>(a),
+                   static_cast<const bf::bf16*>(b), static_cast<bf::bf16*>(c),
+                   fp, tk, m, n, k, sa, splits, s};
+  return int(tile == 128 ? bf::launch_wa<128>(wa, wb, p)
+                         : bf::launch_wa<64>(wa, wb, p));
 }
 
 // The wgmma branch: bfloat16 A (m, k), B (k, n), C (m, n), row-major, with

@@ -10,18 +10,24 @@ takes any shape; the reference's tile contract is checked in ``ops``.
 
 Two branches, chosen by :func:`route` from the type, the shape and the
 base addresses alone (never on a failure): bfloat16 products whose rows
-TMA can address (k and n multiples of 8, 16-byte-aligned bases) go to the
-TMA-fed, warp-specialised wgmma kernel; every float32 product, and bf16
-shapes that break the 16-byte rules (3 x 5 @ 5 x 7 is legal), to the
-general kernel.  A float32 product there takes the tile and the K splits
-:func:`general_plan` picks from its shape: 128 x 128 tiles where they fill
-a wave of the card, else 64 x 64 tiles with K split over blocks, the
+TMA can address (k and n multiples of 8, 16-byte-aligned bases) go to
+the TMA-fed, warp-specialised wgmma kernel; every float32 product, and
+every other bf16 one (3 x 5 @ 5 x 7, a base 2 bytes off), to the general
+kernel.  There a product takes the tile and the K splits
+:func:`general_plan` picks from its type and shape: 128 x 128 tiles where
+they fill a wave, else 64 x 64 tiles with K split over blocks, the
 partials summed in split order by the tile's last block (one launch; the
 float32 partials and the tickets are scratch this module keeps per device
-and stream).  The library is built with ``nvcc`` at first launch
-(``kernels.launch``); every launch adds one to :data:`launches`, a launch
-of the wgmma branch also to :data:`wgmma_launches`, and a general launch
-with K split to :data:`split_launches`.
+and stream).  float32 runs on the
+FP32 cores through a ring of 4-byte copies; bfloat16 on the tensor cores
+(``mma.sync``), each operand loaded by the widest access its rows allow
+(:func:`a_access`, :func:`access_width`: 16, 8 or 4 bytes through a
+``cp.async`` ring, 2 bytes through registers; A's K tiles shifted so that
+its copies stay aligned whatever its base).  The library is built with
+``nvcc`` at first launch (``kernels.launch``); every launch adds one to
+:data:`launches`, a launch of the wgmma branch also to
+:data:`wgmma_launches`, and a general launch with K split to
+:data:`split_launches`.
 """
 from __future__ import annotations
 
@@ -49,10 +55,17 @@ split_launches = LaunchCounter()
 
 #: the two branches :func:`route` chooses between
 WGMMA, GENERAL = "wgmma", "general"
-#: the general kernel's K per stage
-BK = 16
-#: the fewest K tiles (of :data:`BK`) a split of the general kernel takes
-MIN_SPLIT_TILES = 4
+#: the general kernel's K per stage: float32 (:data:`BK`) and bfloat16
+#: (:data:`BK_BF16`, two m16n8k16 steps)
+BK, BK_BF16 = 16, 32
+#: the fewest K tiles a split of the general kernel takes: float32 (4 of
+#: 16) and bfloat16 (8 of 32: a split's partial and combine cost about
+#: what a 64 x 64 bf16 tile's walk of 8 K tiles does, PERF.md §6)
+MIN_SPLIT_TILES, MIN_SPLIT_TILES_BF16 = 4, 8
+#: the blocks an SM a split grid aims at: float32 (4) and bfloat16 (1: a
+#: 64 x 64 bf16 tile walks K fast on the tensor cores, so a split's
+#: partial and combine cost more than a second block an SM gains)
+SPLIT_BLOCKS_PER_SM, SPLIT_BLOCKS_PER_SM_BF16 = 4, 1
 #: per (device, stream), the general kernel's float32 partials and its
 #: tickets (``launch.split_scratch``; a tile's last block resets its own
 #: ticket)
@@ -65,11 +78,38 @@ def route(dtype: torch.dtype, m: int, k: int, n: int,
     for bfloat16 when TMA can address its rows (k and n multiples of 8,
     so A's, B's and C's row pitches are multiples of 16 bytes; k > 0;
     ``aligned``: every base address a multiple of 16 bytes),
-    :data:`GENERAL` otherwise (every float32 product among them)."""
+    :data:`GENERAL` otherwise (every float32 product among them).  On
+    grids under a wave the general kernel was not faster at every shape
+    timed (``PERF.md`` §6, row 3e), so the grid does not decide."""
     if dtype == torch.bfloat16 and k > 0 and aligned \
             and k % 8 == 0 and n % 8 == 0:
         return WGMMA
     return GENERAL
+
+
+def access_width(address: int, row_bytes: int) -> int:
+    """The widest access of 16, 8, 4 or 2 bytes that divides both a
+    bfloat16 matrix's base address and its row pitch: the general
+    kernel copies B by ``cp.async`` in accesses of this width (4 bytes
+    or more), or loads it through registers (2)."""
+    for w in (16, 8, 4):
+        if address % w == 0 and row_bytes % w == 0:
+            return w
+    return 2
+
+
+def a_access(address: int, row_bytes: int) -> tuple:
+    """(width, shift) of the general kernel's bfloat16 A: the widest
+    access of 16, 8 or 4 bytes that divides A's row pitch, and the
+    elements its K tiles start early, (address mod width) / 2, so that
+    every copy of A is aligned to that width whatever the base (K tile
+    kt covers k in [32kt - shift, 32kt - shift + 32)); (2, 0) for rows
+    of an odd number of elements, which go through registers, and for
+    rows of none (k = 0: nothing is read)."""
+    for w in (16, 8, 4):
+        if row_bytes and row_bytes % w == 0:
+            return w, address % w // 2
+    return 2, 0
 
 
 def fills_a_wave(m: int, n: int) -> bool:
@@ -78,17 +118,25 @@ def fills_a_wave(m: int, n: int) -> bool:
     return -(-m // 128) * -(-n // 128) >= SMS
 
 
-def general_plan(m: int, k: int, n: int) -> tuple:
-    """(tile, splits) of a float32 product on the general kernel: 128 x 128
-    tiles and no split where they give a wave (:data:`SMS` blocks); else
-    64 x 64 tiles, with K (in :data:`BK`-deep tiles) split so that the
-    grid holds about four blocks an SM, each split at least
-    :data:`MIN_SPLIT_TILES` tiles deep, no split empty."""
+def general_plan(m: int, k: int, n: int,
+                 dtype: torch.dtype = torch.float32) -> tuple:
+    """(tile, splits) of a product on the general kernel: 128 x 128 tiles
+    and no split where they give a wave (:data:`SMS` blocks); else 64 x 64
+    tiles, with K (in tiles of :data:`BK` for float32, :data:`BK_BF16`
+    for bfloat16) split so that the grid holds about
+    :data:`SPLIT_BLOCKS_PER_SM` (float32) or
+    :data:`SPLIT_BLOCKS_PER_SM_BF16` (bfloat16) blocks an SM, each split
+    at least :data:`MIN_SPLIT_TILES` or :data:`MIN_SPLIT_TILES_BF16`
+    tiles deep, no split empty."""
     if fills_a_wave(m, n):
         return 128, 1
+    bf16 = dtype == torch.bfloat16
     tiles = -(-m // 64) * -(-n // 64)
-    k_tiles = -(-k // BK)
-    splits = min(k_tiles // MIN_SPLIT_TILES, 4 * SMS // tiles)
+    k_tiles = -(-k // (BK_BF16 if bf16 else BK))
+    splits = min(k_tiles // (MIN_SPLIT_TILES_BF16 if bf16
+                             else MIN_SPLIT_TILES),
+                 (SPLIT_BLOCKS_PER_SM_BF16 if bf16 else SPLIT_BLOCKS_PER_SM)
+                 * SMS // tiles)
     if splits <= 1:
         return 64, 1
     per = -(-k_tiles // splits)
@@ -100,7 +148,7 @@ def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
     fn = lib.cluster_matmul_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
+                   + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
     fn = lib.cluster_matmul_wgmma_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
@@ -144,8 +192,11 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             err = lib.cluster_matmul_wgmma_launch(
                 a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, stream)
         else:
-            tile, splits = general_plan(m, k, n) \
-                if a.dtype == torch.float32 else (128, 1)
+            (wa, sa), wb = (a_access(a.data_ptr(), 2 * k),
+                            access_width(b.data_ptr(), 2 * n)) \
+                if a.dtype == torch.bfloat16 else ((4, 0), 4)
+            # a shifted A walks k + sa
+            tile, splits = general_plan(m, k + sa, n, a.dtype)
             part = tickets = None
             if splits > 1:
                 tiles = -(-m // tile) * -(-n // tile)
@@ -154,7 +205,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                     tiles * splits * tile * tile, tiles)
             err = lib.cluster_matmul_launch(
                 _DTYPES[a.dtype], a.data_ptr(), b.data_ptr(),
-                out.data_ptr(), m, n, k, tile, splits,
+                out.data_ptr(), m, n, k, tile, splits, wa, wb, sa,
                 part.data_ptr() if part is not None else None,
                 tickets.data_ptr() if tickets is not None else None, stream)
     if err:

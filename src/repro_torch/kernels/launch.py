@@ -22,8 +22,14 @@ from typing import Iterable
 #: repository root (src/repro_torch/kernels/launch.py -> four levels up)
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "kernels"
+#: -fno-gnu-unique: a static local of a template function (the kernels'
+#: "opted in to large shared memory" flags) is otherwise a GNU-unique
+#: object, one per process even across RTLD_LOCAL libraries, so a second
+#: build of a source loaded beside the first (an A/B of two commits)
+#: skipped its own opt-in and its launches failed
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xcompiler",
+              "-fno-gnu-unique")
 #: the SMs of the H100 SXM the kernels are built for (sm_90a): a grid
 #: under this many blocks leaves SMs idle.  The wrappers' split plans
 #: read it, so a plan is a function of the shape alone.
