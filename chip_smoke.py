@@ -23,12 +23,28 @@ non-zero without printing the final result line):
    C > 1; the counts must agree), its times, bytes, FLOPs and roofline
    bound.
 4. engine parity: the same weights (yi-6b widths, 2 layers) served by the
-   CUDA engine (kernel) and the CPU engine (plain version): float32
-   greedy on a float32 pool, float32 with an int8 pool and speculative
-   decoding (``spec_k=4``, drafts replayed from the first run's tokens),
-   and bfloat16 greedy (its chunks on the tensor-core kernel, float32
-   chunks on the FP32-core kernel, decode on the split-KV kernel); greedy
-   tokens must agree, excusing only near-ties.
+   CUDA engine (kernel) and the CPU engine (plain version) in lockstep,
+   with a shared prefix and a forced preemption: float32 greedy on a
+   float32 pool, float32 with an int8 pool and speculative decoding
+   (``spec_k=4``, drafts replayed from the first run's tokens), bfloat16
+   greedy (its chunks on the tensor-core kernel, float32 chunks on the
+   FP32-core kernel, decode on the split-KV kernel), then with the odd
+   rids sampling (temperature 0.8, top-k 40, top-p 0.9, seed 100 + rid;
+   the preempted lane samples) in float32 on a float32 pool and in
+   bfloat16 on an int8 pool with ``spec_k=4`` (sampling lanes must not
+   draft), each again at half the chunk, which must give the same
+   streams (draws are keyed by position); tokens must agree, excusing
+   only the first flip of a stream at a near-tie: the two engines'
+   logits at that position must agree within 6e-2 (bf16) or 1e-5 (f32)
+   times the largest logit (else the phase fails), and the
+   CPU's margin between the two tokens (on its logits, or when sampled
+   on its lg + gumbel) must be under 10x the two engines' disagreement
+   on that pair (plus 1e-5 when sampled).  Then the bfloat16 weights as
+   a ``DraftModelDrafter`` on the card (every self-attention on the
+   tensor-core flash kernel) and on the CPU, from one 340-token context
+   (S=352): the logits must agree as above and four proposals must be
+   equal but for a near-tie.  Last, the threefry draws of 8 keys x
+   64,000 on the card must equal the CPU's bit for bit.
 5. serve: yi-6b at full width (32 layers, bf16, random weights from seed
    0) serves 12 requests with a shared prefix and a forced preemption;
    the kernels must carry every layer of every iteration: the tensor-core
@@ -68,10 +84,13 @@ non-zero without printing the final result line):
    their plain version at ``tests/test_kernels.py``'s three shapes x five
    (causal, window, cap) masks x {float32, bfloat16}, at gemma2-2b's
    geometry (B=2, H=8, Kv=4, S=T=4096, hd 256, bf16, cap 50, window 0
-   and 4096; the tensor-core kernel) and at phase 10's float32 calls
-   (S=512, window 0 and 128; the FP32-core kernel), each capped case and
-   gemma2's again with q and k scaled so that scores reach the cap's
-   range (``FLASH_SHARP``); each case prints the kernel its route picked
+   and 4096; the tensor-core kernel), at phase 13's draft forwards
+   (yi-6b: H=32 over Kv=4, hd 128, bf16, causal, at the shortest and the
+   longest S its drafts reached; the tensor-core kernel) and at phase
+   10's float32 calls (S=512, window 0 and 128; the FP32-core kernel),
+   each capped case, gemma2's and the drafts' again with q and k scaled
+   so that scores reach the cap's range (``FLASH_SHARP``); each case
+   prints the kernel its route picked
    (the counts must agree), with times beside the plain version and the
    library call (SDPA without a cap, the compiled ``flex_attention`` with
    a softcap score_mod with one; an FP32-core case also prints the key
@@ -90,8 +109,26 @@ non-zero without printing the final result line):
    S=4096, batch 2; the tensor-core flash kernel must carry every
    self-attention forward (26 layers x (forward + checkpoint recompute)
    per step) and the plain version must never run a forward.
+13. front door, sampling and a draft model (run after phase 6, while
+   the full-width model is loaded): phase 5's engine and requests with
+   ``spec_k=4`` and a ``DraftModelDrafter`` drafting with the target's
+   own weights (warmed up by one draft), served through ``FrontDoor``
+   on the engine's ``MonotonicClock`` with seeded exponential arrivals
+   (mean gap 0.05 s); odd rids sample (temperature 0.8, top-k 40, top-p
+   0.95).  It
+   prints ``latency_report``'s TTFT and TPOT percentiles, tokens/s,
+   each rejected draft's top-2 margin, and the sampler's device ms and
+   launches at a decode iteration's shape beside an all-greedy
+   iteration's argmax.  The tensor-core flash kernel must carry every
+   draft forward (the plain version none) and the paged kernels every
+   layer of every iteration; sampling lanes must not draft; at least 80%
+   of the drafts must be accepted; replaying the same schedule must give
+   the same streams; greedy rids must give phase 5's tokens, excusing
+   near-ties between the verify and the decode path as phase 4 does;
+   and phase 5 (all greedy) must never have entered the sampler.
 
-Then one JSON line ``{"kernels": [...]}`` (the paged-attention split-KV
+Then the script's time, one JSON line ``{"kernels": [...]}`` (the
+paged-attention split-KV
 decode kernel, FP32-core kernel and tensor-core kernel, each on both pool
 types; the cluster matmul's general float32 kernel (K split, and on 128
 x 128 tiles), its wgmma branch and its general bfloat16 kernel; the
@@ -124,9 +161,21 @@ ROOT = Path(__file__).resolve().parent
 #: outside them)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+#: a sampled token may differ between two engines on the same logits only
+#: where the top two of lg + gumbel are nearer than this: 10x the largest
+#: gap measured between two backends' Gumbel draws (9.5e-7)
+NEAR_TIE = 1e-5
+#: phase 4's draft context: 340 tokens, bucketed to S=352, inside the
+#: range of phase 13's draft lengths
+DRAFT_CTX = 340
 #: kernel-vs-plain tolerances: tests/test_kernels.py's f32 bar and its
 #: bf16 TOL
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: two paths' whole-model logits, relative to the largest: the
+#: whole-model bars of tests/test_torch_train.py (gradients against the
+#: reference's); a bf16 model's rounding alone spreads the logits by
+#: ~2% of the largest (``TOL``), and a wrong path by tens of percent
+MODEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 6e-2}
 L2_FLUSH_BYTES = 64 << 20          # more than the L2 (50 MB, data sheet)
 #: device cycles the timer sleeps before each start event: ~0.1 ms at the
 #: H100's 1.98 GHz boost clock, more than a wrapper's host work
@@ -452,26 +501,155 @@ class ReplayDrafter:
         return []
 
 
+def sampling_for(rid: int, sampled: bool, top_p: float = 0.9,
+                 max_new: int = 8):
+    """Phase 4's and 13's requests: greedy, or with ``sampled`` the odd
+    rids at temperature 0.8, top-k 40, top-p ``top_p``, seed 100 + rid."""
+    from repro_torch.runtime import SamplingParams
+    if sampled and rid % 2:
+        return SamplingParams(temperature=0.8, top_k=40, top_p=top_p,
+                              seed=100 + rid, max_new=max_new)
+    return SamplingParams(max_new=max_new)
+
+
+def logits_agree(rows, dtype: torch.dtype, label: str) -> tuple:
+    """Two paths' float32 logits ``rows`` (the reference's last) must
+    agree within the whole-model tolerance of the weights' type relative
+    to the logits' scale: max |a - b| <= ``MODEL_TOL[dtype]`` x max |b|.
+    Returns (that difference, its bound)."""
+    a, b = (r.double().cpu() for r in rows)
+    diff = (a - b).abs().max().item()
+    gate = MODEL_TOL[dtype] * b.abs().max().item()
+    check(diff <= gate, f"{label}: the two paths' logits differ by "
+                        f"{diff:.3g} > {MODEL_TOL[dtype]} x max|logit| = "
+                        f"{gate:.3g}")
+    return diff, gate
+
+
+def keep_margin(row: torch.Tensor, sp, z: int) -> float:
+    """How far token ``z`` lies inside (>= 0) or outside (< 0) the top-k /
+    top-p truncation of the float32 logits ``row``, by the sampler's own
+    float32 steps (``server._sample_scores``): cut by top-k, its logit
+    over the temperature less the k-th largest; else its log-probability
+    less the log of the nucleus threshold."""
+    lg = row.float().cpu() / max(sp.temperature, 1e-6)
+    if sp.top_k > 0:
+        kth = torch.sort(lg, descending=True).values[
+            min(max(sp.top_k - 1, 0), lg.numel() - 1)]
+        if lg[z] < kth:
+            return (lg[z] - kth).item()
+        lg = torch.where(lg < kth, -torch.inf, lg)
+    e = torch.exp(lg - lg.max())
+    probs = e / e.sum()
+    desc = torch.sort(probs, descending=True).values
+    keep = (torch.cumsum(desc, 0) - desc) < sp.top_p
+    thresh = torch.where(keep, desc, torch.inf).min()
+    return (torch.log(probs[z]) - torch.log(thresh)).item()
+
+
+def flip_margin(rows, x: int, y: int, sp, pos: int, dtype: torch.dtype,
+                label: str) -> tuple:
+    """Whether token ``x`` (the first path's) against ``y`` (the
+    reference's) at position ``pos`` is a near-tie, from the two paths'
+    float32 logits ``rows`` (the reference's last), each computed at that
+    position alone.  First the rows must agree (``logits_agree``), so a
+    wrong path cannot excuse itself.  Then the reference's margin between
+    the two tokens (greedy: on its logits; sampled: on its ``lg +
+    gumbel``, ``server._sample_scores``) must be under 10x the two rows'
+    disagreement on that same pair, plus, when sampled, ``NEAR_TIE`` (the
+    gap two devices' Gumbel draws may differ by).  When sampled, a token
+    that the top-k / top-p truncation keeps on one side and cuts on the
+    other is weighed the same way on its ``keep_margin`` instead (a
+    near-tie at the truncation's edge); one cut on both sides is no
+    near-tie.  Returns (excused, the numbers as text)."""
+    from repro_torch.runtime.server import _sample_scores
+    diff, gate = logits_agree(rows, dtype, label)
+    gated = f"logit diff {diff:.3g} <= {gate:.3g}"
+    scores = [r.double().cpu() for r in rows]
+    slack = 0.0
+    if not sp.greedy:
+        kept = [[keep_margin(r, sp, z) for r in rows] for z in (x, y)]
+        if any(min(m) < 0 for m in kept):
+            ok = all(max(m) >= 0 and (min(m) >= 0 or abs(min(m)) < 10 * (
+                max(m) - min(m))) for m in kept)
+            return ok, (f"truncation edge: keep margins (first path, "
+                        f"reference) {kept[0]} for {x}, {kept[1]} for "
+                        f"{y}; {gated}")
+        scores = [_sample_scores(
+            r.float()[None], torch.tensor([sp.seed & 0xFFFFFFFF]),
+            torch.tensor([pos]), torch.tensor([sp.temperature]),
+            torch.tensor([sp.top_k], dtype=torch.int32),
+            torch.tensor([sp.top_p]))[0].double() for r in scores]
+        slack = NEAR_TIE
+    sa, sb = scores
+    margin = (sb[y] - sb[x]).item()
+    bound = 10 * abs(((sa[y] - sa[x]) - (sb[y] - sb[x])).item()) + slack
+    ok = abs(margin) < bound
+    return ok, (f"reference margin {margin:.3g}, bound {bound:.3g} "
+                f"(ratio {bound / max(abs(margin), 1e-30):.3g}); {gated}")
+
+
+def excuse_first_flip(label: str, prompt, a, b, rows_at, sp,
+                      dtype: torch.dtype) -> bool:
+    """The first position where the streams ``a`` and ``b`` (the
+    reference's) of one request differ must be a near-tie
+    (``flip_margin``; ``rows_at(ctx)`` gives both paths' logits after the
+    context ``ctx``).  Past it the two contexts differ and the streams are
+    not compared.  Returns whether they differed (and were excused)."""
+    check(len(a) == len(b), f"{label}: lengths {len(a)}, {len(b)}")
+    j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if j is None:
+        return False
+    ctx = tuple(prompt) + tuple(b[:j])
+    ok, numbers = flip_margin(rows_at(ctx), a[j], b[j], sp, len(ctx),
+                              dtype, f"{label} token {j}")
+    check(ok, f"{label} token {j}: {a[j]} != {b[j]}, {numbers}")
+    print(f"{label} token {j} excused: {numbers}", flush=True)
+    return True
+
+
+def rerun_rows(make_pair, rid: int, sp):
+    """``rows_at`` for ``excuse_first_flip``: the request's context served
+    alone for one token (a sampled draw keeps its key: it is keyed by
+    position) on each engine of ``make_pair()``, their last logits."""
+    from repro_torch.runtime import GenerationRequest
+
+    def rows_at(ctx):
+        one = GenerationRequest(rid, ctx,
+                                dataclasses.replace(sp, max_new=1))
+        rows = []
+        for e in make_pair():
+            e.submit(one)
+            e.run()
+            rows.append(e.last_logits[0])
+        return rows
+    return rows_at
+
+
 def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
-                 known=None) -> tuple:
+                 known=None, sampled: bool = False, chunk: int = 16
+                 ) -> tuple:
     """The CUDA engine against the CPU engine on the same weights and
     requests (a shared 32-token prefix, a forced preemption).  With
     ``spec_k`` both speculate with a ``ReplayDrafter`` of ``known``
-    ({prompt: greedy tokens} from an earlier run).  On bfloat16 weights
-    the CUDA engine's chunk steps must take the tensor-core kernel.
-    Decode steps must take the split-KV kernel, float32 chunks the
-    FP32-core kernel.  Returns (excused positions, {prompt: the CPU
-    engine's tokens}, the CUDA engine's launches by kernel)."""
+    ({prompt: greedy tokens} from an earlier run).  With ``sampled`` the
+    odd rids sample (``sampling_for``): the sampler must run and those
+    lanes must never draft.  On bfloat16 weights the CUDA engine's chunk
+    steps must take the tensor-core kernel.  Decode steps must take the
+    split-KV kernel, float32 chunks the FP32-core kernel.  Tokens must
+    agree but for near-ties (``excuse_first_flip``).  Returns (excused
+    positions, {prompt: the CPU engine's tokens}, the CUDA engine's
+    launches by kernel, {rid: (CUDA tokens, CPU tokens)})."""
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.runtime import (
-        CacheConfig, EngineConfig, GenerationRequest, SamplingParams,
-        make_engine,
+        CacheConfig, EngineConfig, GenerationRequest, make_engine,
     )
+    from repro_torch.runtime import server as S
     cfg, cpu_model, gpu_model = models
     ecfg = EngineConfig(cache=CacheConfig(num_pages=64, page_size=16,
                                           max_pages_per_seq=8,
                                           kv_dtype=kv_dtype),
-                        max_lanes=2, chunk=16, spec_k=spec_k,
+                        max_lanes=2, chunk=chunk, spec_k=spec_k,
                         drafter=ReplayDrafter(known, cfg.vocab_size)
                         if spec_k else None)
     rng = np.random.default_rng(1)
@@ -479,20 +657,27 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
     prompts = [prefix + rng.integers(0, cfg.vocab_size,
                                      int(rng.integers(8, 33))).tolist()
                for _ in range(4)]
-    requests = [GenerationRequest(rid, tuple(p), SamplingParams(max_new=8))
+    requests = [GenerationRequest(rid, tuple(p),
+                                  sampling_for(rid, sampled))
                 for rid, p in enumerate(prompts)]
 
-    def engines():
-        return [make_engine(cfg, gpu_model, ecfg),
-                make_engine(cfg, cpu_model, ecfg, device="cpu")]
+    def engines(chunk: int = chunk):
+        spec = dataclasses.replace(ecfg, chunk=chunk)
+        return [make_engine(cfg, gpu_model, spec),
+                make_engine(cfg, cpu_model, spec, device="cpu")]
 
     pair = engines()
-    counters = (K.launches, K.int8_launches, K.tc_launches, K.split_launches)
+    counters = (K.launches, K.int8_launches, K.tc_launches, K.split_launches,
+                S.sampler_calls)
     before = [c.n for c in counters]
-    gpu_out, cpu_out = _lockstep(pair, requests, preempt_rid=0,
+    # with sampling the preempted lane is a sampling one
+    gpu_out, cpu_out = _lockstep(pair, requests,
+                                 preempt_rid=1 if sampled else 0,
                                  preempt_after=3)
-    same, int8, tc_launches, split_launches = (
+    same, int8, tc_launches, split_launches, sampler = (
         c.n - b for c, b in zip(counters, before))
+    check((sampler > 0) == sampled,
+          f"sampled={sampled}: the sampler ran {sampler} times")
     fp32_core = same + int8 - tc_launches - split_launches
     bf16 = cfg.param_dtype == "bfloat16"
     check((tc_launches > 0) == bf16,
@@ -502,32 +687,35 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
           "kernel")
     check((fp32_core > 0) == (not bf16),
           f"{cfg.param_dtype} parity: {fp32_core} FP32-core launches")
+    dtype = getattr(torch, cfg.param_dtype)
+    label = f"parity {cfg.param_dtype} kv {kv_dtype} spec_k={spec_k}"
     excused = 0
     for r in requests:
         a, b = gpu_out[r.rid], cpu_out[r.rid]
         check(len(a) == len(b) == 8, f"rid {r.rid}: lengths {len(a)}, "
                                      f"{len(b)}")
-        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
-        if j is None:
-            continue
-        # a flip is excused only at a near-tie: re-run the position alone
-        # on both devices and compare the CPU's top-2 margin with the
-        # largest logit difference between the two
-        one = GenerationRequest(r.rid, tuple(r.prompt) + tuple(b[:j]),
-                                SamplingParams(max_new=1))
-        rows = []
-        for e in engines():
-            e.submit(one)
-            e.run()
-            rows.append(e.last_logits[0].double().cpu())
-        diff = (rows[0] - rows[1]).abs().max().item()
-        top2 = torch.topk(rows[1], 2).values
-        margin = (top2[0] - top2[1]).item()
-        check(margin < 10 * diff,
-              f"{kv_dtype} spec_k={spec_k} rid {r.rid} token {j}: CUDA "
-              f"{a[j]} != CPU {b[j]} with CPU top-2 margin {margin:.3g} "
-              f">= 10 x max logit diff {diff:.3g}")
-        excused += 1
+        excused += excuse_first_flip(
+            f"{label} CUDA vs CPU rid {r.rid}", r.prompt, a, b,
+            rerun_rows(engines, r.rid, r.sampling), r.sampling, dtype)
+    halved_excused = 0
+    if sampled:
+        # draws are keyed by position: half the chunk, the same streams on
+        # each device (a flip only at a near-tie between the two chunkings)
+        halved = _lockstep(engines(chunk // 2), requests, preempt_rid=1,
+                           preempt_after=3)
+        for d, name in enumerate(("CUDA", "CPU")):
+            def make_pair(d=d):
+                return [engines(chunk // 2)[d], engines(chunk)[d]]
+            for r in requests:
+                halved_excused += excuse_first_flip(
+                    f"{label} {name} chunk {chunk // 2} vs {chunk} rid "
+                    f"{r.rid}", r.prompt, halved[d][r.rid],
+                    (gpu_out, cpu_out)[d][r.rid],
+                    rerun_rows(make_pair, r.rid, r.sampling), r.sampling,
+                    dtype)
+        print(f"parity: chunk {chunk // 2} gives the chunk-{chunk} streams "
+              f"on both devices, excused_positions={halved_excused}",
+              flush=True)
     g, c = pair
     check(g.preemptions >= 1 and c.preemptions >= 1, "no preemption")
     check(g.cache_stats().prefix_hit_tokens > 0, "no prefix hit")
@@ -537,13 +725,17 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
         check(c.spec_accepted > 0 and c.spec_rejected > 0,
               f"speculation accepted {c.spec_accepted} and rejected "
               f"{c.spec_rejected} drafts (both must happen)")
+        drafted = [res.rid for e in pair for res in e.finished
+                   if sampled and res.rid % 2 and res.spec_proposed]
+        check(not drafted, f"sampled lanes drafted: rids {drafted}")
     if not excused:
         check((g.iterations, g.h2d_events, g.d2h_events, spec[0])
               == (c.iterations, c.h2d_events, c.d2h_events, spec[1]),
               "CUDA and CPU engines scheduled differently")
     n_tok = sum(len(v) for v in cpu_out.values())
     print(f"parity: yi-6b widths x 2 layers {cfg.param_dtype}, kv "
-          f"{kv_dtype}, spec_k={spec_k}, {len(requests)} requests, "
+          f"{kv_dtype}, spec_k={spec_k}, sampled={sampled}, chunk={chunk}, "
+          f"sampler_calls={sampler}, {len(requests)} requests, "
           f"{n_tok} tokens, tensor_core_launches={tc_launches}, "
           f"split_kv_launches={split_launches}, "
           f"fp32_core_launches={fp32_core}, "
@@ -554,7 +746,8 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
           flush=True)
     return excused, {tuple(r.prompt): cpu_out[r.rid] for r in requests}, \
         dict(tc_launches=tc_launches, split_launches=split_launches,
-             fp32_core_launches=fp32_core)
+             fp32_core_launches=fp32_core), \
+        {r.rid: (gpu_out[r.rid], cpu_out[r.rid]) for r in requests}
 
 
 # --------------------------------------------------------------- phase 5 --
@@ -723,6 +916,324 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
           + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                      for k, v in row.items()), flush=True)
     return row, {rid: res.tokens for rid, res in results.items()}
+
+
+# ------------------------------------------------------ phases 4 and 13 --
+def phase_draft_parity(models, k: int = 4) -> dict:
+    """Phase 4's bfloat16 weights as a ``DraftModelDrafter`` on the card
+    (every self-attention on the tensor-core flash kernel, the plain
+    version none) and on the CPU (the plain version), from one random
+    context of ``DRAFT_CTX`` tokens (bucketed inside phase 13's draft
+    lengths): the logits after the context must agree
+    (``logits_agree``) and the ``k`` proposals must be equal but for a
+    near-tie (``excuse_first_flip``)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.runtime import DraftModelDrafter, SamplingParams
+    from repro_torch.runtime.speculative import _last_logits
+    cfg, cpu_model, gpu_model = models
+    dtype = getattr(torch, cfg.param_dtype)
+    rng = np.random.default_rng(4)
+    ctx = rng.integers(0, cfg.vocab_size, DRAFT_CTX).tolist()
+    drafters = [DraftModelDrafter(cfg, m, target_vocab=cfg.vocab_size)
+                for m in (gpu_model, cpu_model)]
+    counters = (FK.launches, FK.tc_launches, FO.plain_forwards)
+    before = [c.n for c in counters]
+    a = drafters[0].propose(ctx, k)
+    got = tuple(c.n - n0 for c, n0 in zip(counters, before))
+    want = (cfg.num_layers * k, cfg.num_layers * k, 0)
+    check(got == want, f"draft parity: flash (launches, tensor-core, plain "
+                       f"forwards) {got}, want {want}")
+    b = drafters[1].propose(ctx, k)
+
+    def rows_at(c):
+        toks = list(c) + [0] * (-len(c) % drafters[0].bucket
+                                or drafters[0].bucket)
+        return [_last_logits(cfg, m, torch.tensor([toks], device=dev),
+                             len(c))
+                for m, dev in ((gpu_model, "cuda"), (cpu_model, "cpu"))]
+
+    diff, gate = logits_agree(rows_at(ctx), dtype, "draft parity")
+    excused = excuse_first_flip("draft parity", ctx, a, b, rows_at,
+                                SamplingParams(), dtype)
+    S = DRAFT_CTX + (-DRAFT_CTX % drafters[0].bucket)
+    print(f"draft parity: yi-6b widths x {cfg.num_layers} layers "
+          f"{cfg.param_dtype}, context {DRAFT_CTX} (S={S}), {k} proposals "
+          f"CUDA {a} CPU {b}, flash tensor-core launches {got[1]}, logit "
+          f"diff {diff:.3g} <= {gate:.3g}, excused={int(excused)}",
+          flush=True)
+    return dict(S=S, logit_diff=diff, logit_gate=gate, excused=excused)
+
+
+def phase_prng_bits():
+    """The port's threefry draws for 8 keys x V=64,000 on the card against
+    the CPU's: keys, bits and uniforms bit for bit, Gumbel draws within
+    1e-6 (their logarithms are each device's)."""
+    from repro_torch.runtime import prng
+    lanes = torch.arange(8)
+    keys = prng.fold_in(prng.prng_key(lanes * 7919 + 100), lanes * 131)
+    V = 64000
+    for name, fn in (("random_bits", prng.random_bits),
+                     ("uniform", prng.uniform)):
+        cpu, gpu = fn(keys, V), fn(keys.cuda(), V).cpu()
+        check(torch.equal(cpu, gpu), f"prng.{name}: CUDA != CPU")
+    diff = (prng.gumbel(keys.cuda(), V).cpu()
+            - prng.gumbel(keys, V)).abs().max().item()
+    check(diff <= 1e-6, f"prng.gumbel: CUDA vs CPU max |diff| {diff:.3g}")
+    print(f"prng: 8 keys x V={V}: random_bits and uniform bit-equal on CUDA "
+          f"and CPU, gumbel max |diff| {diff:.3g}", flush=True)
+
+
+class RecordingDrafter:
+    """Wraps a drafter and records each proposal as (rid, context length,
+    drafts), the rid found by the prompt the context starts with, and the
+    host seconds of each proposal per draft token (each token is read
+    back, so they include the device's)."""
+
+    def __init__(self, inner, prompts: dict):
+        self.inner, self.prompts = inner, prompts
+        self.calls = []
+        self.seconds = []
+
+    def propose(self, ctx, k):
+        t = time.perf_counter()
+        drafts = self.inner.propose(ctx, k)
+        self.seconds.append((time.perf_counter() - t) / max(len(drafts), 1))
+        rid = next(rid for rid, p in self.prompts.items()
+                   if tuple(ctx[:len(p)]) == p)
+        self.calls.append((rid, len(ctx), list(drafts)))
+        return drafts
+
+
+def sampler_cost(timer: Timer, vocab: int) -> dict:
+    """One token selection at a decode iteration's shape (8 lanes x
+    ``vocab`` float32 logits): the sampler with every other lane sampling
+    (temperature 0.8, top-k 40, top-p 0.95), and an all-greedy
+    iteration's argmax.  For each: ms between CUDA events around the call
+    (``Timer``; with hundreds of launches the device waits on the host's
+    enqueue in between), and under ``torch.profiler`` its device launches
+    and busy ms (the sum of their durations)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.server import _select
+    g = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn((8, vocab), generator=g, device="cuda") * 3
+    lanes = torch.arange(8, device="cuda")
+    sampling = (lanes.long() * 7919 + 100,
+                torch.where(lanes % 2 == 1, 0.8, 0.0).float(),
+                torch.full((8,), 40, dtype=torch.int32, device="cuda"),
+                torch.full((8,), 0.95, device="cuda"))
+    pos = torch.full((8,), 700, dtype=torch.int32, device="cuda")
+    out = {}
+    for name, smp in (("sampled", sampling), ("greedy", None)):
+        def fn():
+            return _select(logits, pos, smp)
+        ms = timer.ms(fn)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        out[f"{name}_select_ms"] = ms
+        out[f"{name}_select_busy_ms"] = sum(
+            e.device_time_total for e in kernels) / 1e3
+        out[f"{name}_select_launches"] = len(kernels)
+    return out
+
+
+def phase_frontdoor(cfg, model, phase5: dict, timer: Timer) -> dict:
+    """Phase 5's engine and requests at full width with ``spec_k=4`` and a
+    ``DraftModelDrafter`` drafting with the target's own weights, served
+    through ``FrontDoor`` on the engine's ``MonotonicClock`` with seeded
+    exponential arrivals (mean gap 0.05 s); odd rids sample (temperature
+    0.8, top-k 40, top-p 0.95, seed 100 + rid).  The tensor-core flash
+    kernel must carry every draft forward and the paged kernels every
+    layer of every iteration; sampling lanes must never draft; at least
+    80% of the drafts must be accepted; a replay of the same schedule
+    (on a ``VirtualClock``, each request submitted at the iteration it
+    was) must give the same streams; greedy rids must give phase 5's
+    tokens but for near-ties (``flip_margin``: the chunk path a verify
+    step takes against the decode path phase 5 took)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.paged_attention import ref as R
+    from repro_torch.runtime import (
+        Arrival, DraftModelDrafter, FrontDoor, GenerationRequest,
+        MonotonicClock, SamplingParams, VirtualClock, latency_report,
+        make_engine,
+    )
+    from repro_torch.runtime import server as S
+    from repro_torch.runtime.speculative import _last_logits
+    t_phase = time.perf_counter()
+    ecfg, base = serve_workload(cfg, spec_k=4)
+    requests = [GenerationRequest(r.rid, r.prompt, sampling_for(
+        r.rid, True, top_p=0.95, max_new=32)) for r in base]
+    prompts = {r.rid: r.prompt for r in requests}
+    gaps = np.random.default_rng(3).exponential(0.05, len(requests))
+
+    def serve(clock, times, iter_time_s=0.0):
+        drafter = RecordingDrafter(DraftModelDrafter(
+            cfg, model, target_vocab=cfg.vocab_size), prompts)
+        engine = make_engine(cfg, model, dataclasses.replace(
+            ecfg, drafter=drafter, clock=clock))
+        kinds, submitted = [], {}
+        step, submit = engine.step, engine.submit
+
+        def counted_step():
+            before = (engine.prefill_tokens, engine.spec_iterations,
+                      engine.iterations)
+            busy = step()
+            if engine.iterations > before[2]:
+                kinds.append(
+                    "prefill" if engine.prefill_tokens > before[0] else
+                    "verify" if engine.spec_iterations > before[1] else
+                    "decode")
+            return busy
+
+        def recorded_submit(req):
+            submitted[req.rid] = engine.iterations
+            submit(req)
+
+        engine.step, engine.submit = counted_step, recorded_submit
+        t0 = clock.now()
+        arrivals = [Arrival(t=t0 + float(t), request=r)
+                    for t, r in zip(times, requests)]
+        records = FrontDoor(engine, iter_time_s=iter_time_s).serve(arrivals)
+        torch.cuda.synchronize()
+        return engine, drafter, records, kinds, submitted
+
+    # a server warms up before it takes traffic: the first draft forward
+    # of the process loads the flash kernel and the full-sequence GEMMs'
+    # kernels (over a second, once)
+    t = time.perf_counter()
+    DraftModelDrafter(cfg, model).propose(requests[1].prompt, 1)
+    warmup_s = time.perf_counter() - t
+    counters = (K.launches, K.int8_launches, K.tc_launches, K.split_launches,
+                R.calls, FK.launches, FK.tc_launches, FO.plain_forwards,
+                S.sampler_calls)
+    for c in counters:
+        c.reset()
+    engine, drafter, records, kinds, submitted = serve(
+        MonotonicClock(), np.cumsum(gaps))
+    (launches, int8_launches, tc_launches, split_launches, plain_calls,
+     flash, flash_tc, flash_plain, sampler) = (c.n for c in counters)
+    results = {r.rid: r for r in engine.finished}
+    L_ = cfg.num_layers
+    check(len(results) == len(requests) and all(
+        r.finish_reason == "length" and len(r.tokens) == 32
+        and all(0 <= t < cfg.vocab_size for t in r.tokens)
+        for r in results.values()), "phase 13: a request did not finish "
+                                    "with 32 in-vocabulary tokens")
+    n = {k: kinds.count(k) for k in ("prefill", "decode", "verify")}
+    check(launches == L_ * engine.iterations
+          and tc_launches == L_ * (n["prefill"] + n["verify"])
+          and split_launches == L_ * n["decode"]
+          and int8_launches == plain_calls == 0,
+          f"phase 13: paged launches {launches} (tensor cores "
+          f"{tc_launches}, split-KV {split_launches}, int8 "
+          f"{int8_launches}, plain {plain_calls}) for {L_} layers x {n}")
+    forwards = sum(len(d) for _, _, d in drafter.calls)
+    check(forwards > 0 and flash == flash_tc == L_ * forwards
+          and flash_plain == 0,
+          f"phase 13: flash launches {flash} (tensor cores {flash_tc}, "
+          f"plain {flash_plain}) for {L_} layers x {forwards} draft "
+          "forwards")
+    check(sampler > 0, "phase 13: the sampler never ran")
+    sampled_drafts = [c for c in drafter.calls if c[0] % 2]
+    check(not sampled_drafts and all(
+        results[rid].spec_proposed == 0 for rid in prompts if rid % 2),
+        f"phase 13: sampling lanes drafted {sampled_drafts[:3]}")
+    acceptance = engine.spec_accepted / max(engine.spec_proposed, 1)
+    check(engine.spec_proposed > 0 and acceptance >= 0.8,
+          f"phase 13: self-draft accepted {engine.spec_accepted} of "
+          f"{engine.spec_proposed}")
+    for rid, n_ctx, drafts in drafter.calls:
+        toks = list(results[rid].tokens)
+        o = n_ctx - len(prompts[rid])
+        m = next((i for i, (d, t) in enumerate(zip(drafts, toks[o:]))
+                  if d != t), None)
+        if m is None:
+            continue
+        ctx = list(prompts[rid]) + toks[:o + m]
+        pad = [0] * (-len(ctx) % 32 or 32)
+        top2 = torch.topk(_last_logits(cfg, model, torch.tensor(
+            [ctx + pad], device="cuda"), len(ctx)).double(), 2).values
+        print(f"frontdoor: rid {rid} position {len(ctx)}: draft "
+              f"{drafts[m]} rejected for {toks[o + m]}, the draft's top-2 "
+              f"margin {(top2[0] - top2[1]).item():.4g}", flush=True)
+    report = latency_report(records, slo_ttft_s=1.0, slo_tpot_s=0.1)
+    out_tokens = sum(r.tokens for r in records.values())
+    span = max(r.finish_t for r in records.values()) - \
+        min(r.arrive_t for r in records.values())
+
+    # the same schedule again: each request submitted at the iteration it
+    # was, on a virtual clock charged one second an iteration
+    order = [float(submitted[r.rid]) for r in requests]
+    replay, _, _, replay_kinds, _ = serve(VirtualClock(), order, 1.0)
+    again = {r.rid: r.tokens for r in replay.finished}
+    check(replay_kinds == kinds and again == {
+        rid: r.tokens for rid, r in results.items()},
+        "phase 13: the replayed schedule changed a stream")
+
+    # greedy rids against phase 5: a token may come from a decode step
+    # (split-KV kernel) in one run and from a chunk or verify step
+    # (tensor-core kernel) in the other, so a flip is excused at a near-tie
+    # between the two paths.  Both rows are computed with the same context:
+    # the context but its last token is served first (its full pages enter
+    # the prefix cache), then the whole context with the chunk cut to 1
+    # (the decode path) or to 5 (a verify step's width), so only the
+    # tokens past its last full page run, through the path's kernel
+    plain = dataclasses.replace(ecfg, spec_k=0)
+
+    def row_at(ctx: tuple, chunk: int) -> torch.Tensor:
+        e = make_engine(cfg, model, plain)
+        e.submit(GenerationRequest(0, ctx[:-1], SamplingParams(max_new=1)))
+        e.run()
+        e.chunk = chunk
+        e.submit(GenerationRequest(1, ctx, SamplingParams(max_new=1)))
+        hit = e.run()[-1].prefix_hit_tokens
+        check(hit >= len(ctx) - 16, f"phase 13: the rerun reused {hit} of "
+                                    f"{len(ctx)} tokens")
+        return e.last_logits[0]
+
+    excused = 0
+    for rid in sorted(prompts):
+        if rid % 2:
+            continue
+        a, b = list(results[rid].tokens), list(phase5[rid])
+        check(a[:1] == b[:1], f"phase 13: rid {rid}'s first token differs")
+        excused += excuse_first_flip(
+            f"frontdoor: rid {rid} vs phase 5", prompts[rid], a, b,
+            lambda ctx: [row_at(ctx, 5), row_at(ctx, 1)], SamplingParams(),
+            getattr(torch, cfg.param_dtype))
+    # the draft forwards' bucketed lengths, for phase 9's cases
+    bucket = drafter.inner.bucket
+    lengths = sorted({n + i + (-(n + i) % bucket or bucket)
+                      for _, n, d in drafter.calls for i in range(len(d))})
+    row = dict(
+        requests=len(requests), iterations=engine.iterations,
+        **{f"{k}_iterations": v for k, v in n.items()},
+        output_tokens=out_tokens, output_tokens_per_s=out_tokens / span,
+        span_s=span, **{k: report[k] for k in (
+            "ttft_p50_s", "ttft_p99_s", "tpot_p50_s", "tpot_p99_s",
+            "slo_goodput")},
+        spec_proposed=engine.spec_proposed,
+        spec_accepted=engine.spec_accepted, acceptance=acceptance,
+        draft_warmup_s=warmup_s, draft_forwards=forwards, draft_s=sum(
+            t * len(c[2]) for t, c in zip(drafter.seconds, drafter.calls)),
+        draft_ms_per_forward_median=1e3 * statistics.median(drafter.seconds),
+        draft_ms_per_forward_max=1e3 * max(drafter.seconds),
+        draft_ms_per_forward_first=1e3 * drafter.seconds[0],
+        flash_tc_launches=flash_tc, draft_lengths=lengths,
+        paged_launches=launches, tc_launches=tc_launches,
+        split_launches=split_launches, sampler_calls=sampler,
+        excused_vs_phase5=excused, **sampler_cost(timer, cfg.vocab_size),
+        phase_s=time.perf_counter() - t_phase)
+    print("frontdoor: yi-6b 32 layers bf16, spec_k=4 self-draft, 12 "
+          "requests (odd rids sampled): "
+          + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                     for k, v in row.items()), flush=True)
+    return row
 
 
 # --------------------------------------------------------------- phase 7 --
@@ -1141,12 +1652,15 @@ def flash_grads():
     return worst
 
 
-def phase_flash(timer: Timer) -> dict:
+def phase_flash(timer: Timer, draft: tuple) -> dict:
     """test_kernels' cases, then the capped ones again with sharp scores,
     then gemma2-2b's geometry (B=2 x H=8 flat heads over B x Kv=4 KV
     rows, S=T=4096, hd 256, cap 50, windows 0 and 4096) at both scales
-    (the tensor-core kernel), then the float32 calls of phase 10 (S=512,
-    windows 0 and 128; the FP32-core kernel).
+    (the tensor-core kernel), then phase 13's draft forwards (``draft``:
+    flat heads, groups, hd and the shortest and longest bucketed S; causal,
+    no window, no cap) at both scales (the tensor-core kernel), then the
+    float32 calls of phase 10 (S=512, windows 0 and 128; the FP32-core
+    kernel).
     Each capped (shape, type, mask) compiles its own ``flex_attention``,
     more than dynamo's default limit of 8 recompiles; past the limit flex
     would run unfused and its time would not be the library's, so the
@@ -1154,10 +1668,10 @@ def phase_flash(timer: Timer) -> dict:
     import torch._dynamo
     with torch._dynamo.config.patch(recompile_limit=64,
                                     fail_on_recompile_limit_hit=True):
-        return flash_cases(timer)
+        return flash_cases(timer, draft)
 
 
-def flash_cases(timer: Timer) -> dict:
+def flash_cases(timer: Timer, draft: tuple) -> dict:
     cases = [flash_case(timer, BH, S, T, d, dtype, causal, window, cap)
              for (BH, S, T, d) in FLASH_SHAPES
              for (causal, window, cap) in FLASH_MASKS
@@ -1172,6 +1686,12 @@ def flash_cases(timer: Timer) -> dict:
              for qk in (0.3, FLASH_SHARP) for window in (0, 4096)]
     check(all(c["kernel"] == "tensor_cores" for c in gemma),
           "gemma2-2b's bf16 cases must run on the tensor cores")
+    BH, groups, d, lengths = draft
+    drafts = [flash_case(timer, BH, S, S, d, torch.bfloat16, True, 0, 0.0,
+                         groups=groups, qk=qk)
+              for S in lengths for qk in (0.3, FLASH_SHARP)]
+    check(all(c["kernel"] == "tensor_cores" for c in drafts),
+          "phase 13's draft forwards must run on the tensor cores")
     # the float32 calls phase 10's CUDA step makes (gemma2-2b widths, S
     # 512, its global and its local layer): the FP32-core kernel's path
     small = [flash_case(timer, TRAIN_SMALL_B * 8, TRAIN_SMALL_S,
@@ -1181,8 +1701,9 @@ def flash_cases(timer: Timer) -> dict:
     check(all(c["kernel"] == "fp32_cores" for c in cases + sharp + small
               if c["dtype"] == "float32"),
           "float32 cases must run on the FP32 cores")
-    return dict(cases=cases + sharp + gemma + small, gemma=gemma,
-                small=small, grad_max_abs_err=flash_grads())
+    return dict(cases=cases + sharp + gemma + drafts + small, gemma=gemma,
+                drafts=drafts, small=small,
+                grad_max_abs_err=flash_grads())
 
 
 # -------------------------------------------------------------- phase 10 --
@@ -1452,11 +1973,16 @@ def main() -> int:
     cases = phase_kernel(timer)
     done("phase 3")
     parity = parity_models()
-    _, known, parity_f32 = phase_parity(parity)
-    _, _, parity_int8 = phase_parity(parity, kv_dtype="int8", spec_k=4,
-                                     known=known)
+    _, known, parity_f32, _ = phase_parity(parity)
+    _, _, parity_int8, _ = phase_parity(parity, kv_dtype="int8", spec_k=4,
+                                        known=known)
+    phase_parity(parity, sampled=True)
     parity = parity_models("bfloat16")
-    phase_parity(parity)
+    _, known, _, _ = phase_parity(parity)
+    phase_parity(parity, kv_dtype="int8", spec_k=4, known=known,
+                 sampled=True)
+    phase_draft_parity(parity)
+    phase_prng_bits()
     del parity
     done("phase 4")
     from repro_torch.configs import get_config
@@ -1467,10 +1993,17 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"init: yi-6b bf16 weights in {time.perf_counter() - t0:.2f} s",
           flush=True)
-    serve, _ = phase_serve(cfg, model)
+    from repro_torch.runtime import server as S
+    S.sampler_calls.reset()
+    serve, phase5 = phase_serve(cfg, model)
+    check(S.sampler_calls.n == 0,
+          f"phase 5 (all greedy) entered the sampler {S.sampler_calls.n} "
+          "times")
     done("phase 5")
     serve8, _ = phase_serve(cfg, model, kv_dtype="int8", spec_k=4)
     done("phase 6")
+    frontdoor = phase_frontdoor(cfg, model, phase5, timer)
+    done("phase 13")
     del model
     torch.cuda.empty_cache()
 
@@ -1481,7 +2014,10 @@ def main() -> int:
     done("phase 8")
 
     # 9-12
-    flash = phase_flash(timer)
+    lengths = frontdoor["draft_lengths"]
+    flash = phase_flash(timer, (
+        cfg.num_heads, cfg.num_heads // cfg.num_kv_heads,
+        cfg.resolved_head_dim, (lengths[0], lengths[-1])))
     done("phase 9")
     parity_train = phase_train_parity()
     done("phase 10")
@@ -1515,9 +2051,11 @@ def main() -> int:
     decode_fwd = "src/repro/kernels/paged_attention/kernel.py:61"
     prefill = "src/repro/kernels/paged_attention/kernel.py:222"
     quant = "src/repro/kernels/paged_attention/kernel.py:113-121"
+    # the bf16 pool's kernels carry phases 5 and 13
     kernels = [
         entry("paged_attention_decode_split", SPLIT_KV, "same", 1,
-              "bfloat16", serve["split_launches"], decode_fwd),
+              "bfloat16", serve["split_launches"]
+              + frontdoor["split_launches"], decode_fwd),
         entry("paged_attention_decode_split_int8", SPLIT_KV, "int8", 1,
               "bfloat16", serve8["split_launches"], quant),
         entry("paged_attention", FP32_CORES, "same", 128, "float32",
@@ -1525,7 +2063,8 @@ def main() -> int:
         entry("paged_attention_int8", FP32_CORES, "int8", 128, "float32",
               parity_int8["fp32_core_launches"], quant),
         entry("paged_attention_prefill_tc", TENSOR_CORES, "same", 128,
-              "bfloat16", serve["tc_launches"], prefill),
+              "bfloat16", serve["tc_launches"] + frontdoor["tc_launches"],
+              prefill),
         entry("paged_attention_prefill_tc_int8", TENSOR_CORES, "int8", 128,
               "bfloat16", serve8["tc_launches"], quant),
     ]
@@ -1566,11 +2105,14 @@ def main() -> int:
         })
     # flash on the tensor cores: the main path's case is gemma2-2b's
     # global (window 0) layer, its error the largest of gemma2's four
-    # cases (both scales, both windows); on the FP32 cores: phase 10's
-    # float32 global layer, its error the largest of its float32 cases
+    # cases (both scales, both windows) and phase 13's draft cases, its
+    # launches phase 12's and phase 13's draft forwards; on the FP32
+    # cores: phase 10's float32 global layer, its error the largest of its
+    # float32 cases
     for name, kernel, head, launches, split in (
             ("flash_attention_tc", "tensor_cores", flash["gemma"][0],
-             train["flash_tc_launches"], 0),
+             train["flash_tc_launches"] + frontdoor["flash_tc_launches"],
+             0),
             ("flash_attention", "fp32_cores", flash["small"][0],
              parity_train["flash_fp32_core_launches"],
              parity_train["flash_fp32_split_launches"])):
@@ -1582,7 +2124,8 @@ def main() -> int:
             "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
             "launches": launches, "split_launches": split,
             "max_abs_err": max(c["max_abs_err"] for c in (
-                flash["gemma"] if kernel == "tensor_cores" else own)),
+                flash["gemma"] + flash["drafts"]
+                if kernel == "tensor_cores" else own)),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
@@ -1590,6 +2133,8 @@ def main() -> int:
             "grad_max_abs_err": flash["grad_max_abs_err"],
             "cases": own,
         })
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - t_script:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

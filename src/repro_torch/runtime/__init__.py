@@ -5,7 +5,10 @@ from repro_torch.runtime.api import (
     FINISH_TIMEOUT, FINISH_ERROR, FINISH_SHED,
 )
 from repro_torch.runtime.clock import Clock, MonotonicClock, VirtualClock
-from repro_torch.runtime.frontdoor import GreedyChunkPolicy, SchedulerPolicy
+from repro_torch.runtime.frontdoor import (
+    Arrival, FrontDoor, GreedyChunkPolicy, RequestRecord, SchedulerPolicy,
+    TokenBudgetPolicy, latency_report,
+)
 from repro_torch.runtime.server import PagedServer
 from repro_torch.runtime.speculative import (
     Drafter, DraftModelDrafter, NGramDrafter,
@@ -19,4 +22,5 @@ __all__ = ["Trainer", "TrainerConfig", "FailureInjector",
            "TokenDelta", "make_engine", "FINISH_STOP", "FINISH_LENGTH",
            "FINISH_ABORTED", "FINISH_TIMEOUT", "FINISH_ERROR",
            "FINISH_SHED", "Clock", "MonotonicClock", "VirtualClock",
-           "SchedulerPolicy", "GreedyChunkPolicy"]
+           "Arrival", "FrontDoor", "RequestRecord", "SchedulerPolicy",
+           "GreedyChunkPolicy", "TokenBudgetPolicy", "latency_report"]

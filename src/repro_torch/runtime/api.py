@@ -16,9 +16,8 @@ moves between the two packages without rewriting its requests:
   concatenation of a request's token deltas is its result's tokens.
 
 What the port does not serve yet is still spelled here and raises
-``NotImplementedError`` where the engine meets it: sampling at
-``temperature > 0``, the draft-model drafter, the host and disk cache
-tiers, fault injection and the sharded engine.
+``NotImplementedError`` where the engine meets it: the host and disk
+cache tiers, fault injection and the sharded engine.
 """
 from __future__ import annotations
 

@@ -36,12 +36,21 @@ With ``spec_k > 0`` a host drafter (``runtime.speculative``, n-gram by
 default) proposes up to K tokens per decoding lane; one verify step scores
 all K+1 positions through the same kernel, the accepted prefix plus the
 bonus token is the exact greedy continuation, and ``PagedKVPool.trim``
-rolls the rejected tail back.
+rolls the rejected tail back.  Only greedy lanes draft; a sampling lane
+rides along in the verify step with zero drafts.
 
-Decoding is greedy: the next token is the argmax of float32 logits.  These
-features of the reference raise ``NotImplementedError`` until their slice
-is ported: ``temperature > 0`` sampling, the draft-model drafter,
-host/disk cache tiers, fault injection, MoE layers and the sharded engine.
+Each lane picks its next token by its request's ``SamplingParams``:
+greedy lanes take the argmax of float32 logits; a lane at ``temperature >
+0`` divides by the temperature, truncates to top-k and then top-p, and
+draws with the key ``fold_in(PRNGKey(seed), position)`` (``runtime.prng``,
+a bit-exact copy of the reference's threefry), so its stream does not
+depend on chunking, batching or preemption.  The seed, temperature, top-k
+and top-p of each lane live on the device beside its length.  An
+iteration with no sampling lane never enters the sampler.
+
+These features of the reference raise ``NotImplementedError`` until their
+slice is ported: host/disk cache tiers, fault injection, MoE layers and
+the sharded engine.
 """
 from __future__ import annotations
 
@@ -57,6 +66,7 @@ from repro_torch.core.offload import BackingStoreError, HostBackingStore
 from repro_torch.core.rab import RAB, PagedKVPool
 from repro_torch.core.tracing import EventType, TraceBuffer
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.launch import LaunchCounter
 from repro_torch.kernels.paged_attention.ops import (
     mask_block_table, paged_prefill_fused, page_counts_for,
 )
@@ -73,8 +83,12 @@ from repro_torch.runtime.api import (
     FINISH_SHED, FINISH_STOP, FINISH_TIMEOUT,
 )
 from repro_torch.runtime.clock import MonotonicClock
+from repro_torch.runtime import prng
 from repro_torch.runtime.frontdoor import GreedyChunkPolicy
 from repro_torch.runtime.speculative import NGramDrafter
+
+#: calls of :func:`_sample_tokens`: an all-greedy run never makes one
+sampler_calls = LaunchCounter()
 
 
 @dataclasses.dataclass
@@ -293,6 +307,12 @@ class PagedServer:
         self.len_dev = torch.zeros((B,), dtype=torch.int32, device=dev)
         self.active_dev = torch.zeros((B,), dtype=torch.int32, device=dev)
         self.last_tok = torch.zeros((B,), dtype=torch.int32, device=dev)
+        # each lane's sampling policy rides with it like its length does
+        # (the seed masked to 32 bits, held in int64: torch has no uint32)
+        self.seed_dev = torch.zeros((B,), dtype=torch.int64, device=dev)
+        self.temp_dev = torch.zeros((B,), dtype=torch.float32, device=dev)
+        self.topk_dev = torch.zeros((B,), dtype=torch.int32, device=dev)
+        self.topp_dev = torch.ones((B,), dtype=torch.float32, device=dev)
         self.last_logits: Optional[torch.Tensor] = None
         # constant decode-step inputs (every lane feeds its last sample)
         self._decode_feed = torch.zeros((B, 1), dtype=torch.int32, device=dev)
@@ -317,10 +337,6 @@ class PagedServer:
             # the lane's previous occupant left in last_tok
             raise ValueError("empty prompt")
         sp = req.sampling
-        if not sp.greedy:
-            raise _not_ported(
-                "sampling at temperature > 0 (it needs a bit-exact port of "
-                "the reference's threefry PRNG)")
         if len(req.prompt) + sp.max_new - 1 > \
                 self.max_pages * self.page_size:
             raise ValueError("request exceeds max_pages_per_seq")
@@ -337,8 +353,10 @@ class PagedServer:
             seq.deadline_t = self.clock.now() + req.deadline_s
         self.tracer.record_host(EventType.REQUEST_ARRIVE, seq.rid,
                                 len(self.queue))
-        # every lane is greedy (sampling raises above), so every lane drafts
-        seq.spec_k_cur = self.spec_k
+        if self.spec_k and sp.greedy:
+            # only greedy lanes draft: verification is greedy argmax, so a
+            # sampling lane's drafts could never be accepted
+            seq.spec_k_cur = self.spec_k
         self.queue.append(seq)
         if self.max_queue_depth and len(self.queue) > self.max_queue_depth:
             # admission-time load shedding: reject the lowest-priority
@@ -478,8 +496,13 @@ class PagedServer:
                                     plan["usable"])
             self._delta(rid, event="prefix_hit", data=plan["usable"])
         self._refresh_row(lane, req)
+        sp = req.sampling
         self.active_dev[lane] = 1
         self.len_dev[lane] = pool.seq_len.get(rid, 0)
+        self.seed_dev[lane] = sp.seed & 0xFFFFFFFF
+        self.temp_dev[lane] = sp.temperature
+        self.topk_dev[lane] = sp.top_k
+        self.topp_dev[lane] = sp.top_p
         if plan["resume"] and req.fed >= len(req.prompt) and req.out:
             # mid-decode resume: re-seed the device-resident last sample
             self.last_tok[lane] = req.out[-1]
@@ -924,11 +947,13 @@ class PagedServer:
 
         self._account_appends(active, n_new)
 
+        sampling = self._sampling(active)
         if decode_only:
             # sync-free: every input already lives on device
             self.last_tok, self.len_dev, self.last_logits = self._step(
                 self.kv_pages, self.bt_dev, self.len_dev, self.active_dev,
-                self._decode_feed, self.last_tok, self._decode_use_last)
+                self._decode_feed, self.last_tok, self._decode_use_last,
+                sampling=sampling)
         else:
             self._h2d(1)            # the prompt-chunk feed bundle
             bundle = torch.from_numpy(np.concatenate(
@@ -936,7 +961,8 @@ class PagedServer:
                 self.device)
             self.last_tok, self.len_dev, self.last_logits = self._step(
                 self.kv_pages, self.bt_dev, self.len_dev, bundle[:, 0],
-                bundle[:, 2:], self.last_tok, bundle[:, 1])
+                bundle[:, 2:], self.last_tok, bundle[:, 1],
+                sampling=sampling)
 
         tok = self.last_tok.cpu().numpy()     # one pull per iteration
         self._d2h(1)
@@ -991,26 +1017,39 @@ class PagedServer:
                            f"for {self.watchdog_iters} iterations "
                            f"(stuck at fed={r.fed}, out={len(r.out)})")
 
+    def _sampling(self, active: List[SeqState]):
+        """The device rows of the lanes' sampling policies, or None when
+        every active lane is greedy: the step then takes the argmax and
+        never enters the sampler."""
+        if all(r.sampling.greedy for r in active):
+            return None
+        return self.seed_dev, self.temp_dev, self.topk_dev, self.topp_dev
+
     # -------------------------------------------------------- speculation --
     def _spec_wanted(self, active: List[SeqState]) -> bool:
         """Draft this iteration?  Only when speculation is configured,
         every active lane decodes (mixed prefill iterations keep the chunk
-        path), and nothing waits for admission (a non-empty queue is
-        preemption pressure: lanes should not widen their verify window
-        while other work is starved)."""
+        path), at least one lane is greedy (sampling lanes never draft but
+        ride along: the verify step draws their bonus token exactly as
+        plain decode would), and nothing waits for admission (a non-empty
+        queue is preemption pressure: lanes should not widen their verify
+        window while other work is starved)."""
         return (self.spec_k > 0 and not self.queue
-                and all(r.fed >= len(r.prompt) for r in active))
+                and all(r.fed >= len(r.prompt) for r in active)
+                and any(r.sampling.greedy for r in active))
 
     def _propose(self, active: List[SeqState]):
         """Per-lane draft proposals in a fixed-width (B, spec_k) matrix.
-        A lane's depth is its adaptive ``spec_k_cur`` capped by the tokens
-        it still owes (at most ``remaining - 1`` drafts).  Returns
-        (None, None) when no lane proposed anything: the plain decode step
-        is cheaper."""
+        Sampling lanes never propose; a greedy lane's depth is its adaptive
+        ``spec_k_cur`` capped by the tokens it still owes (at most
+        ``remaining - 1`` drafts).  Returns (None, None) when no lane
+        proposed anything: the plain decode step is cheaper."""
         drafts = np.zeros((self.max_lanes, self.spec_k), np.int32)
         n_spec = np.zeros((self.max_lanes,), np.int32)
         any_draft = False
         for r in active:
+            if not r.sampling.greedy:
+                continue
             rem = r.max_new - len(r.out)
             cap = min(r.spec_k_cur, rem - 1, self.spec_k)
             if cap <= 0:
@@ -1058,7 +1097,7 @@ class PagedServer:
         verdict, self.last_tok, self.len_dev, self.last_logits = \
             self._spec_step(self.kv_pages, self.bt_dev, self.len_dev,
                             self.active_dev, self.last_tok, bundle[:, 1:],
-                            bundle[:, 0])
+                            bundle[:, 0], sampling=self._sampling(active))
         v = verdict.cpu().numpy()   # one pull per iteration
         self._d2h(1)
 
@@ -1276,14 +1315,64 @@ def _paged_forward(cfg: ArchConfig, model, use_kernel: bool,
     return L.norm_forward(cfg, model.final_norm, x), new_lens
 
 
+def _sample_scores(logits, seeds, pos, temps, top_ks, top_ps):
+    """The scores a sampling lane takes the argmax of: its (B, V) float32
+    ``logits`` divided by its temperature, truncated to top-k and then to
+    top-p (-inf outside), plus the Gumbel noise of the key
+    ``fold_in(PRNGKey(seed), pos)``, all lanes at once.
+
+    The reference's ``one`` (``repro.runtime.server._sample_tokens``) step
+    for step: top-k keeps the values >= the k-th largest (``top_k == 0``
+    keeps all); the nucleus keeps every probability >= the smallest of the
+    descending prefix whose mass before it is < top-p."""
+    V = logits.shape[-1]
+    lg = logits / torch.clamp(temps, min=1e-6)[:, None]
+    desc = torch.sort(lg, dim=-1, descending=True).values
+    kth = desc.gather(1, (top_ks.long() - 1).clamp(0, V - 1)[:, None])
+    lg = torch.where((top_ks[:, None] > 0) & (lg < kth), -torch.inf, lg)
+    e = torch.exp(lg - lg.amax(dim=-1, keepdim=True))
+    probs = e / e.sum(dim=-1, keepdim=True)
+    sp = torch.sort(probs, dim=-1, descending=True).values
+    keep = (torch.cumsum(sp, dim=-1) - sp) < top_ps[:, None]
+    thresh = torch.where(keep, sp, torch.inf).amin(dim=-1, keepdim=True)
+    lg = torch.where(probs >= thresh, lg, -torch.inf)
+    keys = prng.fold_in(prng.prng_key(seeds), pos)
+    return lg + prng.gumbel(keys, V)
+
+
+def _sample_tokens(logits, seeds, pos, temps, top_ks, top_ps):
+    """Each lane's next token from its (B, V) float32 ``logits``: the
+    greedy argmax where its temperature is 0, else a categorical draw
+    (the argmax of :func:`_sample_scores`) keyed by its seed and the
+    token's absolute position ``pos``, so a draw depends on (seed,
+    position) alone, however the request was chunked or preempted."""
+    sampler_calls.n += 1
+    greedy = logits.argmax(dim=-1)
+    sampled = _sample_scores(logits, seeds, pos, temps, top_ks,
+                             top_ps).argmax(dim=-1)
+    return torch.where(temps > 0, sampled, greedy).to(torch.int32)
+
+
+def _select(logits, pos, sampling):
+    """The greedy argmax of (B, V) ``logits``, or with ``sampling`` (the
+    engine's seed, temperature, top-k and top-p rows) each lane's draw at
+    position ``pos``."""
+    if sampling is None:
+        return logits.argmax(dim=-1).to(torch.int32)
+    seeds, temps, top_ks, top_ps = sampling
+    return _sample_tokens(logits, seeds, pos, temps, top_ks, top_ps)
+
+
 @torch.no_grad()
 def _paged_chunk_step(cfg: ArchConfig, model, use_kernel: bool,
                       pages_per_step: int, num_pages: int, kv_pages, bt, lens,
-                      n_new, feed, last_tok, use_last, kv_scales=None):
-    """Consume up to C tokens per lane and pick each lane's next token:
-    the greedy argmax of float32 logits at its last fed position.  The
-    decode step is the C=1 case (every lane feeds its device-resident
-    previous sample, ``n_new = active``).
+                      n_new, feed, last_tok, use_last, kv_scales=None,
+                      sampling=None):
+    """Consume up to C tokens per lane and pick each lane's next token
+    from the float32 logits at its last fed position: the greedy argmax,
+    or with ``sampling`` each lane's draw at the token's position ``lens +
+    n_new``.  The decode step is the C=1 case (every lane feeds its
+    device-resident previous sample, ``n_new = active``).
 
     Returns (next tokens (B,), new lengths (B,), logits (B, V) f32)."""
     h, new_lens = _paged_forward(cfg, model, use_kernel, pages_per_step,
@@ -1295,7 +1384,7 @@ def _paged_chunk_step(cfg: ArchConfig, model, use_kernel: bool,
     h_last = torch.gather(h, 1, row[:, None, None].expand(-1, 1, h.shape[-1])
                           )[:, 0]
     logits = L.logits_from_hidden(cfg, model.embed, h_last)     # (B,V) f32
-    nxt = logits.argmax(dim=-1).to(torch.int32)
+    nxt = _select(logits, new_lens, sampling)
     nxt = torch.where(n_new > 0, nxt, last_tok)   # idle lanes keep their token
     return nxt, new_lens, logits
 
@@ -1303,7 +1392,8 @@ def _paged_chunk_step(cfg: ArchConfig, model, use_kernel: bool,
 @torch.no_grad()
 def _paged_spec_step(cfg: ArchConfig, model, use_kernel: bool,
                      pages_per_step: int, num_pages: int, kv_pages, bt, lens,
-                     active, last_tok, drafts, n_spec, kv_scales=None):
+                     active, last_tok, drafts, n_spec, kv_scales=None,
+                     sampling=None):
     """Speculative verify: score all K+1 candidate positions of every lane
     in one chunked forward and count the accepted draft prefix (greedy
     lanes only).
@@ -1313,7 +1403,10 @@ def _paged_spec_step(cfg: ArchConfig, model, use_kernel: bool,
     page).  Draft d_{j+1} is accepted iff every earlier one was and it
     equals the greedy token after position j, so the accepted prefix plus
     the bonus token (the greedy token at row ``accepted``) is exactly the
-    plain greedy continuation.  Lengths advance by ``accepted + 1``.
+    plain greedy continuation.  With ``sampling`` the bonus token is each
+    lane's draw at position ``lens + accepted + 1``: for a drafting
+    (greedy) lane the greedy token, for a sampling lane (zero drafts) the
+    draw plain decode makes.  Lengths advance by ``accepted + 1``.
 
     Returns (verdict (B, K+2), next tokens (B,), new lengths (B,), the
     bonus rows' logits (B, V) f32); ``verdict[:, :K+1]`` holds each row's
@@ -1333,9 +1426,16 @@ def _paged_spec_step(cfg: ArchConfig, model, use_kernel: bool,
         torch.int32)
     new_lens = lens + torch.where(active == 1, accepted + 1,
                                   torch.zeros_like(accepted))
-    rows = torch.arange(B, device=drafts.device)
-    last = torch.where(active == 1, greedy[rows, accepted.long()], last_tok)
+    rows, acc = torch.arange(B, device=drafts.device), accepted.long()
+    bonus_logits = logits[rows, acc]                            # (B,V)
+    if sampling is None:    # all greedy: the bonus token IS the greedy one
+        bonus = greedy[rows, acc]
+    else:
+        seeds, temps, top_ks, top_ps = sampling
+        bonus = _sample_tokens(bonus_logits, seeds, lens + accepted + 1,
+                               temps, top_ks, top_ps)
+    last = torch.where(active == 1, bonus, last_tok)
     toks = greedy.clone()
-    toks[rows, accepted.long()] = last
+    toks[rows, acc] = last
     verdict = torch.cat([toks, accepted[:, None]], dim=1)
-    return verdict, last, new_lens, logits[rows, accepted.long()]
+    return verdict, last, new_lens, bonus_logits

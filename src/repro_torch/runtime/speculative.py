@@ -9,8 +9,9 @@ prefix plus the bonus token is exactly what plain greedy decode emits.
 * :class:`NGramDrafter` — the reference's suffix-match drafter, copied
   (pure Python): no model cost, strong on the repetitive tails greedy
   decode produces.  The engine's default.
-* :class:`DraftModelDrafter` — not ported yet: it runs a draft model's
-  full-sequence forward, which comes with the training-path slice.
+* :class:`DraftModelDrafter` — greedy continuation from a draft model's
+  full-sequence forward (``models.model.forward_fullseq``), whose every
+  self-attention runs the flash-attention kernel on the card.
 
 Drafters are stateless with respect to the engine: proposals are
 recomputed from the request's token history each iteration, so
@@ -20,7 +21,12 @@ its position.
 """
 from __future__ import annotations
 
-from typing import List, Protocol, Sequence
+from typing import List, Optional, Protocol, Sequence
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models import model as M
 
 
 class Drafter(Protocol):
@@ -72,12 +78,51 @@ class NGramDrafter:
 
 
 class DraftModelDrafter:
-    """Greedy k-token continuation from a small draft model: not ported
-    yet.  It needs the draft model's full-sequence forward
-    (``forward_fullseq``), which comes with the training-path slice."""
+    """Greedy k-token continuation from a (small) draft model.
 
-    def __init__(self, cfg, params, *, target_vocab=None, bucket: int = 32):
-        raise NotImplementedError(
-            "DraftModelDrafter is not ported to the PyTorch engine yet: it "
-            "needs forward_fullseq, which comes with the training-path "
-            "slice; use NGramDrafter")
+    ``cfg``/``params`` come from the same ``configs`` + ``models``
+    machinery as the target (the draft must share the target's
+    vocabulary, checked against ``target_vocab`` when given); the draft
+    runs on the device of its weights.  The context is right-padded to a
+    multiple of ``bucket`` (the reference compiles once per bucket; here it
+    keeps the kernel's shapes to a few); causal attention makes the
+    padding invisible to the logits at the last real position."""
+
+    def __init__(self, cfg, params, *, target_vocab: Optional[int] = None,
+                 bucket: int = 32):
+        if target_vocab is not None and cfg.vocab_size != target_vocab:
+            raise ValueError(
+                f"draft model vocab {cfg.vocab_size} != target vocab "
+                f"{target_vocab}: draft tokens would be meaningless")
+        self.cfg = cfg
+        self.params = params
+        self.bucket = bucket
+
+    def propose(self, ctx: Sequence[int], k: int) -> List[int]:
+        toks = list(ctx)
+        out: List[int] = []
+        for _ in range(max(k, 0)):
+            pad = -len(toks) % self.bucket or self.bucket
+            tokens = torch.tensor([toks + [0] * pad], dtype=torch.int32,
+                                  device=self.params.device)
+            nxt = int(_greedy_next(self.cfg, self.params, tokens, len(toks)))
+            out.append(nxt)
+            toks.append(nxt)
+        return out
+
+
+def _last_logits(cfg, params, tokens: torch.Tensor,
+                 length: int) -> torch.Tensor:
+    """(V,) float32 logits at position ``length - 1`` of the padded (1, S)
+    ``tokens``."""
+    with torch.inference_mode():
+        h = M.forward_fullseq(cfg, params, tokens)
+        return L.logits_from_hidden(cfg, params.embed,
+                                    h[0, length - 1:length])[0]
+
+
+def _greedy_next(cfg, params, tokens: torch.Tensor,
+                 length: int) -> torch.Tensor:
+    """Greedy next token after position ``length - 1`` of the padded
+    ``tokens``."""
+    return _last_logits(cfg, params, tokens, length).argmax()

@@ -1,6 +1,6 @@
 """The port's engine API: bf16 numerics, streaming, failure semantics,
-what is not ported yet (sampling, also under speculation, and the
-draft-model drafter among it), and the device default."""
+what is not ported yet (cache tiers, faults, sharding, MoE), and the
+device default."""
 import dataclasses
 import functools
 
@@ -21,8 +21,8 @@ from repro.runtime.server import _paged_forward as j_paged_forward
 from repro_torch.configs import get_config
 from repro_torch.models.model import init_params, params_from_jax
 from repro_torch.runtime import (
-    CacheConfig, DraftModelDrafter, EngineConfig, GenerationRequest,
-    PagedServer, SamplingParams, VirtualClock, make_engine,
+    CacheConfig, EngineConfig, GenerationRequest, PagedServer,
+    SamplingParams, VirtualClock, make_engine,
 )
 from repro_torch.runtime.server import _paged_chunk_step
 
@@ -144,12 +144,6 @@ def test_virtual_clock_deadline(smoke):
 
 
 @pytest.mark.parametrize("what,make", [
-    ("sampling", lambda s: _engine(s).submit(GenerationRequest(
-        0, (1, 2), SamplingParams(temperature=0.7)))),
-    ("spec_k", lambda s: _engine(s, spec_k=2).submit(GenerationRequest(
-        0, (1, 2), SamplingParams(temperature=0.7)))),
-    ("draft_model", lambda s: _engine(s, spec_k=2, drafter=DraftModelDrafter(
-        s[0], s[1], target_vocab=s[0].vocab_size))),
     ("host tier", lambda s: _engine(s, cache=CacheConfig(
         host_tier_pages=8))),
     ("disk tier", lambda s: _engine(s, cache=CacheConfig(
