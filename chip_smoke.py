@@ -43,8 +43,16 @@ non-zero without printing the final result line):
    a ``DraftModelDrafter`` on the card (every self-attention on the
    tensor-core flash kernel) and on the CPU, from one 340-token context
    (S=352): the logits must agree as above and four proposals must be
-   equal but for a near-tie.  Last, the threefry draws of 8 keys x
-   64,000 on the card must equal the CPU's bit for bit.
+   equal but for a near-tie.  Then the float32 engines again in lockstep
+   with the prefix cache spilling to a 4-page host tier that cascades
+   into a 16-page disk tier (six tenants' 64-token prompts visited twice
+   on a 16-page pool), each under a ``FaultInjector`` with planned
+   transient and persistent I/O faults, a seeded rate of transient ones
+   and a corrupt put at a forced preemption: tokens, results and errors,
+   retry counters, ``cache_stats()``, the injectors' reports and every
+   traced host row must be equal, and the corrupted request alone must
+   fail, by its checksum.  Last, the threefry draws of 8 keys x 64,000
+   on the card must equal the CPU's bit for bit.
 5. serve: yi-6b at full width (32 layers, bf16, random weights from seed
    0) serves 12 requests with a shared prefix and a forced preemption;
    the kernels must carry every layer of every iteration: the tensor-core
@@ -126,6 +134,28 @@ non-zero without printing the final result line):
    the same streams; greedy rids must give phase 5's tokens, excusing
    near-ties between the verify and the decode path as phase 4 does;
    and phase 5 (all greedy) must never have entered the sampler.
+14. tiers and faults at full width (run after phase 13): three waves
+   (phase 5's requests, 12 of other prompts that evict their prefixes,
+   phase 5's prompts again) on a 384-page pool (1 MiB pages) that spills
+   into a 96-page host tier and a 512-page disk tier in an owned temp
+   directory, served three times: fault-free, under a seeded rate (0.05)
+   of transient I/O faults (which must give the fault-free tokens), and
+   with a persistent put fault planned at rid 1's forced preemption (rid
+   1 alone must end in ``"error"``); every run must hit the host and the
+   disk tier, and ``assert_faults_contained`` and
+   ``assert_tier_conservation`` must hold.  It prints demoted and
+   promoted pages and bytes, host ms per demoted and per promoted page,
+   iteration wall medians and the paged kernels' launches, which must
+   carry every layer of every iteration.
+15. planner and load generator: the card's HBM byte rate (a 1 GiB copy)
+   and bf16 rate (an 8192^3 product), the constants of
+   ``repro_torch.launch.mesh``; ``load_gen``'s workload through the
+   full-width engine on a ``VirtualClock``, which ``planner.simulate``
+   must reproduce exactly (iterations, virtual duration, TTFT/TPOT
+   percentiles, goodput); and the ``AnalyticCostModel``'s predicted
+   prefill and decode iteration ms at the measured peaks beside phase
+   5's measured medians, with ``Calibration.from_trace`` of phase 5's
+   trace (recorded, not gated).
 
 Then the script's time, one JSON line ``{"kernels": [...]}`` (the
 paged-attention split-KV
@@ -750,6 +780,140 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
         {r.rid: (gpu_out[r.rid], cpu_out[r.rid]) for r in requests}
 
 
+# ----------------------------------------------- phase 4: tiers and faults --
+def tier_parity_workload(cfg) -> list:
+    """Phase 4's tiered traffic: six tenants' 64-token system prompts (4
+    pages of 16), each visited twice with its own 8-token tail, 4 new
+    tokens each: 30 pages of prefixes for a 24-page pool, so evictions
+    spill and the second visits hit host and disk."""
+    from repro_torch.runtime import GenerationRequest, SamplingParams
+    rng = np.random.default_rng(4)
+    systems = [rng.integers(0, cfg.vocab_size, 64).tolist()
+               for _ in range(6)]
+    return [GenerationRequest(
+        rep * 6 + t, tuple(s + rng.integers(0, cfg.vocab_size, 8).tolist()),
+        SamplingParams(max_new=4))
+        for rep in range(2) for t, s in enumerate(systems)]
+
+
+#: phase 4's planned faults, by backing-store op index: transient I/O
+#: faults and a persistent one on a tier fetch (ops counted from the
+#: run's start; a corrupt put is added at the forced preemption)
+TIER_PARITY_PLAN = {1: ("io", False), 2: ("io", False), 9: ("io", True)}
+
+
+def phase_tier_parity(models, devices=("cuda", "cpu")) -> dict:
+    """Phase 4's float32 weights served in lockstep by the CUDA engine and
+    the CPU engine with the prefix cache spilling into a 4-page host tier
+    that cascades into a 16-page disk tier, each engine with its own
+    ``FaultInjector``: transient and persistent I/O faults at planned ops,
+    a seeded rate (0.15) of transient ones, and a corrupt put planned at
+    the first put of a forced preemption (rid 3 at 2 tokens), which the
+    checksum must catch at its swap-in.  Tokens, results and errors,
+    retry counters, ``cache_stats()``, the injectors' reports and every
+    traced host row must be equal, and ``assert_faults_contained`` must
+    hold.  ``assert_tier_conservation`` is compared, not required: here
+    a fetch fault after an earlier hit's successful fetch re-plans the
+    admission, and the reference drops the fetched payload without a
+    trace event (the port keeps that behaviour, so the two traces stay
+    comparable).  Returns the CUDA engine's paged launches by kernel."""
+    from repro_torch.core.analysis import (
+        assert_faults_contained, assert_tier_conservation, layer1_decode,
+    )
+    from repro_torch.core.tracing import TraceBuffer
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.runtime import (
+        CacheConfig, EngineConfig, FaultInjector, FaultSpec, make_engine,
+    )
+    cfg, cpu_model, gpu_model = models
+    requests = tier_parity_workload(cfg)
+    engines = []
+    for model, dev in zip((gpu_model, cpu_model), devices):
+        inj = FaultInjector(seed=7, rate=0.15, kinds=(FaultSpec("io"),),
+                            plan={i: FaultSpec(k, persistent=p)
+                                  for i, (k, p) in TIER_PARITY_PLAN.items()})
+        engines.append(make_engine(cfg, model, EngineConfig(
+            cache=CacheConfig(num_pages=16, page_size=16,
+                              max_pages_per_seq=8, host_tier_pages=4,
+                              disk_tier_pages=16),
+            max_lanes=2, chunk=32, fault_injector=inj, swap_retries=3),
+            tracer=TraceBuffer(capacity=1 << 16), device=dev))
+    counters = (K.launches, K.tc_launches, K.split_launches)
+    before = [c.n for c in counters]
+    outs = [{r.rid: [] for r in requests} for _ in engines]
+    try:
+        for e in engines:
+            for r in requests:
+                e.submit(r)
+        preempted, busy = False, True
+        while busy:
+            busy = False
+            for e, out in zip(engines, outs):
+                busy |= e.step()
+                for d in e.poll_deltas():
+                    out[d.rid].extend(d.tokens)
+            if not preempted and len(outs[0][3]) >= 2:
+                for e in engines:
+                    e.faults.plan[e.faults.ops] = FaultSpec("corrupt",
+                                                            op="put")
+                    check(e.preempt(3), "forced preemption missed")
+                preempted = True
+        sides = []
+        for e, out in zip(engines, outs):
+            rows = e.tracer.drain()
+            events = layer1_decode(rows)
+            check(assert_faults_contained(events),
+                  "tier parity: a faulted request was lost")
+            e.pool.check_invariants()
+            e.backing.check_invariants()
+            sides.append(dict(
+                tokens=out,
+                results={r.rid: (r.tokens, r.finish_reason, r.error)
+                         for r in e.finished},
+                counters=dict(iterations=e.iterations, h2d=e.h2d_events,
+                              d2h=e.d2h_events, preemptions=e.preemptions,
+                              fault_retries=e.fault_retries,
+                              recovered_faults=e.recovered_faults,
+                              errors=e.errors),
+                stats=dataclasses.asdict(e.cache_stats()),
+                faults=e.faults.report(), rows=rows.tolist(),
+                conserved=assert_tier_conservation(events)))
+    finally:
+        for e in engines:
+            e.close()
+    launches, tc, split = (c.n - b for c, b in zip(counters, before))
+    g, c = sides
+    for key in ("tokens", "results", "counters", "stats", "faults", "rows",
+                "conserved"):
+        check(g[key] == c[key], f"tier parity: {key} differ: CUDA "
+                                f"{str(g[key])[:300]} CPU {str(c[key])[:300]}")
+    st, rep = c["stats"], c["faults"]
+    errs = [rid for rid, r in c["results"].items() if r[1] == "error"]
+    check(errs == [3] and "checksum" in c["results"][3][2],
+          f"tier parity: errors {errs} (rid 3 must fail its checksum)")
+    check(all(r[1] == "length" for rid, r in c["results"].items()
+              if rid != 3), "tier parity: a survivor did not finish")
+    check(rep["by_kind"]["io"] >= 3 and rep["by_kind"]["corrupt"] == 1
+          and rep["persistent_sites"] >= 1, f"tier parity: faults {rep}")
+    check(c["counters"]["recovered_faults"] > 0,
+          "tier parity: no transient fault was recovered")
+    check(st["hits_host_pages"] > 0 and st["hits_disk_pages"] > 0
+          and st["dropped_entries"] > 0,
+          f"tier parity: tiers not exercised: {st}")
+    if devices[0] == "cuda":
+        check(launches > 0 and tc == 0 and split > 0,
+              f"tier parity: launches {launches} (tensor cores {tc}, "
+              f"split-KV {split})")
+    print(f"tier parity: yi-6b widths x 2 layers float32, CUDA == CPU: "
+          f"{len(requests)} requests, tokens, results, counters "
+          f"{c['counters']}, cache_stats {st}, faults {rep}, "
+          f"{len(c['rows'])} host rows, tier conservation "
+          f"{c['conserved']}; fp32_core_launches="
+          f"{launches - tc - split} split_kv_launches={split}", flush=True)
+    return dict(fp32_core_launches=launches - tc - split,
+                split_launches=split)
+
+
 # --------------------------------------------------------------- phase 5 --
 def serve_workload(cfg, kv_dtype: str = "bf16", spec_k: int = 0):
     """Phases 5 and 6's engine spec and requests: 12 greedy requests of
@@ -807,7 +971,9 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
     prefill and verify iteration, the split-KV kernel every decode one;
     the plain version must never run.  With ``spec_k`` an ``echo_wave``
     follows once the workload is served.  Returns (metrics, {rid:
-    tokens})."""
+    tokens}, the run: each iteration's kind, wall ms, prefill tokens fed,
+    decoding lanes and resident context tokens before it; the engine's
+    trace rows and spec)."""
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention import ref as R
     from repro_torch.runtime import make_engine
@@ -816,6 +982,7 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
     engine = make_engine(cfg, model, ecfg)
     streamed = {}
     iter_ms = {"prefill": [], "decode": [], "verify": []}
+    iters = []
 
     def drive(reqs, preempt_rid=None):
         for r in reqs:
@@ -824,6 +991,9 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
         preempted = preempt_rid is None
         while True:
             before = (engine.prefill_tokens, engine.spec_iterations)
+            lanes = [r for r in engine.lanes if r is not None]
+            ctx = sum(engine.pool.seq_len.get(r.rid, 0) for r in lanes)
+            decoding = sum(r.fed >= len(r.prompt) for r in lanes)
             t = time.perf_counter()
             busy = engine.step()      # ends in the iteration's D2H pull
             dt = (time.perf_counter() - t) * 1e3
@@ -832,6 +1002,8 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
             kind = "prefill" if engine.prefill_tokens > before[0] else \
                 "verify" if engine.spec_iterations > before[1] else "decode"
             iter_ms[kind].append(dt)
+            iters.append(dict(kind=kind, ms=dt, ctx=ctx, decode=decoding,
+                              prefill=engine.prefill_tokens - before[0]))
             for d in engine.poll_deltas():
                 streamed[d.rid].extend(d.tokens)
             if not preempted and len(streamed[preempt_rid]) >= 8:
@@ -915,7 +1087,8 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
           f"{n_req} requests: "
           + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                      for k, v in row.items()), flush=True)
-    return row, {rid: res.tokens for rid, res in results.items()}
+    return row, {rid: res.tokens for rid, res in results.items()}, dict(
+        iters=iters, rows=engine.tracer.drain(), ecfg=ecfg)
 
 
 # ------------------------------------------------------ phases 4 and 13 --
@@ -1234,6 +1407,403 @@ def phase_frontdoor(cfg, model, phase5: dict, timer: Timer) -> dict:
           + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                      for k, v in row.items()), flush=True)
     return row
+
+
+# -------------------------------------------------------------- phase 14 --
+def tier_waves(cfg) -> tuple:
+    """Phase 14's traffic: phase 5's 12 requests, then 12 requests of
+    other prompts (300-700 tokens, 8 new tokens each) that evict their
+    prefixes, then phase 5's prompts again (8 new tokens each), whose
+    prefixes come back from the host and disk tiers."""
+    from repro_torch.runtime import GenerationRequest, SamplingParams
+    _, first = serve_workload(cfg)
+    rng = np.random.default_rng(5)
+    evict = [GenerationRequest(100 + i, tuple(rng.integers(
+        0, cfg.vocab_size, int(rng.integers(300, 701))).tolist()),
+        SamplingParams(max_new=8)) for i in range(12)]
+    again = [GenerationRequest(200 + r.rid, r.prompt,
+                               SamplingParams(max_new=8)) for r in first]
+    return first, evict, again
+
+
+#: phase 14's tiers: a 384-page pool (1 MiB pages at yi-6b's width, page
+#: 16), about the 8 lanes' lifetime reservations, so evictions spill into
+#: a 96-page host tier that cascades into a 512-page disk tier
+TIER_FULL = dict(num_pages=384, host_tier_pages=96, disk_tier_pages=512)
+#: its transient fault rate (io, retried in place)
+TIER_FULL_RATE = 0.05
+
+
+def tier_move_costs(cfg, device: str = "cuda", reps: int = 20) -> dict:
+    """Host ms (medians of ``reps``) of the parts of one page's tier
+    moves at ``cfg``'s width (bf16, page 16): the D2H pull and the H2D
+    upload the engine makes (``server._to_host``, ``_from_host`` of the
+    stacked pages, each with a device sync), the CRC32 the store takes
+    of it, and a ``DiskTier`` write and read of it (one raw-bytes file in
+    an owned temp dir)."""
+    import zlib
+    from repro_torch.core.offload import DiskTier
+    from repro_torch.runtime.server import _from_host, _to_host
+    L_, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    page = torch.randn((L_, 2, 16, kv, hd), device=device).to(
+        torch.bfloat16)
+    tier = DiskTier()
+    times = {k: [] for k in ("d2h", "crc32", "disk_write", "disk_read",
+                             "h2d")}
+
+    def clock(name, fn):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        times[name].append(1e3 * (time.perf_counter() - t))
+        return out
+    try:
+        for i in range(reps):
+            arr = clock("d2h", lambda: _to_host(page))
+            clock("crc32", lambda: zlib.crc32(arr.tobytes()))
+            clock("disk_write", lambda: tier.store(("cache", i), arr))
+            back = clock("disk_read", lambda: tier.load(("cache", i)))
+            # the engine's upload path: its pages stacked into one array
+            clock("h2d", lambda: _from_host(np.stack([back], axis=1),
+                                            torch.bfloat16,
+                                            torch.device(device)))
+            tier.delete(("cache", i))
+    finally:
+        tier.close()
+    return {f"{k}_ms": statistics.median(v) for k, v in times.items()} | {
+        "page_bytes": page.numel() * page.element_size()}
+
+
+def phase_tiers(cfg, model, device: str = "cuda") -> dict:
+    """The tiered prefix cache and fault handling at full width: three
+    runs of ``tier_waves`` (rid 1 preempted at 8 tokens) on phase 5's
+    engine cut to ``TIER_FULL`` with an owned temp directory for the
+    disk tier: fault-free; under a seeded rate of transient I/O faults,
+    which must give the fault-free tokens; and with a persistent put
+    fault planned at rid 1's preemption as well, which must end rid 1
+    alone in ``"error"`` and every other request by its length, with
+    ``assert_faults_contained`` and ``assert_tier_conservation`` holding
+    on its trace.  Every run must hit the host and the disk tier, and the
+    bf16 pool's kernels must carry every layer of every iteration (their
+    counts read from 0 around the three runs).  Then the parts of one
+    page's tier move, timed alone (``tier_move_costs``)."""
+    from repro_torch.core.analysis import (
+        assert_faults_contained, assert_tier_conservation, layer1_decode,
+    )
+    from repro_torch.core.tracing import TraceBuffer
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.paged_attention import ref as R
+    from repro_torch.runtime import (
+        CacheConfig, EngineConfig, FaultInjector, FaultSpec, make_engine,
+    )
+    t_phase = time.perf_counter()
+    base, _ = serve_workload(cfg)
+    # a new spec, not a replace: the spec mirrors its cache knobs in flat
+    # fields, which a replace would fold back over the new cache
+    ecfg = EngineConfig(
+        cache=CacheConfig(page_size=base.cache.page_size,
+                          max_pages_per_seq=base.cache.max_pages_per_seq,
+                          **TIER_FULL),
+        max_lanes=base.max_lanes, chunk=base.chunk, swap_retries=4)
+    waves = tier_waves(cfg)
+    n_req = sum(len(w) for w in waves)
+    kinds: list = []
+
+    def run(rate: float, persistent: bool) -> dict:
+        inj = FaultInjector(seed=11, rate=rate, kinds=(FaultSpec("io"),))
+        engine = make_engine(cfg, model, dataclasses.replace(
+            ecfg, fault_injector=inj), tracer=TraceBuffer(),
+            device=device)
+        spent = {"demote": 0.0, "promote": 0.0}
+
+        def timed(name, fn):
+            def call(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    spent[name] += time.perf_counter() - t
+            return call
+
+        # host time of the tier moves: the D2H pull and park of demoted
+        # pages; the fetch (host or disk, CRC) and H2D upload of promoted
+        engine._drain_tier_ops = timed("demote", engine._drain_tier_ops)
+        engine._resolve_spilled_hits = timed("promote",
+                                             engine._resolve_spilled_hits)
+        engine._begin_promotion = timed("promote", engine._begin_promotion)
+        tokens = {}
+        iter_ms = {"prefill": [], "decode": []}
+        t0 = time.perf_counter()
+        try:
+            for w, wave in enumerate(waves):
+                for r in wave:
+                    engine.submit(r)
+                    tokens[r.rid] = []
+                preempted = w > 0
+                while True:
+                    before = engine.prefill_tokens
+                    t = time.perf_counter()
+                    busy = engine.step()
+                    dt = (time.perf_counter() - t) * 1e3
+                    if not busy:
+                        break
+                    kind = "prefill" if engine.prefill_tokens > before \
+                        else "decode"
+                    iter_ms[kind].append(dt)
+                    kinds.append(kind)
+                    for d in engine.poll_deltas():
+                        tokens[d.rid].extend(d.tokens)
+                    if not preempted and len(tokens[1]) >= 8:
+                        if persistent:
+                            inj.plan[inj.ops] = FaultSpec(
+                                "io", op="put", persistent=True)
+                        check(engine.preempt(1), "forced preemption missed")
+                        preempted = True
+                for d in engine.poll_deltas():
+                    tokens[d.rid].extend(d.tokens)
+            wall = time.perf_counter() - t0
+            st = engine.cache_stats()
+            events = layer1_decode(engine.tracer.drain())
+            engine.pool.check_invariants()
+            engine.backing.check_invariants()
+            results = {r.rid: r for r in engine.finished}
+        finally:
+            engine.close()
+        check(len(results) == n_req, f"phase 14: {len(results)} of {n_req} "
+                                     "requests finished")
+        check(st.hits_host_pages > 0 and st.hits_disk_pages > 0,
+              f"phase 14: tier hits host {st.hits_host_pages}, disk "
+              f"{st.hits_disk_pages}: {st}")
+        check(assert_faults_contained(events),
+              "phase 14: a faulted request was lost")
+        check(assert_tier_conservation(events),
+              "phase 14: a tier move contradicted the residency")
+        for rid, res in results.items():
+            check(list(res.tokens) == tokens[rid],
+                  f"phase 14: rid {rid}: streamed deltas != result tokens")
+        return dict(
+            tokens=tokens, wall_s=wall, faults=inj.report(),
+            reasons={rid: r.finish_reason for rid, r in results.items()},
+            errors=engine.errors, fault_retries=engine.fault_retries,
+            recovered_faults=engine.recovered_faults,
+            iterations=engine.iterations, stats=st, spent=spent,
+            iter_ms=iter_ms, prefill_tokens=engine.prefill_tokens)
+
+    counters = (K.launches, K.int8_launches, K.tc_launches,
+                K.split_launches, R.calls)
+    for c in counters:
+        c.reset()
+    clean = run(0.0, False)
+    transient = run(TIER_FULL_RATE, False)
+    faulted = run(TIER_FULL_RATE, True)
+    launches, int8_launches, tc, split, plain = (c.n for c in counters)
+    L_ = cfg.num_layers
+    iterations = sum(r["iterations"] for r in (clean, transient, faulted))
+    if device == "cuda":
+        check(launches == L_ * iterations
+              and tc == L_ * kinds.count("prefill")
+              and split == L_ * kinds.count("decode")
+              and int8_launches == plain == 0,
+              f"phase 14: paged launches {launches} (tensor cores {tc}, "
+              f"split-KV {split}, int8 {int8_launches}, plain {plain}) for "
+              f"{L_} layers x {iterations} iterations")
+    check(all(r == "length" for r in clean["reasons"].values())
+          and all(r == "length" for r in transient["reasons"].values()),
+          "phase 14: a request of a run without persistent faults did "
+          "not finish by its length")
+    check(transient["faults"]["injected"] > 0
+          and transient["recovered_faults"] > 0
+          and transient["errors"] == 0,
+          f"phase 14: transient faults {transient['faults']}, recovered "
+          f"{transient['recovered_faults']}, errors {transient['errors']}")
+    check(transient["tokens"] == clean["tokens"],
+          "phase 14: transient faults changed a token")
+    errs = sorted(rid for rid, r in faulted["reasons"].items()
+                  if r == "error")
+    check(errs == [1] and faulted["errors"] == 1
+          and faulted["faults"]["persistent_sites"] == 1,
+          f"phase 14: errors {errs} (only the planned rid 1 may fail)")
+    check(all(r == "length" for rid, r in faulted["reasons"].items()
+              if rid != 1), "phase 14: a survivor did not finish by its "
+                            "length")
+    out = {}
+    for name, r in (("clean", clean), ("transient", transient),
+                    ("faulted", faulted)):
+        st = r["stats"]
+        row = dict(
+            iterations=r["iterations"], wall_s=r["wall_s"],
+            prefill_iterations=len(r["iter_ms"]["prefill"]),
+            decode_iterations=len(r["iter_ms"]["decode"]),
+            prefill_iter_ms_median=statistics.median(
+                r["iter_ms"]["prefill"]),
+            decode_iter_ms_median=statistics.median(r["iter_ms"]["decode"]),
+            hits_device_pages=st.hits_device_pages,
+            hits_host_pages=st.hits_host_pages,
+            hits_disk_pages=st.hits_disk_pages, miss_pages=st.miss_pages,
+            demoted_pages=st.demoted_pages,
+            promoted_pages=st.promoted_pages,
+            bytes_demoted=st.bytes_demoted,
+            bytes_promoted=st.bytes_promoted,
+            dropped_entries=st.dropped_entries,
+            host_ms_per_demoted_page=1e3 * r["spent"]["demote"]
+            / max(st.demoted_pages, 1),
+            host_ms_per_promoted_page=1e3 * r["spent"]["promote"]
+            / max(st.promoted_pages, 1),
+            injected=r["faults"]["injected"],
+            fault_retries=r["fault_retries"],
+            recovered_faults=r["recovered_faults"], errors=r["errors"])
+        print(f"tiers {name}: yi-6b 32 layers bf16, {n_req} requests, "
+              f"pool {TIER_FULL['num_pages']} pages of "
+              f"{st.bytes_per_token * 16 / 2**20:.2f} MiB, host "
+              f"{TIER_FULL['host_tier_pages']}, disk "
+              f"{TIER_FULL['disk_tier_pages']}: "
+              + " ".join(f"{k}={v:.4f}" if isinstance(v, float)
+                         else f"{k}={v}" for k, v in row.items()),
+              flush=True)
+        out[name] = row
+    out.update(paged_launches=launches, tc_launches=tc,
+               split_launches=split,
+               phase_s=time.perf_counter() - t_phase)
+    print(f"tiers: paged launches {launches} (tensor cores {tc}, split-KV "
+          f"{split}) over {iterations} iterations in "
+          f"{out['phase_s']:.2f} s", flush=True)
+    parts = tier_move_costs(cfg, device)
+    print("tiers: one page's move, host ms (median of 20): " + " ".join(
+        f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in parts.items()), flush=True)
+    out["move_costs"] = parts
+    return out
+
+
+# -------------------------------------------------------------- phase 15 --
+#: phase 15's peak measurements: a device-to-device copy of 1 GiB (read
+#: once, written once) and a bf16 product of 8192^3
+PEAK_COPY_BYTES = 1 << 30
+PEAK_GEMM = 8192
+
+
+def measure_peaks(timer: Timer) -> dict:
+    """The card's HBM byte rate (a 1 GiB ``copy_``: 2 GiB moved) and its
+    bf16 tensor-core rate (``torch.matmul`` at 8192^3), from median
+    CUDA-event times (``Timer``)."""
+    src = torch.ones(PEAK_COPY_BYTES // 4, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = timer.ms(lambda: dst.copy_(src), reps=10)
+    check(torch.equal(dst, src), "phase 15: the copy is wrong")
+    del src, dst
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a, b = (torch.randn((PEAK_GEMM, PEAK_GEMM), generator=g, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(2))
+    gemm_ms = timer.ms(lambda: a @ b, reps=10)
+    del a, b
+    torch.cuda.empty_cache()
+    return dict(copy_ms=copy_ms, gemm_ms=gemm_ms,
+                hbm_bytes_per_s=2 * PEAK_COPY_BYTES / (copy_ms / 1e3),
+                bf16_flops_per_s=2 * PEAK_GEMM ** 3 / (gemm_ms / 1e3))
+
+
+#: phase 15's load: ``load_gen``'s default workload (16 requests at 50 per
+#: virtual second, prompts 8-24, 2-8 new tokens, 4 lanes, chunk 8, a
+#: 12-token budget, 0.01 virtual s an iteration) on pages of 16
+LOAD_PAGE = 16
+
+
+def phase_planner(cfg, model, phase5: dict, peaks: dict, smi: str,
+                  device: str = "cuda") -> dict:
+    """The planner and the load generator on the card: ``load_gen``'s
+    workload served by the full-width engine through the front door on a
+    ``VirtualClock``, and ``planner.simulate`` on the same
+    ``WorkloadSpec`` and engine spec, which must give its iterations,
+    virtual duration, TTFT/TPOT percentiles and goodput exactly (the
+    paged kernels must carry every layer of every iteration); then
+    ``Calibration.from_trace`` on phase 5's trace and the
+    ``AnalyticCostModel``'s predicted prefill and decode iteration ms at
+    the measured peaks beside phase 5's measured medians (recorded, not
+    gated)."""
+    from repro_torch.core.analysis import layer1_decode
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.paged_attention import ref as R
+    from repro_torch.launch import load_gen, mesh
+    from repro_torch.planner import (
+        AnalyticCostModel, Calibration, FixedIterationCost, IterationStats,
+        WorkloadSpec, simulate,
+    )
+    spec = WorkloadSpec(rate_rps=50.0, requests=16, prompt_min=8,
+                        prompt_max=24, output_min=2, output_max=8, seed=0)
+    knobs = dict(page_size=LOAD_PAGE, max_lanes=4, chunk=8,
+                 token_budget=12)
+    iter_time_s, slo = 0.01, dict(slo_ttft_s=0.25, slo_tpot_s=0.05)
+    counters = (K.launches, K.tc_launches, K.split_launches, R.calls)
+    for c in counters:
+        c.reset()
+    t = time.perf_counter()
+    served = load_gen.run_load_gen(cfg=cfg, params=model, spec=spec,
+                                   iter_time_s=iter_time_s, device=device,
+                                   **knobs, **slo)
+    serve_s = time.perf_counter() - t
+    launches, tc, split, plain = (c.n for c in counters)
+    arrivals = spec.sample_arrivals(cfg.vocab_size)
+    longest = max(len(a.prompt) + a.max_new for a in arrivals)
+    t = time.perf_counter()
+    predicted = simulate(arrivals, load_gen.engine_config(longest, **knobs),
+                         iteration_cost=FixedIterationCost(iter_time_s),
+                         **slo)
+    simulate_s = time.perf_counter() - t
+    keys = ("requests", "completed", "iterations", "virtual_duration_s",
+            "ttft_p50_s", "ttft_p95_s", "ttft_p99_s", "tpot_p50_s",
+            "tpot_p95_s", "tpot_p99_s", "slo_goodput")
+    diff = {k: (served[k], predicted[k]) for k in keys
+            if served[k] != predicted[k]}
+    check(not diff, f"phase 15: simulate differs from the engine: {diff}")
+    L_ = cfg.num_layers
+    if device == "cuda":
+        check(launches == L_ * served["iterations"] and tc + split ==
+              launches and tc > 0 and split > 0 and plain == 0,
+              f"phase 15: paged launches {launches} (tensor cores {tc}, "
+              f"split-KV {split}, plain {plain}) for {L_} layers x "
+              f"{served['iterations']} iterations")
+    print(f"planner: load_gen on yi-6b 32 layers bf16 ({serve_s:.2f} s) "
+          f"== simulate ({1e3 * simulate_s:.2f} ms): "
+          + " ".join(f"{k}={served[k]}" for k in keys)
+          + f"; paged launches {launches} (tensor cores {tc}, split-KV "
+            f"{split})", flush=True)
+
+    # phase 5's iterations priced by the roofline at the measured peaks
+    iters, ecfg = phase5["iters"], phase5["ecfg"]
+    cost = AnalyticCostModel.for_engine(
+        cfg, ecfg, peak_flops=peaks["bf16_flops_per_s"],
+        hbm_bw=peaks["hbm_bytes_per_s"])
+    row = {}
+    for kind in ("prefill", "decode"):
+        own = [it for it in iters if it["kind"] == kind]
+        row[f"{kind}_iterations"] = len(own)
+        row[f"{kind}_measured_ms_median"] = statistics.median(
+            it["ms"] for it in own)
+        row[f"{kind}_predicted_ms_median"] = statistics.median(
+            1e3 * cost(IterationStats(
+                prefill_tokens=it["prefill"], decode_lanes=it["decode"],
+                spec_tokens=0, context_tokens=it["ctx"],
+                active_clusters=1)) for it in own)
+    median_s = statistics.median(it["ms"] for it in iters) / 1e3
+    cal = Calibration.from_trace(layer1_decode(phase5["rows"]),
+                                 iter_time_s=median_s)
+    row.update(calibration_iter_time_s=cal.iter_time_s,
+               mean_service_iters=cal.mean_service_iters,
+               mean_queue_delay_iters=cal.mean_queue_delay_iters)
+    print(f"planner: {smi}: measured hbm_bytes_per_s="
+          f"{peaks['hbm_bytes_per_s']:.6g} (copy {peaks['copy_ms']:.4f} ms), "
+          f"bf16_flops_per_s={peaks['bf16_flops_per_s']:.6g} (8192^3 "
+          f"{peaks['gemm_ms']:.4f} ms); launch.mesh HBM_BW={mesh.HBM_BW:.6g} "
+          f"PEAK_FLOPS_BF16={mesh.PEAK_FLOPS_BF16:.6g}", flush=True)
+    print("planner: phase 5's iterations, AnalyticCostModel at the measured "
+          "peaks vs measured: " + " ".join(
+              f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+              for k, v in row.items()), flush=True)
+    return dict(served={k: served[k] for k in keys}, paged_launches=launches,
+                tc_launches=tc, split_launches=split, **row, **peaks)
 
 
 # --------------------------------------------------------------- phase 7 --
@@ -1977,6 +2547,7 @@ def main() -> int:
     _, _, parity_int8, _ = phase_parity(parity, kv_dtype="int8", spec_k=4,
                                         known=known)
     phase_parity(parity, sampled=True)
+    tier_parity = phase_tier_parity(parity)
     parity = parity_models("bfloat16")
     _, known, _, _ = phase_parity(parity)
     phase_parity(parity, kv_dtype="int8", spec_k=4, known=known,
@@ -1995,15 +2566,20 @@ def main() -> int:
           flush=True)
     from repro_torch.runtime import server as S
     S.sampler_calls.reset()
-    serve, phase5 = phase_serve(cfg, model)
+    serve, phase5, phase5_run = phase_serve(cfg, model)
     check(S.sampler_calls.n == 0,
           f"phase 5 (all greedy) entered the sampler {S.sampler_calls.n} "
           "times")
     done("phase 5")
-    serve8, _ = phase_serve(cfg, model, kv_dtype="int8", spec_k=4)
+    serve8, _, _ = phase_serve(cfg, model, kv_dtype="int8", spec_k=4)
     done("phase 6")
     frontdoor = phase_frontdoor(cfg, model, phase5, timer)
     done("phase 13")
+    tiers = phase_tiers(cfg, model)
+    done("phase 14")
+    peaks = measure_peaks(timer)
+    planner = phase_planner(cfg, model, phase5_run, peaks, smi)
+    done("phase 15")
     del model
     torch.cuda.empty_cache()
 
@@ -2051,20 +2627,22 @@ def main() -> int:
     decode_fwd = "src/repro/kernels/paged_attention/kernel.py:61"
     prefill = "src/repro/kernels/paged_attention/kernel.py:222"
     quant = "src/repro/kernels/paged_attention/kernel.py:113-121"
-    # the bf16 pool's kernels carry phases 5 and 13
+    # the bf16 pool's kernels carry phases 5, 13, 14 and 15
     kernels = [
         entry("paged_attention_decode_split", SPLIT_KV, "same", 1,
               "bfloat16", serve["split_launches"]
-              + frontdoor["split_launches"], decode_fwd),
+              + frontdoor["split_launches"] + tiers["split_launches"]
+              + planner["split_launches"], decode_fwd),
         entry("paged_attention_decode_split_int8", SPLIT_KV, "int8", 1,
               "bfloat16", serve8["split_launches"], quant),
         entry("paged_attention", FP32_CORES, "same", 128, "float32",
-              parity_f32["fp32_core_launches"], prefill),
+              parity_f32["fp32_core_launches"]
+              + tier_parity["fp32_core_launches"], prefill),
         entry("paged_attention_int8", FP32_CORES, "int8", 128, "float32",
               parity_int8["fp32_core_launches"], quant),
         entry("paged_attention_prefill_tc", TENSOR_CORES, "same", 128,
-              "bfloat16", serve["tc_launches"] + frontdoor["tc_launches"],
-              prefill),
+              "bfloat16", serve["tc_launches"] + frontdoor["tc_launches"]
+              + tiers["tc_launches"] + planner["tc_launches"], prefill),
         entry("paged_attention_prefill_tc_int8", TENSOR_CORES, "int8", 128,
               "bfloat16", serve8["tc_launches"], quant),
     ]

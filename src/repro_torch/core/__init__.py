@@ -11,7 +11,7 @@ buildflow- C5: graph-based config matrix flattening
 from repro_torch.core.rab import RAB, RABConfig, PagedKVPool, RABMiss
 from repro_torch.core.svm import SVMSpace, AddressCollision
 from repro_torch.core.offload import (
-    OffloadTarget, OffloadReport, HostBackingStore,
+    OffloadTarget, OffloadReport, HostBackingStore, DiskTier,
 )
 from repro_torch.core.tracing import TraceBuffer, EventType, HOST_TRACER_ID
 from repro_torch.core.cluster import (
@@ -23,7 +23,7 @@ from repro_torch.core.buildflow import ConfigGraph, hero_test_matrix
 __all__ = [
     "RAB", "RABConfig", "PagedKVPool", "RABMiss",
     "SVMSpace", "AddressCollision",
-    "OffloadTarget", "OffloadReport", "HostBackingStore",
+    "OffloadTarget", "OffloadReport", "HostBackingStore", "DiskTier",
     "TraceBuffer", "EventType", "HOST_TRACER_ID",
     "ClusterConfig", "make_cluster_mesh", "cluster_parallel_matmul",
     "interconnect_model",

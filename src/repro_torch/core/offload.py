@@ -24,12 +24,16 @@ kernel, the Fig.5 measurement.  A host leaf of a type numpy lacks
 The serving engine parks a preempted request's page payloads in
 ``HostBackingStore`` (D2H) and restores them on re-admission (H2D).
 Payloads are numpy arrays; the store checksums each at park and verifies
-it at restore.  The disk tier is not ported yet.
+it at restore.  Below the host tier an optional ``DiskTier`` keeps one
+raw-bytes file per page.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
+import shutil
+import tempfile
 import time
 import zlib
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -139,8 +143,8 @@ class BackingTier:
     spill chain and owns all policy — LRU ordering, checksums, cascade on
     overflow, fault injection — so a tier only needs dumb storage.  This is
     the HERO SVM ladder: scratchpad (device pool) -> host DRAM
-    (:class:`HostTier`) -> storage (a disk tier, not ported yet), each
-    level slower and larger than the one above it."""
+    (:class:`HostTier`) -> storage (:class:`DiskTier`), each level slower
+    and larger than the one above it."""
 
     name = "tier"
 
@@ -194,6 +198,72 @@ class HostTier(BackingTier):
         self._data.clear()
 
 
+class DiskTier(BackingTier):
+    """Disk tier: one raw-bytes file per parked page.
+
+    If ``directory`` is ``None`` the tier creates (and on :meth:`close`
+    removes) its own temp directory; a caller-provided directory is left in
+    place, with only the tier's own files deleted — so benchmarks can own
+    the lifetime in a ``finally`` block."""
+
+    name = "disk"
+
+    def __init__(self, capacity_pages: int = 0,
+                 directory: Optional[str] = None):
+        super().__init__(capacity_pages)
+        self._owns_dir = directory is None
+        self._dir = directory
+        self._files: Dict[Tuple, str] = {}
+        # page payloads are written as raw bytes; dtype+shape ride here
+        # (the engine's payloads are int16 bit patterns of bfloat16 pages,
+        # float32 pages or packed uint8 blobs of int8 pages and scales)
+        self._meta: Dict[Tuple, Tuple] = {}
+        self._serial = 0
+
+    def _ensure_dir(self) -> str:
+        if self._dir is None:
+            self._dir = tempfile.mkdtemp(prefix="repro-disk-tier-")
+        else:
+            os.makedirs(self._dir, exist_ok=True)
+        return self._dir
+
+    def store(self, key, payload):
+        path = os.path.join(self._ensure_dir(), f"page{self._serial}.bin")
+        self._serial += 1
+        arr = np.ascontiguousarray(payload)
+        with open(path, "wb") as f:
+            f.write(arr.view(np.uint8).reshape(-1).tobytes())
+        self._files[key] = path
+        self._meta[key] = (arr.dtype, arr.shape)
+
+    def load(self, key):
+        dtype, shape = self._meta[key]
+        with open(self._files[key], "rb") as f:
+            flat = np.frombuffer(f.read(), dtype=np.uint8)
+        return flat.view(dtype).reshape(shape)
+
+    def delete(self, key):
+        path = self._files.pop(key)
+        self._meta.pop(key, None)
+        try:
+            os.remove(path)
+        except OSError:
+            pass
+
+    def __contains__(self, key):
+        return key in self._files
+
+    def __len__(self):
+        return len(self._files)
+
+    def close(self):
+        for key in list(self._files):
+            self.delete(key)
+        if self._owns_dir and self._dir is not None:
+            shutil.rmtree(self._dir, ignore_errors=True)
+            self._dir = None
+
+
 # Unified key space inside the store: preemption swap traffic and prefix
 # cache spill traffic share the tier chain (and therefore the capacity
 # pressure), but are distinguishable so only cache entries may ever be
@@ -215,7 +285,7 @@ class HostBackingStore:
     anything but a RAB refill.
 
     Since PR 8 the store is a spill *chain* of :class:`BackingTier` levels
-    (host DRAM, then optionally a lower tier) shared by two traffic classes:
+    (host DRAM, then optionally disk) shared by two traffic classes:
 
       * **swap** payloads (``put``/``pop``/``repark``/``discard``) — a
         preempted request's private pages.  Never dropped: under pressure

@@ -5,6 +5,7 @@ from repro_torch.runtime.api import (
     FINISH_TIMEOUT, FINISH_ERROR, FINISH_SHED,
 )
 from repro_torch.runtime.clock import Clock, MonotonicClock, VirtualClock
+from repro_torch.runtime.faults import FaultInjector, FaultSpec
 from repro_torch.runtime.frontdoor import (
     Arrival, FrontDoor, GreedyChunkPolicy, RequestRecord, SchedulerPolicy,
     TokenBudgetPolicy, latency_report,
@@ -21,6 +22,6 @@ __all__ = ["Trainer", "TrainerConfig", "FailureInjector",
            "GenerationRequest", "GenerationResult", "SamplingParams",
            "TokenDelta", "make_engine", "FINISH_STOP", "FINISH_LENGTH",
            "FINISH_ABORTED", "FINISH_TIMEOUT", "FINISH_ERROR",
-           "FINISH_SHED", "Clock", "MonotonicClock", "VirtualClock",
+           "FINISH_SHED", "FaultInjector", "FaultSpec", "Clock", "MonotonicClock", "VirtualClock",
            "Arrival", "FrontDoor", "RequestRecord", "SchedulerPolicy",
            "GreedyChunkPolicy", "TokenBudgetPolicy", "latency_report"]

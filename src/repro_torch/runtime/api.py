@@ -16,8 +16,7 @@ moves between the two packages without rewriting its requests:
   concatenation of a request's token deltas is its result's tokens.
 
 What the port does not serve yet is still spelled here and raises
-``NotImplementedError`` where the engine meets it: the host and disk
-cache tiers, fault injection and the sharded engine.
+``NotImplementedError`` where the engine meets it: the sharded engine.
 """
 from __future__ import annotations
 

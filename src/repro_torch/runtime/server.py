@@ -48,9 +48,19 @@ depend on chunking, batching or preemption.  The seed, temperature, top-k
 and top-p of each lane live on the device beside its length.  An
 iteration with no sampling lane never enters the sampler.
 
-These features of the reference raise ``NotImplementedError`` until their
-slice is ported: host/disk cache tiers, fault injection, MoE layers and
-the sharded engine.
+Prefix-cache pages evicted from the device pool can spill down a tier
+chain (``CacheConfig(host_tier_pages=..., disk_tier_pages=...)``): their
+payload is pulled D2H into the host tier, cascading to a disk tier under
+pressure, and an admission that hits a spilled entry promotes it back
+into a fresh device page, the lane gated on the engine clock for the
+modeled promotion latency.  A demoted page's payload is pulled before any
+write that could reuse the page is enqueued on the device.  An optional
+``FaultInjector`` (``runtime.faults``) perturbs every backing-store op;
+transient faults are retried, persistent ones demote their request to
+``"error"``.  The tier seam is cluster 0's only.
+
+MoE layers and the sharded engine raise ``NotImplementedError`` until
+their slice is ported.
 """
 from __future__ import annotations
 
@@ -62,7 +72,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.offload import BackingStoreError, HostBackingStore
+from repro_torch.core.offload import (
+    BackingStoreError, DiskTier, HostBackingStore,
+    TIER_CODES, TIER_DEVICE, TIER_HOST,
+)
 from repro_torch.core.rab import RAB, PagedKVPool
 from repro_torch.core.tracing import EventType, TraceBuffer
 from repro_torch.device import DeviceLike, resolve_device
@@ -110,6 +123,9 @@ class SeqState:
     arrival: int = -1                 # FIFO tiebreak, assigned by submit()
     reg_pages: int = 0                # prompt pages published to the index
     swapped: Optional[List[int]] = None   # lpages parked in the backing store
+    promoting: bool = False           # admitted, gated on an in-flight
+    #                                   prefix-page promotion (the lane
+    #                                   feeds nothing until it lands)
     deadline_iter: Optional[int] = None   # absolute engine-iteration bound
     deadline_t: Optional[float] = None    # absolute engine-clock bound
     not_before: float = 0.0           # engine-clock time before which this
@@ -195,10 +211,6 @@ class PagedServer:
         _check_supported(cfg)
         if engine.wants_sharded:
             raise _not_ported("sharded serving (clusters/heads/mesh)")
-        if engine.cache.host_tier_pages or engine.cache.disk_tier_pages:
-            raise _not_ported("the host/disk prefix-cache tiers")
-        if engine.fault_injector is not None:
-            raise _not_ported("fault injection")
         if self.device.type == "cuda" and not engine.use_kernel:
             raise ValueError(
                 "use_kernel=False (the plain attention path) runs on the "
@@ -242,7 +254,17 @@ class PagedServer:
         self.h2d_events = 0
         self.d2h_events = 0
         self.enable_prefix_cache = self.cache_cfg.enable_prefix_cache
-        self.backing = HostBackingStore()
+        # fault tolerance: the injector (if any) perturbs the backing-store
+        # ops and traces every decision through THIS engine's tracer
+        self.faults = engine.fault_injector
+        if self.faults is not None and self.faults.tracer is None:
+            self.faults.tracer = self.tracer
+        # hierarchical prefix cache (device pool -> host DRAM -> disk):
+        # swap traffic and demoted cache entries share one tier chain
+        self.backing = self._build_backing_store()
+        if self.cache_cfg.spill_enabled and self.enable_prefix_cache:
+            self.pool.spill_enabled = True
+        self._promotions: List[dict] = []   # in-flight H2D prefetches
         self.cache_hit_pages = {"device": 0, "host": 0, "disk": 0}
         self.cache_miss_pages = 0
         self.swap_retries = max(0, engine.swap_retries)
@@ -325,9 +347,17 @@ class PagedServer:
         self._spec_step = functools.partial(_paged_spec_step, *step_args,
                                             kv_scales=self.kv_scales)
 
+    def _build_backing_store(self) -> HostBackingStore:
+        cc = self.cache_cfg
+        disk = DiskTier(cc.disk_tier_pages, cc.disk_dir) \
+            if cc.disk_tier_pages else None
+        return HostBackingStore(self.faults, host_pages=cc.host_tier_pages,
+                                disk_tier=disk)
+
     def close(self):
-        """Release the backing store.  Idempotent; the engine stays usable
-        for stats reads afterwards."""
+        """Release the backing store's tiers (disk-tier files and an owned
+        directory).  Idempotent; the engine stays usable for stats reads
+        afterwards."""
         self.backing.close()
 
     # ------------------------------------------------------------- admin --
@@ -387,10 +417,12 @@ class PagedServer:
 
     def _plan(self, req: SeqState) -> dict:
         """Admission plan: which prefix-cache pages to map and how many
-        pages to reserve.  ``need`` excludes only *stable* shared pages
-        (fully written, never appended again); a shared partial tail keeps
-        one reserved page as the sharer's copy-on-write budget, and a
-        resuming request budgets every page it must restore or allocate."""
+        pages to reserve.  ``need`` excludes only *stable* device-resident
+        shared pages (fully written, never appended again); a shared
+        partial tail keeps one reserved page as the sharer's copy-on-write
+        budget, a spilled hit draws a fresh page for its promoted payload,
+        and a resuming request budgets every page it must restore or
+        allocate."""
         pool = self.pool
         total = self._pages_needed(req) + self._cow_budget(req)
         ps = self.page_size
@@ -399,13 +431,20 @@ class PagedServer:
                     "need": total, "cached_hits": 0}
         usable, hits = 0, []
         if self.enable_prefix_cache and len(req.prompt) > 1:
-            pages, n = pool.match_prefix(req.prompt)
+            # the hit chain may cross tiers: ("device", ppage) entries map
+            # by sharing, ("spilled", key) entries cost a fresh page each
+            # plus a promotion at placement
+            entries, n = pool.match_prefix_tiered(req.prompt)
             # the final prompt token always runs through the model (it
             # produces the first sampled token), so it is never reused
             usable = min(n, len(req.prompt) - 1)
-            hits = pages[:-(-usable // ps)] if usable else []
-        need = total - usable // ps
-        cached = sum(1 for p in hits if p in pool.cached_free)
+            hits = entries[:-(-usable // ps)] if usable else []
+        full = usable // ps
+        dev_full = sum(1 for i, (kind, _v) in enumerate(hits)
+                       if kind == "device" and i < full)
+        need = total - dev_full
+        cached = sum(1 for kind, v in hits
+                     if kind == "device" and v in pool.cached_free)
         plan = {"resume": False, "hits": hits, "usable": usable,
                 "need": need, "cached_hits": cached}
         if hits and not self._fits(plan):
@@ -456,11 +495,45 @@ class PagedServer:
             self.queue.remove(head)
             self._place(head, lane, plan)
 
+    def _resolve_spilled_hits(self, req: SeqState, plan: dict):
+        """Pull every spilled hit's payload out of the tier store *before*
+        any pool mutation.  A fetch fault (CRC mismatch, an injected pop
+        fault past the retry budget) drops that entry from every tier and
+        re-plans: dropping a spilled hit never changes ``need`` (device
+        hits are untouched), so the new plan still fits."""
+        pool, store = self.pool, self.backing
+        while True:
+            fetched: dict = {}
+            ok = True
+            for lp, (kind, val) in enumerate(plan["hits"]):
+                if kind != "spilled":
+                    continue
+                eid = pool.key_ids[val]
+                try:
+                    payload, tier = self._with_retries(functools.partial(
+                        store.fetch_cache, eid, req.rid), req.rid)
+                except BackingStoreError:
+                    pool.drop_spilled(val)
+                    store.drop_cache(eid)
+                    self._trace_store_moves()
+                    ok = False
+                    break
+                fetched[lp] = (eid, payload, tier)
+            if ok:
+                return plan, fetched
+            plan = self._plan(req)
+
     def _place(self, req: SeqState, lane: int, plan: dict):
         rid = req.rid
         req.lane = lane
         pool = self.pool
         self.lanes[lane] = req
+        fetched: dict = {}
+        if not plan["resume"] and any(k == "spilled" for k, _ in
+                                      plan["hits"]):
+            # fetch before reserving: a fetch fault re-plans through
+            # _fits, which must not see this request's own reservation
+            plan, fetched = self._resolve_spilled_hits(req, plan)
         if not plan["resume"]:
             prompt_pages = -(-len(req.prompt) // self.page_size)
             self.cache_miss_pages += prompt_pages - len(plan["hits"])
@@ -483,10 +556,19 @@ class PagedServer:
                 self.recovered_faults += 1
                 req.retry_attempt = 0
         elif plan["usable"]:
-            # prefix-cache hit: map resident pages by sharing
-            for lp, p in enumerate(plan["hits"]):
-                pool.share_page(rid, lp, p)
-                self.cache_hit_pages["device"] += 1
+            # prefix-cache hit: map resident pages by sharing; adopt a
+            # fresh page for each spilled hit (its payload was fetched
+            # above and is uploaded in _begin_promotion below)
+            promo: List[tuple] = []
+            for lp, (kind, val) in enumerate(plan["hits"]):
+                if kind == "device":
+                    pool.share_page(rid, lp, val)
+                    self.cache_hit_pages["device"] += 1
+                else:
+                    eid, payload, tier = fetched[lp]
+                    p = pool.adopt_spilled(rid, lp, val)
+                    self.cache_hit_pages[tier] += 1
+                    promo.append((p, eid, payload, tier))
             pool.seq_len[rid] = plan["usable"]
             pool.stats["prefix_hit_tokens"] += plan["usable"]
             req.fed = plan["usable"]
@@ -495,9 +577,15 @@ class PagedServer:
             self.tracer.record_host(EventType.PREFIX_HIT, rid,
                                     plan["usable"])
             self._delta(rid, event="prefix_hit", data=plan["usable"])
+            if promo:
+                # adopting may have evicted and spilled other entries:
+                # park their payloads before the promotion upload can land
+                # on a recycled page
+                self._drain_tier_ops()
+                self._begin_promotion(req, promo)
         self._refresh_row(lane, req)
         sp = req.sampling
-        self.active_dev[lane] = 1
+        self.active_dev[lane] = 0 if req.promoting else 1
         self.len_dev[lane] = pool.seq_len.get(rid, 0)
         self.seed_dev[lane] = sp.seed & 0xFFFFFFFF
         self.temp_dev[lane] = sp.temperature
@@ -571,6 +659,11 @@ class PagedServer:
         copy keeping re-admission independent of the sharers)."""
         rid, i = req.rid, req.lane
         pool = self.pool
+        if req.promoting:
+            # the promoted payload is already on the device (uploaded at
+            # placement), so the sweep below checkpoints correct data:
+            # just close the in-flight promotion's books first
+            self._land_promotions(force_rid=rid)
         mapped = pool.seq_pages(rid)
         if mapped:
             payloads = self._snap_pages([p for _, p in mapped])
@@ -635,6 +728,9 @@ class PagedServer:
             raise
         req.swapped = None
         phys = [pool.alloc_page(rid, lp) for lp in lps]
+        # allocating may have evicted and spilled indexed pages: park their
+        # payloads before this restore's upload can overwrite them
+        self._drain_tier_ops()
         self._load_pages(phys, payloads)
         self._h2d(len(lps))
         pool.stats["swapped_in"] += len(lps)
@@ -672,10 +768,98 @@ class PagedServer:
             if written == len(r.prompt) and written % ps:
                 pool.register_page(r.rid, written // ps, r.prompt)
 
+    # ------------------------------------------- hierarchical cache tiers --
+    def _trace_store_moves(self):
+        for eid, src, dst in self.backing.drain_cache_moves():
+            self.tracer.record_host(EventType.PAGE_DEMOTE, eid,
+                                    src * 4 + dst)
+
+    def _drain_tier_ops(self):
+        """Service the pool's pending tier transitions: pull the payload
+        of every just-demoted page D2H and park it in the tier store, drop
+        entries a re-registration superseded, then trace the store's own
+        cascade moves (host -> disk under pressure, drops).
+
+        MUST run before any device write that could reuse a demoted page
+        is enqueued: the pull reads the pages behind all work enqueued so
+        far, so a scatter already enqueued into a recycled page would be
+        captured in place of the demoted payload."""
+        pool, store = self.pool, self.backing
+        if not (pool.pending_demote or pool.pending_spill_drop):
+            return
+        moves = pool.drain_demotions()
+        # skip entries superseded between eviction and this drain
+        live = [(p, key) for p, key in moves if key in pool.spilled]
+        if live:
+            payloads = self._snap_pages([p for p, _ in live])
+            self._d2h(len(live))
+            for j, (_p, key) in enumerate(live):
+                eid = pool.key_ids[key]
+                store.park_cache(eid, payloads[j])
+                self.tracer.record_host(EventType.PAGE_DEMOTE, eid,
+                                        TIER_DEVICE * 4 + TIER_HOST)
+        for key in pool.drain_spill_drops():
+            store.drop_cache(pool.key_ids[key])
+        self._trace_store_moves()
+
+    def _begin_promotion(self, req: SeqState, promo: List[tuple]):
+        """Upload the fetched spilled payloads into their adopted device
+        pages and schedule the promotion's *landing* on the engine clock.
+
+        The payload write is enqueued at once, so sharers admitted off the
+        restored index entries and preemption sweeps always read correct
+        data, but the admitted lane stays gated (``active_dev`` 0, fed
+        nothing) until the modeled H2D prefetch latency elapses:
+        ``prefetch_depth`` pages move per latency quantum.  All timing
+        binds through ``self.clock``, so a VirtualClock replays it
+        exactly."""
+        cc = self.cache_cfg
+        self._load_pages([g for g, _eid, _pl, _t in promo],
+                         [pl for _g, _eid, pl, _t in promo])
+        self._h2d(len(promo))
+        quanta = -(-len(promo) // max(1, cc.prefetch_depth))
+        due = self.clock.now() + cc.promote_latency_s * quanta
+        req.promoting = True
+        self._promotions.append({
+            "rid": req.rid, "due": due,
+            "pages": [(eid, t) for _g, eid, _pl, t in promo]})
+
+    def _land_promotions(self, force_rid: Optional[int] = None):
+        """Complete every promotion whose due time has passed (or whose
+        owner ``force_rid`` is being preempted or terminated: the payload
+        is already on the device, so cancelling just closes the books):
+        trace PAGE_PROMOTE per page and un-gate the lane."""
+        if not self._promotions:
+            return
+        now = self.clock.now()
+        rest = []
+        for pr in self._promotions:
+            if pr["due"] > now and pr["rid"] != force_rid:
+                rest.append(pr)
+                continue
+            for eid, tier in pr["pages"]:
+                self.tracer.record_host(EventType.PAGE_PROMOTE, eid,
+                                        TIER_CODES[tier] * 4 + TIER_DEVICE)
+            req = next((r for r in self.lanes
+                        if r is not None and r.rid == pr["rid"]), None)
+            if req is not None and req.promoting:
+                req.promoting = False
+                # the gated interval must not count against the lane's
+                # progress watchdog
+                req.progress_iter = self.iterations
+                self.active_dev[req.lane] = 1
+                self._h2d(1)
+        self._promotions = rest
+
+    def _runnable(self) -> List[SeqState]:
+        """Lanes the iteration may feed: resident and not promotion-gated."""
+        return [r for r in self.lanes if r is not None and not r.promoting]
+
     def cache_stats(self) -> CacheStats:
-        """One frozen snapshot of the prefix cache (device tier only until
-        the host/disk tiers are ported)."""
-        pool = self.pool
+        """One frozen snapshot of the hierarchical prefix cache: tier
+        residency, per-tier admission hits, promotion/demotion traffic."""
+        pool, store = self.pool, self.backing
+        resident = store.cache_resident()
         cfg = self.cfg
         kv_hd = cfg.num_kv_heads * cfg.resolved_head_dim
         if self.quant_kv:
@@ -690,9 +874,19 @@ class PagedServer:
             device_pages=pool.num_pages,
             device_indexed=len(pool.prefix_index),
             device_cached_free=len(pool.cached_free),
+            host_pages=resident.get("host", 0),
+            disk_pages=resident.get("disk", 0),
             hits_device_pages=self.cache_hit_pages["device"],
+            hits_host_pages=self.cache_hit_pages["host"],
+            hits_disk_pages=self.cache_hit_pages["disk"],
             miss_pages=self.cache_miss_pages,
             prefix_hit_tokens=pool.stats["prefix_hit_tokens"],
+            promotions_in_flight=len(self._promotions),
+            demoted_pages=pool.stats["cache_demoted"],
+            promoted_pages=pool.stats["cache_promoted"],
+            dropped_entries=store.cache_dropped,
+            bytes_demoted=store.cache_bytes_demoted,
+            bytes_promoted=store.cache_bytes_promoted,
             evictions=pool.stats["cache_evictions"])
 
     # ------------------------------------------------------------- finish --
@@ -751,6 +945,8 @@ class PagedServer:
         req.done = True
         req.finish_reason = reason
         req.error = diag
+        if req.promoting:
+            self._land_promotions(force_rid=req.rid)
         if req in self.queue:
             self.queue.remove(req)
         self.pool.release(req.rid)
@@ -863,6 +1059,9 @@ class PagedServer:
                     self._bt_host[i, lp:] = dst
                     dirty.add(i)
                     self.tracer.record_host(EventType.PAGE_COW, s, dst)
+        # park payloads of pages the appends just evicted and spilled
+        # BEFORE the CoW copy / K-V scatter can write into them
+        self._drain_tier_ops()
         if self.quant_kv and fresh_pages:
             # a recycled page must not inherit its previous owner's scale:
             # the running max would only grow across pool reuse
@@ -878,6 +1077,8 @@ class PagedServer:
                 # the private copy carries the donor page's scales too
                 self.kv_scales[:, dst] = self.kv_scales[:, src]
         self._register_prompt_pages(active, n_new)
+        # registration may supersede spilled entries; drop them down-tier
+        self._drain_tier_ops()
         if dirty:
             rows = sorted(dirty)
             self.bt_dev[rows] = torch.from_numpy(
@@ -892,18 +1093,27 @@ class PagedServer:
         ``preempt()`` or ``submit()`` from the caller's loop body — still
         reach the stream."""
         self._sweep_deadlines()
+        self._land_promotions()
         self._admit()
-        active = [r for r in self.lanes if r is not None]
-        if not active and self.queue:
-            # nothing runs and every waiter is backing off: park on the
-            # clock until the earliest retry comes due, then re-try
-            nb = min(r.not_before for r in self.queue)
-            if nb > self.clock.now():
-                self.clock.hold_until(nb)
+        self._land_promotions()     # zero-latency promotions land in-step
+        active = self._runnable()
+        if not active and (self.queue or self._promotions):
+            # nothing runs and every waiter is backing off or gated on an
+            # in-flight promotion: park on the clock until the earliest
+            # retry or landing comes due, then re-try (on a VirtualClock
+            # nobody else ever moves time forward)
+            waits = [pr["due"] for pr in self._promotions]
+            if self.queue:
+                nb = min(r.not_before for r in self.queue)
+                if nb > self.clock.now():
+                    waits.append(nb)
+            if waits:
+                self.clock.hold_until(min(waits))
+                self._land_promotions()
                 self._admit()
-                active = [r for r in self.lanes if r is not None]
+                active = self._runnable()
         if not active:
-            return bool(self.queue)
+            return bool(self.queue) or bool(self._promotions)
         self.iterations += 1
         t0 = self.clock.now()
 
@@ -1004,6 +1214,11 @@ class PagedServer:
                 alpha * dt + (1 - alpha) * ema
         if self.watchdog_iters:
             for r in [r for r in self.lanes if r is not None]:
+                if r.promoting:
+                    # gated on an in-flight promotion: not stalled, the
+                    # landing path resets the marker clock
+                    r.progress_iter = self.iterations
+                    continue
                 marker = (r.fed, len(r.out))
                 if marker != r.progress_marker:
                     r.progress_marker = marker

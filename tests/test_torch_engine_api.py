@@ -1,6 +1,6 @@
 """The port's engine API: bf16 numerics, streaming, failure semantics,
-what is not ported yet (cache tiers, faults, sharding, MoE), and the
-device default."""
+what is not ported yet (sharding, MoE; the cache tiers and fault
+injection since ported), and the device default."""
 import dataclasses
 import functools
 
@@ -21,8 +21,8 @@ from repro.runtime.server import _paged_forward as j_paged_forward
 from repro_torch.configs import get_config
 from repro_torch.models.model import init_params, params_from_jax
 from repro_torch.runtime import (
-    CacheConfig, EngineConfig, GenerationRequest, PagedServer,
-    SamplingParams, VirtualClock, make_engine,
+    CacheConfig, EngineConfig, FaultInjector, GenerationRequest,
+    PagedServer, SamplingParams, VirtualClock, make_engine,
 )
 from repro_torch.runtime.server import _paged_chunk_step
 
@@ -148,15 +148,34 @@ def test_virtual_clock_deadline(smoke):
         host_tier_pages=8))),
     ("disk tier", lambda s: _engine(s, cache=CacheConfig(
         host_tier_pages=8, disk_tier_pages=8))),
-    ("faults", lambda s: _engine(s, fault_injector=object())),
+    ("faults", lambda s: _engine(s, fault_injector=FaultInjector())),
     ("sharded", lambda s: _engine(s, clusters=2)),
     ("moe", lambda s: PagedServer(
         dataclasses.replace(s[0], moe_num_experts=4, moe_top_k=2),
         s[1], device="cpu")),
 ])
 def test_features_not_ported_raise(smoke, what, make):
-    with pytest.raises(NotImplementedError):
-        make(smoke)
+    """Sharding and MoE raise ``NotImplementedError``.  The cache tiers
+    and fault injection, ported since, build an engine that carries them
+    (their behaviour is held against the reference by
+    ``test_torch_hierarchical_cache.py`` and ``test_torch_faults.py``)."""
+    if what in ("sharded", "moe"):
+        with pytest.raises(NotImplementedError):
+            make(smoke)
+        return
+    srv = make(smoke)
+    try:
+        tiers = [(t.name, t.capacity_pages) for t in srv.backing.tiers]
+        if what == "faults":
+            assert tiers == [("host", 0)]
+            assert srv.backing.faults is srv.faults
+            assert srv.faults.tracer is srv.tracer
+        else:
+            want = [("host", 8)] + ([("disk", 8)] if what == "disk tier"
+                                    else [])
+            assert tiers == want and srv.pool.spill_enabled
+    finally:
+        srv.close()
 
 
 def test_moe_model_not_ported():

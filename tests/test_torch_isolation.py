@@ -49,7 +49,10 @@ def test_port_imports_neither_jax_nor_reference():
               "kernels.flash_attention.kernel", "kernels.flash_attention.ops",
               "kernels.flash_attention.ref", "models.attention",
               "models.steps", "optim.adamw", "data.pipeline",
-              "checkpoint.store", "runtime.trainer", "launch.train"):
+              "checkpoint.store", "runtime.trainer", "launch.train",
+              "runtime.faults", "core.roofline", "launch.mesh",
+              "launch.load_gen", "planner.workload", "planner.simulator",
+              "planner.costs", "planner.capacity"):
         assert f"repro_torch.{m}" in out["modules"], m
     assert expected <= set(out["modules"]) | {"repro_torch.runtime",
                                               "repro_torch.kernels"}
