@@ -21,7 +21,10 @@ non-zero without printing the final result line):
    case prints the kernel it took (split-KV for
    C = 1, tensor cores for bf16 q with C > 1, FP32 cores for f32 q with
    C > 1; the counts must agree), its times, bytes, FLOPs and roofline
-   bound.
+   bound.  The same cases again at olmoe-1b-7b's geometry (H = Kv = 16,
+   G = 1), whose lanes include the rows the engine pads with (an idle
+   lane holding 130 tokens, a lane feeding half its C rows): every row,
+   pad rows included, must be finite and within the bar.
 4. engine parity: the same weights (yi-6b widths, 2 layers) served by the
    CUDA engine (kernel) and the CPU engine (plain version) in lockstep,
    with a shared prefix and a forced preemption: float32 greedy on a
@@ -51,8 +54,20 @@ non-zero without printing the final result line):
    and a corrupt put at a forced preemption: tokens, results and errors,
    retry counters, ``cache_stats()``, the injectors' reports and every
    traced host row must be equal, and the corrupted request alone must
-   fail, by its checksum.  Last, the threefry draws of 8 keys x 64,000
-   on the card must equal the CPU's bit for bit.
+   fail, by its checksum.  Then the threefry draws of 8 keys x 64,000
+   on the card must equal the CPU's bit for bit.  Last, olmoe-1b-7b's
+   widths x 2 layers (d 2048, 16/16 heads, 64 experts top-8,
+   ``moe_d_ff`` 1024) at capacity factor 0.5: float32 greedy on a
+   float32 pool with chunk 64 (whose chunk steps must drop assignments,
+   alike on both devices) equal token for token under the near-tie
+   rule; then bfloat16 greedy and bfloat16 on an int8 pool with
+   ``spec_k=4``, the CPU making the card's expert choices (one bf16
+   routing swap moves a random-weight olmoe's logits by a large share):
+   router logits and every token's logits within ``logits_agree``'s bar
+   until a stream's first flip, which must be a near-tie on the same
+   step's rows; it prints the share of (row, layer) top-k expert sets
+   the two devices chose alike on their own.  The half-chunk check is
+   not applied to MoE: capacity depends on the step's row count.
 5. serve: yi-6b at full width (32 layers, bf16, random weights from seed
    0) serves 12 requests with a shared prefix and a forced preemption;
    the kernels must carry every layer of every iteration: the tensor-core
@@ -156,6 +171,13 @@ non-zero without printing the final result line):
    prefill and decode iteration ms at the measured peaks beside phase
    5's measured medians, with ``Calibration.from_trace`` of phase 5's
    trace (recorded, not gated).
+16. MoE serve (after phase 15, yi-6b freed first): olmoe-1b-7b as
+   registered (16 layers, d 2048, 64 experts top-8, vocab 50,304, bf16,
+   random weights from seed 0) serves phase 5's workload, then phase 6's
+   (int8 pages, ``spec_k=4``, echo wave); the paged kernels must carry
+   every layer of every iteration.  It prints tokens/s, iteration
+   medians, paged launches per iteration, peak memory, KV bytes per
+   token and the first prefill iteration's dropped assignments.
 
 Then the script's time, one JSON line ``{"kernels": [...]}`` (the
 paged-attention split-KV
@@ -172,6 +194,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -310,22 +333,35 @@ class Timer:
 
 
 # --------------------------------------------------------------- phase 3 --
+#: phase 3's attention geometries: (H, Kv) at hd 128; olmoe's is G = 1
+PAGED_GEOMS = {"yi-6b": (32, 4), "olmoe-1b-7b": (16, 16)}
+
+
 def attention_case(C: int, dtype: torch.dtype, int8: bool = False,
-                   seed: int = 0, sharp: bool = False) -> dict:
-    """Inputs at yi-6b attention geometry, as the engine feeds the kernel:
-    lane b holds ``lengths[b]`` tokens of which its last ``n_new`` are
-    this step's queries (q_start = lengths - n_new); lanes 1..5 share a
-    128-token prefix (8 aliased physical pages); the last lane is
-    empty.  With ``int8`` the pool is int8 with (P, 2, Kv) float32
+                   seed: int = 0, sharp: bool = False,
+                   geom: str = "yi-6b") -> dict:
+    """Inputs at ``geom``'s attention geometry (``PAGED_GEOMS``), as the
+    engine feeds the kernel: lane b holds ``lengths[b]`` tokens of which
+    its last ``n_new`` are this step's queries (q_start = lengths -
+    n_new); lanes 1..5 share a 128-token prefix (8 aliased physical
+    pages); the last lane is empty.  At olmoe's geometry the step also
+    has the rows the engine pads with: lane 2 is idle (n_new = 0, all its
+    rows past its 130 tokens) and lane 4 feeds only ceil(C / 2) of its C
+    rows; a row past n_new sees every token of its lane (``pad``: (B, C)
+    marks them).  With ``int8`` the pool is int8 with (P, 2, Kv) float32
     scales, as the quantized engine keeps it.  q ~ N(0, 0.09), or with
     ``sharp`` scaled so the scores have std ``PAGED_SHARP``."""
     from repro_torch.kernels.paged_attention.ops import (
         page_counts_for, pad_block_table,
     )
-    B, H, Kv, hd, page, P, n_pages = 8, 32, 4, 128, 16, 1024, 64
+    H, Kv = PAGED_GEOMS[geom]
+    B, hd, page, P, n_pages = 8, 128, 16, 1024, 64
     rng = np.random.default_rng(seed)
     lengths = np.array([1, 17, 130, 300, 511, 777, 1024, 0], np.int32)
     n_new = np.minimum(C, lengths).astype(np.int32)
+    if geom != "yi-6b":
+        n_new[2] = 0
+        n_new[4] = -(-C // 2)
     q_start = (lengths - n_new).astype(np.int32)
     perm = rng.permutation(P)
     shared, private = perm[:8], list(perm[8:])
@@ -368,10 +404,11 @@ def attention_case(C: int, dtype: torch.dtype, int8: bool = False,
                              q_start[:, None] + np.arange(C)[None, :] + 1),
                   0, None)
     flops = 4 * hd * H * int(vis.sum())
+    pad = torch.from_numpy(np.arange(C)[None, :] >= n_new[:, None]).to(dev)
     return dict(q=q, kv=kv, scales=scales,
                 padded=pad_block_table(table, counts), counts=counts,
                 lens=lens,
-                q_start=torch.from_numpy(q_start).to(dev),
+                q_start=torch.from_numpy(q_start).to(dev), pad=pad,
                 bytes=int(nbytes), flops=int(flops))
 
 
@@ -406,21 +443,24 @@ PAGED_CASES = [(C, dtype, sharp) for C in (1, 5, 128)
 
 
 def phase_kernel(timer: Timer) -> list:
-    return [kernel_case(timer, C, dtype, int8, sharp) for int8 in (False, True)
+    return [kernel_case(timer, C, dtype, int8, sharp, geom)
+            for geom in PAGED_GEOMS for int8 in (False, True)
             for C, dtype, sharp in PAGED_CASES]
 
 
 def kernel_case(timer: Timer, C: int, dtype: torch.dtype, int8: bool,
-                sharp: bool = False) -> dict:
+                sharp: bool = False, geom: str = "yi-6b") -> dict:
     """One case of phase 3: the kernel its route picks (on the int8 pool
     with ``int8``) against its plain version, then timed beside the plain
-    version and SDPA, with its bytes, FLOPs and roofline bound."""
+    version and SDPA, with its bytes, FLOPs and roofline bound.  The
+    rows the engine pads with (``attention_case``'s ``pad``) are held to
+    the same bar as every row; their error is reported apart."""
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention import ref as R
     from repro_torch.kernels.paged_attention.ops import mask_block_table
-    c = attention_case(C, dtype, int8, sharp=sharp)
+    c = attention_case(C, dtype, int8, sharp=sharp, geom=geom)
     route = K.route(dtype, C)
-    name = f"C={C} q={str(dtype).replace('torch.', '')} " \
+    name = f"{geom} C={C} q={str(dtype).replace('torch.', '')} " \
         f"kv={'int8' if int8 else 'same'}{' sharp' if sharp else ''}"
     args = (c["q"], c["kv"], c["padded"], c["counts"], c["lens"],
             c["q_start"])
@@ -451,14 +491,19 @@ def kernel_case(timer: Timer, C: int, dtype: torch.dtype, int8: bool,
           f"{name}: non-finite kernel output")
     check(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
           f"{name}: kernel vs plain max |err| {err}")
+    pad = c["pad"]
+    pad_rows = int(pad.sum())
+    pad_err = (out.float() - ref.float())[pad].abs().max().item() \
+        if pad_rows else 0.0
     ms = timer.ms(kernel)
     plain_ms = timer.ms(plain, reps=5)
     library_ms = timer.ms(sdpa_call(c, C))
     t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
     t_ops = c["flops"] / PEAK_OPS_PER_S[dtype] * 1e3
     bound_ms = max(t_bytes, t_ops)
-    row = dict(C=C, dtype=str(dtype).replace("torch.", ""),
+    row = dict(geom=geom, C=C, dtype=str(dtype).replace("torch.", ""),
                kv="int8" if int8 else "same", sharp=sharp, kernel=route,
+               pad_rows=pad_rows, pad_max_abs_err=pad_err,
                max_abs_err=err, max_abs_ref=ref.float().abs().max().item(),
                tol=tol, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bytes=c["bytes"], flops=c["flops"], bound_ms=bound_ms,
@@ -469,6 +514,7 @@ def kernel_case(timer: Timer, C: int, dtype: torch.dtype, int8: bool,
           f"bytes={c['bytes']} flops={c['flops']} bound_ms={bound_ms:.5f} "
           f"({row['bound_by']}) share_of_bound={row['share_of_bound']:.4f} "
           f"max_abs_err={err:.3g} max_abs_ref={row['max_abs_ref']:.3g} "
+          f"pad_rows={pad_rows} pad_max_abs_err={pad_err:.3g} "
           f"tol={tol}", flush=True)
     return row
 
@@ -763,7 +809,7 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
               == (c.iterations, c.h2d_events, c.d2h_events, spec[1]),
               "CUDA and CPU engines scheduled differently")
     n_tok = sum(len(v) for v in cpu_out.values())
-    print(f"parity: yi-6b widths x 2 layers {cfg.param_dtype}, kv "
+    print(f"parity: {cfg.name} widths x 2 layers {cfg.param_dtype}, kv "
           f"{kv_dtype}, spec_k={spec_k}, sampled={sampled}, chunk={chunk}, "
           f"sampler_calls={sampler}, {len(requests)} requests, "
           f"{n_tok} tokens, tensor_core_launches={tc_launches}, "
@@ -778,6 +824,285 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
         dict(tc_launches=tc_launches, split_launches=split_launches,
              fp32_core_launches=fp32_core), \
         {r.rid: (gpu_out[r.rid], cpu_out[r.rid]) for r in requests}
+
+
+# ------------------------------------------------------ phase 4: MoE --
+@dataclasses.dataclass
+class Route:
+    """One MoE layer call: its device, the top-k expert ids it computed
+    (T, k), its float32 router logits (T, E) and the capacity C of its T
+    rows."""
+    device: str
+    idx: torch.Tensor
+    logits: torch.Tensor
+    C: int
+
+    def dropped(self) -> int:
+        """Assignments past their expert's C slots."""
+        load = torch.bincount(self.idx.reshape(-1),
+                              minlength=self.logits.shape[1])
+        return int((load - self.C).clamp(min=0).sum())
+
+
+class RouteRecorder:
+    """Records every MoE layer call while active (it wraps
+    ``repro_torch.models.moe._route``) as a ``Route``; the tensors stay
+    on their device until read, so recording adds no sync to the step.
+    With ``follow`` the CPU's n-th call routes to the expert ids of the
+    card's n-th call (the card steps first in each lockstep round), its
+    gates the softmax of its own logits at those ids, while its own top-k
+    is recorded; from the first call whose shape differs from the card's
+    (the schedules parted) it routes on its own again."""
+
+    def __init__(self, follow: bool = False):
+        self.calls = []
+        self.follow = follow
+        self.parted_at = None        # the CPU call where following ended
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self._moe, self._real = MOE, MOE._route
+
+        def spy(cfg, router, xf):
+            vals, idx = self._real(cfg, router, xf)
+            logits = xf.float() @ router
+            call = Route(router.device.type, idx.clone(), logits,
+                         MOE._capacity(cfg, xf.shape[0]))
+            self.calls.append(call)
+            if not self.follow or call.device != "cpu" or \
+                    self.parted_at is not None:
+                return vals, idx
+            n = len(self.on("cpu")) - 1
+            card = self.on("cuda")
+            if n >= len(card) or card[n].idx.shape != idx.shape:
+                self.parted_at = n
+                return vals, idx
+            forced = card[n].idx.to(xf.device)
+            return logits.gather(1, forced), forced
+        MOE._route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._route = self._real
+
+    def on(self, device: str) -> list:
+        return [c for c in self.calls if c.device == device]
+
+    def agreement(self) -> tuple:
+        """(rows whose top-k set the card and the CPU agree on, rows
+        compared), over the calls the two devices made in the same order
+        at the same row count (every row of a call, pad rows included;
+        the CPU's own top-k, also where it follows the card's)."""
+        same = total = 0
+        for a, b in zip(self.on("cuda"), self.on("cpu")):
+            if a.idx.shape != b.idx.shape:
+                continue
+            ia = torch.sort(a.idx.cpu(), dim=-1).values
+            ib = torch.sort(b.idx.cpu(), dim=-1).values
+            same += int((ia == ib).all(dim=-1).sum())
+            total += ia.shape[0]
+        return same, total
+
+
+class RowCapture:
+    """Keeps the last float32 logits the engine's vocabulary head gave
+    (it wraps ``repro_torch.models.layers.logits_from_hidden``): a chunk
+    or decode step's (B, V) rows, a verify step's (B, K+1, V)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self._layers, self._real = L, L.logits_from_hidden
+        self.last = None
+
+        def spy(*args, **kw):
+            self.last = self._real(*args, **kw)
+            return self.last
+        L.logits_from_hidden = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._layers.logits_from_hidden = self._real
+
+
+def moe_lockstep(models, kv_dtype: str = "bf16", spec_k: int = 0,
+                 known=None) -> tuple:
+    """``phase_parity``'s lockstep for bfloat16 MoE weights, with the CPU
+    engine making the card's expert choices (``RouteRecorder(follow=
+    True)``): a bf16 rounding can swap two experts of nearly equal
+    router logits, and one swapped expert moves the logits by a large
+    share (the experts' outputs dwarf the residual at this init), so
+    only the routing is aligned, not the arithmetic.  Every MoE call's
+    router logits must then agree within ``logits_agree``'s bar until the
+    round in which a first token flip appears (past it that lane feeds
+    another token); every
+    token's logits (the row it was picked from, captured in the same
+    step on both devices) must agree within it too until its stream's
+    first flip, which must be a near-tie by ``flip_margin`` on those
+    rows.  Prints the share of (row, layer) top-k sets the two devices
+    chose alike on their own.  Returns ({prompt: CPU tokens}, the card's
+    launches by kernel)."""
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.runtime import (
+        CacheConfig, EngineConfig, GenerationRequest, make_engine,
+    )
+    cfg, cpu_model, gpu_model = models
+    dtype = getattr(torch, cfg.param_dtype)
+    ecfg = EngineConfig(cache=CacheConfig(num_pages=64, page_size=16,
+                                          max_pages_per_seq=8,
+                                          kv_dtype=kv_dtype),
+                        max_lanes=2, chunk=16, spec_k=spec_k,
+                        drafter=ReplayDrafter(known, cfg.vocab_size)
+                        if spec_k else None)
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab_size, 32).tolist()
+    prompts = [prefix + rng.integers(0, cfg.vocab_size,
+                                     int(rng.integers(8, 33))).tolist()
+               for _ in range(4)]
+    requests = [GenerationRequest(rid, tuple(p), sampling_for(rid, False))
+                for rid, p in enumerate(prompts)]
+    pair = [make_engine(cfg, gpu_model, ecfg),
+            make_engine(cfg, cpu_model, ecfg, device="cpu")]
+    outs = [{r.rid: [] for r in requests} for _ in pair]
+    rows = [{} for _ in pair]                   # (rid, j) -> logits row
+    for e in pair:
+        for r in requests:
+            e.submit(r)
+    counters = (K.tc_launches, K.split_launches)
+    before = [c.n for c in counters]
+    preempted, busy = False, True
+    flip_calls = None       # CPU layer calls up to the round of a first flip
+    with RouteRecorder(follow=True) as rec, RowCapture() as cap:
+        while busy:
+            busy = False
+            for e, out, got in zip(pair, outs, rows):
+                lanes = {r.rid: r.lane for r in e.lanes if r is not None}
+                cap.last = None
+                busy |= e.step()
+                lanes.update({r.rid: r.lane for r in e.lanes
+                              if r is not None and r.rid not in lanes})
+                for d in e.poll_deltas():
+                    for m, tok in enumerate(d.tokens):
+                        lg = cap.last[lanes[d.rid]]
+                        got[(d.rid, len(out[d.rid]))] = \
+                            (lg if lg.dim() == 1 else lg[m]).cpu()
+                        out[d.rid].append(tok)
+            if flip_calls is None and any(
+                    x != y for rid in outs[0]
+                    for x, y in zip(outs[0][rid], outs[1][rid])):
+                flip_calls = len(rec.on("cpu"))
+            if not preempted and len(outs[0][0]) >= 3:
+                for e in pair:
+                    check(e.preempt(0), "forced preemption missed")
+                preempted = True
+    tc_launches, split_launches = (c.n - b for c, b in zip(counters, before))
+    # past the round of the first flip a lane's input token differs
+    worst = 0.0
+    n_calls = min(x for x in (rec.parted_at, flip_calls,
+                              len(rec.on("cpu"))) if x is not None)
+    for i, (a, b) in enumerate(zip(rec.on("cuda"), rec.on("cpu"))):
+        if i >= n_calls:
+            break
+        diff, gate = logits_agree((a.logits, b.logits), dtype,
+                                  f"MoE router logits, call {i}")
+        worst = max(worst, diff / gate)
+    label = f"moe lockstep {cfg.param_dtype} kv {kv_dtype} spec_k={spec_k}"
+    excused = compared = 0
+    for r in requests:
+        a, b = outs[0][r.rid], outs[1][r.rid]
+        check(len(a) == len(b) == 8, f"{label} rid {r.rid}: lengths "
+                                     f"{len(a)}, {len(b)}")
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        for i in range(len(a) if j is None else j):
+            logits_agree((rows[0][(r.rid, i)], rows[1][(r.rid, i)]), dtype,
+                         f"{label} rid {r.rid} token {i}")
+            compared += 1
+        if j is not None:
+            pos = len(r.prompt) + j
+            ok, numbers = flip_margin(
+                (rows[0][(r.rid, j)], rows[1][(r.rid, j)]), a[j], b[j],
+                r.sampling, pos, dtype, f"{label} rid {r.rid} token {j}")
+            check(ok, f"{label} rid {r.rid} token {j}: {a[j]} != {b[j]}, "
+                      f"{numbers}")
+            print(f"{label} rid {r.rid} token {j} excused: {numbers}",
+                  flush=True)
+            excused += 1
+    same, total = rec.agreement()
+    g, c = pair
+    check(g.preemptions >= 1 and g.cache_stats().prefix_hit_tokens > 0,
+          f"{label}: no preemption or no prefix hit")
+    check(tc_launches > 0 and (spec_k or split_launches > 0),
+          f"{label}: tensor-core launches {tc_launches}, split-KV "
+          f"{split_launches}")
+    if spec_k:
+        check(c.spec_accepted > 0 and c.spec_rejected > 0,
+              f"{label}: speculation accepted {c.spec_accepted} and "
+              f"rejected {c.spec_rejected} drafts (both must happen)")
+    dropped = [sum(x.dropped() for x in rec.on(d)) for d in ("cuda", "cpu")]
+    print(f"{label}: {cfg.name} widths x 2 layers, {len(requests)} "
+          f"requests, tokens compared {compared}, excused_positions="
+          f"{excused}, the CPU followed the card's routing for "
+          f"{rec.parted_at if rec.parted_at is not None else 'all'} of "
+          f"{len(rec.on('cpu'))} calls, router logits within "
+          f"{worst:.3g} of the bar in the {n_calls} calls before a first "
+          f"flip; on their own the devices chose the "
+          f"same top-k set on {same} of {total} (row, layer) pairs "
+          f"({same / max(total, 1):.4f}); dropped {dropped[0]} (cuda) / "
+          f"{dropped[1]} (cpu); tensor_core_launches={tc_launches}, "
+          f"split_kv_launches={split_launches}, spec_proposed/accepted/"
+          f"rejected cuda={g.spec_proposed, g.spec_accepted, g.spec_rejected}"
+          f" cpu={c.spec_proposed, c.spec_accepted, c.spec_rejected}",
+          flush=True)
+    return {tuple(r.prompt): outs[1][r.rid] for r in requests}, \
+        dict(tc_launches=tc_launches, split_launches=split_launches)
+
+
+#: phase 4's olmoe engines: olmoe-1b-7b's widths x 2 layers, capacity
+#: factor 0.5 and chunk 64 so that a chunk step's 128 rows get C = 8
+#: slots an expert for a mean load of 16 (the floor of 8 hides drops at
+#: chunk 16: C = 8 for a mean load of 4)
+MOE_PARITY_CF, MOE_PARITY_CHUNK = 0.5, 64
+
+
+def moe_parity_models(dtype: str):
+    """Phase 4's MoE weights (``dtype``), as ``parity_models``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b"), num_layers=2,
+                              param_dtype=dtype,
+                              moe_capacity_factor=MOE_PARITY_CF)
+    cpu_model = init_params(cfg, seed=0, device="cpu")
+    return cfg, cpu_model, copy.deepcopy(cpu_model).to("cuda")
+
+
+def phase_moe_parity() -> dict:
+    """olmoe's engines CUDA vs CPU in lockstep (``phase_parity``'s
+    workload, prefix and preemption): float32 greedy on a float32 pool,
+    whose chunk steps must drop assignments on both devices alike; then
+    bfloat16 greedy and bfloat16 on an int8 pool with ``spec_k=4``
+    (drafts replayed from the bfloat16 run) through ``moe_lockstep``.
+    Returns the card's launches by kernel of each run."""
+    models = moe_parity_models("float32")
+    with RouteRecorder() as rec:
+        excused, _, f32, _ = phase_parity(models, chunk=MOE_PARITY_CHUNK)
+    drops = {dev: [c.dropped() for c in rec.on(dev)]
+             for dev in ("cuda", "cpu")}
+    same, total = rec.agreement()
+    check(sum(drops["cuda"]) > 0, "MoE parity f32: no step dropped an "
+                                  "assignment")
+    if not excused:
+        check(drops["cuda"] == drops["cpu"],
+              "MoE parity f32: the two devices dropped differently")
+    print(f"moe parity: float32 dropped {sum(drops['cuda'])} (cuda) / "
+          f"{sum(drops['cpu'])} (cpu) assignments in "
+          f"{sum(d > 0 for d in drops['cuda'])} of {len(drops['cuda'])} "
+          f"layer calls; top-k sets agree on {same} of {total} rows",
+          flush=True)
+    del models
+    models = moe_parity_models("bfloat16")
+    known, bf16 = moe_lockstep(models)
+    _, int8 = moe_lockstep(models, kv_dtype="int8", spec_k=4, known=known)
+    del models
+    return dict(f32=f32, bf16=bf16, int8=int8)
 
 
 # ----------------------------------------------- phase 4: tiers and faults --
@@ -970,7 +1295,9 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
     0 just before the run and just after): the tensor-core kernel every
     prefill and verify iteration, the split-KV kernel every decode one;
     the plain version must never run.  With ``spec_k`` an ``echo_wave``
-    follows once the workload is served.  Returns (metrics, {rid:
+    follows once the workload is served.  For an MoE model the first
+    iteration (a prefill) runs under a ``RouteRecorder`` and its dropped
+    assignments are reported.  Returns (metrics, {rid:
     tokens}, the run: each iteration's kind, wall ms, prefill tokens fed,
     decoding lanes and resident context tokens before it; the engine's
     trace rows and spec)."""
@@ -983,6 +1310,13 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
     streamed = {}
     iter_ms = {"prefill": [], "decode": [], "verify": []}
     iters = []
+    first = RouteRecorder()
+
+    def step() -> bool:
+        if iters or not cfg.moe_num_experts:
+            return engine.step()
+        with first:
+            return engine.step()
 
     def drive(reqs, preempt_rid=None):
         for r in reqs:
@@ -995,7 +1329,7 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
             ctx = sum(engine.pool.seq_len.get(r.rid, 0) for r in lanes)
             decoding = sum(r.fed >= len(r.prompt) for r in lanes)
             t = time.perf_counter()
-            busy = engine.step()      # ends in the iteration's D2H pull
+            busy = step()             # ends in the iteration's D2H pull
             dt = (time.perf_counter() - t) * 1e3
             if not busy:
                 break
@@ -1064,6 +1398,9 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
     if spec_k:
         check(engine.spec_proposed > 0, "the drafter never proposed")
     out_tokens = sum(len(r.tokens) for r in results.values())
+    first_dropped = sum(c.dropped() for c in first.on("cuda"))
+    check(not cfg.moe_num_experts or len(first.calls) == cfg.num_layers,
+          f"the first iteration made {len(first.calls)} MoE layer calls")
     row = dict(kv_dtype=kv_dtype, spec_k=spec_k, requests=n_req,
                echo_requests=len(wave), iterations=engine.iterations,
                **{f"{k}_iterations": len(v) for k, v in iter_ms.items()},
@@ -1082,9 +1419,16 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
                h2d_events=engine.h2d_events, d2h_events=engine.d2h_events,
                kernel_launches=launches, tc_launches=tc_launches,
                split_launches=split_launches,
+               paged_launches_per_iteration=launches / engine.iterations,
                max_memory_allocated=torch.cuda.max_memory_allocated())
-    print(f"serve: yi-6b 32 layers bf16, kv {kv_dtype}, spec_k={spec_k}, "
-          f"{n_req} requests: "
+    if cfg.moe_num_experts:
+        row.update(first_prefill_rows=first.calls[0].idx.shape[0],
+                   first_prefill_capacity=first.calls[0].C,
+                   first_prefill_dropped=first_dropped,
+                   first_prefill_assignments=cfg.num_layers
+                   * first.calls[0].idx.numel())
+    print(f"serve: {cfg.name} {cfg.num_layers} layers {cfg.param_dtype}, "
+          f"kv {kv_dtype}, spec_k={spec_k}, {n_req} requests: "
           + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                      for k, v in row.items()), flush=True)
     return row, {rid: res.tokens for rid, res in results.items()}, dict(
@@ -1804,6 +2148,34 @@ def phase_planner(cfg, model, phase5: dict, peaks: dict, smi: str,
               for k, v in row.items()), flush=True)
     return dict(served={k: served[k] for k in keys}, paged_launches=launches,
                 tc_launches=tc, split_launches=split, **row, **peaks)
+
+
+# -------------------------------------------------------------- phase 16 --
+def phase_moe_serve() -> tuple:
+    """olmoe-1b-7b as registered (16 layers, d 2048, 16/16 heads at hd
+    128, 64 experts top-8, vocab 50,304, bf16, random weights from seed
+    0) serving phase 5's workload, then phase 6's (int8 pages,
+    ``spec_k=4``, the echo wave), through ``phase_serve``: the paged
+    kernels must carry every layer of every iteration.  Returns the two
+    runs' metrics."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = get_config("olmoe-1b-7b")
+    resident = torch.cuda.memory_allocated()
+    check(resident < 4 << 30, f"phase 16: {resident} bytes still allocated "
+                              "before olmoe's weights (yi-6b not freed)")
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"init: olmoe-1b-7b bf16 weights in "
+          f"{time.perf_counter() - t0:.2f} s, {resident} bytes allocated "
+          f"before, {torch.cuda.memory_allocated()} after", flush=True)
+    serve, _, _ = phase_serve(cfg, model)
+    serve8, _, _ = phase_serve(cfg, model, kv_dtype="int8", spec_k=4)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return serve, serve8
 
 
 # --------------------------------------------------------------- phase 7 --
@@ -2555,6 +2927,7 @@ def main() -> int:
     phase_draft_parity(parity)
     phase_prng_bits()
     del parity
+    moe_parity = phase_moe_parity()
     done("phase 4")
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
@@ -2581,7 +2954,10 @@ def main() -> int:
     planner = phase_planner(cfg, model, phase5_run, peaks, smi)
     done("phase 15")
     del model
+    gc.collect()            # the engines' reference cycles hold the weights
     torch.cuda.empty_cache()
+    moe_serve, moe_serve8 = phase_moe_serve()
+    done("phase 16")
 
     # 7-8
     mm_cases = phase_matmul(timer)
@@ -2608,7 +2984,7 @@ def main() -> int:
         ``dtype``); its error the largest of its cases."""
         own = [c for c in cases if c["kv"] == kv and c["kernel"] == kernel]
         head = next(c for c in own if c["C"] == C and not c["sharp"]
-                    and c["dtype"] == dtype)
+                    and c["dtype"] == dtype and c["geom"] == "yi-6b")
         return {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/paged_attention/csrc/"
@@ -2627,24 +3003,31 @@ def main() -> int:
     decode_fwd = "src/repro/kernels/paged_attention/kernel.py:61"
     prefill = "src/repro/kernels/paged_attention/kernel.py:222"
     quant = "src/repro/kernels/paged_attention/kernel.py:113-121"
-    # the bf16 pool's kernels carry phases 5, 13, 14 and 15
+    # the bf16 pool's kernels carry phases 5, 13, 14, 15 and 16, the
+    # int8 pool's phases 6 and 16, the FP32-core kernel phase 4's float32
+    # engines (yi-6b's and olmoe's)
     kernels = [
         entry("paged_attention_decode_split", SPLIT_KV, "same", 1,
               "bfloat16", serve["split_launches"]
               + frontdoor["split_launches"] + tiers["split_launches"]
-              + planner["split_launches"], decode_fwd),
+              + planner["split_launches"] + moe_serve["split_launches"],
+              decode_fwd),
         entry("paged_attention_decode_split_int8", SPLIT_KV, "int8", 1,
-              "bfloat16", serve8["split_launches"], quant),
+              "bfloat16", serve8["split_launches"]
+              + moe_serve8["split_launches"], quant),
         entry("paged_attention", FP32_CORES, "same", 128, "float32",
               parity_f32["fp32_core_launches"]
-              + tier_parity["fp32_core_launches"], prefill),
+              + tier_parity["fp32_core_launches"]
+              + moe_parity["f32"]["fp32_core_launches"], prefill),
         entry("paged_attention_int8", FP32_CORES, "int8", 128, "float32",
               parity_int8["fp32_core_launches"], quant),
         entry("paged_attention_prefill_tc", TENSOR_CORES, "same", 128,
               "bfloat16", serve["tc_launches"] + frontdoor["tc_launches"]
-              + tiers["tc_launches"] + planner["tc_launches"], prefill),
+              + tiers["tc_launches"] + planner["tc_launches"]
+              + moe_serve["tc_launches"], prefill),
         entry("paged_attention_prefill_tc_int8", TENSOR_CORES, "int8", 128,
-              "bfloat16", serve8["tc_launches"], quant),
+              "bfloat16", serve8["tc_launches"] + moe_serve8["tc_launches"],
+              quant),
     ]
     # the cluster matmul: the general float32 kernel split (64 x 64 tiles;
     # its main-path cases phase 8's demo and 127^2 float32 offload) and on

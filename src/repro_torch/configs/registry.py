@@ -1,8 +1,9 @@
 """Architecture registry: ``get_config(name)`` / ``list_archs()``.
 
 Lists only the archs the port runs so far: the dense GQA decoders it
-serves (yi-6b, qwen3-32b) and trains (those and gemma2-2b, whose
-local/global layers the paged server refuses, as the reference's does).
+serves (yi-6b, minitron-8b, qwen3-32b) and trains (those and gemma2-2b,
+whose local/global layers the paged server refuses, as the reference's
+does), and the routed-expert decoder olmoe-1b-7b.
 """
 from __future__ import annotations
 
@@ -15,7 +16,9 @@ from repro_torch.configs.base import ArchConfig, SHAPES, ShapeSpec
 _MODULES = {
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "yi-6b": "repro_torch.configs.yi_6b",
+    "minitron-8b": "repro_torch.configs.minitron_8b",
     "qwen3-32b": "repro_torch.configs.qwen3_32b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
 }
 
 

@@ -1,16 +1,20 @@
-"""The dense GQA decoder as an ``nn.Module``, with the reference's layout,
-and its full-sequence forward and loss (the training path).
+"""The GQA decoder as an ``nn.Module``, with the reference's layout, and
+its full-sequence forward and loss (the training path).
 
 Parameters keep ``repro.models.model``'s names and shapes, per layer
 instead of stacked: ``attn.wq (d,H,hd)``, ``attn.wk/wv (d,Kv,hd)``,
 ``attn.wo (H,hd,d)``, ``mlp.w_gate/w_up (d,ff)``, ``mlp.w_down (ff,d)``,
 ``embed.table/head (V,d)`` (no ``head`` with tied embeddings), gemma2's
 post-block norms ``pln1``/``pln2`` and the norms' ``scale`` (always
-float32).  Every container is an ``nn.ParameterDict`` / ``nn.ModuleDict``,
-so the layer functions index it exactly as the reference indexes its
-pytree (``lp["attn"]["wq"]``).  The serving forward lives with the engine
-(``runtime.server._paged_forward``), as in the reference; the paged
-server refuses what it does not serve (:func:`_check_supported`).
+float32).  A routed-expert (MoE) layer holds ``moe.router (d,E)`` (always
+float32), ``moe.w_gate/w_up (E,d,f)`` and ``moe.w_down (E,f,d)`` in place
+of ``mlp``, and with shared experts ``moe.shared.{w_gate,w_up,w_down}``.
+Every container is an ``nn.ParameterDict`` / ``nn.ModuleDict`` (nested
+for ``moe.shared``), so the layer functions index it exactly as the
+reference indexes its pytree (``lp["attn"]["wq"]``).  The serving
+forward lives with the engine (``runtime.server._paged_forward``), as in
+the reference; the paged server refuses what it does not serve
+(:func:`_check_supported`).
 
 Two ways to fill it:
 
@@ -21,8 +25,8 @@ Two ways to fill it:
   the port, so both sides compute on identical weights.
 
 :func:`forward_fullseq` and :func:`loss_fn` are the training path's
-forward for the dense and local/global (gemma2) transformer stacks, with
-per-layer activation checkpointing under ``cfg.remat_policy``.
+forward for the dense, MoE and local/global (gemma2) transformer stacks,
+with per-layer activation checkpointing under ``cfg.remat_policy``.
 """
 from __future__ import annotations
 
@@ -39,29 +43,42 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 
 def _check_params_supported(cfg: ArchConfig):
-    """The parameter layouts ported so far: dense GQA transformers, with
-    or without gemma2's local/global layers and post-block norms."""
-    if cfg.moe_num_experts:
+    """The parameter layouts ported so far: GQA transformers, dense or
+    with routed experts in every layer, with or without gemma2's
+    local/global layers and post-block norms."""
+    if cfg.moe_num_experts and cfg.moe_first_dense_layers:
         raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (dense GQA only)")
+            f"{cfg.name}: dense first layers before the MoE stack are not "
+            "ported yet")
     if not (cfg.block_kind == "transformer" and cfg.attention_kind == "gqa"
             and not cfg.frontend):
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA decoders are ported")
+            f"{cfg.name}: only GQA decoders are ported")
 
 
 def _check_supported(cfg: ArchConfig):
-    """The paged server's guard: plain dense GQA decoders only (no
+    """The paged server's guard: plain GQA decoders only, dense or MoE (no
     local/global layers, which the reference's server refuses too, and
     no post-block norms, which its paged forward does not apply)."""
     _check_params_supported(cfg)
     if cfg.local_global_period or cfg.post_block_norm:
         raise NotImplementedError(
-            f"{cfg.name}: the paged server serves plain dense GQA decoders "
-            "only")
+            f"{cfg.name}: the paged server serves plain GQA decoders only")
+
+
+def _mlp_shapes(cfg: ArchConfig, group: str, ff: int
+                ) -> Dict[str, Tuple[int, ...]]:
+    d = cfg.d_model
+    out = {}
+    if cfg.mlp_kind in ("swiglu", "geglu"):
+        out[f"{group}/w_gate"] = (d, ff)
+    out[f"{group}/w_up"] = (d, ff)
+    out[f"{group}/w_down"] = (ff, d)
+    return out
 
 
 def _layer_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
@@ -73,10 +90,17 @@ def _layer_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
         out["attn/q_norm"] = (hd,)
         out["attn/k_norm"] = (hd,)
     out["ln2/scale"] = (d,)
-    if cfg.mlp_kind in ("swiglu", "geglu"):
-        out["mlp/w_gate"] = (d, ff)
-    out["mlp/w_up"] = (d, ff)
-    out["mlp/w_down"] = (ff, d)
+    if cfg.moe_num_experts:
+        E, f = cfg.moe_num_experts, cfg.moe_d_ff
+        out["moe/router"] = (d, E)
+        out["moe/w_gate"] = (E, d, f)
+        out["moe/w_up"] = (E, d, f)
+        out["moe/w_down"] = (E, f, d)
+        if cfg.moe_shared_experts:
+            out.update(_mlp_shapes(cfg, "moe/shared",
+                                   f * cfg.moe_shared_experts))
+    else:
+        out.update(_mlp_shapes(cfg, "mlp", ff))
     if cfg.post_block_norm:
         out["pln1/scale"] = (d,)
         out["pln2/scale"] = (d,)
@@ -99,13 +123,15 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
 
 def _fan_in(cfg: ArchConfig, path: str, shape: Tuple[int, ...]) -> int:
     """The reference ParamFactory's fan-in: the first dim unless the
-    reference's parameter definition names another (``wo``: H*hd,
-    ``w_down``: ff, embeddings: d)."""
+    reference's parameter definition names another (``wo``: H*hd, a dense
+    ``w_down``: its ff, an expert ``w_down``: ``moe_d_ff``, embeddings:
+    d).  So the experts' ``w_gate``/``w_up`` (E, d, f) draw with fan-in
+    E, as the reference's do."""
     leaf = path.rsplit("/", 1)[-1]
     if leaf == "wo":
         return cfg.num_heads * cfg.resolved_head_dim
     if leaf == "w_down":
-        return cfg.d_ff
+        return shape[-2]
     if path.startswith("embed/"):
         return cfg.d_model
     return shape[0]
@@ -116,17 +142,34 @@ def _is_norm(path: str) -> bool:
     return leaf in ("q_norm", "k_norm") or path.endswith("scale")
 
 
-def _pdict(shapes: Mapping[str, Tuple[int, ...]], dtype, device):
-    return nn.ParameterDict({
-        k: nn.Parameter(torch.empty(s, dtype=torch.float32 if
-                                    _is_norm(k) else dtype, device=device),
-                        requires_grad=False)
-        for k, s in shapes.items()})
+def _is_f32(path: str) -> bool:
+    """Leaves kept in float32 whatever ``param_dtype`` is: the norms and
+    the MoE router."""
+    return _is_norm(path) or path.endswith("moe/router")
+
+
+def _pdict(shapes: Mapping[str, Tuple[int, ...]], dtype, device,
+           prefix: str = ""):
+    """A (nested) ``ParameterDict`` of ``shapes`` (relative path ->
+    shape): a path ``a/b`` becomes ``d["a"]["b"]``."""
+    out = nn.ParameterDict()
+    sub: Dict[str, Dict[str, Tuple[int, ...]]] = {}
+    for k, s in shapes.items():
+        head, _, rest = k.partition("/")
+        if rest:
+            sub.setdefault(head, {})[rest] = s
+            continue
+        out[k] = nn.Parameter(torch.empty(
+            s, dtype=torch.float32 if _is_f32(prefix + k) else dtype,
+            device=device), requires_grad=False)
+    for head, shp in sub.items():
+        out[head] = _pdict(shp, dtype, device, f"{prefix}{head}/")
+    return out
 
 
 class DenseDecoder(nn.Module):
-    """Dense GQA decoder weights: ``embed``, ``layers[i]`` (``ln1``,
-    ``attn``, ``ln2``, ``mlp``, and ``pln1``/``pln2`` with post-block
+    """GQA decoder weights: ``embed``, ``layers[i]`` (``ln1``, ``attn``,
+    ``ln2``, ``mlp`` or ``moe``, and ``pln1``/``pln2`` with post-block
     norms) and ``final_norm``.  Every parameter starts with
     ``requires_grad=False`` (serving); the training path's
     ``steps.init_train_state`` switches it on."""
@@ -143,10 +186,10 @@ class DenseDecoder(nn.Module):
         self.embed = _pdict(emb, dtype, device)
         groups: Dict[str, Dict[str, Tuple[int, ...]]] = {}
         for path, s in _layer_shapes(cfg).items():
-            g, leaf = path.split("/")
-            groups.setdefault(g, {})[leaf] = s
+            g, rest = path.split("/", 1)
+            groups.setdefault(g, {})[rest] = s
         self.layers = nn.ModuleList([
-            nn.ModuleDict({g: _pdict(ls, dtype, device)
+            nn.ModuleDict({g: _pdict(ls, dtype, device, f"{g}/")
                            for g, ls in groups.items()})
             for _ in range(cfg.num_layers)])
         self.final_norm = _pdict({"scale": (d,)}, dtype, device)
@@ -155,8 +198,13 @@ class DenseDecoder(nn.Module):
         """The parameter at a ``param_shapes`` path."""
         parts = path.split("/")
         if parts[0] == "layers":
-            return self.layers[int(parts[1])][parts[2]][parts[3]]
-        return getattr(self, parts[0])[parts[1]]
+            node = self.layers[int(parts[1])]
+            parts = parts[2:]
+        else:
+            node = getattr(self, parts.pop(0))
+        for part in parts:
+            node = node[part]
+        return node
 
     @property
     def device(self) -> torch.device:
@@ -195,14 +243,24 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(arr.copy())
 
 
+def _reference_path(path: str) -> Tuple[List[str], Optional[int]]:
+    """A ``param_shapes`` path as the reference tree's keys, and the layer
+    index into the stacked leaf (None outside the layer stack):
+    ``layers/3/moe/shared/w_up`` -> (``[layers, moe, shared, w_up]``, 3)."""
+    parts = path.split("/")
+    if parts[0] == "layers":
+        return [parts[0]] + parts[2:], int(parts[1])
+    return parts, None
+
+
 def reference_leaf(tree, path: str):
     """What a tree in the reference's layout (layers stacked as ``(L,
     ...)`` leaves) holds for the port's parameter ``path``: layer i's
     slice of the stacked leaf for ``layers/i/...``."""
-    parts = path.split("/")
-    if parts[0] == "layers":
-        return tree["layers"][parts[2]][parts[3]][int(parts[1])]
-    return tree[parts[0]][parts[1]]
+    keys, layer = _reference_path(path)
+    for key in keys:
+        tree = tree[key]
+    return tree if layer is None else tree[layer]
 
 
 def reference_groups(cfg: ArchConfig) -> List[List[str]]:
@@ -210,9 +268,7 @@ def reference_groups(cfg: ArchConfig) -> List[List[str]]:
     them (a layer stack's per-layer paths form one group)."""
     groups: Dict[str, List[str]] = {}
     for path in param_shapes(cfg):
-        parts = path.split("/")
-        key = f"layers/{parts[2]}/{parts[3]}" if parts[0] == "layers" \
-            else path
+        key = "/".join(_reference_path(path)[0])
         groups.setdefault(key, []).append(path)
     return list(groups.values())
 
@@ -223,15 +279,14 @@ def stack_layers(cfg: ArchConfig, flat: Mapping[str, torch.Tensor]
     tensor): nested dicts with each layer leaf stacked over the layers,
     every tensor copied to the host."""
     out: Dict[str, Dict] = {}
-    for path in param_shapes(cfg):
-        parts = path.split("/")
-        if parts[0] != "layers":
-            out.setdefault(parts[0], {})[parts[1]] = flat[path].detach().cpu()
-        elif parts[1] == "0":
-            g, leaf = parts[2], parts[3]
-            out.setdefault("layers", {}).setdefault(g, {})[leaf] = \
-                torch.stack([flat[f"layers/{i}/{g}/{leaf}"].detach().cpu()
-                             for i in range(cfg.num_layers)])
+    for paths in reference_groups(cfg):
+        keys, _ = _reference_path(paths[0])
+        node = out
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        leaves = [flat[p].detach().cpu() for p in paths]
+        node[keys[-1]] = torch.stack(leaves) \
+            if paths[0].startswith("layers/") else leaves[0]
     return out
 
 
@@ -293,7 +348,10 @@ def _tf_block(cfg: ArchConfig, lp, x: torch.Tensor,
         a = L.norm_forward(cfg, lp["pln1"], a)
     x = x + a
     h = L.norm_forward(cfg, lp["ln2"], x)
-    m = L.mlp_forward(cfg, lp["mlp"], h)
+    if "moe" in lp:     # capacity routing over all B*S rows of the batch
+        m = MOE.moe_forward(cfg, lp["moe"], h)
+    else:
+        m = L.mlp_forward(cfg, lp["mlp"], h)
     if cfg.post_block_norm:
         m = L.norm_forward(cfg, lp["pln2"], m)
     return x + m
@@ -311,13 +369,14 @@ def forward_fullseq(cfg: ArchConfig, params: DenseDecoder,
                     tokens: torch.Tensor,
                     frontend: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """Final hidden states (B,S,d) of the dense or local/global
+    """Final hidden states (B,S,d) of the dense, MoE or local/global
     transformer stack; every layer's self-attention runs in the flash
-    kernel (its plain version for CPU tensors).  Frontends, MoE, MLA and
-    the other block kinds raise until their families are ported (so
-    ``frontend`` is ignored, as the reference ignores it for an arch
-    without one).  The reference checkpoints gemma2's [local, global]
-    pairs as one unit; here each layer is one."""
+    kernel (its plain version for CPU tensors).  Frontends, MLA, dense
+    first layers before an MoE stack and the other block kinds raise
+    until their families are ported (so ``frontend`` is ignored, as the
+    reference ignores it for an arch without one).  The reference
+    checkpoints gemma2's [local, global] pairs as one unit; here each
+    layer is one."""
     _check_params_supported(cfg)
     del frontend
     x = L.embed_tokens(cfg, params.embed, tokens)

@@ -59,8 +59,11 @@ write that could reuse the page is enqueued on the device.  An optional
 transient faults are retried, persistent ones demote their request to
 ``"error"``.  The tier seam is cluster 0's only.
 
-MoE layers and the sharded engine raise ``NotImplementedError`` until
-their slice is ported.
+An MoE layer routes all ``B * C`` rows of the step through the
+reference's capacity dispatch (``models.moe.moe_forward``, not dropless):
+rows past a lane's ``n_new`` and the rows of idle lanes take part and can
+crowd real tokens out of an expert, as in the reference.  The sharded
+engine raises ``NotImplementedError`` until its slice is ported.
 """
 from __future__ import annotations
 
@@ -85,6 +88,7 @@ from repro_torch.kernels.paged_attention.ops import (
 )
 from repro_torch.kernels.paged_attention.ref import paged_prefill_ref
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import rms_head_norm, rope
 from repro_torch.models.model import _check_supported
 from repro_torch.optim.compress import (
@@ -206,8 +210,6 @@ class PagedServer:
                 and not cfg.local_global_period):
             raise ValueError("paged engine supports plain-GQA transformer "
                              "archs")
-        if cfg.moe_num_experts:
-            raise _not_ported("MoE layers")
         _check_supported(cfg)
         if engine.wants_sharded:
             raise _not_ported("sharded serving (clusters/heads/mesh)")
@@ -1426,7 +1428,7 @@ def _layer_qkv(cfg, lp, x, pos):
 def _layer_mlp(cfg, lp, x):
     h = L.norm_forward(cfg, lp["ln2"], x)
     if "moe" in lp:
-        raise _not_ported("MoE layers")
+        return x + MOE.moe_forward(cfg, lp["moe"], h)
     return x + L.mlp_forward(cfg, lp["mlp"], h)
 
 

@@ -1,6 +1,7 @@
 """The port's engine API: bf16 numerics, streaming, failure semantics,
-what is not ported yet (sharding, MoE; the cache tiers and fault
-injection since ported), and the device default."""
+what is not ported yet (sharding, MoE behind dense first layers; the
+cache tiers, fault injection and plain MoE layers since ported), and the
+device default."""
 import dataclasses
 import functools
 
@@ -151,14 +152,17 @@ def test_virtual_clock_deadline(smoke):
     ("faults", lambda s: _engine(s, fault_injector=FaultInjector())),
     ("sharded", lambda s: _engine(s, clusters=2)),
     ("moe", lambda s: PagedServer(
-        dataclasses.replace(s[0], moe_num_experts=4, moe_top_k=2),
+        dataclasses.replace(s[0], moe_num_experts=4, moe_top_k=2,
+                            moe_first_dense_layers=1),
         s[1], device="cpu")),
 ])
 def test_features_not_ported_raise(smoke, what, make):
-    """Sharding and MoE raise ``NotImplementedError``.  The cache tiers
+    """Sharding and an MoE stack behind dense first layers (deepseek's
+    ``first_layers``) raise ``NotImplementedError``.  The cache tiers
     and fault injection, ported since, build an engine that carries them
     (their behaviour is held against the reference by
-    ``test_torch_hierarchical_cache.py`` and ``test_torch_faults.py``)."""
+    ``test_torch_hierarchical_cache.py`` and ``test_torch_faults.py``;
+    plain MoE layers by ``test_torch_engine_moe.py``)."""
     if what in ("sharded", "moe"):
         with pytest.raises(NotImplementedError):
             make(smoke)
@@ -179,9 +183,14 @@ def test_features_not_ported_raise(smoke, what, make):
 
 
 def test_moe_model_not_ported():
-    cfg = dataclasses.replace(get_config("yi-6b").smoke(), moe_num_experts=4)
+    """MoE layers are ported (olmoe's layout builds); an MoE stack behind
+    dense first layers is not."""
+    cfg = dataclasses.replace(get_config("yi-6b").smoke(), moe_num_experts=4,
+                              moe_top_k=2, moe_d_ff=32)
+    assert "moe" in init_params(cfg, device="cpu").layers[0]
     with pytest.raises(NotImplementedError):
-        init_params(cfg, device="cpu")
+        init_params(dataclasses.replace(cfg, moe_first_dense_layers=1),
+                    device="cpu")
 
 
 def test_default_device_is_cuda(smoke):

@@ -52,7 +52,8 @@ def test_port_imports_neither_jax_nor_reference():
               "checkpoint.store", "runtime.trainer", "launch.train",
               "runtime.faults", "core.roofline", "launch.mesh",
               "launch.load_gen", "planner.workload", "planner.simulator",
-              "planner.costs", "planner.capacity"):
+              "planner.costs", "planner.capacity", "models.moe",
+              "configs.olmoe_1b_7b", "configs.minitron_8b"):
         assert f"repro_torch.{m}" in out["modules"], m
     assert expected <= set(out["modules"]) | {"repro_torch.runtime",
                                               "repro_torch.kernels"}

@@ -41,18 +41,21 @@ def _eq(j, t, **tol):
                                t.float().numpy(), **(tol or ATOL))
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-32b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-32b", "gemma2-2b",
+                                  "minitron-8b", "olmoe-1b-7b"])
 def test_configs_and_param_count_match_jax(arch):
     for j, t in ((j_get_config(arch), get_config(arch)),
                  (j_get_config(arch).smoke(), get_config(arch).smoke())):
         assert dataclasses.asdict(t) == dataclasses.asdict(j)
         assert param_count(t) == j_base.param_count(j)
-    assert list_archs() == ["gemma2-2b", "yi-6b", "qwen3-32b"]
+    assert list_archs() == ["gemma2-2b", "yi-6b", "minitron-8b",
+                            "qwen3-32b", "olmoe-1b-7b"]
     assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in j_base.SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-32b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-32b", "gemma2-2b",
+                                  "minitron-8b", "olmoe-1b-7b"])
 def test_params_from_jax_unstacks_exactly(arch):
     jcfg = j_get_config(arch).smoke()
     tcfg = get_config(arch).smoke()
@@ -62,7 +65,10 @@ def test_params_from_jax_unstacks_exactly(arch):
     for path in param_shapes(tcfg):
         parts = path.split("/")
         if parts[0] == "layers":
-            ref = params["layers"][parts[2]][parts[3]][int(parts[1])]
+            ref = params["layers"][parts[2]]
+            for key in parts[3:]:
+                ref = ref[key]
+            ref = ref[int(parts[1])]
         else:
             ref = params[parts[0]][parts[1]]
         got = model.param(path)

@@ -54,6 +54,24 @@ def test_param_counts_dense_total_equals_active():
     assert pc["active"] == pc["total"] > 5e9
 
 
+def test_param_counts_and_cache_bytes_moe_equal_reference():
+    """olmoe-1b-7b: the routed experts count in full in the total and by
+    top_k / E in the active parameters, from the port's own shapes, as
+    the reference counts them from its spec tree; the KV cache is a
+    dense GQA decoder's."""
+    tcfg, jcfg = _cfgs("olmoe-1b-7b", smoke=False)
+    pc = R.param_counts(tcfg)
+    assert pc == JR.param_counts(jcfg)
+    experts = tcfg.num_layers * 3 * tcfg.moe_num_experts * \
+        tcfg.d_model * tcfg.moe_d_ff
+    assert pc["total"] - pc["active"] == experts * (1 - 8 / 64)
+    assert 6.5e9 < pc["total"] < 7.5e9 and pc["active"] < 1.5e9
+    for name, shape in SHAPES.items():
+        for kv in ("bf16", "int8"):
+            assert R.cache_bytes(tcfg, shape, kv) == \
+                JR.cache_bytes(jcfg, J_SHAPES[name], kv)
+
+
 @pytest.mark.parametrize("kv_dtype,page", [("bf16", 4), ("int8", 4),
                                            ("int8", 8)])
 def test_kv_bytes_per_token_matches_engine(kv_dtype, page):
