@@ -109,10 +109,13 @@ non-zero without printing the final result line):
    geometry (B=2, H=8, Kv=4, S=T=4096, hd 256, bf16, cap 50, window 0
    and 4096; the tensor-core kernel), at phase 13's draft forwards
    (yi-6b: H=32 over Kv=4, hd 128, bf16, causal, at the shortest and the
-   longest S its drafts reached; the tensor-core kernel) and at phase
-   10's float32 calls (S=512, window 0 and 128; the FP32-core kernel),
-   each capped case, gemma2's and the drafts' again with q and k scaled
-   so that scores reach the cap's range (``FLASH_SHARP``); each case
+   longest S its drafts reached; the tensor-core kernel), at hymba-1.5b's
+   geometry (B=2, H=25 over Kv=5, hd 64, bf16, causal, window 2048,
+   S=T=3072; the tensor-core kernel, the window skipping leading key
+   tiles) and at phase 10's float32 calls (S=512, window 0 and 128; the
+   FP32-core kernel), each capped case, gemma2's, the drafts' and
+   hymba's again with q and k scaled so that scores reach the cap's
+   range (``FLASH_SHARP``); each case
    prints the kernel its route picked
    (the counts must agree), with times beside the plain version and the
    library call (SDPA without a cap, the compiled ``flex_attention`` with
@@ -178,6 +181,30 @@ non-zero without printing the final result line):
    every layer of every iteration.  It prints tokens/s, iteration
    medians, paged launches per iteration, peak memory, KV bytes per
    token and the first prefill iteration's dropped assignments.
+17. recurrent families (after phase 16, olmoe freed first): (a)
+   hymba-1.5b's widths x 2 layers and xlstm-350m's x 8 (one sLSTM
+   group) in float32, the same weights on the card and the CPU:
+   ``prefill_logits`` of a 40-token prompt within 1e-5 x the largest
+   |logit| (4e-5 for xlstm, whose float32 evaluation is itself ~1e-5
+   off a float64 one on each device: ``LOCK_TOL``; hymba's attention on
+   the FP32-core flash kernel), then the
+   prompt fed by ``decode_forward`` and 16 greedy steps, each step's
+   logits within twice that (``LOCK_STEP_TOL``), tokens equal
+   under phase 4's near-tie rule; hymba again with its window cut to 32
+   so the ring wraps.  Then each as registered (bf16, random weights
+   from seed 0): (b) ``prefill_logits`` at B=2, S=3072, the tensor-core
+   flash kernel carrying all 32 hymba layers and the plain version none,
+   with one layer's attention and Mamba scan (xlstm: sLSTM and mLSTM)
+   timed apart; (c) 256 prompt tokens fed by ``decode_forward``, whose
+   last logits must equal ``prefill_logits`` of the same tokens within
+   6e-2 x the largest |logit| on the bf16 model at 8 layers of full
+   width and on float32 weights as registered (``DEC_TOL``; the bf16
+   model as registered drifts further and is recorded), then 32 greedy
+   steps of the bf16 model (ms per step); (d)
+   one decode step at decode_32k (B=128, position 32,767, the cache
+   filled from a seed, ``kpos`` holding the last 2,048 positions): ms
+   per step, tokens/s, the roofline's cache bytes and their bound at
+   ``launch/mesh.py``'s HBM rate, peak memory.
 
 Then the script's time, one JSON line ``{"kernels": [...]}`` (the
 paged-attention split-KV
@@ -588,17 +615,18 @@ def sampling_for(rid: int, sampled: bool, top_p: float = 0.9,
     return SamplingParams(max_new=max_new)
 
 
-def logits_agree(rows, dtype: torch.dtype, label: str) -> tuple:
+def logits_agree(rows, dtype: torch.dtype, label: str,
+                 tol: float = 0.0) -> tuple:
     """Two paths' float32 logits ``rows`` (the reference's last) must
     agree within the whole-model tolerance of the weights' type relative
-    to the logits' scale: max |a - b| <= ``MODEL_TOL[dtype]`` x max |b|.
-    Returns (that difference, its bound)."""
+    to the logits' scale: max |a - b| <= ``MODEL_TOL[dtype]`` (or ``tol``)
+    x max |b|.  Returns (that difference, its bound)."""
+    tol = tol or MODEL_TOL[dtype]
     a, b = (r.double().cpu() for r in rows)
     diff = (a - b).abs().max().item()
-    gate = MODEL_TOL[dtype] * b.abs().max().item()
+    gate = tol * b.abs().max().item()
     check(diff <= gate, f"{label}: the two paths' logits differ by "
-                        f"{diff:.3g} > {MODEL_TOL[dtype]} x max|logit| = "
-                        f"{gate:.3g}")
+                        f"{diff:.3g} > {tol} x max|logit| = {gate:.3g}")
     return diff, gate
 
 
@@ -624,7 +652,7 @@ def keep_margin(row: torch.Tensor, sp, z: int) -> float:
 
 
 def flip_margin(rows, x: int, y: int, sp, pos: int, dtype: torch.dtype,
-                label: str) -> tuple:
+                label: str, tol: float = 0.0) -> tuple:
     """Whether token ``x`` (the first path's) against ``y`` (the
     reference's) at position ``pos`` is a near-tie, from the two paths'
     float32 logits ``rows`` (the reference's last), each computed at that
@@ -637,9 +665,10 @@ def flip_margin(rows, x: int, y: int, sp, pos: int, dtype: torch.dtype,
     that the top-k / top-p truncation keeps on one side and cuts on the
     other is weighed the same way on its ``keep_margin`` instead (a
     near-tie at the truncation's edge); one cut on both sides is no
-    near-tie.  Returns (excused, the numbers as text)."""
+    near-tie.  ``tol`` replaces ``MODEL_TOL[dtype]``.  Returns (excused,
+    the numbers as text)."""
     from repro_torch.runtime.server import _sample_scores
-    diff, gate = logits_agree(rows, dtype, label)
+    diff, gate = logits_agree(rows, dtype, label, tol)
     gated = f"logit diff {diff:.3g} <= {gate:.3g}"
     scores = [r.double().cpu() for r in rows]
     slack = 0.0
@@ -2178,6 +2207,391 @@ def phase_moe_serve() -> tuple:
     return serve, serve8
 
 
+# -------------------------------------------------------------- phase 17 --
+#: phase 17's families, at full width
+RECURRENT = ("hymba-1.5b", "xlstm-350m")
+#: (a) lockstep depths (hymba x 2 layers; xlstm x 8, one sLSTM group),
+#: lanes, the prompt fed by decode, the greedy steps after it, and the
+#: window that makes hymba's ring wrap within them
+LOCK_DEPTH = {"hymba-1.5b": 2, "xlstm-350m": 8}
+#: (a)'s bar on two devices' float32 prefill logits, of the largest
+#: |logit|: ``MODEL_TOL``'s 1e-5 for hymba.  xlstm's float32 evaluation
+#: is itself that far from a float64 one: at these 8 layers and this
+#: prompt the CPU's logits stand 1.02e-5 x max off the same weights in
+#: float64 and the card's 9.13e-6 (the residual stream 9e-7 off after
+#: the sLSTM cell, 1.69e-4 after the seventh mLSTM cell;
+#: ``scripts/float64_check.py --parts lockstep --device cuda``), so the
+#: two devices may differ by their sum, ~1.9e-5 (1.67e-5 measured)
+LOCK_TOL = {"hymba-1.5b": MODEL_TOL[torch.float32], "xlstm-350m": 4e-5}
+#: the bar on each decode step's logits before a lane's first flip:
+#: twice ``LOCK_TOL``.  A step's logits carry the whole prompt's
+#: rounding through the recurrent state, and each device's own distance
+#: from float64 peaks on a few steps: hymba lane 0 step 12 (CPU 9.42e-6,
+#: card 3.51e-6; the devices 1.27e-5 apart), xlstm lane 1 step 4 (CPU
+#: 5.69e-5, card 1.27e-5; 4.42e-5 apart) and lane 0 step 1 (CPU 3.8e-5;
+#: 4.76e-5 apart).  Twice the bar covers the sum of both devices'
+#: largest distances (1.29e-5 and 7.53e-5)
+LOCK_STEP_TOL = {k: 2 * v for k, v in LOCK_TOL.items()}
+LOCK_B, LOCK_PROMPT, LOCK_STEPS, LOCK_WINDOW = 2, 40, 16, 32
+#: (b) the full-width prefill; (c) the prompt fed by decode and the greedy
+#: steps timed after it
+PREFILL_B, PREFILL_S = 2, 3072
+DEC_B, DEC_PROMPT, DEC_STEPS = 2, 256, 32
+#: (d) timed steps at decode_32k
+D32K_STEPS = 5
+#: (c)'s bar, of the largest |logit|: ``MODEL_TOL``'s bf16 bar, held on
+#: the bf16 model at ``DEC_GATE_LAYERS`` layers of full width and on
+#: float32 weights as registered.  As registered, a bf16 model's decode
+#: and prefill drift further apart (random weights amplify the rounding
+#: layer by layer, in the reference as in the port), so that difference
+#: is recorded
+DEC_TOL = MODEL_TOL[torch.bfloat16]
+DEC_GATE_LAYERS = 8
+
+
+def recurrent_prompt(cfg, B: int, S: int, seed: int,
+                     device="cuda") -> torch.Tensor:
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                         dtype=torch.int32).to(device)
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b| (``b`` the reference)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def greedy_decode(cfg, model, prompt: torch.Tensor, steps: int) -> tuple:
+    """``prompt`` (B, P) fed one token a step by ``decode_forward`` from an
+    empty cache of P + steps - 1 positions, then ``steps`` greedy tokens.
+    Returns (tokens (steps lists of B), the float32 logits (B, V) that
+    chose each token, on the host, seconds of each step after the
+    prompt)."""
+    from repro_torch.models import model as M
+    dev = prompt.device
+    B, P = prompt.shape
+    cache = M.init_cache(cfg, B, P + steps - 1, dev)
+
+    def pos(t):
+        return torch.full((B,), t, dtype=torch.int32, device=dev)
+
+    for t in range(P):
+        logits, cache = M.decode_forward(cfg, model, cache,
+                                         prompt[:, t:t + 1], pos(t))
+    toks, rows, step_s = [], [], []
+    for j in range(steps):
+        rows.append(logits[:, 0].float().cpu())
+        nxt = logits[:, 0].argmax(dim=-1).to(torch.int32)
+        toks.append(nxt.tolist())
+        if j == steps - 1:
+            break
+        sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = M.decode_forward(cfg, model, cache, nxt[:, None],
+                                         pos(P + j))
+        sync(dev)
+        step_s.append(time.perf_counter() - t0)
+    return toks, rows, step_s
+
+
+def recurrent_lockstep(arch: str, window: int = 0,
+                       devices=("cuda", "cpu")) -> dict:
+    """(a): the arch's widths at ``LOCK_DEPTH`` layers in float32, the same
+    weights on both devices: ``prefill_logits`` of a ``LOCK_PROMPT``-token
+    prompt within ``LOCK_TOL`` x the largest |logit|;
+    then the prompt fed by ``decode_forward`` and ``LOCK_STEPS`` greedy
+    steps, tokens equal under phase 4's rule: a lane's first flip must be
+    a near-tie (``flip_margin``, whose rows must agree within
+    ``LOCK_TOL``); each earlier step's logits within
+    ``LOCK_STEP_TOL`` x the largest |logit|.  ``window`` replaces the
+    sliding window (hymba's ring then wraps)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.models import model as M
+    from repro_torch.runtime import SamplingParams
+    kw = {"sliding_window": window} if window else {}
+    cfg = dataclasses.replace(get_config(arch), num_layers=LOCK_DEPTH[arch],
+                              param_dtype="float32", **kw)
+    label = f"lockstep {arch}" + (f" window {window}" if window else "")
+    ref_model = M.init_params(cfg, seed=0, device=devices[1])
+    model = copy.deepcopy(ref_model).to(devices[0])
+    prompt = recurrent_prompt(cfg, LOCK_B, LOCK_PROMPT, 17, devices[1])
+    FK.launches.reset()
+    FO.plain_forwards.reset()
+    with torch.no_grad():
+        a = M.prefill_logits(cfg, model, {"tokens": prompt.to(devices[0])})
+        sync(devices[0])
+        launches, plain = FK.launches.n, FO.plain_forwards.n
+        b = M.prefill_logits(cfg, ref_model, {"tokens": prompt})
+    prefill_diff, gate = logits_agree([a[:, 0], b[:, 0]], torch.float32,
+                                      f"{label} prefill", LOCK_TOL[arch])
+    attn = cfg.num_layers if cfg.block_kind == "hymba" else 0
+    if devices[0] == "cuda":
+        check(launches == attn and plain == 0,
+              f"{label}: prefill made {launches} flash launches and "
+              f"{plain} plain forwards on the card; want {attn} and 0")
+    ta, ra, _ = greedy_decode(cfg, model, prompt.to(devices[0]), LOCK_STEPS)
+    tb, rb, _ = greedy_decode(cfg, ref_model, prompt, LOCK_STEPS)
+    flips, rel = 0, []
+    for lane in range(LOCK_B):
+        sa = [t[lane] for t in ta]
+        sb = [t[lane] for t in tb]
+        j = next((i for i, (x, y) in enumerate(zip(sa, sb)) if x != y),
+                 None)
+        rel.append([((ra[s][lane].double() - rb[s][lane].double()).abs()
+                     .max() / rb[s][lane].double().abs().max()).item()
+                    for s in range(LOCK_STEPS if j is None else j)])
+        worst = max(rel[-1], default=0.0)
+        check(worst <= LOCK_STEP_TOL[arch],
+              f"{label} lane {lane}: a step's logits differ by {worst:.3g} "
+              f"x max|logit| > {LOCK_STEP_TOL[arch]}")
+        if j is not None:
+            ok, numbers = flip_margin([ra[j][lane], rb[j][lane]], sa[j],
+                                      sb[j], SamplingParams(),
+                                      LOCK_PROMPT + j, torch.float32,
+                                      f"{label} lane {lane} step {j}",
+                                      LOCK_TOL[arch])
+            check(ok, f"{label} lane {lane} step {j}: {sa[j]} != {sb[j]}, "
+                      f"{numbers}")
+            print(f"{label} lane {lane} step {j} excused: {numbers}",
+                  flush=True)
+            flips += 1
+    if window:
+        check(window < LOCK_PROMPT + LOCK_STEPS - 1,
+              f"{label}: the ring of {window} slots does not wrap")
+    row = dict(arch=arch, layers=cfg.num_layers, window=cfg.sliding_window,
+               prefill_max_abs_diff=prefill_diff, prefill_gate=gate,
+               decode_rel_diff=rel, flips=flips, flash_launches=launches,
+               tokens=ta)
+    print(f"{label}: prefill logits max |diff| {prefill_diff:.3g} <= "
+          f"{gate:.3g}; {LOCK_STEPS} greedy steps x {LOCK_B} lanes after a "
+          f"{LOCK_PROMPT}-token prompt fed by decode, flips excused "
+          f"{flips}; flash launches {launches}; each step's logits max "
+          f"|diff| / max |logit| per lane (before a flip, <= "
+          f"{LOCK_STEP_TOL[arch]:.3g}): "
+          + json.dumps([[float(f"{x:.3g}") for x in r] for r in rel]),
+          flush=True)
+    return row
+
+
+def recurrent_breakdown(cfg, model, prompt: torch.Tensor,
+                        timer: Timer) -> dict:
+    """Device ms of one layer's blocks on layer 0's normed input at the
+    prefill's shape: hymba's attention (the flash kernel and its
+    projections) and Mamba scan; xlstm's sLSTM and mLSTM cells."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    x = L.embed_tokens(cfg, model.embed, prompt)
+    if cfg.block_kind == "hymba":
+        lp = model.layers[0]
+        h = L.norm_forward(cfg, lp["ln1"], x)
+        parts = {"attention": lambda: A.gqa_fullseq(
+            cfg, lp["attn"], h, None, window=cfg.sliding_window),
+            "mamba": lambda: S.mamba_fullseq(cfg, lp["mamba"], h)}
+        per = {"attention": cfg.num_layers, "mamba": cfg.num_layers}
+    else:
+        h = L.norm_forward(cfg, model.slstm_layers[0]["ln1"], x)
+        parts = {"slstm": lambda: S.slstm_fullseq(
+            cfg, model.slstm_layers[0]["cell"], h),
+            "mlstm": lambda: S.mlstm_fullseq(
+            cfg, model.mlstm_layers[0]["cell"], h)}
+        per = {"slstm": len(model.slstm_layers),
+               "mlstm": len(model.mlstm_layers)}
+    with torch.no_grad():
+        return {k: dict(ms=timer.ms(fn, reps=3, warmup=1), layers=per[k])
+                for k, fn in parts.items()}
+
+
+def fill_decode_cache(cfg, cache, pos: int, seed: int, device="cuda"):
+    """A full cache at position ``pos`` from ``seed``: K/V and recurrent
+    state drawn N(0, 0.1^2) (sLSTM's normaliser from U(1, 2), stabilisers
+    0), every ``kpos`` holding the positions ``pos - W`` .. ``pos - 1``
+    at their ring slots.  Returns the bytes the cache holds."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    for key, val in cache.items():
+        if key.startswith("kpos"):
+            W = val.shape[1]
+            s = torch.arange(W, device=val.device)
+            val.copy_((pos - W + (s - (pos - W)) % W).to(val.dtype))
+            continue
+        for name, ts in (val.items() if isinstance(val, dict)
+                         else [(key, val)]):
+            for t in ts:
+                if name == "m":
+                    t.zero_()
+                elif key == "slstm" and name == "n":
+                    t.uniform_(1.0, 2.0, generator=g)
+                else:
+                    t.normal_(0.0, 0.1, generator=g)
+    return sum(t.numel() * t.element_size() for t in _tensor_leaves(cache))
+
+
+def _tensor_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensor_leaves(v)
+    elif isinstance(tree, list):
+        yield from tree
+    else:
+        yield tree
+
+
+def recurrent_full(cfg, timer: Timer, device="cuda") -> dict:
+    """(b)-(d) for one arch as registered (bf16, random weights from seed
+    0): the full-width prefill, decode against prefill, one decode step
+    at decode_32k.  A cut ``cfg`` on ``device="cpu"`` rehearses the
+    same logic."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.core import roofline as R
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.launch import mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as ST
+    arch, cuda = cfg.name, device == "cuda"
+    hymba = cfg.block_kind == "hymba"
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=0, device=device)
+    sync(device)
+    row = dict(arch=arch, layers=cfg.num_layers,
+               init_s=time.perf_counter() - t0,
+               weight_bytes=sum(p.numel() * p.element_size()
+                                for p in model.parameters()))
+
+    # (b) full-width prefill: the tensor-core flash kernel carries every
+    # hymba layer, the plain version none
+    prompt = recurrent_prompt(cfg, PREFILL_B, PREFILL_S, 18, device)
+    runs = []
+    for c in (FK.launches, FK.tc_launches, FO.plain_forwards):
+        c.reset()
+    for _ in range(2):
+        sync(device)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = M.prefill_logits(cfg, model, {"tokens": prompt})
+        sync(device)
+        runs.append(time.perf_counter() - t0)
+        if not runs[1:]:
+            launches, tc, plain = (FK.launches.n, FK.tc_launches.n,
+                                   FO.plain_forwards.n)
+    want = cfg.num_layers if hymba else 0
+    check(not cuda or launches == tc == want and plain == 0,
+          f"{arch} prefill: flash launches {launches}, tensor-core {tc}, "
+          f"plain forwards {plain}; want {want}, {want}, 0")
+    check(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab_size)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()),
+          f"{arch} prefill logits {tuple(logits.shape)} {logits.dtype}")
+    row.update(prefill_first_s=runs[0], prefill_s=runs[1],
+               prefill_tokens_per_s=PREFILL_B * PREFILL_S / runs[1],
+               prefill_flash_launches=launches, prefill_tc_launches=tc,
+               breakdown=recurrent_breakdown(cfg, model, prompt, timer))
+    del logits
+
+    # (c) decode against prefill, held to ``DEC_TOL``: the bf16 model at
+    # ``DEC_GATE_LAYERS`` layers, float32 weights as registered; the bf16
+    # model as registered is recorded and its greedy steps timed
+    prompt = recurrent_prompt(cfg, DEC_B, DEC_PROMPT, 19, device)
+    for c in (FK.launches, FK.tc_launches):
+        c.reset()
+    gates = {}
+    for label, dc in (
+            ("bf16", dataclasses.replace(cfg, num_layers=DEC_GATE_LAYERS)),
+            ("f32", dataclasses.replace(cfg, param_dtype="float32"))):
+        dm = M.init_params(dc, seed=0, device=device)
+        with torch.no_grad():
+            want = M.prefill_logits(dc, dm, {"tokens": prompt})[:, 0]
+        _, drows, _ = greedy_decode(dc, dm, prompt, 1)
+        diff, gate = logits_agree(
+            [drows[0], want.cpu()], torch.float32,
+            f"{arch} {label} x {dc.num_layers} layers decode vs prefill",
+            DEC_TOL)
+        gates[label] = dict(layers=dc.num_layers, max_abs_diff=diff,
+                            gate=gate, rel=diff / gate * DEC_TOL)
+        del dm, want
+    row["prefill_256_fp32_launches"] = FK.launches.n - FK.tc_launches.n
+    row["prefill_256_tc_launches"] = FK.tc_launches.n
+    FK.tc_launches.reset()
+    with torch.no_grad():
+        want = M.prefill_logits(cfg, model, {"tokens": prompt})[:, 0]
+    row["prefill_256_tc_launches"] += FK.tc_launches.n
+    t0 = time.perf_counter()
+    toks, rows, step_s = greedy_decode(cfg, model, prompt, DEC_STEPS)
+    row["decode_total_s"] = time.perf_counter() - t0
+    check(all(0 <= t < cfg.vocab_size for ts in toks for t in ts),
+          f"{arch}: greedy tokens out of range")
+    row.update(decode_vs_prefill=gates,
+               decode_vs_prefill_bf16_full_rel=rel_diff(rows[0], want),
+               decode_step_ms_median=statistics.median(step_s) * 1e3,
+               decode_tokens=toks[:8])
+
+    # (d) one decode step at decode_32k
+    shape = SHAPES["decode_32k"]
+    B, pos = shape.global_batch, shape.seq_len - 1
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cache = M.init_cache(cfg, B, shape.seq_len, device)
+    held = fill_decode_cache(cfg, cache, pos, 20, device)
+    batch = ST.make_batch(cfg, shape,
+                          torch.Generator(device=device).manual_seed(21))
+    step = ST.make_decode_step(cfg)
+    times = []
+    for i in range(D32K_STEPS + 1):
+        sync(device)
+        t0 = time.perf_counter()
+        logits, cache = step(model, cache, batch)
+        sync(device)
+        if i:
+            times.append(time.perf_counter() - t0)
+    check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          f"{arch} decode_32k logits {tuple(logits.shape)}")
+    if hymba:
+        check(int(cache["kpos"][0, pos % cache["kpos"].shape[1]]) == pos,
+              f"{arch} decode_32k: the step's slot does not hold {pos}")
+    step_ms = statistics.median(times) * 1e3
+    cache_bytes = R.cache_bytes(cfg, shape)
+    step_bytes = R.analytic_bytes(cfg, shape, 1)
+    row.update(decode_32k=dict(
+        batch=B, pos=pos, step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
+        tokens_per_s=B / (step_ms * 1e-3), cache_bytes_roofline=cache_bytes,
+        cache_bytes_held=held, cache_bound_ms=cache_bytes / mesh.HBM_BW * 1e3,
+        step_bytes_roofline=step_bytes,
+        step_bound_ms=step_bytes / mesh.HBM_BW * 1e3,
+        peak_memory_bytes=torch.cuda.max_memory_allocated() if cuda
+        else None))
+    del cache, logits, model
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"recurrent full: {arch} " + json.dumps(row), flush=True)
+    return row
+
+
+def phase_recurrent(timer: Timer) -> dict:
+    """(a) for both families (hymba again with a 32-slot ring), then
+    (b)-(d) for each as registered."""
+    from repro_torch.configs import get_config
+    lock = [recurrent_lockstep(a) for a in RECURRENT]
+    lock.append(recurrent_lockstep("hymba-1.5b", window=LOCK_WINDOW))
+    full = {a: recurrent_full(get_config(a), timer) for a in RECURRENT}
+    return dict(lockstep=lock, full=full,
+                fp32_core_launches=sum(r["flash_launches"] for r in lock)
+                + sum(r["prefill_256_fp32_launches"] for r in full.values()),
+                tc_launches=sum(r["prefill_tc_launches"]
+                                + r["prefill_256_tc_launches"]
+                                for r in full.values()))
+
+
 # --------------------------------------------------------------- phase 7 --
 def matmul_case(timer: Timer, m: int, k: int, n: int, dtype: torch.dtype,
                 seed: int = 0, offset: bool = False) -> dict:
@@ -2634,6 +3048,14 @@ def flash_cases(timer: Timer, draft: tuple) -> dict:
               for S in lengths for qk in (0.3, FLASH_SHARP)]
     check(all(c["kernel"] == "tensor_cores" for c in drafts),
           "phase 13's draft forwards must run on the tensor cores")
+    # hymba-1.5b's self-attention (phase 17's prefill): B=2 x H=25 flat
+    # heads over B x Kv=5 KV rows (G = 5), hd 64, window 2048 at S=3072,
+    # where the window skips the leading key tiles of the later rows
+    hymba = [flash_case(timer, 2 * 25, PREFILL_S, PREFILL_S, 64,
+                        torch.bfloat16, True, 2048, 0.0, groups=5, qk=qk)
+             for qk in (0.3, FLASH_SHARP)]
+    check(all(c["kernel"] == "tensor_cores" for c in hymba),
+          "hymba-1.5b's bf16 cases must run on the tensor cores")
     # the float32 calls phase 10's CUDA step makes (gemma2-2b widths, S
     # 512, its global and its local layer): the FP32-core kernel's path
     small = [flash_case(timer, TRAIN_SMALL_B * 8, TRAIN_SMALL_S,
@@ -2643,8 +3065,8 @@ def flash_cases(timer: Timer, draft: tuple) -> dict:
     check(all(c["kernel"] == "fp32_cores" for c in cases + sharp + small
               if c["dtype"] == "float32"),
           "float32 cases must run on the FP32 cores")
-    return dict(cases=cases + sharp + gemma + drafts + small, gemma=gemma,
-                drafts=drafts, small=small,
+    return dict(cases=cases + sharp + gemma + drafts + hymba + small,
+                gemma=gemma, drafts=drafts, hymba=hymba, small=small,
                 grad_max_abs_err=flash_grads())
 
 
@@ -2958,6 +3380,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_serve, moe_serve8 = phase_moe_serve()
     done("phase 16")
+    gc.collect()
+    torch.cuda.empty_cache()
+    recurrent = phase_recurrent(timer)
+    done("phase 17")
 
     # 7-8
     mm_cases = phase_matmul(timer)
@@ -3066,16 +3492,18 @@ def main() -> int:
         })
     # flash on the tensor cores: the main path's case is gemma2-2b's
     # global (window 0) layer, its error the largest of gemma2's four
-    # cases (both scales, both windows) and phase 13's draft cases, its
-    # launches phase 12's and phase 13's draft forwards; on the FP32
-    # cores: phase 10's float32 global layer, its error the largest of its
-    # float32 cases
+    # cases (both scales, both windows), phase 13's draft cases and
+    # hymba's, its launches phase 12's, phase 13's draft forwards and
+    # phase 17's hymba prefills; on the FP32 cores: phase 10's float32
+    # global layer, its error the largest of its float32 cases, its
+    # launches phase 10's and phase 17's float32 hymba lockstep prefills
     for name, kernel, head, launches, split in (
             ("flash_attention_tc", "tensor_cores", flash["gemma"][0],
-             train["flash_tc_launches"] + frontdoor["flash_tc_launches"],
-             0),
+             train["flash_tc_launches"] + frontdoor["flash_tc_launches"]
+             + recurrent["tc_launches"], 0),
             ("flash_attention", "fp32_cores", flash["small"][0],
-             parity_train["flash_fp32_core_launches"],
+             parity_train["flash_fp32_core_launches"]
+             + recurrent["fp32_core_launches"],
              parity_train["flash_fp32_split_launches"])):
         own = [c for c in flash["cases"] if c["kernel"] == kernel]
         kernels.append({
@@ -3085,7 +3513,7 @@ def main() -> int:
             "replaces": "src/repro/kernels/flash_attention/kernel.py:101",
             "launches": launches, "split_launches": split,
             "max_abs_err": max(c["max_abs_err"] for c in (
-                flash["gemma"] + flash["drafts"]
+                flash["gemma"] + flash["drafts"] + flash["hymba"]
                 if kernel == "tensor_cores" else own)),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

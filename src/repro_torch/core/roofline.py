@@ -114,9 +114,11 @@ def cache_bytes(cfg, shape, kv_dtype: str = "bf16") -> float:
         return cfg.num_layers * B * T * (cfg.mla_kv_lora_rank +
                                          cfg.mla_qk_rope_dim) * 2.0
     if cfg.block_kind == "hymba":
-        raise NotImplementedError(
-            f"{cfg.name}: the SSM/hybrid state model comes with the port's "
-            "SSM layers")
+        from repro_torch.models.ssm import mamba_dims
+        di, _, N = mamba_dims(cfg)
+        attn = cfg.num_layers * B * T * cfg.num_kv_heads * hd * 2 * kvb
+        ssm = cfg.num_layers * B * (di * N + (cfg.ssm_conv_width - 1) * di) * 4.0
+        return attn + ssm
     if cfg.block_kind == "encdec":
         self_c = cfg.num_layers * B * T * cfg.num_kv_heads * hd * 2 * kvb
         cross = cfg.num_layers * B * cfg.frontend_seq * cfg.num_kv_heads * hd * 2 * kvb

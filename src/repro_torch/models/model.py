@@ -1,38 +1,47 @@
-"""The GQA decoder as an ``nn.Module``, with the reference's layout, and
-its full-sequence forward and loss (the training path).
+"""Model assembly as an ``nn.Module``, with the reference's layout: its
+full-sequence forward and loss (the training path) and its one-token
+decode forward over per-family caches (``init_cache``,
+``decode_forward``, ``prefill_logits``).
 
 Parameters keep ``repro.models.model``'s names and shapes, per layer
-instead of stacked: ``attn.wq (d,H,hd)``, ``attn.wk/wv (d,Kv,hd)``,
-``attn.wo (H,hd,d)``, ``mlp.w_gate/w_up (d,ff)``, ``mlp.w_down (ff,d)``,
-``embed.table/head (V,d)`` (no ``head`` with tied embeddings), gemma2's
-post-block norms ``pln1``/``pln2`` and the norms' ``scale`` (always
-float32).  A routed-expert (MoE) layer holds ``moe.router (d,E)`` (always
-float32), ``moe.w_gate/w_up (E,d,f)`` and ``moe.w_down (E,f,d)`` in place
-of ``mlp``, and with shared experts ``moe.shared.{w_gate,w_up,w_down}``.
-Every container is an ``nn.ParameterDict`` / ``nn.ModuleDict`` (nested
-for ``moe.shared``), so the layer functions index it exactly as the
-reference indexes its pytree (``lp["attn"]["wq"]``).  The serving
-forward lives with the engine (``runtime.server._paged_forward``), as in
-the reference; the paged server refuses what it does not serve
-(:func:`_check_supported`).
+instead of stacked.  A GQA transformer layer (``layers/i``) holds
+``attn.wq (d,H,hd)``, ``attn.wk/wv (d,Kv,hd)``, ``attn.wo (H,hd,d)``,
+``mlp.w_gate/w_up (d,ff)``, ``mlp.w_down (ff,d)``, gemma2's post-block
+norms ``pln1``/``pln2`` and the norms' ``scale`` (always float32); a
+routed-expert (MoE) layer holds ``moe.router (d,E)`` (always float32),
+``moe.w_gate/w_up (E,d,f)`` and ``moe.w_down (E,f,d)`` in place of
+``mlp``, and with shared experts ``moe.shared.{w_gate,w_up,w_down}``.
+A hymba layer (``layers/i``) holds ``ln1``, ``attn``, ``mamba`` (the
+Mamba branch, ``models.ssm``), ``bn_attn``, ``bn_ssm``, ``ln2`` and
+``mlp``; xlstm holds two stacks, ``mlstm_layers/j/{ln1,cell}`` and
+``slstm_layers/j/{ln1,cell}``.  Beside them ``embed.table/head (V,d)``
+(no ``head`` with tied embeddings) and ``final_norm``.  Every container
+is an ``nn.ParameterDict`` / ``nn.ModuleDict``, so the layer functions
+index it exactly as the reference indexes its pytree
+(``lp["attn"]["wq"]``).  The serving forward lives with the engine
+(``runtime.server._paged_forward``), as in the reference; the paged
+server refuses what it does not serve (:func:`_check_supported`).
 
 Two ways to fill it:
 
 * :func:`init_params` — ``normal / sqrt(fan_in)`` draws (the reference's
-  ``ParamFactory`` rule) from an explicit ``torch.Generator``;
+  ``ParamFactory`` rule, its constant inits kept) from an explicit
+  ``torch.Generator``;
 * :func:`params_from_jax` — carry the reference's ``init_params`` output
   (a pytree of numpy arrays, layers stacked as ``(L, ...)`` leaves) into
   the port, so both sides compute on identical weights.
 
 :func:`forward_fullseq` and :func:`loss_fn` are the training path's
 forward for the dense, MoE and local/global (gemma2) transformer stacks,
-with per-layer activation checkpointing under ``cfg.remat_policy``.
+hymba and xlstm, with per-layer activation checkpointing under
+``cfg.remat_policy``.  :func:`decode_forward` is one token against a
+dense cache from :func:`init_cache`: per-layer tensors, updated in place.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,20 +53,44 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as S
+
+# "slot not written" marker for position caches.  Must be a large POSITIVE
+# value: masks keep slots with kpos <= current position, so an empty slot
+# must compare greater than any real position.
+EMPTY_POS = 2 ** 30
+
+#: the layer stacks a parameter path can start with
+STACKS = ("layers", "mlstm_layers", "slstm_layers")
+#: leaves kept in float32 whatever ``param_dtype`` is, beside the norms
+#: and the MoE router (the reference's ``dtype=jnp.float32`` leaves)
+_F32_LEAVES = ("w_if", "b_if", "head_norm", "b_dt", "log_A", "D")
+#: leaves the reference initialises to a constant
+_ONES = ("head_norm", "b_dt", "D")
+_ZEROS = ("conv_b", "log_A", "b_if")
+
+
+def _dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
 
 
 def _check_params_supported(cfg: ArchConfig):
     """The parameter layouts ported so far: GQA transformers, dense or
     with routed experts in every layer, with or without gemma2's
-    local/global layers and post-block norms."""
+    local/global layers and post-block norms; hymba; xlstm."""
     if cfg.moe_num_experts and cfg.moe_first_dense_layers:
         raise NotImplementedError(
             f"{cfg.name}: dense first layers before the MoE stack are not "
             "ported yet")
-    if not (cfg.block_kind == "transformer" and cfg.attention_kind == "gqa"
-            and not cfg.frontend):
+    if cfg.frontend:
+        raise NotImplementedError(f"{cfg.name}: frontends are not ported "
+                                  "yet")
+    if cfg.block_kind == "mlstm":
+        return
+    if not (cfg.block_kind in ("transformer", "hymba")
+            and cfg.attention_kind == "gqa"):
         raise NotImplementedError(
-            f"{cfg.name}: only GQA decoders are ported")
+            f"{cfg.name}: only GQA decoders, hymba and xlstm are ported")
 
 
 def _check_supported(cfg: ArchConfig):
@@ -65,9 +98,26 @@ def _check_supported(cfg: ArchConfig):
     local/global layers, which the reference's server refuses too, and
     no post-block norms, which its paged forward does not apply)."""
     _check_params_supported(cfg)
-    if cfg.local_global_period or cfg.post_block_norm:
+    if cfg.block_kind != "transformer" or cfg.local_global_period \
+            or cfg.post_block_norm:
         raise NotImplementedError(
             f"{cfg.name}: the paged server serves plain GQA decoders only")
+
+
+def _n_slstm(cfg: ArchConfig) -> int:
+    """xlstm's sLSTM layers: one heads each group of ``slstm_every``."""
+    return -(-cfg.num_layers // cfg.slstm_every) if cfg.slstm_every else 0
+
+
+def _stacks(cfg: ArchConfig) -> Dict[str, int]:
+    """Layer stack -> its layer count, in the reference's build order."""
+    if cfg.block_kind != "mlstm":
+        return {"layers": cfg.num_layers}
+    n_s = _n_slstm(cfg)
+    out = {"mlstm_layers": cfg.num_layers - n_s}
+    if n_s:
+        out["slstm_layers"] = n_s
+    return out
 
 
 def _mlp_shapes(cfg: ArchConfig, group: str, ff: int
@@ -81,15 +131,51 @@ def _mlp_shapes(cfg: ArchConfig, group: str, ff: int
     return out
 
 
-def _layer_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+def _gqa_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     d, H, K = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    hd, ff = cfg.resolved_head_dim, cfg.d_ff
-    out = {"ln1/scale": (d,), "attn/wq": (d, H, hd), "attn/wk": (d, K, hd),
+    hd = cfg.resolved_head_dim
+    out = {"attn/wq": (d, H, hd), "attn/wk": (d, K, hd),
            "attn/wv": (d, K, hd), "attn/wo": (H, hd, d)}
     if cfg.use_qk_norm:
         out["attn/q_norm"] = (hd,)
         out["attn/k_norm"] = (hd,)
-    out["ln2/scale"] = (d,)
+    return out
+
+
+def _mamba_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    d = cfg.d_model
+    di, dtr, N = S.mamba_dims(cfg)
+    shapes = {"w_in": (d, 2 * di), "conv_w": (cfg.ssm_conv_width, di),
+              "conv_b": (di,), "w_dt_down": (di, dtr),
+              "w_dt_up": (dtr, di), "b_dt": (di,), "w_B": (di, N),
+              "w_C": (di, N), "log_A": (di, N), "D": (di,),
+              "w_out": (di, d)}
+    return {f"mamba/{k}": s for k, s in shapes.items()}
+
+
+def _cell_shapes(cfg: ArchConfig, stack: str) -> Dict[str, Tuple[int, ...]]:
+    """An xlstm layer: ``ln1`` and its mLSTM or sLSTM ``cell``."""
+    d, H, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+    if stack == "mlstm_layers":
+        cell = {"wq": (d, H, hd), "wk": (d, H, hd), "wv": (d, H, hd),
+                "w_if": (d, 2 * H), "b_if": (2 * H,), "w_og": (d, d),
+                "head_norm": (H, hd), "w_out": (d, d)}
+    else:
+        cell = {"w_in": (d, 4, H, hd), "r": (4, H, hd, hd),
+                "b": (4, H, hd), "head_norm": (H, hd), "w_out": (d, d)}
+    return {"ln1/scale": (d,), **{f"cell/{k}": s for k, s in cell.items()}}
+
+
+def _layer_shapes(cfg: ArchConfig, stack: str = "layers"
+                  ) -> Dict[str, Tuple[int, ...]]:
+    d = cfg.d_model
+    if stack != "layers":
+        return _cell_shapes(cfg, stack)
+    if cfg.block_kind == "hymba":
+        return {"ln1/scale": (d,), **_gqa_shapes(cfg), **_mamba_shapes(cfg),
+                "bn_attn/scale": (d,), "bn_ssm/scale": (d,),
+                "ln2/scale": (d,), **_mlp_shapes(cfg, "mlp", cfg.d_ff)}
+    out = {"ln1/scale": (d,), **_gqa_shapes(cfg), "ln2/scale": (d,)}
     if cfg.moe_num_experts:
         E, f = cfg.moe_num_experts, cfg.moe_d_ff
         out["moe/router"] = (d, E)
@@ -100,7 +186,7 @@ def _layer_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
             out.update(_mlp_shapes(cfg, "moe/shared",
                                    f * cfg.moe_shared_experts))
     else:
-        out.update(_mlp_shapes(cfg, "mlp", ff))
+        out.update(_mlp_shapes(cfg, "mlp", cfg.d_ff))
     if cfg.post_block_norm:
         out["pln1/scale"] = (d,)
         out["pln2/scale"] = (d,)
@@ -114,9 +200,11 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     out: Dict[str, Tuple[int, ...]] = {"embed/table": (V, d)}
     if not cfg.tie_embeddings:
         out["embed/head"] = (V, d)
-    for i in range(cfg.num_layers):
-        for k, s in _layer_shapes(cfg).items():
-            out[f"layers/{i}/{k}"] = s
+    for stack, n in _stacks(cfg).items():
+        shapes = _layer_shapes(cfg, stack)
+        for i in range(n):
+            for k, s in shapes.items():
+                out[f"{stack}/{i}/{k}"] = s
     out["final_norm/scale"] = (d,)
     return out
 
@@ -124,14 +212,17 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
 def _fan_in(cfg: ArchConfig, path: str, shape: Tuple[int, ...]) -> int:
     """The reference ParamFactory's fan-in: the first dim unless the
     reference's parameter definition names another (``wo``: H*hd, a dense
-    ``w_down``: its ff, an expert ``w_down``: ``moe_d_ff``, embeddings:
-    d).  So the experts' ``w_gate``/``w_up`` (E, d, f) draw with fan-in
-    E, as the reference's do."""
+    ``w_down``: its ff, an expert ``w_down``: ``moe_d_ff``, sLSTM's ``r``:
+    hd, embeddings: d; Mamba's ``w_dt_up`` (dtr) and ``w_out`` (di) name
+    their first dim).  So the experts' ``w_gate``/``w_up`` (E, d, f) draw
+    with fan-in E, as the reference's do."""
     leaf = path.rsplit("/", 1)[-1]
     if leaf == "wo":
         return cfg.num_heads * cfg.resolved_head_dim
     if leaf == "w_down":
         return shape[-2]
+    if leaf == "r":
+        return cfg.resolved_head_dim
     if path.startswith("embed/"):
         return cfg.d_model
     return shape[0]
@@ -142,10 +233,28 @@ def _is_norm(path: str) -> bool:
     return leaf in ("q_norm", "k_norm") or path.endswith("scale")
 
 
+def _is_slstm_bias(path: str) -> bool:
+    return path.startswith("slstm_layers/") and path.endswith("cell/b")
+
+
 def _is_f32(path: str) -> bool:
-    """Leaves kept in float32 whatever ``param_dtype`` is: the norms and
-    the MoE router."""
-    return _is_norm(path) or path.endswith("moe/router")
+    """Leaves kept in float32 whatever ``param_dtype`` is: the norms, the
+    MoE router, mLSTM's gate projection and bias and head norm, sLSTM's
+    bias and head norm, Mamba's ``b_dt``, ``log_A`` and ``D``."""
+    return (_is_norm(path) or path.endswith("moe/router")
+            or path.rsplit("/", 1)[-1] in _F32_LEAVES
+            or _is_slstm_bias(path))
+
+
+def _const_init(path: str) -> Optional[float]:
+    """The constant a leaf starts at (the reference's ``init="ones"`` /
+    ``"zeros"``), None for a random draw."""
+    leaf = path.rsplit("/", 1)[-1]
+    if _is_norm(path) or leaf in _ONES:
+        return 1.0
+    if leaf in _ZEROS or _is_slstm_bias(path):
+        return 0.0
+    return None
 
 
 def _pdict(shapes: Mapping[str, Tuple[int, ...]], dtype, device,
@@ -168,9 +277,9 @@ def _pdict(shapes: Mapping[str, Tuple[int, ...]], dtype, device,
 
 
 class DenseDecoder(nn.Module):
-    """GQA decoder weights: ``embed``, ``layers[i]`` (``ln1``, ``attn``,
-    ``ln2``, ``mlp`` or ``moe``, and ``pln1``/``pln2`` with post-block
-    norms) and ``final_norm``.  Every parameter starts with
+    """A decoder's weights: ``embed``, its layer stacks (``layers[i]``, or
+    xlstm's ``mlstm_layers[j]`` and ``slstm_layers[j]``) and
+    ``final_norm``.  Every parameter starts with
     ``requires_grad=False`` (serving); the training path's
     ``steps.init_train_state`` switches it on."""
 
@@ -178,27 +287,29 @@ class DenseDecoder(nn.Module):
         super().__init__()
         _check_params_supported(cfg)
         self.cfg = cfg
-        dtype = getattr(torch, cfg.param_dtype)
+        dtype = _dtype(cfg)
         V, d = cfg.vocab_size, cfg.d_model
         emb = {"table": (V, d)}
         if not cfg.tie_embeddings:
             emb["head"] = (V, d)
         self.embed = _pdict(emb, dtype, device)
-        groups: Dict[str, Dict[str, Tuple[int, ...]]] = {}
-        for path, s in _layer_shapes(cfg).items():
-            g, rest = path.split("/", 1)
-            groups.setdefault(g, {})[rest] = s
-        self.layers = nn.ModuleList([
-            nn.ModuleDict({g: _pdict(ls, dtype, device, f"{g}/")
-                           for g, ls in groups.items()})
-            for _ in range(cfg.num_layers)])
+        for stack, n in _stacks(cfg).items():
+            groups: Dict[str, Dict[str, Tuple[int, ...]]] = {}
+            for path, s in _layer_shapes(cfg, stack).items():
+                g, rest = path.split("/", 1)
+                groups.setdefault(g, {})[rest] = s
+            setattr(self, stack, nn.ModuleList([
+                nn.ModuleDict({g: _pdict(ls, dtype, device,
+                                         f"{stack}/{g}/")
+                               for g, ls in groups.items()})
+                for _ in range(n)]))
         self.final_norm = _pdict({"scale": (d,)}, dtype, device)
 
     def param(self, path: str) -> torch.Tensor:
         """The parameter at a ``param_shapes`` path."""
         parts = path.split("/")
-        if parts[0] == "layers":
-            node = self.layers[int(parts[1])]
+        if parts[0] in STACKS:
+            node = getattr(self, parts[0])[int(parts[1])]
             parts = parts[2:]
         else:
             node = getattr(self, parts.pop(0))
@@ -214,20 +325,22 @@ class DenseDecoder(nn.Module):
 @torch.no_grad()
 def init_params(cfg: ArchConfig, seed: int = 0,
                 device: DeviceLike = None) -> DenseDecoder:
-    """Random weights from ``seed``: norms are ones, every other leaf is
-    ``normal / sqrt(fan_in)`` drawn in float32 then cast to
-    ``cfg.param_dtype``.  The draws come from a ``torch.Generator`` on
-    ``device`` (``cuda`` unless the caller passes ``"cpu"``), so the same
-    seed gives the same weights on the same device type, not across
-    device types."""
+    """Random weights from ``seed``: the reference's constant leaves
+    (norms, ``head_norm``, ``b_dt``, ``D``: ones; ``conv_b``, ``log_A``,
+    the gate biases: zeros), every other leaf ``normal / sqrt(fan_in)``
+    drawn in float32 then cast to its type.  The draws come from a
+    ``torch.Generator`` on ``device`` (``cuda`` unless the caller passes
+    ``"cpu"``), so the same seed gives the same weights on the same device
+    type, not across device types."""
     dev = resolve_device(device)
     model = DenseDecoder(cfg, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     for path, shape in param_shapes(cfg).items():
         p = model.param(path)
-        if _is_norm(path):
-            p.fill_(1.0)
+        const = _const_init(path)
+        if const is not None:
+            p.fill_(const)
             continue
         w = torch.randn(shape, generator=gen, dtype=torch.float32, device=dev)
         p.copy_(w * (1.0 / math.sqrt(max(_fan_in(cfg, path, shape), 1))))
@@ -245,10 +358,10 @@ def _to_tensor(arr: np.ndarray) -> torch.Tensor:
 
 def _reference_path(path: str) -> Tuple[List[str], Optional[int]]:
     """A ``param_shapes`` path as the reference tree's keys, and the layer
-    index into the stacked leaf (None outside the layer stack):
+    index into the stacked leaf (None outside the layer stacks):
     ``layers/3/moe/shared/w_up`` -> (``[layers, moe, shared, w_up]``, 3)."""
     parts = path.split("/")
-    if parts[0] == "layers":
+    if parts[0] in STACKS:
         return [parts[0]] + parts[2:], int(parts[1])
     return parts, None
 
@@ -256,7 +369,7 @@ def _reference_path(path: str) -> Tuple[List[str], Optional[int]]:
 def reference_leaf(tree, path: str):
     """What a tree in the reference's layout (layers stacked as ``(L,
     ...)`` leaves) holds for the port's parameter ``path``: layer i's
-    slice of the stacked leaf for ``layers/i/...``."""
+    slice of the stacked leaf for ``<stack>/i/...``."""
     keys, layer = _reference_path(path)
     for key in keys:
         tree = tree[key]
@@ -276,17 +389,17 @@ def reference_groups(cfg: ArchConfig) -> List[List[str]]:
 def stack_layers(cfg: ArchConfig, flat: Mapping[str, torch.Tensor]
                  ) -> Dict[str, Dict]:
     """The reference's layout of ``flat`` (``param_shapes`` path ->
-    tensor): nested dicts with each layer leaf stacked over the layers,
-    every tensor copied to the host."""
+    tensor): nested dicts with each layer leaf stacked over its stack's
+    layers, every tensor copied to the host."""
     out: Dict[str, Dict] = {}
     for paths in reference_groups(cfg):
-        keys, _ = _reference_path(paths[0])
+        keys, layer = _reference_path(paths[0])
         node = out
         for key in keys[:-1]:
             node = node.setdefault(key, {})
         leaves = [flat[p].detach().cpu() for p in paths]
-        node[keys[-1]] = torch.stack(leaves) \
-            if paths[0].startswith("layers/") else leaves[0]
+        node[keys[-1]] = torch.stack(leaves) if layer is not None \
+            else leaves[0]
     return out
 
 
@@ -307,6 +420,85 @@ def params_from_jax(cfg: ArchConfig, tree, device: DeviceLike = None
         p = model.param(path)
         p.copy_(_to_tensor(src).to(dtype=p.dtype))
     return model
+
+
+# ===========================================================================
+# Decode caches
+# ===========================================================================
+
+def init_cache(cfg: ArchConfig, B: int, T: int,
+               device: DeviceLike = None) -> Dict[str, Any]:
+    """The cache for one-token decode with context length T, the
+    reference's ``build_cache`` tree with every stacked leaf a list of
+    per-layer tensors (``stack_cache`` stacks them back): K/V in
+    ``param_dtype``, recurrent state in float32, ``kpos`` (int32, the
+    absolute position each slot holds) filled with :data:`EMPTY_POS`.
+
+    * plain GQA: ``k``/``v`` (B, T, Kv, hd) per layer and ``kpos`` (B, T);
+    * gemma2: ``k_local``/``v_local`` rings of W = min(window, T) slots for
+      the local layers, ``k_global``/``v_global`` linear T caches for the
+      global ones, ``kpos_local`` (B, W) and ``kpos`` (B, T);
+    * hymba: ``k``/``v`` rings of W = min(window, T) slots, ``kpos`` (B, W)
+      and ``mamba`` (``conv``, ``ssm``) per layer;
+    * xlstm: ``mlstm`` (``C``, ``n``, ``m``) and ``slstm`` (``c``, ``n``,
+      ``m``, ``h``) per layer of each stack.
+
+    Encoder-decoder and MLA caches raise until their families are ported.
+    """
+    _check_params_supported(cfg)
+    dev = resolve_device(device)
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = _dtype(cfg)
+
+    def kv_cache(n: int, slots: int) -> List[torch.Tensor]:
+        return [torch.zeros((B, slots, kv, hd), dtype=dt, device=dev)
+                for _ in range(n)]
+
+    def positions(slots: int) -> torch.Tensor:
+        return torch.full((B, slots), EMPTY_POS, dtype=torch.int32,
+                          device=dev)
+
+    def states(specs: S.StateSpecs, n: int) -> Dict[str, List]:
+        return {k: [torch.zeros(s, dtype=sdt, device=dev)
+                    for _ in range(n)] for k, (s, sdt) in specs.items()}
+
+    c: Dict[str, Any] = {}
+    if cfg.block_kind == "mlstm":
+        n = _stacks(cfg)
+        c["mlstm"] = states(S.mlstm_state_specs(cfg, B), n["mlstm_layers"])
+        if "slstm_layers" in n:
+            c["slstm"] = states(S.slstm_state_specs(cfg, B),
+                                n["slstm_layers"])
+        return c
+    if cfg.block_kind == "hymba":
+        W = min(cfg.sliding_window, T) if cfg.sliding_window else T
+        c["k"], c["v"] = kv_cache(cfg.num_layers, W), \
+            kv_cache(cfg.num_layers, W)
+        c["kpos"] = positions(W)
+        c["mamba"] = states(S.mamba_state_specs(cfg, B), cfg.num_layers)
+        return c
+    if cfg.local_global_period:
+        n_local = (cfg.num_layers + 1) // cfg.local_global_period
+        n_global = cfg.num_layers - n_local
+        W = min(cfg.sliding_window, T)
+        c["k_local"], c["v_local"] = kv_cache(n_local, W), \
+            kv_cache(n_local, W)
+        c["k_global"], c["v_global"] = kv_cache(n_global, T), \
+            kv_cache(n_global, T)
+        c["kpos_local"] = positions(W)
+        c["kpos"] = positions(T)
+        return c
+    c["k"], c["v"] = kv_cache(cfg.num_layers, T), kv_cache(cfg.num_layers, T)
+    c["kpos"] = positions(T)
+    return c
+
+
+def stack_cache(cache: Mapping[str, Any]) -> Dict[str, Any]:
+    """The reference's layout of a cache: each per-layer list stacked into
+    one ``(L, ...)`` tensor (a copy)."""
+    return {k: stack_cache(v) if isinstance(v, Mapping)
+            else torch.stack(v) if isinstance(v, list) else v
+            for k, v in cache.items()}
 
 
 # ===========================================================================
@@ -365,25 +557,78 @@ def _layer_window(cfg: ArchConfig, i: int) -> int:
     return cfg.sliding_window
 
 
+def _hymba_fuse(cfg: ArchConfig, lp, x: torch.Tensor, a: torch.Tensor,
+                m: torch.Tensor) -> torch.Tensor:
+    """The mean of the two normed branches, then the MLP."""
+    fused = 0.5 * (L.norm_forward(cfg, lp["bn_attn"], a) +
+                   L.norm_forward(cfg, lp["bn_ssm"], m))
+    x = x + fused
+    h = L.norm_forward(cfg, lp["ln2"], x)
+    return x + L.mlp_forward(cfg, lp["mlp"], h)
+
+
+def _hymba_block(cfg: ArchConfig, lp, x: torch.Tensor) -> torch.Tensor:
+    """Attention (the flash kernel, windowed) and Mamba on the same
+    normed input."""
+    h = L.norm_forward(cfg, lp["ln1"], x)
+    a = A.gqa_fullseq(cfg, lp["attn"], h, None, window=cfg.sliding_window)
+    m = S.mamba_fullseq(cfg, lp["mamba"], h)
+    return _hymba_fuse(cfg, lp, x, a, m)
+
+
+def _cell_block(cfg: ArchConfig, fullseq, lp, x: torch.Tensor
+                ) -> torch.Tensor:
+    h = L.norm_forward(cfg, lp["ln1"], x)
+    return x + fullseq(cfg, lp["cell"], h)
+
+
+def _xlstm_stack(cfg: ArchConfig, params: DenseDecoder,
+                 x: torch.Tensor) -> torch.Tensor:
+    """The reference's grouping: one sLSTM heads each group of
+    ``slstm_every`` layers, the group's mLSTM layers follow it."""
+    m_block = _remat(cfg, functools.partial(_cell_block, cfg,
+                                            S.mlstm_fullseq))
+    s_block = _remat(cfg, functools.partial(_cell_block, cfg,
+                                            S.slstm_fullseq))
+    n_s = _n_slstm(cfg)
+    if n_s == 0:
+        for lp in params.mlstm_layers:
+            x = m_block(lp, x)
+        return x
+    per, n_m = cfg.slstm_every - 1, cfg.num_layers - n_s
+    for g in range(n_s):
+        x = s_block(params.slstm_layers[g], x)
+        for j in range(g * per, min(g * per + per, n_m)):
+            x = m_block(params.mlstm_layers[j], x)
+    return x
+
+
 def forward_fullseq(cfg: ArchConfig, params: DenseDecoder,
                     tokens: torch.Tensor,
                     frontend: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Final hidden states (B,S,d) of the dense, MoE or local/global
-    transformer stack; every layer's self-attention runs in the flash
-    kernel (its plain version for CPU tensors).  Frontends, MLA, dense
-    first layers before an MoE stack and the other block kinds raise
-    until their families are ported (so ``frontend`` is ignored, as the
-    reference ignores it for an arch without one).  The reference
+    transformer stack, of hymba or of xlstm; every layer's
+    self-attention runs in the flash kernel (its plain version for CPU
+    tensors).  Frontends, MLA and dense first layers before an MoE stack
+    raise until their families are ported (so ``frontend`` is ignored,
+    as the reference ignores it for an arch without one).  The reference
     checkpoints gemma2's [local, global] pairs as one unit; here each
     layer is one."""
     _check_params_supported(cfg)
     del frontend
     x = L.embed_tokens(cfg, params.embed, tokens)
-    for i, lp in enumerate(params.layers):
-        block = _remat(cfg, functools.partial(
-            _tf_block, cfg, window=_layer_window(cfg, i)))
-        x = block(lp, x, None)          # positions: arange(S)
+    if cfg.block_kind == "mlstm":
+        x = _xlstm_stack(cfg, params, x)
+    elif cfg.block_kind == "hymba":
+        block = _remat(cfg, functools.partial(_hymba_block, cfg))
+        for lp in params.layers:
+            x = block(lp, x)
+    else:
+        for i, lp in enumerate(params.layers):
+            block = _remat(cfg, functools.partial(
+                _tf_block, cfg, window=_layer_window(cfg, i)))
+            x = block(lp, x, None)          # positions: arange(S)
     return L.norm_forward(cfg, params.final_norm, x)
 
 
@@ -394,3 +639,135 @@ def loss_fn(cfg: ArchConfig, params: DenseDecoder,
     hidden = forward_fullseq(cfg, params, batch["tokens"],
                              frontend=batch.get("frontend"))
     return L.chunked_xent(cfg, params.embed, hidden, batch["labels"])
+
+
+def prefill_logits(cfg: ArchConfig, params: DenseDecoder,
+                   batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """Float32 logits (B,1,V) of the last position of ``batch["tokens"]``
+    after the full-sequence forward."""
+    hidden = forward_fullseq(cfg, params, batch["tokens"],
+                             frontend=batch.get("frontend"))
+    return L.logits_from_hidden(cfg, params.embed, hidden[:, -1:, :])
+
+
+# ===========================================================================
+# Decode forward
+# ===========================================================================
+
+def _sub(state: Mapping[str, List[torch.Tensor]], i: int):
+    return {k: v[i] for k, v in state.items()}
+
+
+def _put(state: Mapping[str, List[torch.Tensor]], i: int,
+         new: Mapping[str, torch.Tensor]):
+    for k in state:
+        state[k][i] = new[k]
+
+
+def _decode_xlstm(cfg: ArchConfig, params: DenseDecoder, cache,
+                  x: torch.Tensor) -> torch.Tensor:
+    """Layer i is sLSTM where ``i % slstm_every == 0``, else the next
+    mLSTM layer: the order of :func:`_xlstm_stack`."""
+    im = isl = 0
+    for i in range(cfg.num_layers):
+        if cfg.slstm_every and i % cfg.slstm_every == 0:
+            lp, key, j, step = params.slstm_layers[isl], "slstm", isl, \
+                S.slstm_decode
+            isl += 1
+        else:
+            lp, key, j, step = params.mlstm_layers[im], "mlstm", im, \
+                S.mlstm_decode
+            im += 1
+        h = L.norm_forward(cfg, lp["ln1"], x)
+        out, new = step(cfg, lp["cell"], h, _sub(cache[key], j))
+        _put(cache[key], j, new)
+        x = x + out
+    return x
+
+
+@torch.no_grad()
+def decode_forward(cfg: ArchConfig, params: DenseDecoder, cache,
+                   tokens: torch.Tensor, pos: torch.Tensor,
+                   inputs_embeds: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Any]:
+    """One decode step.  tokens: (B,1) int; pos: (B,) positions of the new
+    token.  Returns (float32 logits (B,1,V), cache).  ``cache`` (from
+    :func:`init_cache`) is updated in place and returned: the token's K/V
+    go to slot ``pos`` of a linear cache and ``pos % W`` of a ring, every
+    ``kpos`` is updated once per step before the layers (it is shared by
+    the layers), recurrent states are replaced per layer.  The
+    reference's ``inputs_embeds`` (a VLM's patch embeddings) raises until
+    a frontend is ported."""
+    _check_params_supported(cfg)
+    if inputs_embeds is not None:
+        raise NotImplementedError(
+            "decode_forward: inputs_embeds (frontends) is not ported yet")
+    x = L.embed_tokens(cfg, params.embed, tokens)
+    rows = torch.arange(tokens.shape[0], device=x.device)
+    pos = pos.to(device=x.device, dtype=torch.int32)
+
+    def upd_pos(kp: torch.Tensor, slot: torch.Tensor):
+        kp[rows, slot] = pos
+
+    if cfg.block_kind == "mlstm":
+        x = _decode_xlstm(cfg, params, cache, x)
+
+    elif cfg.block_kind == "hymba":
+        slot = (pos % cache["kpos"].shape[1]).long()
+        upd_pos(cache["kpos"], slot)
+        for i, lp in enumerate(params.layers):
+            h = L.norm_forward(cfg, lp["ln1"], x)
+            a, _, _ = A.gqa_decode(cfg, lp["attn"], h, pos, cache["k"][i],
+                                   cache["v"][i], slot, cache["kpos"],
+                                   window=cfg.sliding_window)
+            m, new = S.mamba_decode(cfg, lp["mamba"], h,
+                                    _sub(cache["mamba"], i))
+            _put(cache["mamba"], i, new)
+            x = _hymba_fuse(cfg, lp, x, a, m)
+
+    elif cfg.local_global_period:
+        slot_local = (pos % cache["kpos_local"].shape[1]).long()
+        slot_global = pos.long()
+        upd_pos(cache["kpos_local"], slot_local)
+        upd_pos(cache["kpos"], slot_global)
+        il = ig = 0
+        for i, lp in enumerate(params.layers):
+            h = L.norm_forward(cfg, lp["ln1"], x)
+            if i % cfg.local_global_period == 0:
+                a, _, _ = A.gqa_decode(
+                    cfg, lp["attn"], h, pos, cache["k_local"][il],
+                    cache["v_local"][il], slot_local, cache["kpos_local"],
+                    window=cfg.sliding_window)
+                il += 1
+            else:
+                a, _, _ = A.gqa_decode(
+                    cfg, lp["attn"], h, pos, cache["k_global"][ig],
+                    cache["v_global"][ig], slot_global, cache["kpos"])
+                ig += 1
+            if cfg.post_block_norm:
+                a = L.norm_forward(cfg, lp["pln1"], a)
+            x = x + a
+            h = L.norm_forward(cfg, lp["ln2"], x)
+            m = L.mlp_forward(cfg, lp["mlp"], h)
+            if cfg.post_block_norm:
+                m = L.norm_forward(cfg, lp["pln2"], m)
+            x = x + m
+
+    else:  # plain GQA transformer (incl. MoE: olmoe)
+        slot = pos.long()
+        upd_pos(cache["kpos"], slot)
+        for i, lp in enumerate(params.layers):
+            h = L.norm_forward(cfg, lp["ln1"], x)
+            a, _, _ = A.gqa_decode(cfg, lp["attn"], h, pos, cache["k"][i],
+                                   cache["v"][i], slot, cache["kpos"],
+                                   window=_layer_window(cfg, i))
+            x = x + a
+            h = L.norm_forward(cfg, lp["ln2"], x)
+            if "moe" in lp:
+                m = MOE.moe_forward(cfg, lp["moe"], h, dropless=True)
+            else:
+                m = L.mlp_forward(cfg, lp["mlp"], h)
+            x = x + m
+
+    x = L.norm_forward(cfg, params.final_norm, x)
+    return L.logits_from_hidden(cfg, params.embed, x), cache

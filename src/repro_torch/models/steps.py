@@ -1,6 +1,8 @@
-"""The train step and its state, the port of ``repro.models.steps``.
+"""Step builders and the train state, the port of ``repro.models.steps``.
 
-    train_step(state, batch) -> (state, metrics)
+    train_step(state, batch)          -> (state, metrics)
+    prefill_step(params, batch)       -> logits (B,1,V)
+    decode_step(params, cache, batch) -> (logits, cache)
 
 The state is ``{"params": DenseDecoder, "opt": {"m", "v", "step",
 "master"}, "resid"}`` (``resid`` with gradient compression), the
@@ -8,9 +10,11 @@ optimizer's dicts keyed by ``model.param_shapes`` paths.  The step runs
 eagerly: ``loss.backward()``, the gradients taken off the parameters,
 the optional error-feedback compression, then AdamW in place.  The
 reference jits the step and donates the state; here the state is updated
-in place and the same dict comes back.  The reference's sharding
-(``input_specs``/``input_axes``/``*_axes``, ``lowerable``) and
-``make_batch`` are not ported.
+in place and the same dict comes back (the decode step updates its
+cache in place too).  :func:`input_specs` gives every model input's
+``(shape, dtype)`` and :func:`make_batch` draws a batch of them from a
+``torch.Generator``; the reference's sharding (``input_axes``,
+``*_axes``, ``lowerable``) is not ported.
 
 :func:`state_tree` and :func:`load_state_tree` map the state to and from
 the reference's train-state layout (layers stacked as ``(L, ...)``), the
@@ -19,11 +23,11 @@ other's.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.device import DeviceLike
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
@@ -36,6 +40,45 @@ def default_opt_cfg(cfg: ArchConfig) -> AdamWConfig:
                        "minitron-8b")
     return AdamWConfig(use_master=not big)
 
+
+# ---------------------------------------------------------------------------
+# Inputs
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec
+                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Every model input of ``shape``'s step, name -> (shape, dtype): the
+    reference's keys, shapes and types for the ported families (a
+    frontend's input comes with its family)."""
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"tokens": ((B, S), torch.int32),
+                "labels": ((B, S), torch.int32)}
+    if shape.kind == "prefill":
+        return {"tokens": ((B, S), torch.int32)}
+    # decode: one new token against a cache of S
+    return {"tokens": ((B, 1), torch.int32), "pos": ((B,), torch.int32)}
+
+
+def make_batch(cfg: ArchConfig, shape: ShapeSpec, gen: torch.Generator
+               ) -> Dict[str, torch.Tensor]:
+    """A synthetic batch matching :func:`input_specs`, drawn from ``gen``
+    on its device: tokens and labels uniform over the vocabulary, ``pos``
+    ``seq_len - 1``."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, (s, dt) in input_specs(cfg, shape).items():
+        if k == "pos":
+            out[k] = torch.full(s, shape.seq_len - 1, dtype=dt,
+                                device=gen.device)
+        else:
+            out[k] = torch.randint(0, cfg.vocab_size, s, generator=gen,
+                                   dtype=dt, device=gen.device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Train state and steps
+# ---------------------------------------------------------------------------
 
 def named_params(model: M.DenseDecoder) -> Dict[str, torch.Tensor]:
     """``param_shapes`` path -> the model's parameter."""
@@ -84,6 +127,21 @@ def make_train_step(cfg: ArchConfig, opt_cfg: Optional[AdamWConfig] = None,
         return state, dict(metrics, loss=loss.detach())
 
     return train_step
+
+
+def make_prefill_step(cfg: ArchConfig):
+    def prefill_step(params: M.DenseDecoder,
+                     batch: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        return M.prefill_logits(cfg, params, batch)
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig):
+    def decode_step(params: M.DenseDecoder, cache,
+                    batch: Mapping[str, torch.Tensor]):
+        return M.decode_forward(cfg, params, cache, batch["tokens"],
+                                batch["pos"])
+    return decode_step
 
 
 def state_tree(cfg: ArchConfig, state: Mapping[str, Any]) -> Dict[str, Any]:

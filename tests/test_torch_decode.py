@@ -1,0 +1,287 @@
+"""The port's decode API (``init_cache``, ``decode_forward``,
+``prefill_logits``, the prefill/decode steps, ``make_batch``) and the
+quickstart launcher against the live JAX package, on the CPU.
+
+Float32 smoke configs of every family the port registers, the same
+weights on both sides (``params_from_jax``) and the same numpy-seeded
+tokens:
+
+* ``param_shapes`` against the reference's parameter tree for the
+  recurrent families (every leaf, its shape and type), and the
+  reference's constant inits and fan-ins in ``init_params``;
+* ``init_cache`` shapes, types and fill against the reference's;
+* ``decode_forward`` step by step at T = 24 (hymba's and gemma2's
+  16-slot rings wrap): each step's logits within 1e-5 of the largest
+  |logit|, every cache leaf within 1e-5 of its largest |value| (int32
+  positions equal);
+* ``prefill_logits`` within 1e-5 of the largest |logit|;
+* (``tests/test_torch_decode_bf16.py``) the same step-by-step decode in
+  bfloat16;
+* ``input_specs`` / ``make_batch`` against the reference's specs;
+* ``python -m repro_torch.launch.quickstart --device cpu``.
+"""
+import dataclasses
+import functools
+import tempfile
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import SHAPES as J_SHAPES
+from repro.configs import get_config as j_get_config
+from repro.configs import smoke_shape as j_smoke_shape
+from repro.models import model as JM
+from repro.models import steps as JST
+from repro_torch.configs import SHAPES, get_config, list_archs, smoke_shape
+from repro_torch.launch import quickstart
+from repro_torch.models import model as M
+from repro_torch.models import steps as ST
+
+ARCHS = ["xlstm-350m", "hymba-1.5b", "gemma2-2b", "yi-6b", "qwen3-32b",
+         "minitron-8b", "olmoe-1b-7b"]
+BAR = 1e-5
+B, T = 2, 24
+
+
+def _cfgs(arch):
+    return (dataclasses.replace(j_get_config(arch).smoke(),
+                                param_dtype="float32"),
+            dataclasses.replace(get_config(arch).smoke(),
+                                param_dtype="float32"))
+
+
+@functools.lru_cache(maxsize=None)
+def _np_params(arch, dtype="float32"):
+    jcfg = dataclasses.replace(_cfgs(arch)[0], param_dtype=dtype)
+    return jax.tree.map(np.asarray, JM.init_params(
+        jcfg, jax.random.PRNGKey(0)))
+
+
+def _tokens(vocab, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, vocab, (B, T)).astype(np.int32)
+
+
+def _leaves(tree):
+    return jax.tree_util.tree_leaves_with_path(tree)
+
+
+def _port_leaves(cache):
+    return {jax.tree_util.keystr(k): v.detach() for k, v in
+            _leaves(M.stack_cache(cache))}
+
+
+def test_every_family_is_registered():
+    assert set(ARCHS) == set(list_archs())
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "hymba-1.5b"])
+def test_param_shapes_cover_reference_leaves(arch):
+    """Every leaf of the reference's tree, full size and smoke, in
+    float32 and bfloat16: the port's paths cover it exactly, each with
+    its shape (a layer's slice of a stacked leaf) and type."""
+    for j, t in ((j_get_config(arch), get_config(arch)),
+                 (j_get_config(arch).smoke(), get_config(arch).smoke())):
+        for dtype in ("float32", "bfloat16"):
+            j = dataclasses.replace(j, param_dtype=dtype)
+            t = dataclasses.replace(t, param_dtype=dtype)
+            specs = JM.param_specs(j)
+            shapes = M.param_shapes(t)
+            model = M.DenseDecoder(t, torch.device("meta"))
+            groups = M.reference_groups(t)
+            assert len(groups) == len(jax.tree.leaves(specs))
+            for paths in groups:
+                keys, layer = M._reference_path(paths[0])
+                leaf = specs
+                for k in keys:
+                    leaf = leaf[k]
+                want = leaf.shape if layer is None else leaf.shape[1:]
+                assert len(paths) == (1 if layer is None else leaf.shape[0])
+                for path in paths:
+                    assert shapes[path] == want, path
+                    assert str(model.param(path).dtype).replace(
+                        "torch.", "") == jnp.dtype(leaf.dtype).name, path
+
+
+@pytest.mark.parametrize("arch", ["xlstm-350m", "hymba-1.5b"])
+def test_init_params_constants_and_fan_in(arch):
+    cfg = get_config(arch).smoke()
+    model = M.init_params(cfg, seed=0, device="cpu")
+    for path, shape in M.param_shapes(cfg).items():
+        p = model.param(path).float()
+        const = M._const_init(path)
+        if const is not None:
+            assert bool((p == const).all()), path
+        elif p.numel() >= 256:
+            fan = M._fan_in(cfg, path, shape)
+            assert abs(float(p.std()) * fan ** 0.5 - 1.0) < 0.15, path
+    assert M._fan_in(cfg, "slstm_layers/0/cell/r", (4, 4, 16, 16)) == 16
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_cache_matches_reference(arch):
+    jcfg, tcfg = _cfgs(arch)
+    for dtype in ("float32", "bfloat16"):
+        j = dataclasses.replace(jcfg, param_dtype=dtype)
+        t = dataclasses.replace(tcfg, param_dtype=dtype)
+        want = {jax.tree_util.keystr(k): v for k, v in
+                _leaves(JM.init_cache(j, B, T))}
+        got = {jax.tree_util.keystr(k): v for k, v in
+               _leaves(M.stack_cache(M.init_cache(t, B, T, "cpu")))}
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert tuple(got[k].shape) == v.shape, k
+            assert str(got[k].dtype).replace("torch.", "") == \
+                jnp.dtype(v.dtype).name, k
+            np.testing.assert_array_equal(got[k].float().numpy(),
+                                          np.asarray(v, np.float32))
+
+
+def _decode_lockstep(arch, dtype, bar, eager=False):
+    """The reference's and the port's ``decode_forward`` over the same T
+    tokens from empty caches: each step's logits within ``bar`` of the
+    largest |logit|, every cache leaf within ``bar`` of its largest
+    |value| (int32 positions equal).  ``eager`` runs the reference op by
+    op (``jax.disable_jit``), rounding after every operation as the
+    port does."""
+    jcfg, tcfg = (dataclasses.replace(c, param_dtype=dtype)
+                  for c in _cfgs(arch))
+    npp = _np_params(arch, dtype)
+    toks = _tokens(jcfg.vocab_size)
+    jparams = jax.tree.map(jnp.asarray, npp)
+    model = M.params_from_jax(tcfg, npp, device="cpu")
+
+    def jstep(p, c, t, pos):
+        return JM.decode_forward(jcfg, p, c, t, pos)
+    step = jstep if eager else jax.jit(jstep)
+    jc = JM.init_cache(jcfg, B, T)
+    tc = M.init_cache(tcfg, B, T, "cpu")
+    for t in range(T):
+        pos = np.full((B,), t, np.int32)
+        with jax.disable_jit(eager):
+            jl, jc = step(jparams, jc, jnp.asarray(toks[:, t:t + 1]),
+                          jnp.asarray(pos))
+        tl, tc = M.decode_forward(tcfg, model, tc,
+                                  torch.from_numpy(toks[:, t:t + 1]),
+                                  torch.from_numpy(pos))
+        jl = np.asarray(jl, np.float32)
+        assert tl.dtype == torch.float32 and tl.shape == jl.shape
+        np.testing.assert_allclose(tl.numpy(), jl, rtol=0,
+                                   atol=bar * np.abs(jl).max(),
+                                   err_msg=f"step {t}")
+        got = _port_leaves(tc)
+        for k, v in _leaves(jc):
+            k, v = jax.tree_util.keystr(k), np.asarray(v)
+            assert str(got[k].dtype).replace("torch.", "") == \
+                jnp.dtype(v.dtype).name, k
+            if v.dtype == np.int32:
+                np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+            else:
+                v = v.astype(np.float32)
+                np.testing.assert_allclose(
+                    got[k].float().numpy(), v, rtol=0,
+                    atol=bar * max(np.abs(v).max(), 1e-30),
+                    err_msg=f"step {t} {k}")
+    if jcfg.sliding_window:
+        W = jcfg.sliding_window
+        kpos = tc["kpos_local" if jcfg.local_global_period else "kpos"]
+        assert W < T and int(kpos.max()) == T - 1 and \
+            int(kpos.min()) == T - W       # the ring wrapped
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_decode_forward_matches_jax_step_by_step(arch):
+    _decode_lockstep(arch, "float32", BAR)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_logits_match_jax(arch):
+    jcfg, tcfg = _cfgs(arch)
+    npp = _np_params(arch)
+    toks = _tokens(jcfg.vocab_size, seed=1)
+    want = np.asarray(JM.prefill_logits(
+        jcfg, jax.tree.map(jnp.asarray, npp), {"tokens": jnp.asarray(toks)}))
+    model = M.params_from_jax(tcfg, npp, device="cpu")
+    step = ST.make_prefill_step(tcfg)
+    got = step(model, {"tokens": torch.from_numpy(toks)})
+    assert got.dtype == torch.float32 and got.shape == want.shape == \
+        (B, 1, tcfg.vocab_size)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
+                               atol=BAR * np.abs(want).max())
+
+
+def test_decode_step_is_decode_forward():
+    _, tcfg = _cfgs("hymba-1.5b")
+    model = M.params_from_jax(tcfg, _np_params("hymba-1.5b"), device="cpu")
+    batch = ST.make_batch(tcfg, smoke_shape("decode"),
+                          torch.Generator().manual_seed(0))
+    a, ca = ST.make_decode_step(tcfg)(model, M.init_cache(tcfg, 2, 32,
+                                                          "cpu"), batch)
+    b, cb = M.decode_forward(tcfg, model, M.init_cache(tcfg, 2, 32, "cpu"),
+                             batch["tokens"], batch["pos"])
+    assert torch.equal(a, b)
+    assert int(ca["kpos"][0, 31 % tcfg.sliding_window]) == 31
+
+
+@pytest.mark.parametrize("shape", ["smoke_train", "smoke_prefill",
+                                   "smoke_decode", "decode_32k"])
+def test_make_batch_matches_reference_specs(shape):
+    cfg = get_config("hymba-1.5b").smoke()
+    jcfg = j_get_config("hymba-1.5b").smoke()
+    if shape.startswith("smoke_"):
+        tshape = smoke_shape(shape[6:])
+        jshape = j_smoke_shape(shape[6:])
+    else:
+        tshape, jshape = SHAPES[shape], J_SHAPES[shape]
+    want = JST.input_specs(jcfg, jshape)
+    specs = ST.input_specs(cfg, tshape)
+    assert {k: (s, str(dt).replace("torch.", "")) for k, (s, dt)
+            in specs.items()} == {k: (v.shape, jnp.dtype(v.dtype).name)
+                                  for k, v in want.items()}
+    gen = torch.Generator().manual_seed(0)
+    batch = ST.make_batch(cfg, tshape, gen)
+    ref = JST.make_batch(jcfg, jshape, jax.random.PRNGKey(0))
+    assert set(batch) == set(ref)
+    for k, v in batch.items():
+        assert tuple(v.shape) == ref[k].shape
+        assert str(v.dtype).replace("torch.", "") == \
+            jnp.dtype(ref[k].dtype).name
+    if "pos" in batch:
+        assert bool((batch["pos"] == tshape.seq_len - 1).all())
+        np.testing.assert_array_equal(batch["pos"].numpy(),
+                                      np.asarray(ref["pos"]))
+    assert 0 <= int(batch["tokens"].min()) and \
+        int(batch["tokens"].max()) < cfg.vocab_size
+    again = ST.make_batch(cfg, tshape, torch.Generator().manual_seed(0))
+    assert all(torch.equal(batch[k], again[k]) for k in batch)
+
+
+def test_decode_api_refuses_what_is_not_ported():
+    cfg = get_config("yi-6b").smoke()
+    model = M.init_params(cfg, device="cpu")
+    cache = M.init_cache(cfg, 1, 4, "cpu")
+    with pytest.raises(NotImplementedError):
+        M.decode_forward(cfg, model, cache, torch.zeros((1, 1), dtype=torch.int32),
+                         torch.zeros((1,), dtype=torch.int32),
+                         inputs_embeds=torch.zeros((1, 1, cfg.d_model)))
+    for kw in (dict(attention_kind="mla"), dict(block_kind="encdec"),
+               dict(frontend="patch", frontend_seq=4)):
+        with pytest.raises(NotImplementedError):
+            M.init_cache(dataclasses.replace(cfg, **kw), 1, 4, "cpu")
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
+def test_quickstart_launcher_on_cpu(arch, monkeypatch, tmp_path, capsys):
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    out = quickstart.main(["--arch", arch, "--steps", "3", "--device",
+                           "cpu"])
+    printed = capsys.readouterr().out
+    assert len(out) == 8
+    assert all(0 <= t < get_config(arch).vocab_size for t in out)
+    assert f"greedy continuation: {out}" in printed
+    assert "loss" in printed and str(tmp_path) in printed
+    assert any(p.name.startswith("quickstart_ckpt_")
+               for p in tmp_path.iterdir())

@@ -72,6 +72,29 @@ def test_param_counts_and_cache_bytes_moe_equal_reference():
                 JR.cache_bytes(jcfg, J_SHAPES[name], kv)
 
 
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
+def test_param_counts_and_cache_bytes_recurrent_equal_reference(arch):
+    """The recurrent families at the two decode shapes they serve:
+    hymba's cache is its 2,048-slot ring of K/V plus each layer's Mamba
+    conv and SSM state (float32), xlstm's its mLSTM state; the parameter
+    counts come from the port's own shapes."""
+    from repro.configs.base import param_count as j_param_count
+    from repro_torch.configs import param_count
+    from repro_torch.models.ssm import mamba_dims
+    tcfg, jcfg = _cfgs(arch, smoke=False)
+    assert R.param_counts(tcfg) == JR.param_counts(jcfg)
+    assert param_count(tcfg) == j_param_count(jcfg)
+    for name in ("decode_32k", "long_500k"):
+        got = R.cache_bytes(tcfg, SHAPES[name])
+        assert got == JR.cache_bytes(jcfg, J_SHAPES[name])
+        if arch == "hymba-1.5b":
+            di, _, N = mamba_dims(tcfg)
+            B = SHAPES[name].global_batch
+            ring = 32 * B * 2048 * 5 * 64 * 2 * 2.0
+            state = 32 * B * (di * N + 3 * di) * 4.0
+            assert got == ring + state
+
+
 @pytest.mark.parametrize("kv_dtype,page", [("bf16", 4), ("int8", 4),
                                            ("int8", 8)])
 def test_kv_bytes_per_token_matches_engine(kv_dtype, page):
@@ -86,7 +109,12 @@ def test_kv_bytes_per_token_matches_engine(kv_dtype, page):
 
 
 def test_cache_bytes_hybrid_not_ported():
-    hybrid = dataclasses.replace(get_config("yi-6b").smoke(),
-                                 block_kind="hymba", sliding_window=16)
-    with pytest.raises(NotImplementedError):
-        R.cache_bytes(hybrid, SHAPES["decode_32k"])
+    """The hybrid state model, which raised until the port's SSM layers
+    came, now gives the reference's value for a hybrid cut from yi-6b."""
+    kw = dict(block_kind="hymba", sliding_window=16, ssm_state=8)
+    hybrid = dataclasses.replace(get_config("yi-6b").smoke(), **kw)
+    j_hybrid = dataclasses.replace(j_get_config("yi-6b").smoke(), **kw)
+    for name in ("decode_32k", "long_500k"):
+        for kv in ("bf16", "int8"):
+            assert R.cache_bytes(hybrid, SHAPES[name], kv) == \
+                JR.cache_bytes(j_hybrid, J_SHAPES[name], kv) > 0
