@@ -24,7 +24,10 @@ non-zero without printing the final result line):
    bound.  The same cases again at olmoe-1b-7b's geometry (H = Kv = 16,
    G = 1), whose lanes include the rows the engine pads with (an idle
    lane holding 130 tokens, a lane feeding half its C rows): every row,
-   pad rows included, must be finite and within the bar.
+   pad rows included, must be finite and within the bar.  Then, with q
+   in bfloat16 at C in {1, 128}, flat and sharp, on both pool types, at
+   one head shard's geometry of yi-6b split over 2 head shards (H = 16,
+   Kv = 2) and over 4 (H = 8, Kv = 1): the sharded engine's calls.
 4. engine parity: the same weights (yi-6b widths, 2 layers) served by the
    CUDA engine (kernel) and the CPU engine (plain version) in lockstep,
    with a shared prefix and a forced preemption: float32 greedy on a
@@ -205,6 +208,27 @@ non-zero without printing the final result line):
    filled from a seed, ``kpos`` holding the last 2,048 positions): ms
    per step, tokens/s, the roofline's cache bytes and their bound at
    ``launch/mesh.py``'s HBM rate, peak memory.
+18. sharded engine (``ShardedPagedServer``, all shards on the one card):
+   (a) (run after phase 4's float32 tier case, on its weights) phase 4's
+   float32 requests with a forced preemption served in lockstep by the
+   sharded engine on the card, the unsharded engine on the card with as
+   many lanes and pages, and the sharded engine on the CPU, at (clusters,
+   heads) = (2, 2) and (4, 1), and at (2, 1) on int8 pages with
+   ``spec_k=4`` and replayed drafts: tokens equal under phase 4's
+   near-tie rule, the two sharded engines' iterations, transfers and
+   spec counters equal, ``ClusterPagedPool.check_invariants()`` after
+   every step, every cluster used, every shard's tensors on the card and
+   every shard's kernel on every layer of every iteration, the plain
+   version never.  (b) (after phase 15, while yi-6b is loaded) phase 5's
+   workload at full width at (1, 1) with 8 lanes x 1,024 pages, (2, 1)
+   with 4 x 512 a cluster, (4, 1) with 2 x 256 and (2, 2) with 4 x 512:
+   tokens equal to phase 5's under the near-tie rule, every cluster
+   dispatched to, every shard's kernel on every layer of every
+   iteration; it prints each mesh's ``cluster_report()``, tokens/s,
+   iteration medians, kernel launches of a prefill and a decode
+   iteration (``torch.profiler``) and peak memory, which at (2, 2) and
+   (4, 1) must stay within (1, 1)'s plus their extra pool bytes (the
+   weights are held once).
 
 Then the script's time, one JSON line ``{"kernels": [...]}`` (the
 paged-attention split-KV
@@ -360,8 +384,11 @@ class Timer:
 
 
 # --------------------------------------------------------------- phase 3 --
-#: phase 3's attention geometries: (H, Kv) at hd 128; olmoe's is G = 1
-PAGED_GEOMS = {"yi-6b": (32, 4), "olmoe-1b-7b": (16, 16)}
+#: phase 3's attention geometries: (H, Kv) at hd 128; olmoe's is G = 1;
+#: "yi-6b/hN" is one head shard of yi-6b split over N head shards (the
+#: sharded engine's kernel calls, phase 18)
+PAGED_GEOMS = {"yi-6b": (32, 4), "olmoe-1b-7b": (16, 16),
+               "yi-6b/h2": (16, 2), "yi-6b/h4": (8, 1)}
 
 
 def attention_case(C: int, dtype: torch.dtype, int8: bool = False,
@@ -375,9 +402,11 @@ def attention_case(C: int, dtype: torch.dtype, int8: bool = False,
     has the rows the engine pads with: lane 2 is idle (n_new = 0, all its
     rows past its 130 tokens) and lane 4 feeds only ceil(C / 2) of its C
     rows; a row past n_new sees every token of its lane (``pad``: (B, C)
-    marks them).  With ``int8`` the pool is int8 with (P, 2, Kv) float32
-    scales, as the quantized engine keeps it.  q ~ N(0, 0.09), or with
-    ``sharp`` scaled so the scores have std ``PAGED_SHARP``."""
+    marks them).  A head shard's geometry ("yi-6b/hN") keeps yi-6b's
+    lanes and pool with fewer heads.  With ``int8`` the pool is int8
+    with (P, 2, Kv) float32 scales, as the quantized engine keeps it.
+    q ~ N(0, 0.09), or with ``sharp`` scaled so the scores have std
+    ``PAGED_SHARP``."""
     from repro_torch.kernels.paged_attention.ops import (
         page_counts_for, pad_block_table,
     )
@@ -386,7 +415,7 @@ def attention_case(C: int, dtype: torch.dtype, int8: bool = False,
     rng = np.random.default_rng(seed)
     lengths = np.array([1, 17, 130, 300, 511, 777, 1024, 0], np.int32)
     n_new = np.minimum(C, lengths).astype(np.int32)
-    if geom != "yi-6b":
+    if geom == "olmoe-1b-7b":
         n_new[2] = 0
         n_new[4] = -(-C // 2)
     q_start = (lengths - n_new).astype(np.int32)
@@ -469,10 +498,17 @@ PAGED_CASES = [(C, dtype, sharp) for C in (1, 5, 128)
                if not sharp or dtype == torch.bfloat16 or C > 1]
 
 
+#: the head-shard geometries' cases: the full-width sharded engine's
+#: decode (C=1) and prefill (C=128) calls, bf16 q
+SHARD_CASES = [(C, torch.bfloat16, sharp) for C in (1, 128)
+               for sharp in (False, True)]
+
+
 def phase_kernel(timer: Timer) -> list:
     return [kernel_case(timer, C, dtype, int8, sharp, geom)
             for geom in PAGED_GEOMS for int8 in (False, True)
-            for C, dtype, sharp in PAGED_CASES]
+            for C, dtype, sharp in (SHARD_CASES if "/" in geom
+                                    else PAGED_CASES)]
 
 
 def kernel_case(timer: Timer, C: int, dtype: torch.dtype, int8: bool,
@@ -547,11 +583,16 @@ def kernel_case(timer: Timer, C: int, dtype: torch.dtype, int8: bool,
 
 
 # --------------------------------------------------------------- phase 4 --
-def _lockstep(engines, requests, preempt_rid: int, preempt_after: int):
+def _lockstep(engines, requests, preempt_rid: int, preempt_after: int,
+              counters=()):
     """Serve ``requests`` on every engine in lockstep (one ``step()`` each
     per round), preempting ``preempt_rid`` on all of them once it has
-    ``preempt_after`` output tokens.  Returns each engine's tokens."""
+    ``preempt_after`` output tokens; a sharded engine's
+    ``ClusterPagedPool`` invariants are checked after each of its steps.
+    Returns each engine's tokens, and with ``counters`` (launch counters)
+    also each engine's launches by counter."""
     outs = [{r.rid: [] for r in requests} for _ in engines]
+    launched = [[0] * len(counters) for _ in engines]
     for e in engines:
         for r in requests:
             e.submit(r)
@@ -559,15 +600,20 @@ def _lockstep(engines, requests, preempt_rid: int, preempt_after: int):
     busy = True
     while busy:
         busy = False
-        for e, out in zip(engines, outs):
+        for k, (e, out) in enumerate(zip(engines, outs)):
+            before = [c.n for c in counters]
             busy |= e.step()
+            launched[k] = [n + c.n - b for n, c, b in
+                           zip(launched[k], counters, before)]
+            if hasattr(e, "cpool"):
+                e.cpool.check_invariants()
             for d in e.poll_deltas():
                 out[d.rid].extend(d.tokens)
         if not preempted and len(outs[0][preempt_rid]) >= preempt_after:
             for e in engines:
                 check(e.preempt(preempt_rid), "forced preemption missed")
             preempted = True
-    return outs
+    return (outs, launched) if counters else outs
 
 
 def parity_models(dtype: str = "float32"):
@@ -731,6 +777,39 @@ def rerun_rows(make_pair, rid: int, sp):
     return rows_at
 
 
+def parity_requests(cfg, sampled: bool = False) -> list:
+    """Phase 4's four requests: a shared 32-token prefix and 8-32 tokens
+    of their own, 8 new tokens each (``sampling_for``)."""
+    from repro_torch.runtime import GenerationRequest
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab_size, 32).tolist()
+    prompts = [prefix + rng.integers(0, cfg.vocab_size,
+                                     int(rng.integers(8, 33))).tolist()
+               for _ in range(4)]
+    return [GenerationRequest(rid, tuple(p), sampling_for(rid, sampled))
+            for rid, p in enumerate(prompts)]
+
+
+def path_row(engine, ctx: tuple, chunk: int) -> torch.Tensor:
+    """The float32 logits after ``ctx`` on a fresh ``engine``, its last
+    tokens through one path: the context but its last token is served
+    first (its full pages enter the prefix cache), then the whole context
+    with the chunk cut to ``chunk`` (1: the decode path, the split-KV
+    kernel; 5: a verify step's width; 128: a prefill chunk's), so only
+    the tokens past its last full page run, through that path's
+    kernel."""
+    from repro_torch.runtime import GenerationRequest, SamplingParams
+    engine.submit(GenerationRequest(0, ctx[:-1], SamplingParams(max_new=1)))
+    engine.run()
+    engine.chunk = chunk
+    engine.submit(GenerationRequest(1, ctx, SamplingParams(max_new=1)))
+    seq = engine.queue[-1]
+    hit = engine.run()[-1].prefix_hit_tokens
+    check(hit >= len(ctx) - engine.page_size,
+          f"the rerun reused {hit} of {len(ctx)} tokens")
+    return engine.last_logits[seq.lane]
+
+
 def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
                  known=None, sampled: bool = False, chunk: int = 16
                  ) -> tuple:
@@ -746,9 +825,7 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
     positions, {prompt: the CPU engine's tokens}, the CUDA engine's
     launches by kernel, {rid: (CUDA tokens, CPU tokens)})."""
     from repro_torch.kernels.paged_attention import kernel as K
-    from repro_torch.runtime import (
-        CacheConfig, EngineConfig, GenerationRequest, make_engine,
-    )
+    from repro_torch.runtime import CacheConfig, EngineConfig, make_engine
     from repro_torch.runtime import server as S
     cfg, cpu_model, gpu_model = models
     ecfg = EngineConfig(cache=CacheConfig(num_pages=64, page_size=16,
@@ -757,14 +834,7 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
                         max_lanes=2, chunk=chunk, spec_k=spec_k,
                         drafter=ReplayDrafter(known, cfg.vocab_size)
                         if spec_k else None)
-    rng = np.random.default_rng(1)
-    prefix = rng.integers(0, cfg.vocab_size, 32).tolist()
-    prompts = [prefix + rng.integers(0, cfg.vocab_size,
-                                     int(rng.integers(8, 33))).tolist()
-               for _ in range(4)]
-    requests = [GenerationRequest(rid, tuple(p),
-                                  sampling_for(rid, sampled))
-                for rid, p in enumerate(prompts)]
+    requests = parity_requests(cfg, sampled)
 
     def engines(chunk: int = chunk):
         spec = dataclasses.replace(ecfg, chunk=chunk)
@@ -1317,8 +1387,8 @@ def echo_wave(requests, results) -> list:
     return wave
 
 
-def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
-                ) -> tuple:
+def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0,
+                mesh: tuple = None) -> tuple:
     """Serve the workload at full width; the kernels of the pool's type
     must carry every layer of every iteration (their counts are read from
     0 just before the run and just after): the tensor-core kernel every
@@ -1326,7 +1396,12 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
     the plain version must never run.  With ``spec_k`` an ``echo_wave``
     follows once the workload is served.  For an MoE model the first
     iteration (a prefill) runs under a ``RouteRecorder`` and its dropped
-    assignments are reported.  Returns (metrics, {rid:
+    assignments are reported.  With ``mesh`` (clusters, heads, lanes and
+    pages a cluster) the sharded engine serves it: every (cluster, head)
+    shard's kernel carries every layer of every iteration; afterwards two
+    more requests are served, a prefill and a decode iteration of them
+    under ``torch.profiler`` to count the kernels an iteration launches
+    (every cluster runs every iteration, busy or not).  Returns (metrics, {rid:
     tokens}, the run: each iteration's kind, wall ms, prefill tokens fed,
     decoding lanes and resident context tokens before it; the engine's
     trace rows and spec)."""
@@ -1335,6 +1410,15 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
     from repro_torch.runtime import make_engine
     torch.cuda.reset_peak_memory_stats()
     ecfg, requests = serve_workload(cfg, kv_dtype, spec_k)
+    shards = 1
+    if mesh is not None:
+        C, H, lanes, pages = mesh
+        # the flat num_pages too: replace() would fold the old one back
+        ecfg = dataclasses.replace(
+            ecfg, clusters=C, heads=H, sharded=True, max_lanes=lanes,
+            num_pages=pages,
+            cache=dataclasses.replace(ecfg.cache, num_pages=pages))
+        shards = C * H
     engine = make_engine(cfg, model, ecfg)
     streamed = {}
     iter_ms = {"prefill": [], "decode": [], "verify": []}
@@ -1355,7 +1439,7 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
         while True:
             before = (engine.prefill_tokens, engine.spec_iterations)
             lanes = [r for r in engine.lanes if r is not None]
-            ctx = sum(engine.pool.seq_len.get(r.rid, 0) for r in lanes)
+            ctx = sum(engine._pool(r).seq_len.get(r.rid, 0) for r in lanes)
             decoding = sum(r.fed >= len(r.prompt) for r in lanes)
             t = time.perf_counter()
             busy = step()             # ends in the iteration's D2H pull
@@ -1406,18 +1490,20 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
     check(stats.prefix_hit_tokens > 0, "no prefix-cache hit")
     check(engine.preemptions >= 1, "no preemption")
     check(engine.pool.stats["swapped_in"] > 0, "no swap-in")
-    check(launches == cfg.num_layers * engine.iterations,
+    kinds = [it["kind"] for it in iters]
+    per = cfg.num_layers * shards      # kernel calls an iteration
+    check(launches == per * engine.iterations,
           f"{kv_dtype} kernel launches {launches} != {cfg.num_layers} "
-          f"layers x {engine.iterations} iterations")
-    n_chunked = len(iter_ms["prefill"]) + len(iter_ms["verify"])
-    check(tc_launches == cfg.num_layers * n_chunked,
+          f"layers x {shards} shards x {engine.iterations} iterations")
+    n_chunked = kinds.count("prefill") + kinds.count("verify")
+    check(tc_launches == per * n_chunked,
           f"{kv_dtype} tensor-core launches {tc_launches} != "
-          f"{cfg.num_layers} layers x {n_chunked} prefill and verify "
-          "iterations")
-    check(split_launches == cfg.num_layers * len(iter_ms["decode"]),
+          f"{cfg.num_layers} layers x {shards} shards x {n_chunked} "
+          "prefill and verify iterations")
+    check(split_launches == per * kinds.count("decode"),
           f"{kv_dtype} split-KV launches {split_launches} != "
-          f"{cfg.num_layers} layers x {len(iter_ms['decode'])} decode "
-          "iterations")
+          f"{cfg.num_layers} layers x {shards} shards x "
+          f"{kinds.count('decode')} decode iterations")
     check(launches == tc_launches + split_launches,
           f"{kv_dtype}: {launches - tc_launches - split_launches} launches "
           "of the FP32-core kernel (bf16 q takes the other two)")
@@ -1432,7 +1518,7 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
           f"the first iteration made {len(first.calls)} MoE layer calls")
     row = dict(kv_dtype=kv_dtype, spec_k=spec_k, requests=n_req,
                echo_requests=len(wave), iterations=engine.iterations,
-               **{f"{k}_iterations": len(v) for k, v in iter_ms.items()},
+               **{f"{k}_iterations": kinds.count(k) for k in iter_ms},
                **{f"{k}_iter_ms_median": statistics.median(v)
                   for k, v in iter_ms.items() if v},
                output_tokens=out_tokens,
@@ -1450,6 +1536,28 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
                split_launches=split_launches,
                paged_launches_per_iteration=launches / engine.iterations,
                max_memory_allocated=torch.cuda.max_memory_allocated())
+    rows = engine.tracer.drain()
+    if mesh is not None:
+        probed, busy_ms = {}, {}
+        for r in requests[:2]:
+            engine.submit(dataclasses.replace(r, rid=1000 + r.rid))
+        while len(probed) < 2:
+            fed = engine.prefill_tokens
+            busy, launched, ms = count_launches(engine.step)
+            check(busy, "the launch probe's requests finished unprobed")
+            kind = "prefill" if engine.prefill_tokens > fed else "decode"
+            if kind not in probed:
+                probed[kind], busy_ms[kind] = launched, ms
+        engine.run()
+        row.update(clusters=mesh[0], heads=mesh[1], lanes_per_cluster=lanes,
+                   pages_per_cluster=pages,
+                   launches_per_iteration=probed,
+                   device_busy_ms_per_iteration=busy_ms,
+                   cluster_report=engine.cluster_report(),
+                   pool_bytes=sum(t.numel() * t.element_size()
+                                  for c in range(mesh[0])
+                                  for pair in engine._shard_pools(c)
+                                  for t in pair if t is not None))
     if cfg.moe_num_experts:
         row.update(first_prefill_rows=first.calls[0].idx.shape[0],
                    first_prefill_capacity=first.calls[0].C,
@@ -1461,7 +1569,256 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0
           + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                      for k, v in row.items()), flush=True)
     return row, {rid: res.tokens for rid, res in results.items()}, dict(
-        iters=iters, rows=engine.tracer.drain(), ecfg=ecfg)
+        iters=iters, rows=rows, ecfg=ecfg)
+
+
+# --------------------------------------------------------------- phase 18 --
+#: (a): the sharded engine's float32 lockstep at yi-6b widths x 2 layers:
+#: (clusters, heads, kv dtype, spec_k); lanes and pages are per cluster
+SHARDED_LOCK = [(2, 2, "bf16", 0), (4, 1, "bf16", 0), (2, 1, "int8", 4)]
+#: (b): yi-6b as registered on phase 5's workload, all shards on the one
+#: card: (clusters, heads, lanes a cluster, pages a cluster)
+SHARDED_FULL = [(1, 1, 8, 1024), (2, 1, 4, 512), (4, 1, 2, 256),
+                (2, 2, 4, 512)]
+
+
+def count_launches(fn) -> tuple:
+    """(``fn()``, the kernels it launched on the card, their summed device
+    ms): ``torch.profiler`` device events, counted as
+    ``scripts/profile_torch_serve.py`` counts them (0 if the profiler sees
+    no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return out, len(dev), sum(e.device_time_total for e in dev) / 1e3
+
+
+def on_card(engine) -> bool:
+    """Every shard's slab, the lane state and every head shard's weight
+    views on the card: no shard quietly on the CPU."""
+    tensors = [t for c in range(engine.clusters)
+               for pair in engine._shard_pools(c) for t in pair
+               if t is not None]
+    tensors += [engine.bt_dev, engine.len_dev, engine.active_dev,
+                engine.last_tok]
+    for shard in engine.head_attn or ():
+        tensors += [v for layer in shard for v in layer.values()]
+    return all(t.is_cuda for t in tensors)
+
+
+def phase_sharded_lockstep(models, known: dict) -> dict:
+    """Phase 18 (a): phase 4's float32 weights and requests (a shared
+    prefix, rid 0 preempted after 3 tokens) on the sharded engine on the
+    card, the unsharded engine on the card holding as many lanes and
+    pages, and the sharded engine on the CPU, in lockstep, at each
+    ``SHARDED_LOCK`` mesh (int8 pages with ``spec_k=4`` and a
+    ``ReplayDrafter`` of ``known`` at (2, 1)).  Tokens must agree but for
+    near-ties (``excuse_first_flip``, each engine pair rerun on the
+    context alone); the sharded engines' iterations, transfers and spec
+    counters must be equal; every cluster must be used; on the card every
+    shard's kernel must carry every layer of every iteration and the
+    plain version never run.  Returns the card's launches by kernel."""
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.paged_attention import ref as R
+    from repro_torch.runtime import (
+        CacheConfig, EngineConfig, ShardedPagedServer, make_engine,
+    )
+    cfg, cpu_model, gpu_model = models
+    requests = parity_requests(cfg)
+    counters = (K.launches, K.int8_launches, K.tc_launches,
+                K.split_launches, R.calls)
+    total = dict(fp32_core_launches=0, split_launches=0,
+                 fp32_core_int8_launches=0, split_int8_launches=0)
+    for C, H, kv_dtype, spec_k in SHARDED_LOCK:
+        spec = dict(cache=CacheConfig(num_pages=64, page_size=16,
+                                      max_pages_per_seq=8,
+                                      kv_dtype=kv_dtype),
+                    max_lanes=2, chunk=16, spec_k=spec_k,
+                    drafter=ReplayDrafter(known, cfg.vocab_size)
+                    if spec_k else None)
+        sharded = EngineConfig(clusters=C, heads=H, sharded=True, **spec)
+        # the unsharded engine with the mesh's lanes and pages: a lane
+        # drafts only while nothing waits, so they decide the drafts
+        flat = EngineConfig(**dict(
+            spec, max_lanes=2 * C,
+            cache=dataclasses.replace(spec["cache"], num_pages=64 * C)))
+
+        def make(kind):
+            return {"sharded": lambda: make_engine(cfg, gpu_model, sharded),
+                    "flat": lambda: make_engine(cfg, gpu_model, flat),
+                    "cpu": lambda: make_engine(cfg, cpu_model, sharded,
+                                               device="cpu")}[kind]()
+        engines = [make(k) for k in ("sharded", "flat", "cpu")]
+        g = engines[0]
+        check(isinstance(g, ShardedPagedServer) and on_card(g),
+              f"({C}, {H}): a shard is not on the card")
+        outs, launched = _lockstep(engines, requests, preempt_rid=0,
+                                   preempt_after=3, counters=counters)
+        same, int8, tc, split, plain = launched[0]
+        kernel = int8 if kv_dtype == "int8" else same
+        label = f"sharded ({C}, {H}) float32 kv {kv_dtype} spec_k={spec_k}"
+        check(kernel == cfg.num_layers * C * H * g.iterations,
+              f"{label}: {kernel} kernel launches != {cfg.num_layers} "
+              f"layers x {C * H} shards x {g.iterations} iterations")
+        other_pool = same if kv_dtype == "int8" else int8
+        check(plain == 0 and tc == 0 and other_pool == 0,
+              f"{label}: plain {plain}, tensor-core {tc}, other pool type "
+              f"{other_pool} launches")
+        check(split > 0, f"{label}: no decode step took the split-KV kernel")
+        pre = "" if kv_dtype == "bf16" else "_int8"
+        total[f"fp32_core{pre}_launches"] += kernel - split
+        total[f"split{pre}_launches"] += split
+        excused = 0
+        dtype = torch.float32
+        for other, name in ((1, "unsharded CUDA"), (2, "sharded CPU")):
+            for r in requests:
+                a, b = outs[0][r.rid], outs[other][r.rid]
+                check(len(a) == len(b) == 8,
+                      f"{label} rid {r.rid}: lengths {len(a)}, {len(b)}")
+                excused += excuse_first_flip(
+                    f"{label} vs {name} rid {r.rid}", r.prompt, a, b,
+                    rerun_rows(lambda o=other: [
+                        make("sharded"), make(("sharded", "flat",
+                                               "cpu")[o])],
+                        r.rid, r.sampling), r.sampling, dtype)
+        c = engines[2]
+        counts = [(e.iterations, e.h2d_events, e.d2h_events,
+                   e.spec_proposed, e.spec_accepted, e.spec_rejected)
+                  for e in (g, c)]
+        if not excused:
+            check(counts[0] == counts[1],
+                  f"{label}: the card's and the CPU's sharded engines "
+                  f"scheduled differently: {counts}")
+        used = {r.cluster for r in g.finished}
+        check(len(used) == C, f"{label}: clusters used {sorted(used)}")
+        check(g.preemptions >= 1, f"{label}: no preemption")
+        if spec_k:
+            check(g.spec_accepted > 0 and g.spec_rejected > 0,
+                  f"{label}: speculation accepted {g.spec_accepted} and "
+                  f"rejected {g.spec_rejected}")
+        print(f"sharded lockstep: {label}: identical={excused == 0}, "
+              f"excused_positions={excused}, iterations/h2d/d2h/spec card "
+              f"{counts[0]} cpu {counts[1]}, unsharded card iterations "
+              f"{engines[1].iterations}, clusters used {sorted(used)}, "
+              f"kernel_launches={kernel}, split_kv_launches={split}, "
+              f"prefix_hit_tokens={g.cache_stats().prefix_hit_tokens}",
+              flush=True)
+    return total
+
+
+def excuse_path_flip(label: str, prompt, a, b, makers: dict,
+                     dtype: torch.dtype) -> bool:
+    """``excuse_first_flip`` for two greedy runs whose schedules differ:
+    the same position's token may come from a decode step in one run and
+    from a prefill chunk in the other, so the streams' first flip is
+    weighed against every legitimate evaluation of its context.  On each
+    engine of ``makers`` (the mesh's and the unsharded, the reference
+    last) the context runs through the decode path and through a
+    128-token chunk (``path_row``); every row must agree with the
+    reference's decode-path row (``logits_agree``), and the pair rule of
+    ``flip_margin`` must hold against the row that disagrees with it
+    most on the two tokens.  Returns whether they differed (and were
+    excused)."""
+    from repro_torch.runtime import SamplingParams
+    check(len(a) == len(b), f"{label}: lengths {len(a)}, {len(b)}")
+    j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if j is None:
+        return False
+    ctx = tuple(prompt) + tuple(b[:j])
+    x, y = a[j], b[j]
+    rows = {f"{name} {path}": path_row(make(), ctx, chunk)
+            for name, make in makers.items()
+            for path, chunk in (("decode", 1), ("chunk", 128))}
+    ref = rows.pop(f"{list(makers)[-1]} decode")
+    for name, row in rows.items():
+        logits_agree([row, ref], dtype, f"{label} token {j} ({name})")
+
+    def disagreement(row):
+        return abs(((row[y] - row[x]) - (ref[y] - ref[x])).item())
+    name = max(rows, key=lambda k: disagreement(rows[k]))
+    ok, numbers = flip_margin([rows[name], ref], x, y, SamplingParams(),
+                              len(ctx), dtype, f"{label} token {j}")
+    check(ok, f"{label} token {j}: {x} != {y}, against the {name} row: "
+              f"{numbers}")
+    print(f"{label} token {j} excused against the {name} row: {numbers}",
+          flush=True)
+    return True
+
+
+def phase_sharded_serve(cfg, model, phase5_tokens: dict) -> dict:
+    """Phase 18 (b): yi-6b as registered serves phase 5's workload on the
+    sharded engine at each ``SHARDED_FULL`` mesh, every shard on the one
+    card (``phase_serve`` with ``mesh``).  The tokens must be phase 5's
+    unsharded run's but for near-ties (``excuse_path_flip``: the meshes
+    schedule the workload differently, so a token decoded in one run may
+    come from a prefill chunk in the other); every cluster must be
+    dispatched to (``layer2_cluster_balance``); the peak memory at (2, 2)
+    and (4, 1) must stay within (1, 1)'s plus their extra pool bytes
+    (the weights are held once, whatever the mesh).  Prints each mesh's
+    ``cluster_report()``, tokens/s, iteration walls, launches an
+    iteration and peak memory.  Returns the runs by mesh."""
+    from repro_torch.core.analysis import (
+        layer1_decode, layer2_cluster_balance,
+    )
+    from repro_torch.runtime import make_engine
+    runs = {}
+    dtype = getattr(torch, cfg.param_dtype)
+    for mesh in SHARDED_FULL:
+        C, H = mesh[:2]
+        gc.collect()
+        torch.cuda.empty_cache()
+        row, tokens, run = phase_serve(cfg, model, mesh=mesh)
+        label = f"sharded full ({C}, {H})"
+        # a rerun on one cluster of the mesh: each cluster runs the same
+        # program on its own lanes, so one cluster's engine (as many lanes,
+        # pages and heads) gives a request alone the mesh's numerics
+        # without stepping the idle clusters
+        one = dataclasses.replace(run["ecfg"], clusters=1)
+        flat, requests = serve_workload(cfg)
+        excused = 0
+        for r in requests:
+            excused += excuse_path_flip(
+                f"{label} vs phase 5 rid {r.rid}", r.prompt,
+                list(tokens[r.rid]), list(phase5_tokens[r.rid]),
+                {"mesh": lambda: make_engine(cfg, model, one),
+                 "unsharded": lambda: make_engine(cfg, model, flat)}, dtype)
+        bal = layer2_cluster_balance(layer1_decode(run["rows"]),
+                                     n_clusters=C)
+        idle = [c for c, v in bal["clusters"].items() if not v["dispatches"]]
+        check(not idle, f"{label}: clusters {idle} never dispatched to")
+        row.update(excused_positions=excused,
+                   dispatch_balance=bal["balance"])
+        runs[mesh[:2]] = row
+        print(f"sharded full: ({C}, {H}) {mesh[2]} lanes x {mesh[3]} pages "
+              f"a cluster: identical_to_phase5={excused == 0}, "
+              f"excused_positions={excused}, "
+              f"tokens_per_s={row['output_tokens_per_s']:.4f}, "
+              f"prefill/decode iteration ms (median) "
+              f"{row.get('prefill_iter_ms_median', 0.0):.4f} / "
+              f"{row.get('decode_iter_ms_median', 0.0):.4f}, "
+              f"launches an iteration {row['launches_per_iteration']}, "
+              f"device busy ms an iteration "
+              f"{row['device_busy_ms_per_iteration']}, "
+              f"paged launches an iteration "
+              f"{row['paged_launches_per_iteration']:.1f}, "
+              f"peak {row['max_memory_allocated']}, "
+              f"pool {row['pool_bytes']}, dispatch balance "
+              f"{bal['balance']:.4f}, cluster_report "
+              f"{json.dumps(row['cluster_report'])}", flush=True)
+    one = runs[(1, 1)]
+    for mesh in ((2, 2), (4, 1)):
+        r = runs[mesh]
+        extra = r["pool_bytes"] - one["pool_bytes"]
+        check(r["max_memory_allocated"] <= one["max_memory_allocated"]
+              + extra,
+              f"sharded full {mesh}: peak {r['max_memory_allocated']} > "
+              f"(1, 1)'s {one['max_memory_allocated']} + {extra} extra "
+              "pool bytes: are the weights copied per shard?")
+    return runs
 
 
 # ------------------------------------------------------ phases 4 and 13 --
@@ -1732,15 +2089,7 @@ def phase_frontdoor(cfg, model, phase5: dict, timer: Timer) -> dict:
     plain = dataclasses.replace(ecfg, spec_k=0)
 
     def row_at(ctx: tuple, chunk: int) -> torch.Tensor:
-        e = make_engine(cfg, model, plain)
-        e.submit(GenerationRequest(0, ctx[:-1], SamplingParams(max_new=1)))
-        e.run()
-        e.chunk = chunk
-        e.submit(GenerationRequest(1, ctx, SamplingParams(max_new=1)))
-        hit = e.run()[-1].prefix_hit_tokens
-        check(hit >= len(ctx) - 16, f"phase 13: the rerun reused {hit} of "
-                                    f"{len(ctx)} tokens")
-        return e.last_logits[0]
+        return path_row(make_engine(cfg, model, plain), ctx, chunk)
 
     excused = 0
     for rid in sorted(prompts):
@@ -3342,6 +3691,8 @@ def main() -> int:
                                         known=known)
     phase_parity(parity, sampled=True)
     tier_parity = phase_tier_parity(parity)
+    sharded_lock = phase_sharded_lockstep(parity, known)
+    done("phase 18a")
     parity = parity_models("bfloat16")
     _, known, _, _ = phase_parity(parity)
     phase_parity(parity, kv_dtype="int8", spec_k=4, known=known,
@@ -3375,6 +3726,8 @@ def main() -> int:
     peaks = measure_peaks(timer)
     planner = phase_planner(cfg, model, phase5_run, peaks, smi)
     done("phase 15")
+    sharded_full = phase_sharded_serve(cfg, model, phase5)
+    done("phase 18b")
     del model
     gc.collect()            # the engines' reference cycles hold the weights
     torch.cuda.empty_cache()
@@ -3429,28 +3782,35 @@ def main() -> int:
     decode_fwd = "src/repro/kernels/paged_attention/kernel.py:61"
     prefill = "src/repro/kernels/paged_attention/kernel.py:222"
     quant = "src/repro/kernels/paged_attention/kernel.py:113-121"
-    # the bf16 pool's kernels carry phases 5, 13, 14, 15 and 16, the
-    # int8 pool's phases 6 and 16, the FP32-core kernel phase 4's float32
-    # engines (yi-6b's and olmoe's)
+    # the bf16 pool's kernels carry phases 5, 13, 14, 15, 16 and 18 (b),
+    # the int8 pool's phases 6 and 16 (and 18 (a)'s decode), the FP32-core
+    # kernel phase 4's float32 engines (yi-6b's and olmoe's) and phase 18
+    # (a)'s sharded ones
+    full = sharded_full.values()
     kernels = [
         entry("paged_attention_decode_split", SPLIT_KV, "same", 1,
               "bfloat16", serve["split_launches"]
               + frontdoor["split_launches"] + tiers["split_launches"]
-              + planner["split_launches"] + moe_serve["split_launches"],
-              decode_fwd),
+              + planner["split_launches"] + moe_serve["split_launches"]
+              + sum(r["split_launches"] for r in full)
+              + sharded_lock["split_launches"], decode_fwd),
         entry("paged_attention_decode_split_int8", SPLIT_KV, "int8", 1,
               "bfloat16", serve8["split_launches"]
-              + moe_serve8["split_launches"], quant),
+              + moe_serve8["split_launches"]
+              + sharded_lock["split_int8_launches"], quant),
         entry("paged_attention", FP32_CORES, "same", 128, "float32",
               parity_f32["fp32_core_launches"]
               + tier_parity["fp32_core_launches"]
-              + moe_parity["f32"]["fp32_core_launches"], prefill),
+              + moe_parity["f32"]["fp32_core_launches"]
+              + sharded_lock["fp32_core_launches"], prefill),
         entry("paged_attention_int8", FP32_CORES, "int8", 128, "float32",
-              parity_int8["fp32_core_launches"], quant),
+              parity_int8["fp32_core_launches"]
+              + sharded_lock["fp32_core_int8_launches"], quant),
         entry("paged_attention_prefill_tc", TENSOR_CORES, "same", 128,
               "bfloat16", serve["tc_launches"] + frontdoor["tc_launches"]
               + tiers["tc_launches"] + planner["tc_launches"]
-              + moe_serve["tc_launches"], prefill),
+              + moe_serve["tc_launches"]
+              + sum(r["tc_launches"] for r in full), prefill),
         entry("paged_attention_prefill_tc_int8", TENSOR_CORES, "int8", 128,
               "bfloat16", serve8["tc_launches"] + moe_serve8["tc_launches"],
               quant),

@@ -595,3 +595,117 @@ class PagedKVPool:
 
     def lengths(self, seq_ids: List[int]) -> np.ndarray:
         return np.array([self.seq_len.get(s, 0) for s in seq_ids], np.int32)
+
+
+# ===========================================================================
+# Multi-cluster pool: C per-cluster pools, each behind its own RAB
+# ===========================================================================
+
+class ClusterPagedPool:
+    """C independent ``PagedKVPool`` shards, one per PMCA cluster.
+
+    HERO §2.2: every cluster sits behind its own RAB port into the shared
+    SVM fabric.  The serving adaptation gives every cluster its own page
+    shard (cluster-local free list, refcounts and prefix index) and its own
+    ``RAB`` instance; a sequence lives entirely inside one cluster, so its
+    block table holds *cluster-local* physical page ids and the owning
+    cluster id rides alongside (``cluster_of``).  The global physical page
+    namespace is ``cluster * (num_pages + 1) + local`` — the ``+ 1``
+    accounts for each cluster's trash page in the fused device slab — and
+    ``check_invariants`` proves the shards partition it (no page owned by
+    two clusters).
+    """
+
+    def __init__(self, clusters: int, num_pages: int, page_size: int,
+                 max_pages_per_seq: int, rab_cfg: Optional[RABConfig] = None,
+                 tracer: Optional[TraceBuffer] = None):
+        assert clusters >= 1
+        self.clusters = clusters
+        self.num_pages = num_pages            # per cluster
+        self.page_size = page_size
+        self.max_pages = max_pages_per_seq
+        self.rabs = [RAB(rab_cfg or RABConfig(), tracer)
+                     for _ in range(clusters)]
+        self.pools = [PagedKVPool(num_pages, page_size, max_pages_per_seq,
+                                  rab) for rab in self.rabs]
+        for c, pool in enumerate(self.pools):
+            # interleaved prefix-entry id namespaces: demote/promote trace
+            # events stay globally unambiguous across cluster shards
+            pool._next_key_id = c
+            pool.key_id_step = clusters
+        self.cluster_of: Dict[int, int] = {}          # seq -> cluster
+
+    # ------------------------------------------------------------ routing --
+    def place(self, seq: int, cluster: int):
+        assert 0 <= cluster < self.clusters
+        prev = self.cluster_of.get(seq)
+        assert prev is None or prev == cluster, \
+            f"seq {seq} already placed on cluster {prev}"
+        self.cluster_of[seq] = cluster
+
+    def forget(self, seq: int):
+        self.cluster_of.pop(seq, None)
+
+    def pool_for(self, seq: int) -> PagedKVPool:
+        return self.pools[self.cluster_of[seq]]
+
+    def least_loaded(self) -> int:
+        """Cluster with the most obtainable pages (ties: lowest id) —
+        HERO-style least-loaded placement."""
+        return max(range(self.clusters),
+                   key=lambda c: (self.pools[c].available(), -c))
+
+    # ----------------------------------------------------------- global ids --
+    def global_page(self, cluster: int, local: int) -> int:
+        """Local physical page -> global slab index (incl. trash pages)."""
+        return cluster * (self.num_pages + 1) + local
+
+    def occupancy(self) -> List[int]:
+        """Pages referenced by live mappings, per cluster."""
+        return [p.num_pages - p.free_pages() for p in self.pools]
+
+    # ------------------------------------------------------------- stats --
+    @property
+    def stats(self) -> Dict[int, int]:
+        """Aggregated per-cluster pool stats (same keys as PagedKVPool)."""
+        out: Dict = {}
+        for p in self.pools:
+            for k, v in p.stats.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    def free_pages(self) -> int:
+        return sum(p.free_pages() for p in self.pools)
+
+    def available(self) -> int:
+        return sum(p.available() for p in self.pools)
+
+    # ---------------------------------------------------------- invariants --
+    def check_invariants(self):
+        """Per-cluster conservation laws plus the cross-cluster partition:
+
+        * every cluster pool individually satisfies its invariants;
+        * a sequence is resident in exactly the cluster ``cluster_of``
+          says, and in no other cluster's page table or seq_len map;
+        * the global page namespace is partitioned — translating every
+          cluster's pages to global ids yields disjoint sets that exactly
+          tile ``clusters * num_pages`` (no page owned by two clusters).
+        """
+        seen_global: Dict[int, int] = {}
+        for c, pool in enumerate(self.pools):
+            pool.check_invariants()
+            for s in set(pool.seq_len) | {k[0] for k in pool.page_table}:
+                assert self.cluster_of.get(s) == c, \
+                    f"seq {s} resident on cluster {c} but routed to " \
+                    f"{self.cluster_of.get(s)}"
+            for local in (set(pool.free) | set(pool.cached_free)
+                          | set(pool.refcount)):
+                g = self.global_page(c, local)
+                assert g not in seen_global, \
+                    f"global page {g} owned by clusters " \
+                    f"{seen_global[g]} and {c}"
+                seen_global[g] = c
+        expect = {self.global_page(c, p) for c in range(self.clusters)
+                  for p in range(self.num_pages)}
+        assert set(seen_global) == expect, \
+            "cluster shards do not partition the global page namespace"

@@ -11,13 +11,15 @@ from repro_torch.runtime.frontdoor import (
     TokenBudgetPolicy, latency_report,
 )
 from repro_torch.runtime.server import PagedServer
+from repro_torch.runtime.sharded_server import ShardedPagedServer
 from repro_torch.runtime.speculative import (
     Drafter, DraftModelDrafter, NGramDrafter,
 )
 from repro_torch.runtime.trainer import FailureInjector, Trainer, TrainerConfig
 
 __all__ = ["Trainer", "TrainerConfig", "FailureInjector",
-           "PagedServer", "Drafter", "NGramDrafter", "DraftModelDrafter",
+           "PagedServer", "ShardedPagedServer", "Drafter", "NGramDrafter",
+           "DraftModelDrafter",
            "CacheConfig", "CacheStats", "EngineConfig",
            "GenerationRequest", "GenerationResult", "SamplingParams",
            "TokenDelta", "make_engine", "FINISH_STOP", "FINISH_LENGTH",

@@ -14,9 +14,7 @@ moves between the two packages without rewriting its requests:
   request/result pair; results carry a ``finish_reason``.
 * :class:`TokenDelta` — the streaming unit of ``engine.generate()``; the
   concatenation of a request's token deltas is its result's tokens.
-
-What the port does not serve yet is still spelled here and raises
-``NotImplementedError`` where the engine meets it: the sharded engine.
+* :func:`make_engine` — the one factory of both engines.
 """
 from __future__ import annotations
 
@@ -343,16 +341,13 @@ def make_engine(cfg, params, engine_cfg: Optional[EngineConfig] = None, *,
     """Build the engine for ``engine_cfg`` (default spec if None) on
     ``device`` (``cuda`` unless the caller passes ``"cpu"``).
 
-    Returns a ``PagedServer``.  A spec that asks for the sharded engine
-    (``clusters > 1``, ``heads > 1``, a ``mesh`` or ``sharded=True``)
-    raises ``NotImplementedError``: ``ShardedPagedServer`` comes with the
-    sharded slice of the port.
+    One factory, both engines: a spec with ``clusters > 1``, ``heads > 1``,
+    an explicit ``mesh`` or ``sharded=True`` returns a
+    ``ShardedPagedServer``; anything else the unsharded ``PagedServer``.
     """
     from repro_torch.runtime.server import PagedServer
+    from repro_torch.runtime.sharded_server import ShardedPagedServer
 
     engine_cfg = engine_cfg or EngineConfig()
-    if engine_cfg.wants_sharded:
-        raise NotImplementedError(
-            "sharded serving (ShardedPagedServer: clusters/heads/mesh) is "
-            "not ported yet; it comes with the sharded-engine slice")
-    return PagedServer(cfg, params, engine_cfg, tracer=tracer, device=device)
+    cls = ShardedPagedServer if engine_cfg.wants_sharded else PagedServer
+    return cls(cfg, params, engine_cfg, tracer=tracer, device=device)

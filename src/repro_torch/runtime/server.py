@@ -57,13 +57,20 @@ modeled promotion latency.  A demoted page's payload is pulled before any
 write that could reuse the page is enqueued on the device.  An optional
 ``FaultInjector`` (``runtime.faults``) perturbs every backing-store op;
 transient faults are retried, persistent ones demote their request to
-``"error"``.  The tier seam is cluster 0's only.
+``"error"``.
+
+Every pool, tier-store and page-payload access of a placed request goes
+through a per-cluster seam (``_pool_of``, ``_cache_store_of``,
+``_shard_pools``), as in the reference.  This engine has one cluster;
+``runtime.sharded_server.ShardedPagedServer`` substitutes one pool, RAB,
+prefix index and tier store per cluster and one K/V slab per (cluster,
+head) shard.  A page's host payload is the concatenation of its head
+shards' slices in head order, so it holds the same bytes as here.
 
 An MoE layer routes all ``B * C`` rows of the step through the
 reference's capacity dispatch (``models.moe.moe_forward``, not dropless):
 rows past a lane's ``n_new`` and the rows of idle lanes take part and can
-crowd real tokens out of an expert, as in the reference.  The sharded
-engine raises ``NotImplementedError`` until its slice is ported.
+crowd real tokens out of an expert, as in the reference.
 """
 from __future__ import annotations
 
@@ -79,7 +86,7 @@ from repro_torch.core.offload import (
     BackingStoreError, DiskTier, HostBackingStore,
     TIER_CODES, TIER_DEVICE, TIER_HOST,
 )
-from repro_torch.core.rab import RAB, PagedKVPool
+from repro_torch.core.rab import RAB, PagedKVPool, RABConfig
 from repro_torch.core.tracing import EventType, TraceBuffer
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.launch import LaunchCounter
@@ -124,6 +131,7 @@ class SeqState:
     finish_reason: Optional[str] = None
     prefix_hit_tokens: int = 0        # prompt tokens reused from the cache
     preemptions: int = 0
+    cluster: int = 0                  # owning PMCA cluster (sharded engine)
     arrival: int = -1                 # FIFO tiebreak, assigned by submit()
     reg_pages: int = 0                # prompt pages published to the index
     swapped: Optional[List[int]] = None   # lpages parked in the backing store
@@ -165,6 +173,16 @@ def _from_host(a: np.ndarray, dtype: torch.dtype,
     return t.to(device)
 
 
+def _cat(parts: List[torch.Tensor], dim: int) -> torch.Tensor:
+    """``torch.cat`` that returns a lone part itself (no copy)."""
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
+def _split(t: torch.Tensor, dim: int, n: int) -> List[torch.Tensor]:
+    """``t`` cut into ``n`` equal views along ``dim`` (head shards)."""
+    return list(torch.chunk(t, n, dim)) if n > 1 else [t]
+
+
 def _pack_kv_page(pages: np.ndarray, scales: np.ndarray) -> np.ndarray:
     """Fuse one page's int8 payload + f32 scales into a single 1-D uint8
     blob (the backing store's contract is one array per page; one CRC
@@ -182,11 +200,6 @@ def _unpack_kv_page(blob: np.ndarray, page_shape: tuple,
     pages = blob[:split].view(np.int8).reshape(page_shape)
     scales = blob[split:].view(np.float32).reshape(scale_shape)
     return pages, scales
-
-
-def _not_ported(feature: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{feature} is not ported to the PyTorch engine yet")
 
 
 class PagedServer:
@@ -211,8 +224,6 @@ class PagedServer:
             raise ValueError("paged engine supports plain-GQA transformer "
                              "archs")
         _check_supported(cfg)
-        if engine.wants_sharded:
-            raise _not_ported("sharded serving (clusters/heads/mesh)")
         if self.device.type == "cuda" and not engine.use_kernel:
             raise ValueError(
                 "use_kernel=False (the plain attention path) runs on the "
@@ -242,9 +253,9 @@ class PagedServer:
             else MonotonicClock()
         self.policy = engine.scheduler_policy \
             if engine.scheduler_policy is not None else GreedyChunkPolicy()
-        self.rab = RAB(engine.rab_cfg, self.tracer)
-        self.pool = PagedKVPool(self.cache_cfg.num_pages, self.page_size,
-                                self.max_pages, self.rab)
+        # construction hooks: the sharded subclass builds per-cluster
+        # pools and per-shard device state here instead
+        self._build_pool(self.cache_cfg.num_pages, engine.rab_cfg)
         self._build_device_state(self.cache_cfg.num_pages)
         self._bt_host = np.zeros((self.max_lanes, self.max_pages),
                                  np.int32)
@@ -265,7 +276,8 @@ class PagedServer:
         # swap traffic and demoted cache entries share one tier chain
         self.backing = self._build_backing_store()
         if self.cache_cfg.spill_enabled and self.enable_prefix_cache:
-            self.pool.spill_enabled = True
+            for p in self._all_pools():
+                p.spill_enabled = True
         self._promotions: List[dict] = []   # in-flight H2D prefetches
         self.cache_hit_pages = {"device": 0, "host": 0, "disk": 0}
         self.cache_miss_pages = 0
@@ -308,21 +320,16 @@ class PagedServer:
                                        finish_reason=reason))
 
     # ------------------------------------------------------ construction --
+    def _build_pool(self, num_pages: int, rab_cfg: RABConfig):
+        self.rab = RAB(rab_cfg, self.tracer)
+        self.pool = PagedKVPool(num_pages, self.page_size, self.max_pages,
+                                self.rab)
+
     def _build_device_state(self, num_pages: int):
         cfg, dev = self.cfg, self.device
-        L_, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
         self.kv_dtype = torch.int8 if self.quant_kv else \
             getattr(torch, cfg.param_dtype)
-        # fused K/V pool; the extra page (index num_pages) is the trash
-        # page masked writes are routed to
-        self.kv_pages = torch.zeros(
-            (L_, num_pages + 1, 2, self.page_size, kv, hd),
-            dtype=self.kv_dtype, device=dev)
-        # per-(page, K/V, kv-head) dequantization scales of an int8 pool,
-        # updated in place like the pool
-        self.kv_scales = torch.zeros((L_, num_pages + 1, 2, kv),
-                                     dtype=torch.float32, device=dev) \
-            if self.quant_kv else None
+        self._build_slabs(num_pages)
         # device-resident engine state: the scheduler and the model share
         # these without per-iteration re-uploads
         B = self.max_lanes
@@ -344,10 +351,26 @@ class PagedServer:
                                            device=dev)
         step_args = (cfg, self.params, self.use_kernel, self.pages_per_step,
                      num_pages)
-        self._step = functools.partial(_paged_chunk_step, *step_args,
-                                       kv_scales=self.kv_scales)
-        self._spec_step = functools.partial(_paged_spec_step, *step_args,
-                                            kv_scales=self.kv_scales)
+        self._step = functools.partial(_paged_chunk_step, *step_args)
+        self._spec_step = functools.partial(_paged_spec_step, *step_args)
+
+    def _build_slabs(self, num_pages: int):
+        cfg, dev = self.cfg, self.device
+        L_, kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+        # fused K/V pool; the extra page (index num_pages) is the trash
+        # page masked writes are routed to
+        self.kv_pages = torch.zeros(
+            (L_, num_pages + 1, 2, self.page_size, kv, hd),
+            dtype=self.kv_dtype, device=dev)
+        # per-(page, K/V, kv-head) dequantization scales of an int8 pool,
+        # updated in place like the pool
+        self.kv_scales = torch.zeros((L_, num_pages + 1, 2, kv),
+                                     dtype=torch.float32, device=dev) \
+            if self.quant_kv else None
+        # the pool as the per-shard seam sees it: one cluster, one head
+        # shard
+        self.kv_shards = [[self.kv_pages]]
+        self.scale_shards = [[self.kv_scales]]
 
     def _build_backing_store(self) -> HostBackingStore:
         cc = self.cache_cfg
@@ -356,11 +379,42 @@ class PagedServer:
         return HostBackingStore(self.faults, host_pages=cc.host_tier_pages,
                                 disk_tier=disk)
 
+    # ---------------------------------------------------------- pool seam --
+    # Every pool access for a placed request routes through these, so the
+    # sharded subclass can substitute cluster-local pools.  Page ids stay
+    # cluster-local: each (cluster, head) shard owns its slab.
+    def _pool_of(self, cluster: int) -> PagedKVPool:
+        return self.pool
+
+    def _pool(self, req: SeqState) -> PagedKVPool:
+        return self._pool_of(req.cluster)
+
+    def _all_pools(self) -> List[PagedKVPool]:
+        """Every pool, indexed by cluster (one for this engine)."""
+        return [self.pool]
+
+    def _capacity_pages(self) -> int:
+        """Page capacity one request can draw from (per cluster)."""
+        return self.pool.num_pages
+
+    # ---------------------------------------------------- cache tier seam --
+    def _cache_store_of(self, cluster: int) -> HostBackingStore:
+        """Tier store carrying ``cluster``'s demoted prefix-cache pages
+        (the sharded engine keeps one per cluster; swap traffic stays on
+        ``self.backing`` regardless)."""
+        return self.backing
+
+    def _cache_stores(self) -> List[HostBackingStore]:
+        return [self.backing]
+
     def close(self):
-        """Release the backing store's tiers (disk-tier files and an owned
-        directory).  Idempotent; the engine stays usable for stats reads
+        """Release the tier stores (disk-tier files and owned
+        directories).  Idempotent; the engine stays usable for stats reads
         afterwards."""
-        self.backing.close()
+        stores = {id(s): s for s in self._cache_stores()}
+        stores.setdefault(id(self.backing), self.backing)
+        for st in stores.values():
+            st.close()
 
     # ------------------------------------------------------------- admin --
     def submit(self, req: GenerationRequest):
@@ -375,7 +429,7 @@ class PagedServer:
         seq = SeqState(rid=req.rid, prompt=list(req.prompt), sampling=sp,
                        priority=req.priority)
         if self._pages_needed(seq) + self._cow_budget(seq) > \
-                self.pool.num_pages:
+                self._capacity_pages():
             raise ValueError("request exceeds KV pool capacity")
         seq.arrival = self._arrival
         self._arrival += 1
@@ -417,20 +471,20 @@ class PagedServer:
         return 1 if (self.enable_prefix_cache and req.max_new > 1
                      and len(req.prompt) % self.page_size) else 0
 
-    def _plan(self, req: SeqState) -> dict:
-        """Admission plan: which prefix-cache pages to map and how many
-        pages to reserve.  ``need`` excludes only *stable* device-resident
-        shared pages (fully written, never appended again); a shared
-        partial tail keeps one reserved page as the sharer's copy-on-write
-        budget, a spilled hit draws a fresh page for its promoted payload,
-        and a resuming request budgets every page it must restore or
-        allocate."""
-        pool = self.pool
+    def _plan(self, req: SeqState, cluster: int = 0) -> dict:
+        """Admission plan against ``cluster``'s pool: which prefix-cache
+        pages to map and how many pages to reserve.  ``need`` excludes
+        only *stable* device-resident shared pages (fully written, never
+        appended again); a shared partial tail keeps one reserved page as
+        the sharer's copy-on-write budget, a spilled hit draws a fresh
+        page for its promoted payload, and a resuming request budgets
+        every page it must restore or allocate."""
+        pool = self._pool_of(cluster)
         total = self._pages_needed(req) + self._cow_budget(req)
         ps = self.page_size
         if req.swapped is not None:            # resuming after preemption
             return {"resume": True, "hits": [], "usable": 0,
-                    "need": total, "cached_hits": 0}
+                    "need": total, "cached_hits": 0, "cluster": cluster}
         usable, hits = 0, []
         if self.enable_prefix_cache and len(req.prompt) > 1:
             # the hit chain may cross tiers: ("device", ppage) entries map
@@ -448,13 +502,13 @@ class PagedServer:
         cached = sum(1 for kind, v in hits
                      if kind == "device" and v in pool.cached_free)
         plan = {"resume": False, "hits": hits, "usable": usable,
-                "need": need, "cached_hits": cached}
+                "need": need, "cached_hits": cached, "cluster": cluster}
         if hits and not self._fits(plan):
             # hits sitting on cached-free pages cost evictable capacity a
             # no-sharing admission would simply reuse — never let the cache
             # starve a request that fits without it
             fallback = {"resume": False, "hits": [], "usable": 0,
-                        "need": total, "cached_hits": 0}
+                        "need": total, "cached_hits": 0, "cluster": cluster}
             if self._fits(fallback):
                 return fallback
         return plan
@@ -462,7 +516,8 @@ class PagedServer:
     def _fits(self, plan: dict) -> bool:
         # reviving cached-free hit pages consumes them from the evictable
         # set, so they are budgeted on top of the reservation
-        return self.pool.available() >= plan["need"] + plan["cached_hits"]
+        return self._pool_of(plan["cluster"]).available() >= \
+            plan["need"] + plan["cached_hits"]
 
     def _victim(self, head: SeqState) -> Optional[SeqState]:
         """Lowest-priority running request (youngest within a class) —
@@ -503,7 +558,8 @@ class PagedServer:
         fault past the retry budget) drops that entry from every tier and
         re-plans: dropping a spilled hit never changes ``need`` (device
         hits are untouched), so the new plan still fits."""
-        pool, store = self.pool, self.backing
+        pool = self._pool_of(plan["cluster"])
+        store = self._cache_store_of(plan["cluster"])
         while True:
             fetched: dict = {}
             ok = True
@@ -517,18 +573,19 @@ class PagedServer:
                 except BackingStoreError:
                     pool.drop_spilled(val)
                     store.drop_cache(eid)
-                    self._trace_store_moves()
+                    self._trace_store_moves(store)
                     ok = False
                     break
                 fetched[lp] = (eid, payload, tier)
             if ok:
                 return plan, fetched
-            plan = self._plan(req)
+            plan = self._plan(req, plan["cluster"])
 
     def _place(self, req: SeqState, lane: int, plan: dict):
         rid = req.rid
         req.lane = lane
-        pool = self.pool
+        req.cluster = plan["cluster"]
+        pool = self._pool(req)
         self.lanes[lane] = req
         fetched: dict = {}
         if not plan["resume"] and any(k == "spilled" for k, _ in
@@ -616,43 +673,82 @@ class PagedServer:
     def _unplace(self, req: SeqState):
         """Reverse an in-progress ``_place`` whose swap-in was deferred:
         free the lane, drop the reservation, re-queue the request."""
-        self.pool.reserved.pop(req.rid, None)
+        self._pool(req).reserved.pop(req.rid, None)
         self.lanes[req.lane] = None
         req.lane = -1
         self.queue.append(req)
 
     # -------------------------------------------------- page payload seam --
-    def _snap_pages(self, idx: List[int]) -> List[np.ndarray]:
-        """One gathered D2H pull of ``idx``'s pages (all layers); returns
-        one payload per page (packed blobs of bytes and scales in int8
-        mode)."""
-        gi = torch.tensor(idx, dtype=torch.long, device=self.device)
-        payload = _to_host(self.kv_pages[:, gi])
+    # Every movement of whole pages (swap, tier demote and promote,
+    # copy-on-write, fresh int8 scales) goes through these, on one
+    # cluster's head shards (``_shard_pools``).  A page's payload is the
+    # concatenation of its head shards' kv-head slices in head order, so
+    # its bytes (and CRC32) are the unsharded engine's for the same bits.
+    def _shard_pools(self, cluster: int) -> list:
+        """``cluster``'s ``(pages, scales)`` slabs, one per head shard in
+        head order (``scales`` None for a bf16/f32 pool)."""
+        return list(zip(self.kv_shards[cluster], self.scale_shards[cluster]))
+
+    def _ids(self, pages: List[int]) -> torch.Tensor:
+        return torch.tensor(pages, dtype=torch.long, device=self.device)
+
+    def _snap_pages(self, cluster: int, idx: List[int]) -> List[np.ndarray]:
+        """One gathered D2H pull of ``cluster``'s pages ``idx`` (all
+        layers); returns one payload per page (packed blobs of bytes and
+        scales in int8 mode)."""
+        gi = self._ids(idx)
+        shards = self._shard_pools(cluster)
+        payload = _to_host(_cat([pg[:, gi] for pg, _ in shards], -2))
         if not self.quant_kv:
             return [payload[:, j] for j in range(len(idx))]
-        scales = _to_host(self.kv_scales[:, gi])
+        scales = _to_host(_cat([sc[:, gi] for _, sc in shards], -1))
         return [_pack_kv_page(payload[:, j], scales[:, j])
                 for j in range(len(idx))]
 
-    def _load_pages(self, phys: List[int], payloads: List[np.ndarray]):
-        """One batched H2D restore of ``payloads`` into pool slots
-        ``phys`` (unpacking blobs into pages + scales in int8 mode)."""
-        gi = torch.tensor(phys, dtype=torch.long, device=self.device)
+    def _load_pages(self, cluster: int, phys: List[int],
+                    payloads: List[np.ndarray]):
+        """One batched H2D restore of ``payloads`` into ``cluster``'s pool
+        slots ``phys`` (unpacking blobs into pages + scales in int8
+        mode)."""
+        gi = self._ids(phys)
+        shards = self._shard_pools(cluster)
         if not self.quant_kv:
-            self.kv_pages[:, gi] = _from_host(np.stack(payloads, axis=1),
-                                              self.kv_dtype, self.device)
+            pages = _from_host(np.stack(payloads, axis=1), self.kv_dtype,
+                               self.device)
+            for (pg, _), part in zip(shards, _split(pages, -2, len(shards))):
+                pg[:, gi] = part
             return
         cfg = self.cfg
         L_, kv = cfg.num_layers, cfg.num_kv_heads
         parts = [_unpack_kv_page(
             p, (L_, 2, self.page_size, kv, cfg.resolved_head_dim),
             (L_, 2, kv)) for p in payloads]
-        self.kv_pages[:, gi] = _from_host(
-            np.stack([pg for pg, _ in parts], axis=1), torch.int8,
-            self.device)
-        self.kv_scales[:, gi] = _from_host(
-            np.stack([sc for _, sc in parts], axis=1), torch.float32,
-            self.device)
+        pages = _from_host(np.stack([pg for pg, _ in parts], axis=1),
+                           torch.int8, self.device)
+        scales = _from_host(np.stack([sc for _, sc in parts], axis=1),
+                            torch.float32, self.device)
+        for (pg, sc), p_h, s_h in zip(shards,
+                                      _split(pages, -2, len(shards)),
+                                      _split(scales, -1, len(shards))):
+            pg[:, gi] = p_h
+            sc[:, gi] = s_h
+
+    def _copy_pages(self, cluster: int, src: List[int], dst: List[int]):
+        """One batched on-device copy of ``cluster``'s pages ``src`` onto
+        ``dst`` (copy-on-write), their int8 scales with them."""
+        src, dst = self._ids(src), self._ids(dst)
+        for pg, sc in self._shard_pools(cluster):
+            pg[:, dst] = pg[:, src]
+            if sc is not None:
+                sc[:, dst] = sc[:, src]
+
+    def _reset_scales(self, cluster: int, pages: List[int]):
+        """Zero the int8 scales of ``cluster``'s freshly allocated
+        ``pages``: a recycled page must not inherit its previous owner's
+        scale (the running max would only grow across pool reuse)."""
+        gi = self._ids(pages)
+        for _, sc in self._shard_pools(cluster):
+            sc[:, gi] = 0.0
 
     def _preempt(self, req: SeqState):
         """Reclaim a running lane: every mapped page's payload goes D2H
@@ -660,7 +756,7 @@ class PagedServer:
         pages are freed; shared ones lose this request's refcount, the host
         copy keeping re-admission independent of the sharers)."""
         rid, i = req.rid, req.lane
-        pool = self.pool
+        pool = self._pool(req)
         if req.promoting:
             # the promoted payload is already on the device (uploaded at
             # placement), so the sweep below checkpoints correct data:
@@ -668,7 +764,7 @@ class PagedServer:
             self._land_promotions(force_rid=rid)
         mapped = pool.seq_pages(rid)
         if mapped:
-            payloads = self._snap_pages([p for _, p in mapped])
+            payloads = self._snap_pages(req.cluster, [p for _, p in mapped])
             self._d2h(len(mapped))    # one gather, len(mapped) pages pulled
             try:
                 for j, (lp, _p) in enumerate(mapped):
@@ -708,7 +804,7 @@ class PagedServer:
         Raises :class:`BackingStoreError` when a parked payload cannot be
         restored; payloads are popped before any pool mutation."""
         rid = req.rid
-        pool = self.pool
+        pool = self._pool(req)
         lps = req.swapped
         if not lps:
             req.swapped = None
@@ -733,7 +829,7 @@ class PagedServer:
         # allocating may have evicted and spilled indexed pages: park their
         # payloads before this restore's upload can overwrite them
         self._drain_tier_ops()
-        self._load_pages(phys, payloads)
+        self._load_pages(req.cluster, phys, payloads)
         self._h2d(len(lps))
         pool.stats["swapped_in"] += len(lps)
         self.tracer.record_host(EventType.SWAP_IN, rid, len(lps))
@@ -741,7 +837,7 @@ class PagedServer:
     def _refresh_row(self, lane: int, req: SeqState):
         """Rebuild a lane's repeat-padded host block-table row from the
         pool (through the RAB translate path) and mark it for upload."""
-        pool, rid = self.pool, req.rid
+        pool, rid = self._pool(req), req.rid
         n = pool.seq_len.get(rid, 0)
         n_pages = -(-n // self.page_size) if n else 0
         last = 0
@@ -762,7 +858,7 @@ class PagedServer:
         for r in active:
             if n_new[r.lane] == 0 or r.fed >= len(r.prompt):
                 continue
-            pool = self.pool
+            pool = self._pool(r)
             written = min(pool.seq_len.get(r.rid, 0), len(r.prompt))
             for lp in range(r.reg_pages, written // ps):
                 pool.register_page(r.rid, lp, r.prompt)
@@ -771,38 +867,39 @@ class PagedServer:
                 pool.register_page(r.rid, written // ps, r.prompt)
 
     # ------------------------------------------- hierarchical cache tiers --
-    def _trace_store_moves(self):
-        for eid, src, dst in self.backing.drain_cache_moves():
+    def _trace_store_moves(self, store: HostBackingStore):
+        for eid, src, dst in store.drain_cache_moves():
             self.tracer.record_host(EventType.PAGE_DEMOTE, eid,
                                     src * 4 + dst)
 
     def _drain_tier_ops(self):
-        """Service the pool's pending tier transitions: pull the payload
-        of every just-demoted page D2H and park it in the tier store, drop
-        entries a re-registration superseded, then trace the store's own
-        cascade moves (host -> disk under pressure, drops).
+        """Service the pools' pending tier transitions: pull the payload
+        of every just-demoted page D2H and park it in its cluster's tier
+        store, drop entries a re-registration superseded, then trace the
+        store's own cascade moves (host -> disk under pressure, drops).
 
         MUST run before any device write that could reuse a demoted page
         is enqueued: the pull reads the pages behind all work enqueued so
         far, so a scatter already enqueued into a recycled page would be
         captured in place of the demoted payload."""
-        pool, store = self.pool, self.backing
-        if not (pool.pending_demote or pool.pending_spill_drop):
-            return
-        moves = pool.drain_demotions()
-        # skip entries superseded between eviction and this drain
-        live = [(p, key) for p, key in moves if key in pool.spilled]
-        if live:
-            payloads = self._snap_pages([p for p, _ in live])
-            self._d2h(len(live))
-            for j, (_p, key) in enumerate(live):
-                eid = pool.key_ids[key]
-                store.park_cache(eid, payloads[j])
-                self.tracer.record_host(EventType.PAGE_DEMOTE, eid,
-                                        TIER_DEVICE * 4 + TIER_HOST)
-        for key in pool.drain_spill_drops():
-            store.drop_cache(pool.key_ids[key])
-        self._trace_store_moves()
+        for c, pool in enumerate(self._all_pools()):
+            if not (pool.pending_demote or pool.pending_spill_drop):
+                continue
+            store = self._cache_store_of(c)
+            moves = pool.drain_demotions()
+            # skip entries superseded between eviction and this drain
+            live = [(p, key) for p, key in moves if key in pool.spilled]
+            if live:
+                payloads = self._snap_pages(c, [p for p, _ in live])
+                self._d2h(len(live))
+                for j, (_p, key) in enumerate(live):
+                    eid = pool.key_ids[key]
+                    store.park_cache(eid, payloads[j])
+                    self.tracer.record_host(EventType.PAGE_DEMOTE, eid,
+                                            TIER_DEVICE * 4 + TIER_HOST)
+            for key in pool.drain_spill_drops():
+                store.drop_cache(pool.key_ids[key])
+            self._trace_store_moves(store)
 
     def _begin_promotion(self, req: SeqState, promo: List[tuple]):
         """Upload the fetched spilled payloads into their adopted device
@@ -816,7 +913,7 @@ class PagedServer:
         binds through ``self.clock``, so a VirtualClock replays it
         exactly."""
         cc = self.cache_cfg
-        self._load_pages([g for g, _eid, _pl, _t in promo],
+        self._load_pages(req.cluster, [g for g, _eid, _pl, _t in promo],
                          [pl for _g, _eid, pl, _t in promo])
         self._h2d(len(promo))
         quanta = -(-len(promo) // max(1, cc.prefetch_depth))
@@ -858,10 +955,14 @@ class PagedServer:
         return [r for r in self.lanes if r is not None and not r.promoting]
 
     def cache_stats(self) -> CacheStats:
-        """One frozen snapshot of the hierarchical prefix cache: tier
-        residency, per-tier admission hits, promotion/demotion traffic."""
-        pool, store = self.pool, self.backing
-        resident = store.cache_resident()
+        """One frozen snapshot of the hierarchical prefix cache, summed
+        over clusters: tier residency, per-tier admission hits,
+        promotion/demotion traffic."""
+        pools, stores = self._all_pools(), self._cache_stores()
+        resident = {"host": 0, "disk": 0}
+        for st in stores:
+            for tier, n in st.cache_resident().items():
+                resident[tier] = resident.get(tier, 0) + n
         cfg = self.cfg
         kv_hd = cfg.num_kv_heads * cfg.resolved_head_dim
         if self.quant_kv:
@@ -871,25 +972,27 @@ class PagedServer:
                 kv_hd + 4.0 * cfg.num_kv_heads / self.page_size)
         else:
             bpt = cfg.num_layers * 2 * kv_hd * self.kv_dtype.itemsize
+        def total(key):
+            return sum(p.stats[key] for p in pools)
         return CacheStats(
             bytes_per_token=float(bpt),
-            device_pages=pool.num_pages,
-            device_indexed=len(pool.prefix_index),
-            device_cached_free=len(pool.cached_free),
-            host_pages=resident.get("host", 0),
-            disk_pages=resident.get("disk", 0),
+            device_pages=sum(p.num_pages for p in pools),
+            device_indexed=sum(len(p.prefix_index) for p in pools),
+            device_cached_free=sum(len(p.cached_free) for p in pools),
+            host_pages=resident["host"],
+            disk_pages=resident["disk"],
             hits_device_pages=self.cache_hit_pages["device"],
             hits_host_pages=self.cache_hit_pages["host"],
             hits_disk_pages=self.cache_hit_pages["disk"],
             miss_pages=self.cache_miss_pages,
-            prefix_hit_tokens=pool.stats["prefix_hit_tokens"],
+            prefix_hit_tokens=total("prefix_hit_tokens"),
             promotions_in_flight=len(self._promotions),
-            demoted_pages=pool.stats["cache_demoted"],
-            promoted_pages=pool.stats["cache_promoted"],
-            dropped_entries=store.cache_dropped,
-            bytes_demoted=store.cache_bytes_demoted,
-            bytes_promoted=store.cache_bytes_promoted,
-            evictions=pool.stats["cache_evictions"])
+            demoted_pages=total("cache_demoted"),
+            promoted_pages=total("cache_promoted"),
+            dropped_entries=sum(st.cache_dropped for st in stores),
+            bytes_demoted=sum(st.cache_bytes_demoted for st in stores),
+            bytes_promoted=sum(st.cache_bytes_promoted for st in stores),
+            evictions=total("cache_evictions"))
 
     # ------------------------------------------------------------- finish --
     def _emit(self, req: SeqState, toks) -> tuple:
@@ -917,7 +1020,7 @@ class PagedServer:
             rid=req.rid, prompt=tuple(req.prompt), tokens=tuple(req.out),
             finish_reason=req.finish_reason or FINISH_LENGTH,
             prefix_hit_tokens=req.prefix_hit_tokens,
-            preemptions=req.preemptions,
+            preemptions=req.preemptions, cluster=req.cluster,
             spec_proposed=req.spec_proposed,
             spec_accepted=req.spec_accepted,
             spec_rejected=req.spec_rejected,
@@ -929,7 +1032,7 @@ class PagedServer:
         req.finish_reason = reason
         self.tracer.record_host(EventType.REQUEST_FINISH, req.rid,
                                 len(req.out))
-        self.pool.release(req.rid)
+        self._pool(req).release(req.rid)
         self.tracer.record_host(EventType.PAGE_RELEASE, req.rid, 0)
         self.lanes[req.lane] = None
         self.active_dev[req.lane] = 0
@@ -951,7 +1054,7 @@ class PagedServer:
             self._land_promotions(force_rid=req.rid)
         if req in self.queue:
             self.queue.remove(req)
-        self.pool.release(req.rid)
+        self._pool(req).release(req.rid)
         if req.lane >= 0:
             self.lanes[req.lane] = None
             self.active_dev[req.lane] = 0
@@ -1039,45 +1142,38 @@ class PagedServer:
         apply copy-on-write remaps, and push only the dirty repeat-padded
         block-table rows."""
         dirty, self._dirty = self._dirty, set()
-        cow_src: List[int] = []
-        cow_dst: List[int] = []
-        fresh_pages: List[int] = []
-        pool = self.pool
+        # per cluster: CoW (src, dst) pairs and freshly allocated pages
+        cow: dict = {}
+        fresh_pages: dict = {}
         for r in active:
             i = r.lane
+            pool = self._pool(r)
             for _ in range(int(n_new[i])):
                 lpage, slot = pool.append_token(r.rid)
                 if slot == 0:
                     phys = pool.translate(r.rid, lpage)
                     self.tracer.record_host(EventType.PAGE_ALLOC, r.rid, phys)
                     self._bt_host[i, lpage:] = phys
-                    fresh_pages.append(phys)
+                    fresh_pages.setdefault(r.cluster, []).append(phys)
                     dirty.add(i)
                 for (s, lp, src, dst) in pool.drain_cow():
                     # the writer was remapped off a shared page: patch its
                     # row and queue the device-side payload copy
-                    cow_src.append(src)
-                    cow_dst.append(dst)
+                    cow.setdefault(r.cluster, []).append((src, dst))
                     self._bt_host[i, lp:] = dst
                     dirty.add(i)
                     self.tracer.record_host(EventType.PAGE_COW, s, dst)
         # park payloads of pages the appends just evicted and spilled
         # BEFORE the CoW copy / K-V scatter can write into them
         self._drain_tier_ops()
-        if self.quant_kv and fresh_pages:
-            # a recycled page must not inherit its previous owner's scale:
-            # the running max would only grow across pool reuse
-            self.kv_scales[:, torch.tensor(fresh_pages, dtype=torch.long,
-                                           device=self.device)] = 0.0
-        if cow_src:
-            # one batched on-device page copy, applied before this step's
-            # K/V scatter so the write lands in the private copy
-            src = torch.tensor(cow_src, dtype=torch.long, device=self.device)
-            dst = torch.tensor(cow_dst, dtype=torch.long, device=self.device)
-            self.kv_pages[:, dst] = self.kv_pages[:, src]
-            if self.quant_kv:
-                # the private copy carries the donor page's scales too
-                self.kv_scales[:, dst] = self.kv_scales[:, src]
+        if self.quant_kv:
+            for c, pages in sorted(fresh_pages.items()):
+                self._reset_scales(c, pages)
+        for c, pairs in sorted(cow.items()):
+            # one batched on-device page copy a cluster, applied before
+            # this step's K/V scatter so the write lands in the private
+            # copy
+            self._copy_pages(c, [a for a, _ in pairs], [b for _, b in pairs])
         self._register_prompt_pages(active, n_new)
         # registration may supersede spilled entries; drop them down-tier
         self._drain_tier_ops()
@@ -1162,19 +1258,14 @@ class PagedServer:
         sampling = self._sampling(active)
         if decode_only:
             # sync-free: every input already lives on device
-            self.last_tok, self.len_dev, self.last_logits = self._step(
-                self.kv_pages, self.bt_dev, self.len_dev, self.active_dev,
-                self._decode_feed, self.last_tok, self._decode_use_last,
-                sampling=sampling)
+            self._chunk(self.active_dev, self._decode_feed,
+                        self._decode_use_last, sampling)
         else:
             self._h2d(1)            # the prompt-chunk feed bundle
             bundle = torch.from_numpy(np.concatenate(
                 [n_new[:, None], use_last[:, None], feed], axis=1)).to(
                 self.device)
-            self.last_tok, self.len_dev, self.last_logits = self._step(
-                self.kv_pages, self.bt_dev, self.len_dev, bundle[:, 0],
-                bundle[:, 2:], self.last_tok, bundle[:, 1],
-                sampling=sampling)
+            self._chunk(bundle[:, 0], bundle[:, 2:], bundle[:, 1], sampling)
 
         tok = self.last_tok.cpu().numpy()     # one pull per iteration
         self._d2h(1)
@@ -1233,6 +1324,23 @@ class PagedServer:
                         r, f"watchdog: lane {r.lane} made no progress "
                            f"for {self.watchdog_iters} iterations "
                            f"(stuck at fed={r.fed}, out={len(r.out)})")
+
+    def _chunk(self, n_new, feed, use_last, sampling):
+        """Run the chunk step (the decode step at C = 1) over every lane:
+        ``last_tok``, ``len_dev`` and ``last_logits`` take its results."""
+        self.last_tok, self.len_dev, self.last_logits = self._step(
+            self.kv_pages, self.bt_dev, self.len_dev, n_new, feed,
+            self.last_tok, use_last, kv_scales=self.kv_scales,
+            sampling=sampling)
+
+    def _verify(self, drafts, n_spec, sampling) -> torch.Tensor:
+        """Run the speculative verify step over every lane; returns the
+        (B, K+2) verdict."""
+        verdict, self.last_tok, self.len_dev, self.last_logits = \
+            self._spec_step(self.kv_pages, self.bt_dev, self.len_dev,
+                            self.active_dev, self.last_tok, drafts, n_spec,
+                            kv_scales=self.kv_scales, sampling=sampling)
+        return verdict
 
     def _sampling(self, active: List[SeqState]):
         """The device rows of the lanes' sampling policies, or None when
@@ -1296,8 +1404,7 @@ class PagedServer:
         accepted prefix on the device, and the host trims each lane back
         to ``accepted + 1`` kept tokens.  The only pull is the verdict."""
         self.spec_iterations += 1
-        pool = self.pool
-        lens0 = {r.rid: pool.seq_len[r.rid] for r in active}
+        lens0 = {r.rid: self._pool(r).seq_len[r.rid] for r in active}
         n_new = np.zeros((self.max_lanes,), np.int32)
         for r in active:
             k_i = int(n_spec[r.lane])
@@ -1311,10 +1418,8 @@ class PagedServer:
         self._h2d(1)                # the draft feed bundle
         bundle = torch.from_numpy(np.concatenate(
             [n_spec[:, None], drafts], axis=1)).to(self.device)
-        verdict, self.last_tok, self.len_dev, self.last_logits = \
-            self._spec_step(self.kv_pages, self.bt_dev, self.len_dev,
-                            self.active_dev, self.last_tok, bundle[:, 1:],
-                            bundle[:, 0], sampling=self._sampling(active))
+        verdict = self._verify(bundle[:, 1:], bundle[:, 0],
+                               self._sampling(active))
         v = verdict.cpu().numpy()   # one pull per iteration
         self._d2h(1)
 
@@ -1324,7 +1429,7 @@ class PagedServer:
             k_i = int(n_spec[i])
             a = int(v[i, K + 1])
             emitted = [int(t) for t in drafts[i, :a]] + [int(v[i, a])]
-            freed = pool.trim(r.rid, lens0[r.rid] + a + 1)
+            freed = self._pool(r).trim(r.rid, lens0[r.rid] + a + 1)
             kept, reason = self._emit(r, emitted)
             self._delta(r.rid, kept, event="spec" if k_i else "token",
                         data=a, reason=reason)
@@ -1409,13 +1514,15 @@ def _write_coords(bt, lens, n_new, C: int, page_size: int, trash: int):
     return torch.where(valid, phys, torch.full_like(phys, trash)), sl
 
 
-def _layer_qkv(cfg, lp, x, pos):
-    h = L.norm_forward(cfg, lp["ln1"], x)
-    ap = lp["attn"]
+def _layer_qkv(cfg, ap, h, pos):
+    """q, k and v of the normed hidden ``h`` (B, S, d) for the heads whose
+    weights ``ap`` holds: the whole layer's, or one head shard's views
+    (``parallel.sharding.head_param_views``; a (d, H/n, hd) slice of
+    ``wq`` reshapes to a strided (d, H/n * hd) view, not a copy)."""
     B, S, d = h.shape
-    q = (h @ ap["wq"].reshape(d, -1)).reshape(B, S, cfg.num_heads, -1)
-    k = (h @ ap["wk"].reshape(d, -1)).reshape(B, S, cfg.num_kv_heads, -1)
-    v = (h @ ap["wv"].reshape(d, -1)).reshape(B, S, cfg.num_kv_heads, -1)
+    q = (h @ ap["wq"].reshape(d, -1)).reshape(B, S, ap["wq"].shape[1], -1)
+    k = (h @ ap["wk"].reshape(d, -1)).reshape(B, S, ap["wk"].shape[1], -1)
+    v = (h @ ap["wv"].reshape(d, -1)).reshape(B, S, ap["wv"].shape[1], -1)
     if cfg.use_qk_norm:
         q = rms_head_norm(ap["q_norm"], q, cfg.norm_eps)
         k = rms_head_norm(ap["k_norm"], k, cfg.norm_eps)
@@ -1478,19 +1585,39 @@ def _quant_scatter(pool, scales, phys, sl, touched, kv_new):
     pool[phys, :, sl] = quantize_int8(kv32, scales[phys][..., None])
 
 
+def _head_reduce(partials: List[torch.Tensor]) -> torch.Tensor:
+    """The one reduction of a layer's attention output: the head shards'
+    partial products with ``wo`` summed in shard order (the reference's
+    ``psum`` over the ``head`` axis).  One shard's comes back as it is."""
+    out = partials[0]
+    for p in partials[1:]:
+        out = out + p
+    return out
+
+
 def _paged_forward(cfg: ArchConfig, model, use_kernel: bool,
                    pages_per_step: int, num_pages: int, kv_pages, bt, lens,
-                   n_new, feed, last_tok, use_last, kv_scales=None):
+                   n_new, feed, last_tok, use_last, kv_scales=None,
+                   head_attn=None):
     """Shared forward of the chunk, decode and speculative verify steps:
     consume up to C tokens per lane (prompt chunks from ``feed``; lanes
     with ``use_last`` take the device-resident previous sample at position
     0), writing their K/V into ``kv_pages`` in place.
 
     kv_pages: (L, P+1, 2, page, kv, hd); bt: (B, n_pages) repeat-padded;
-    kv_scales: (L, P+1, 2, kv) float32 for an int8 pool, else None.
+    kv_scales: (L, P+1, 2, kv) float32 for an int8 pool, else None.  For a
+    head-sharded cluster, ``kv_pages`` and ``kv_scales`` are lists with one
+    slab per head shard, in head order (kv/H heads each), and
+    ``head_attn[s][i]`` is shard s's view of layer i's attention weights:
+    each shard writes and attends its own heads, and ``_head_reduce`` sums
+    their output products.  The rest of the layer runs once.
     Returns (final-norm hidden (B, C, d), new lengths (B,))."""
+    pools = kv_pages if isinstance(kv_pages, list) else [kv_pages]
+    scales = kv_scales if isinstance(kv_scales, list) else [kv_scales]
+    if head_attn is None:
+        head_attn = [[lp["attn"] for lp in model.layers]]
     B, C = feed.shape
-    page = kv_pages.shape[3]
+    page = pools[0].shape[3]
     tokens = feed.clone()
     tokens[:, 0] = torch.where(use_last == 1, last_tok, feed[:, 0])
     x = L.embed_tokens(cfg, model.embed, tokens)            # (B,C,d)
@@ -1500,33 +1627,40 @@ def _paged_forward(cfg: ArchConfig, model, use_kernel: bool,
     counts = page_counts_for(new_lens, page)
     phys, sl = _write_coords(bt, lens, n_new, C, page, num_pages)
     phys, sl = phys.long(), sl.long()
-    if kv_scales is not None:
+    if scales[0] is not None:
         touched = _touched_pages(bt, lens, n_new, C, page, num_pages)
     if not use_kernel:      # the -1-marked table form the plain path reads
         bt_masked = mask_block_table(bt, counts)
 
     for i, lp in enumerate(model.layers):
-        q, k, v = _layer_qkv(cfg, lp, x, pos)
-        pool = kv_pages[i]                           # (P+1,2,page,Kv,hd) view
-        kv_new = torch.stack([k, v], dim=2)          # (B,C,2,Kv,hd)
-        sc = kv_scales[i] if kv_scales is not None else None
-        # one fused scatter writes K AND V of all lanes' chunk tokens,
-        # in place: the pool is the largest tensor of the engine and is
-        # never copied (duplicate indices only ever hit the trash page)
-        if sc is None:
-            pool[phys, :, sl] = kv_new.to(pool.dtype)
-        else:
-            _quant_scatter(pool, sc, phys, sl, touched, kv_new)
-        if use_kernel:
-            a = paged_prefill_fused(q, pool, bt, counts, new_lens, lens,
-                                    pages_per_step=pages_per_step,
-                                    kv_scales=sc)
-        else:
-            scales = {} if sc is None else dict(k_scales=sc[:, 0],
-                                                v_scales=sc[:, 1])
-            a = paged_prefill_ref(q, pool[:, 0], pool[:, 1], bt_masked,
-                                  new_lens, lens, **scales)
-        x = x + a.reshape(B, C, -1) @ lp["attn"]["wo"].reshape(-1, cfg.d_model)
+        h = L.norm_forward(cfg, lp["ln1"], x)
+        partials = []
+        for slab, sc_slab, attn in zip(pools, scales, head_attn):
+            ap = attn[i]
+            q, k, v = _layer_qkv(cfg, ap, h, pos)
+            pool = slab[i]                           # (P+1,2,page,Kv,hd) view
+            kv_new = torch.stack([k, v], dim=2)      # (B,C,2,Kv,hd)
+            sc = sc_slab[i] if sc_slab is not None else None
+            # one fused scatter writes K AND V of all lanes' chunk tokens,
+            # in place: the pool is the largest tensor of the engine and
+            # is never copied (duplicate indices only ever hit the trash
+            # page)
+            if sc is None:
+                pool[phys, :, sl] = kv_new.to(pool.dtype)
+            else:
+                _quant_scatter(pool, sc, phys, sl, touched, kv_new)
+            if use_kernel:
+                a = paged_prefill_fused(q, pool, bt, counts, new_lens, lens,
+                                        pages_per_step=pages_per_step,
+                                        kv_scales=sc)
+            else:
+                sc_kw = {} if sc is None else dict(k_scales=sc[:, 0],
+                                                   v_scales=sc[:, 1])
+                a = paged_prefill_ref(q, pool[:, 0], pool[:, 1], bt_masked,
+                                      new_lens, lens, **sc_kw)
+            partials.append(a.reshape(B, C, -1)
+                            @ ap["wo"].reshape(-1, cfg.d_model))
+        x = x + _head_reduce(partials)
         x = _layer_mlp(cfg, lp, x)
 
     return L.norm_forward(cfg, model.final_norm, x), new_lens
@@ -1584,17 +1718,20 @@ def _select(logits, pos, sampling):
 def _paged_chunk_step(cfg: ArchConfig, model, use_kernel: bool,
                       pages_per_step: int, num_pages: int, kv_pages, bt, lens,
                       n_new, feed, last_tok, use_last, kv_scales=None,
-                      sampling=None):
+                      sampling=None, head_attn=None):
     """Consume up to C tokens per lane and pick each lane's next token
     from the float32 logits at its last fed position: the greedy argmax,
     or with ``sampling`` each lane's draw at the token's position ``lens +
     n_new``.  The decode step is the C=1 case (every lane feeds its
     device-resident previous sample, ``n_new = active``).
 
+    ``kv_pages``, ``kv_scales`` and ``head_attn`` as in
+    :func:`_paged_forward`.
+
     Returns (next tokens (B,), new lengths (B,), logits (B, V) f32)."""
     h, new_lens = _paged_forward(cfg, model, use_kernel, pages_per_step,
                                  num_pages, kv_pages, bt, lens, n_new, feed,
-                                 last_tok, use_last, kv_scales)
+                                 last_tok, use_last, kv_scales, head_attn)
     # only the row each lane samples from goes through the head, so a
     # chunk's (B, C, V) float32 logits are never materialized
     row = (n_new - 1).clamp(min=0).long()
@@ -1610,7 +1747,7 @@ def _paged_chunk_step(cfg: ArchConfig, model, use_kernel: bool,
 def _paged_spec_step(cfg: ArchConfig, model, use_kernel: bool,
                      pages_per_step: int, num_pages: int, kv_pages, bt, lens,
                      active, last_tok, drafts, n_spec, kv_scales=None,
-                     sampling=None):
+                     sampling=None, head_attn=None):
     """Speculative verify: score all K+1 candidate positions of every lane
     in one chunked forward and count the accepted draft prefix (greedy
     lanes only).
@@ -1634,7 +1771,7 @@ def _paged_spec_step(cfg: ArchConfig, model, use_kernel: bool,
     n_new = torch.where(active == 1, n_spec + 1, torch.zeros_like(n_spec))
     h, _ = _paged_forward(cfg, model, use_kernel, pages_per_step, num_pages,
                           kv_pages, bt, lens, n_new, feed, last_tok, active,
-                          kv_scales)
+                          kv_scales, head_attn)
     logits = L.logits_from_hidden(cfg, model.embed, h)     # (B,K+1,V) f32
     greedy = logits.argmax(dim=-1).to(torch.int32)
     idx = torch.arange(K, device=drafts.device)[None, :]

@@ -1,7 +1,7 @@
 """The port's engine API: bf16 numerics, streaming, failure semantics,
-what is not ported yet (sharding, MoE behind dense first layers; the
-cache tiers, fault injection and plain MoE layers since ported), and the
-device default."""
+what is not ported yet (an MoE stack behind dense first layers; the cache
+tiers, fault injection, plain MoE layers and sharding since ported), and
+the device default."""
 import dataclasses
 import functools
 
@@ -23,7 +23,8 @@ from repro_torch.configs import get_config
 from repro_torch.models.model import init_params, params_from_jax
 from repro_torch.runtime import (
     CacheConfig, EngineConfig, FaultInjector, GenerationRequest,
-    PagedServer, SamplingParams, VirtualClock, make_engine,
+    PagedServer, SamplingParams, ShardedPagedServer, VirtualClock,
+    make_engine,
 )
 from repro_torch.runtime.server import _paged_chunk_step
 
@@ -157,17 +158,23 @@ def test_virtual_clock_deadline(smoke):
         s[1], device="cpu")),
 ])
 def test_features_not_ported_raise(smoke, what, make):
-    """Sharding and an MoE stack behind dense first layers (deepseek's
-    ``first_layers``) raise ``NotImplementedError``.  The cache tiers
-    and fault injection, ported since, build an engine that carries them
-    (their behaviour is held against the reference by
-    ``test_torch_hierarchical_cache.py`` and ``test_torch_faults.py``;
-    plain MoE layers by ``test_torch_engine_moe.py``)."""
-    if what in ("sharded", "moe"):
+    """An MoE stack behind dense first layers (deepseek's
+    ``first_layers``) raises ``NotImplementedError``.  The cache tiers,
+    fault injection and sharding, ported since, build an engine that
+    carries them (their behaviour is held against the reference by
+    ``test_torch_hierarchical_cache.py``, ``test_torch_faults.py`` and
+    ``test_torch_sharded_server.py``; plain MoE layers by
+    ``test_torch_engine_moe.py``)."""
+    if what == "moe":
         with pytest.raises(NotImplementedError):
             make(smoke)
         return
     srv = make(smoke)
+    if what == "sharded":
+        assert isinstance(srv, ShardedPagedServer)
+        assert (srv.clusters, srv.heads) == (2, 1)
+        assert len(srv.cpool.pools) == 2 and len(srv.tier_stores) == 2
+        return
     try:
         tiers = [(t.name, t.capacity_pages) for t in srv.backing.tiers]
         if what == "faults":
