@@ -27,7 +27,9 @@ non-zero without printing the final result line):
    pad rows included, must be finite and within the bar.  Then, with q
    in bfloat16 at C in {1, 128}, flat and sharp, on both pool types, at
    one head shard's geometry of yi-6b split over 2 head shards (H = 16,
-   Kv = 2) and over 4 (H = 8, Kv = 1): the sharded engine's calls.
+   Kv = 2) and over 4 (H = 8, Kv = 1): the sharded engine's calls.  Then
+   at pixtral-12b's geometry (H = 32, Kv = 8, G = 4) with q in bfloat16
+   at C in {1, 5, 128}, flat and sharp, on both pool types.
 4. engine parity: the same weights (yi-6b widths, 2 layers) served by the
    CUDA engine (kernel) and the CPU engine (plain version) in lockstep,
    with a shared prefix and a forced preemption: float32 greedy on a
@@ -115,10 +117,14 @@ non-zero without printing the final result line):
    longest S its drafts reached; the tensor-core kernel), at hymba-1.5b's
    geometry (B=2, H=25 over Kv=5, hd 64, bf16, causal, window 2048,
    S=T=3072; the tensor-core kernel, the window skipping leading key
-   tiles) and at phase 10's float32 calls (S=512, window 0 and 128; the
+   tiles), at whisper-medium's three calls (B=4 x H=16, G = 1, hd 64,
+   bf16: the encoder's non-causal S=T=1,500, the cross-attention's
+   non-causal S=448 over T=1,500 and the decoder's causal S=T=448; the
+   tensor-core kernel, partial last key and query tiles) and at phase
+   10's float32 calls (S=512, window 0 and 128; the
    FP32-core kernel), each capped case, gemma2's, the drafts' and
-   hymba's again with q and k scaled so that scores reach the cap's
-   range (``FLASH_SHARP``); each case
+   hymba's and whisper's again with q and k scaled so that scores reach
+   the cap's range (``FLASH_SHARP``); each case
    prints the kernel its route picked
    (the counts must agree), with times beside the plain version and the
    library call (SDPA without a cap, the compiled ``flex_attention`` with
@@ -229,6 +235,33 @@ non-zero without printing the final result line):
    iteration (``torch.profiler``) and peak memory, which at (2, 2) and
    (4, 1) must stay within (1, 1)'s plus their extra pool bytes (the
    weights are held once).
+19. frontend families (after phase 18 (b), yi-6b freed first): (a)
+   float32 at full width, the same weights on the card and the CPU:
+   whisper-medium with 2 encoder and 2 decoder layers (the encoder's
+   output of 2 x 1,500 seeded frames and ``prefill_logits`` of a
+   16-token prompt within 1e-5 x the largest value, every encoder,
+   self- and cross-attention on the FP32-core flash kernel, the plain
+   version none; then the prompt fed by ``decode_forward`` against the
+   ``encdec_cross_cache`` and 8 greedy steps under phase 17's lockstep
+   rule), and pixtral-12b with 2 layers through ``PagedServer`` on
+   phase 4's workload (tokens identical, the paged kernels on every
+   layer of every iteration).  (b) whisper-medium as registered (24 +
+   24 layers, bf16, seed 0): ``encode_frontend`` of 4 x 1,500 seeded
+   frames, ``encdec_cross_cache``, ``prefill_logits`` over its 448-token
+   text context (the tensor-core flash kernel carrying 24 encoder + 24
+   self + 24 cross calls, the plain version none), then the context fed
+   by ``decode_forward`` and 32 greedy steps: the decode path's logits
+   within 6e-2 x the largest of the prefill's (``DEC_TOL``); it prints
+   encode, prefill and decode ms, decode tokens/s, the cache's K/V
+   bytes (equal to ``roofline.cache_bytes``) and peak memory.  (c)
+   pixtral-12b as registered (40 layers, vocab 131,072, bf16, seed 0,
+   drawn on the card) serves phase 5's workload (every request
+   finishes, the paged kernels on every layer of every iteration; a
+   prefill and a decode iteration profiled), then ``prefill_logits`` of
+   a 512-token prompt with 256 patch embeddings at its head (the
+   tensor-core flash kernel on all 40 layers) against ``decode_forward``
+   fed the same prompt with the patches as ``inputs_embeds``, within
+   ``DEC_TOL``.
 
 Then the script's time, one JSON line ``{"kernels": [...]}`` (the
 paged-attention split-KV
@@ -236,7 +269,8 @@ decode kernel, FP32-core kernel and tensor-core kernel, each on both pool
 types; the cluster matmul's general float32 kernel (K split, and on 128
 x 128 tiles), its wgmma branch and its general bfloat16 kernel; the
 flash kernel
-on the tensor cores and on the FP32 cores) and, last, the result line
+on the tensor cores and on the FP32 cores; phase 19's launches are in
+their counts) and, last, the result line
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the
 repository's ``src/`` beside it.
 """
@@ -384,11 +418,13 @@ class Timer:
 
 
 # --------------------------------------------------------------- phase 3 --
-#: phase 3's attention geometries: (H, Kv) at hd 128; olmoe's is G = 1;
-#: "yi-6b/hN" is one head shard of yi-6b split over N head shards (the
-#: sharded engine's kernel calls, phase 18)
+#: phase 3's attention geometries: (H, Kv) at hd 128; olmoe's is G = 1,
+#: pixtral-12b's G = 4 (phase 19's engine); "yi-6b/hN" is one head shard
+#: of yi-6b split over N head shards (the sharded engine's kernel calls,
+#: phase 18)
 PAGED_GEOMS = {"yi-6b": (32, 4), "olmoe-1b-7b": (16, 16),
-               "yi-6b/h2": (16, 2), "yi-6b/h4": (8, 1)}
+               "yi-6b/h2": (16, 2), "yi-6b/h4": (8, 1),
+               "pixtral-12b": (32, 8)}
 
 
 def attention_case(C: int, dtype: torch.dtype, int8: bool = False,
@@ -502,13 +538,22 @@ PAGED_CASES = [(C, dtype, sharp) for C in (1, 5, 128)
 #: decode (C=1) and prefill (C=128) calls, bf16 q
 SHARD_CASES = [(C, torch.bfloat16, sharp) for C in (1, 128)
                for sharp in (False, True)]
+#: pixtral-12b's cases: its bf16 engine's decode (C=1), verify (C=5) and
+#: prefill (C=128) calls
+PIXTRAL_CASES = [(C, torch.bfloat16, sharp) for C in (1, 5, 128)
+                 for sharp in (False, True)]
+
+
+def geom_cases(geom: str) -> list:
+    if "/" in geom:
+        return SHARD_CASES
+    return PIXTRAL_CASES if geom == "pixtral-12b" else PAGED_CASES
 
 
 def phase_kernel(timer: Timer) -> list:
     return [kernel_case(timer, C, dtype, int8, sharp, geom)
             for geom in PAGED_GEOMS for int8 in (False, True)
-            for C, dtype, sharp in (SHARD_CASES if "/" in geom
-                                    else PAGED_CASES)]
+            for C, dtype, sharp in geom_cases(geom)]
 
 
 def kernel_case(timer: Timer, C: int, dtype: torch.dtype, int8: bool,
@@ -823,7 +868,8 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
     split-KV kernel, float32 chunks the FP32-core kernel.  Tokens must
     agree but for near-ties (``excuse_first_flip``).  Returns (excused
     positions, {prompt: the CPU engine's tokens}, the CUDA engine's
-    launches by kernel, {rid: (CUDA tokens, CPU tokens)})."""
+    launches by kernel, in all and its iterations, {rid: (CUDA tokens,
+    CPU tokens)})."""
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.runtime import CacheConfig, EngineConfig, make_engine
     from repro_torch.runtime import server as S
@@ -921,7 +967,8 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
           flush=True)
     return excused, {tuple(r.prompt): cpu_out[r.rid] for r in requests}, \
         dict(tc_launches=tc_launches, split_launches=split_launches,
-             fp32_core_launches=fp32_core), \
+             fp32_core_launches=fp32_core, launches=same + int8,
+             iterations=g.iterations), \
         {r.rid: (gpu_out[r.rid], cpu_out[r.rid]) for r in requests}
 
 
@@ -1388,7 +1435,7 @@ def echo_wave(requests, results) -> list:
 
 
 def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0,
-                mesh: tuple = None) -> tuple:
+                mesh: tuple = None, probe: bool = False) -> tuple:
     """Serve the workload at full width; the kernels of the pool's type
     must carry every layer of every iteration (their counts are read from
     0 just before the run and just after): the tensor-core kernel every
@@ -1398,10 +1445,11 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0,
     iteration (a prefill) runs under a ``RouteRecorder`` and its dropped
     assignments are reported.  With ``mesh`` (clusters, heads, lanes and
     pages a cluster) the sharded engine serves it: every (cluster, head)
-    shard's kernel carries every layer of every iteration; afterwards two
-    more requests are served, a prefill and a decode iteration of them
-    under ``torch.profiler`` to count the kernels an iteration launches
-    (every cluster runs every iteration, busy or not).  Returns (metrics, {rid:
+    shard's kernel carries every layer of every iteration.  With ``mesh``
+    or ``probe``, afterwards two more requests are served, a prefill and
+    a decode iteration of them under ``torch.profiler`` to count the
+    kernels an iteration launches and their busy ms (every cluster runs
+    every iteration, busy or not).  Returns (metrics, {rid:
     tokens}, the run: each iteration's kind, wall ms, prefill tokens fed,
     decoding lanes and resident context tokens before it; the engine's
     trace rows and spec)."""
@@ -1537,7 +1585,7 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0,
                paged_launches_per_iteration=launches / engine.iterations,
                max_memory_allocated=torch.cuda.max_memory_allocated())
     rows = engine.tracer.drain()
-    if mesh is not None:
+    if mesh is not None or probe:
         probed, busy_ms = {}, {}
         for r in requests[:2]:
             engine.submit(dataclasses.replace(r, rid=1000 + r.rid))
@@ -1549,10 +1597,11 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0,
             if kind not in probed:
                 probed[kind], busy_ms[kind] = launched, ms
         engine.run()
+        row.update(launches_per_iteration=probed,
+                   device_busy_ms_per_iteration=busy_ms)
+    if mesh is not None:
         row.update(clusters=mesh[0], heads=mesh[1], lanes_per_cluster=lanes,
                    pages_per_cluster=pages,
-                   launches_per_iteration=probed,
-                   device_busy_ms_per_iteration=busy_ms,
                    cluster_report=engine.cluster_report(),
                    pool_bytes=sum(t.numel() * t.element_size()
                                   for c in range(mesh[0])
@@ -2616,23 +2665,33 @@ def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-def greedy_decode(cfg, model, prompt: torch.Tensor, steps: int) -> tuple:
+def greedy_decode(cfg, model, prompt: torch.Tensor, steps: int,
+                  frames: torch.Tensor = None) -> tuple:
     """``prompt`` (B, P) fed one token a step by ``decode_forward`` from an
     empty cache of P + steps - 1 positions, then ``steps`` greedy tokens.
-    Returns (tokens (steps lists of B), the float32 logits (B, V) that
-    chose each token, on the host, seconds of each step after the
-    prompt)."""
+    An encoder-decoder's cross cache is ``encdec_cross_cache`` of
+    ``frames`` (B, F, d); a patch frontend's ``frames`` (B, Fs, d) are
+    fed as ``inputs_embeds`` at positions < Fs, as ``forward_fullseq``
+    puts them in place of those tokens.  Returns (tokens (steps lists of
+    B), the float32 logits (B, V) that chose each token, on the host,
+    seconds of each step after the prompt)."""
     from repro_torch.models import model as M
     dev = prompt.device
     B, P = prompt.shape
     cache = M.init_cache(cfg, B, P + steps - 1, dev)
+    patches = frames if cfg.frontend == "patch" else None
+    if cfg.block_kind == "encdec":
+        cache["xk"], cache["xv"] = M.encdec_cross_cache(cfg, model, frames)
 
     def pos(t):
         return torch.full((B,), t, dtype=torch.int32, device=dev)
 
     for t in range(P):
+        embeds = patches[:, t:t + 1] if patches is not None and \
+            t < patches.shape[1] else None
         logits, cache = M.decode_forward(cfg, model, cache,
-                                         prompt[:, t:t + 1], pos(t))
+                                         prompt[:, t:t + 1], pos(t),
+                                         inputs_embeds=embeds)
     toks, rows, step_s = [], [], []
     for j in range(steps):
         rows.append(logits[:, 0].float().cpu())
@@ -2649,8 +2708,7 @@ def greedy_decode(cfg, model, prompt: torch.Tensor, steps: int) -> tuple:
     return toks, rows, step_s
 
 
-def recurrent_lockstep(arch: str, window: int = 0,
-                       devices=("cuda", "cpu")) -> dict:
+def recurrent_lockstep(arch: str, window: int = 0) -> dict:
     """(a): the arch's widths at ``LOCK_DEPTH`` layers in float32, the same
     weights on both devices: ``prefill_logits`` of a ``LOCK_PROMPT``-token
     prompt within ``LOCK_TOL`` x the largest |logit|;
@@ -2664,54 +2722,30 @@ def recurrent_lockstep(arch: str, window: int = 0,
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import ops as FO
     from repro_torch.models import model as M
-    from repro_torch.runtime import SamplingParams
     kw = {"sliding_window": window} if window else {}
     cfg = dataclasses.replace(get_config(arch), num_layers=LOCK_DEPTH[arch],
                               param_dtype="float32", **kw)
     label = f"lockstep {arch}" + (f" window {window}" if window else "")
-    ref_model = M.init_params(cfg, seed=0, device=devices[1])
-    model = copy.deepcopy(ref_model).to(devices[0])
-    prompt = recurrent_prompt(cfg, LOCK_B, LOCK_PROMPT, 17, devices[1])
+    ref_model = M.init_params(cfg, seed=0, device="cpu")
+    model = copy.deepcopy(ref_model).to("cuda")
+    prompt = recurrent_prompt(cfg, LOCK_B, LOCK_PROMPT, 17, "cpu")
     FK.launches.reset()
     FO.plain_forwards.reset()
     with torch.no_grad():
-        a = M.prefill_logits(cfg, model, {"tokens": prompt.to(devices[0])})
-        sync(devices[0])
+        a = M.prefill_logits(cfg, model, {"tokens": prompt.cuda()})
+        torch.cuda.synchronize()
         launches, plain = FK.launches.n, FO.plain_forwards.n
         b = M.prefill_logits(cfg, ref_model, {"tokens": prompt})
     prefill_diff, gate = logits_agree([a[:, 0], b[:, 0]], torch.float32,
                                       f"{label} prefill", LOCK_TOL[arch])
     attn = cfg.num_layers if cfg.block_kind == "hymba" else 0
-    if devices[0] == "cuda":
-        check(launches == attn and plain == 0,
-              f"{label}: prefill made {launches} flash launches and "
-              f"{plain} plain forwards on the card; want {attn} and 0")
-    ta, ra, _ = greedy_decode(cfg, model, prompt.to(devices[0]), LOCK_STEPS)
+    check(launches == attn and plain == 0,
+          f"{label}: prefill made {launches} flash launches and "
+          f"{plain} plain forwards on the card; want {attn} and 0")
+    ta, ra, _ = greedy_decode(cfg, model, prompt.cuda(), LOCK_STEPS)
     tb, rb, _ = greedy_decode(cfg, ref_model, prompt, LOCK_STEPS)
-    flips, rel = 0, []
-    for lane in range(LOCK_B):
-        sa = [t[lane] for t in ta]
-        sb = [t[lane] for t in tb]
-        j = next((i for i, (x, y) in enumerate(zip(sa, sb)) if x != y),
-                 None)
-        rel.append([((ra[s][lane].double() - rb[s][lane].double()).abs()
-                     .max() / rb[s][lane].double().abs().max()).item()
-                    for s in range(LOCK_STEPS if j is None else j)])
-        worst = max(rel[-1], default=0.0)
-        check(worst <= LOCK_STEP_TOL[arch],
-              f"{label} lane {lane}: a step's logits differ by {worst:.3g} "
-              f"x max|logit| > {LOCK_STEP_TOL[arch]}")
-        if j is not None:
-            ok, numbers = flip_margin([ra[j][lane], rb[j][lane]], sa[j],
-                                      sb[j], SamplingParams(),
-                                      LOCK_PROMPT + j, torch.float32,
-                                      f"{label} lane {lane} step {j}",
-                                      LOCK_TOL[arch])
-            check(ok, f"{label} lane {lane} step {j}: {sa[j]} != {sb[j]}, "
-                      f"{numbers}")
-            print(f"{label} lane {lane} step {j} excused: {numbers}",
-                  flush=True)
-            flips += 1
+    flips, rel = lockstep_streams(label, (ta, ra), (tb, rb), LOCK_PROMPT,
+                                  LOCK_TOL[arch], LOCK_STEP_TOL[arch])
     if window:
         check(window < LOCK_PROMPT + LOCK_STEPS - 1,
               f"{label}: the ring of {window} slots does not wrap")
@@ -2728,6 +2762,42 @@ def recurrent_lockstep(arch: str, window: int = 0,
           + json.dumps([[float(f"{x:.3g}") for x in r] for r in rel]),
           flush=True)
     return row
+
+
+def lockstep_streams(label: str, a: tuple, b: tuple, prompt_len: int,
+                     tol: float, step_tol: float) -> tuple:
+    """Two devices' greedy streams (``greedy_decode``'s tokens and rows;
+    ``b`` the reference): each lane's first flip must be a near-tie
+    (``flip_margin`` on that step's rows, which must agree within
+    ``tol``), each earlier step's logits within ``step_tol`` x the
+    largest |logit|.  Returns (flips, per lane the steps' max |diff| /
+    max |logit|)."""
+    from repro_torch.runtime import SamplingParams
+    (ta, ra), (tb, rb) = a, b
+    flips, rel = 0, []
+    for lane in range(len(ta[0])):
+        sa = [t[lane] for t in ta]
+        sb = [t[lane] for t in tb]
+        j = next((i for i, (x, y) in enumerate(zip(sa, sb)) if x != y),
+                 None)
+        rel.append([((ra[s][lane].double() - rb[s][lane].double()).abs()
+                     .max() / rb[s][lane].double().abs().max()).item()
+                    for s in range(len(ta) if j is None else j)])
+        worst = max(rel[-1], default=0.0)
+        check(worst <= step_tol,
+              f"{label} lane {lane}: a step's logits differ by {worst:.3g} "
+              f"x max|logit| > {step_tol}")
+        if j is not None:
+            ok, numbers = flip_margin([ra[j][lane], rb[j][lane]], sa[j],
+                                      sb[j], SamplingParams(),
+                                      prompt_len + j, torch.float32,
+                                      f"{label} lane {lane} step {j}", tol)
+            check(ok, f"{label} lane {lane} step {j}: {sa[j]} != {sb[j]}, "
+                      f"{numbers}")
+            print(f"{label} lane {lane} step {j} excused: {numbers}",
+                  flush=True)
+            flips += 1
+    return flips, rel
 
 
 def recurrent_breakdown(cfg, model, prompt: torch.Tensor,
@@ -2759,12 +2829,12 @@ def recurrent_breakdown(cfg, model, prompt: torch.Tensor,
                 for k, fn in parts.items()}
 
 
-def fill_decode_cache(cfg, cache, pos: int, seed: int, device="cuda"):
+def fill_decode_cache(cfg, cache, pos: int, seed: int):
     """A full cache at position ``pos`` from ``seed``: K/V and recurrent
     state drawn N(0, 0.1^2) (sLSTM's normaliser from U(1, 2), stabilisers
     0), every ``kpos`` holding the positions ``pos - W`` .. ``pos - 1``
     at their ring slots.  Returns the bytes the cache holds."""
-    g = torch.Generator(device=device).manual_seed(seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     for key, val in cache.items():
         if key.startswith("kpos"):
             W = val.shape[1]
@@ -2793,11 +2863,10 @@ def _tensor_leaves(tree):
         yield tree
 
 
-def recurrent_full(cfg, timer: Timer, device="cuda") -> dict:
+def recurrent_full(cfg, timer: Timer) -> dict:
     """(b)-(d) for one arch as registered (bf16, random weights from seed
     0): the full-width prefill, decode against prefill, one decode step
-    at decode_32k.  A cut ``cfg`` on ``device="cpu"`` rehearses the
-    same logic."""
+    at decode_32k."""
     from repro_torch.configs import SHAPES
     from repro_torch.core import roofline as R
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -2805,11 +2874,11 @@ def recurrent_full(cfg, timer: Timer, device="cuda") -> dict:
     from repro_torch.launch import mesh
     from repro_torch.models import model as M
     from repro_torch.models import steps as ST
-    arch, cuda = cfg.name, device == "cuda"
+    arch = cfg.name
     hymba = cfg.block_kind == "hymba"
     t0 = time.perf_counter()
-    model = M.init_params(cfg, seed=0, device=device)
-    sync(device)
+    model = M.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
     row = dict(arch=arch, layers=cfg.num_layers,
                init_s=time.perf_counter() - t0,
                weight_bytes=sum(p.numel() * p.element_size()
@@ -2817,22 +2886,22 @@ def recurrent_full(cfg, timer: Timer, device="cuda") -> dict:
 
     # (b) full-width prefill: the tensor-core flash kernel carries every
     # hymba layer, the plain version none
-    prompt = recurrent_prompt(cfg, PREFILL_B, PREFILL_S, 18, device)
+    prompt = recurrent_prompt(cfg, PREFILL_B, PREFILL_S, 18)
     runs = []
     for c in (FK.launches, FK.tc_launches, FO.plain_forwards):
         c.reset()
     for _ in range(2):
-        sync(device)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
             logits = M.prefill_logits(cfg, model, {"tokens": prompt})
-        sync(device)
+        torch.cuda.synchronize()
         runs.append(time.perf_counter() - t0)
         if not runs[1:]:
             launches, tc, plain = (FK.launches.n, FK.tc_launches.n,
                                    FO.plain_forwards.n)
     want = cfg.num_layers if hymba else 0
-    check(not cuda or launches == tc == want and plain == 0,
+    check(launches == tc == want and plain == 0,
           f"{arch} prefill: flash launches {launches}, tensor-core {tc}, "
           f"plain forwards {plain}; want {want}, {want}, 0")
     check(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab_size)
@@ -2848,14 +2917,14 @@ def recurrent_full(cfg, timer: Timer, device="cuda") -> dict:
     # (c) decode against prefill, held to ``DEC_TOL``: the bf16 model at
     # ``DEC_GATE_LAYERS`` layers, float32 weights as registered; the bf16
     # model as registered is recorded and its greedy steps timed
-    prompt = recurrent_prompt(cfg, DEC_B, DEC_PROMPT, 19, device)
+    prompt = recurrent_prompt(cfg, DEC_B, DEC_PROMPT, 19)
     for c in (FK.launches, FK.tc_launches):
         c.reset()
     gates = {}
     for label, dc in (
             ("bf16", dataclasses.replace(cfg, num_layers=DEC_GATE_LAYERS)),
             ("f32", dataclasses.replace(cfg, param_dtype="float32"))):
-        dm = M.init_params(dc, seed=0, device=device)
+        dm = M.init_params(dc, seed=0)
         with torch.no_grad():
             want = M.prefill_logits(dc, dm, {"tokens": prompt})[:, 0]
         _, drows, _ = greedy_decode(dc, dm, prompt, 1)
@@ -2885,20 +2954,19 @@ def recurrent_full(cfg, timer: Timer, device="cuda") -> dict:
     # (d) one decode step at decode_32k
     shape = SHAPES["decode_32k"]
     B, pos = shape.global_batch, shape.seq_len - 1
-    if cuda:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-    cache = M.init_cache(cfg, B, shape.seq_len, device)
-    held = fill_decode_cache(cfg, cache, pos, 20, device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cache = M.init_cache(cfg, B, shape.seq_len)
+    held = fill_decode_cache(cfg, cache, pos, 20)
     batch = ST.make_batch(cfg, shape,
-                          torch.Generator(device=device).manual_seed(21))
+                          torch.Generator(device="cuda").manual_seed(21))
     step = ST.make_decode_step(cfg)
     times = []
     for i in range(D32K_STEPS + 1):
-        sync(device)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = step(model, cache, batch)
-        sync(device)
+        torch.cuda.synchronize()
         if i:
             times.append(time.perf_counter() - t0)
     check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
@@ -2916,12 +2984,10 @@ def recurrent_full(cfg, timer: Timer, device="cuda") -> dict:
         cache_bytes_held=held, cache_bound_ms=cache_bytes / mesh.HBM_BW * 1e3,
         step_bytes_roofline=step_bytes,
         step_bound_ms=step_bytes / mesh.HBM_BW * 1e3,
-        peak_memory_bytes=torch.cuda.max_memory_allocated() if cuda
-        else None))
+        peak_memory_bytes=torch.cuda.max_memory_allocated()))
     del cache, logits, model
     gc.collect()
-    if cuda:
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     print(f"recurrent full: {arch} " + json.dumps(row), flush=True)
     return row
 
@@ -2939,6 +3005,330 @@ def phase_recurrent(timer: Timer) -> dict:
                 tc_launches=sum(r["prefill_tc_launches"]
                                 + r["prefill_256_tc_launches"]
                                 for r in full.values()))
+
+
+# -------------------------------------------------------------- phase 19 --
+#: (a) the frontend families' float32 lockstep at full width: whisper's
+#: encoder and decoder layers (and pixtral's layers, on phase 4's
+#: engine workload), lanes, the prompt and the greedy steps after it
+FRONT_LOCK_LAYERS = 2
+FRONT_LOCK_B, FRONT_LOCK_PROMPT, FRONT_LOCK_STEPS = 2, 16, 8
+#: (b) whisper-medium as registered: lanes, its 448-token text context
+#: (prefilled, and fed by decode before the greedy steps), greedy steps
+WHISPER_B, WHISPER_TEXT, WHISPER_STEPS = 4, 448, 32
+#: (c) pixtral-12b's model API: lanes, a prompt whose first
+#: ``frontend_seq`` (256) positions are patch embeddings, greedy steps
+PIXTRAL_B, PIXTRAL_PROMPT, PIXTRAL_STEPS = 2, 512, 8
+
+
+def frontend_frames(cfg, B: int, seed: int, device="cuda") -> torch.Tensor:
+    """Stub frontend embeddings (B, frontend_seq, d) at the data
+    pipeline's scale (normal x 0.02), float32 (the model casts them to
+    its weights' type), from a seeded generator on ``device``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn((B, cfg.frontend_seq, cfg.d_model), generator=g,
+                       device=device) * 0.02
+
+
+def whisper_lockstep() -> dict:
+    """(a) whisper-medium's widths at ``FRONT_LOCK_LAYERS`` encoder and
+    decoder layers in float32, the same weights and frames on both
+    devices: the encoder's output and ``prefill_logits`` of a
+    ``FRONT_LOCK_PROMPT``-token prompt within ``MODEL_TOL`` (1e-5) x
+    their largest |value|; then the prompt fed by ``decode_forward``
+    (the cross cache from ``encdec_cross_cache``) and
+    ``FRONT_LOCK_STEPS`` greedy steps, compared by ``lockstep_streams``
+    with each step's logits within twice that.  On the card the FP32-core
+    flash kernel carries the encoder's self-attention and the decoder's
+    self- and cross-attention of every layer, the plain version none."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(
+        get_config("whisper-medium"), num_layers=FRONT_LOCK_LAYERS,
+        encoder_layers=FRONT_LOCK_LAYERS, param_dtype="float32")
+    label, tol = "lockstep whisper-medium", MODEL_TOL[torch.float32]
+    ref_model = M.init_params(cfg, seed=0, device="cpu")
+    model = copy.deepcopy(ref_model).to("cuda")
+    batch = {"tokens": recurrent_prompt(cfg, FRONT_LOCK_B,
+                                        FRONT_LOCK_PROMPT, 22, "cpu"),
+             "frontend": frontend_frames(cfg, FRONT_LOCK_B, 21, "cpu")}
+    dev_batch = {k: v.cuda() for k, v in batch.items()}
+    n0, plain0 = FK.launches.n, FO.plain_forwards.n
+    with torch.no_grad():
+        enc = M.encode_frontend(cfg, model, dev_batch["frontend"])
+        torch.cuda.synchronize()
+        enc_launches = FK.launches.n - n0
+        a = M.prefill_logits(cfg, model, dev_batch)
+        torch.cuda.synchronize()
+        launches = FK.launches.n - n0 - enc_launches
+        plain = FO.plain_forwards.n - plain0
+        enc_ref = M.encode_frontend(cfg, ref_model, batch["frontend"])
+        b = M.prefill_logits(cfg, ref_model, batch)
+    enc_diff, enc_gate = logits_agree([enc, enc_ref], torch.float32,
+                                      f"{label} encoder", tol)
+    prefill_diff, gate = logits_agree([a[:, 0], b[:, 0]], torch.float32,
+                                      f"{label} prefill", tol)
+    want = cfg.encoder_layers + 2 * cfg.num_layers
+    check(enc_launches == cfg.encoder_layers and launches == want
+          and plain == 0,
+          f"{label}: flash launches {enc_launches} (encode), "
+          f"{launches} (prefill) and {plain} plain forwards on the "
+          f"card; want {cfg.encoder_layers}, {want} and 0")
+    ta, ra, _ = greedy_decode(cfg, model, dev_batch["tokens"],
+                              FRONT_LOCK_STEPS, dev_batch["frontend"])
+    tb, rb, _ = greedy_decode(cfg, ref_model, batch["tokens"],
+                              FRONT_LOCK_STEPS, batch["frontend"])
+    flips, rel = lockstep_streams(label, (ta, ra), (tb, rb),
+                                  FRONT_LOCK_PROMPT, tol, 2 * tol)
+    row = dict(arch="whisper-medium", layers=cfg.num_layers,
+               encoder_layers=cfg.encoder_layers,
+               encoder_max_abs_diff=enc_diff, encoder_gate=enc_gate,
+               prefill_max_abs_diff=prefill_diff, prefill_gate=gate,
+               decode_rel_diff=rel, flips=flips,
+               prefill_flash_launches=launches,
+               fp32_core_launches=FK.launches.n - n0, tokens=ta)
+    print(f"{label}: encoder max |diff| {enc_diff:.3g} <= {enc_gate:.3g}; "
+          f"prefill logits max |diff| {prefill_diff:.3g} <= {gate:.3g}; "
+          f"{FRONT_LOCK_STEPS} greedy steps x {FRONT_LOCK_B} lanes after a "
+          f"{FRONT_LOCK_PROMPT}-token prompt fed by decode, flips excused "
+          f"{flips}; flash launches encode {enc_launches}, prefill "
+          f"{launches}, in all {row['fp32_core_launches']}; each step's "
+          f"logits max |diff| / max |logit| per lane: "
+          + json.dumps([[float(f"{x:.3g}") for x in r] for r in rel]),
+          flush=True)
+    return row
+
+
+def pixtral_lockstep() -> dict:
+    """(a) pixtral-12b's widths at ``FRONT_LOCK_LAYERS`` layers in float32
+    served by the CUDA and the CPU ``PagedServer`` on phase 4's workload
+    (``phase_parity``): tokens identical, and the paged kernels carrying
+    every layer of every iteration of the CUDA engine."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = dataclasses.replace(get_config("pixtral-12b"),
+                              num_layers=FRONT_LOCK_LAYERS,
+                              param_dtype="float32")
+    cpu_model = init_params(cfg, seed=0, device="cpu")
+    models = (cfg, cpu_model, copy.deepcopy(cpu_model).to("cuda"))
+    excused, _, launched, _ = phase_parity(models)
+    check(excused == 0, f"pixtral-12b lockstep: {excused} tokens differ")
+    check(launched["launches"] == cfg.num_layers * launched["iterations"],
+          f"pixtral-12b lockstep: {launched['launches']} paged launches "
+          f"for {cfg.num_layers} layers x {launched['iterations']} "
+          "iterations")
+    return launched
+
+
+def whisper_full() -> dict:
+    """(b) whisper-medium as registered (24 + 24 layers, bf16, random
+    weights from seed 0): ``encode_frontend`` of ``WHISPER_B`` x 1,500
+    seeded frames and ``encdec_cross_cache``, ``prefill_logits`` over
+    its ``WHISPER_TEXT``-token text context (the tensor-core flash kernel
+    carrying 24 encoder, 24 self- and 24 cross-attention calls, the
+    plain version none), then the context fed by ``decode_forward`` and
+    ``WHISPER_STEPS`` greedy steps: the decode path's logits after the
+    context within ``DEC_TOL`` x the largest of ``prefill_logits``'.
+    That bar sees the frames and the prompts: handing each lane the next
+    lane's frames, or the next lane's prompt, must move
+    ``prefill_logits`` by more than it.  It prints encode, prefill and
+    decode ms, decode tokens/s, the K/V the cache holds beside
+    ``roofline.cache_bytes`` and peak memory."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core import roofline as R
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.models import model as M
+    cfg = get_config("whisper-medium")
+    B, P, steps = WHISPER_B, WHISPER_TEXT, WHISPER_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    tc0 = FK.tc_launches.n
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    row = dict(arch=cfg.name, layers=cfg.num_layers,
+               encoder_layers=cfg.encoder_layers, batch=B, text=P,
+               frames=cfg.frontend_seq, init_s=time.perf_counter() - t0,
+               weight_bytes=sum(p.numel() * p.element_size()
+                                for p in model.parameters()))
+    frames = frontend_frames(cfg, B, 23)
+    prompt = recurrent_prompt(cfg, B, P, 24)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    encode_s = []
+    for _ in range(2):              # the first call warms up
+        enc, dt = timed(lambda: M.encode_frontend(cfg, model, frames))
+        encode_s.append(dt)
+    check(tuple(enc.shape) == (B, cfg.frontend_seq, cfg.d_model)
+          and bool(torch.isfinite(enc.float()).all()),
+          f"{cfg.name} encoder output {tuple(enc.shape)}")
+    (xk, _), cross_s = timed(lambda: M.encdec_cross_cache(cfg, model,
+                                                          frames))
+    check(len(xk) == cfg.num_layers and tuple(xk[0].shape) == (
+        B, cfg.frontend_seq, cfg.num_kv_heads, cfg.resolved_head_dim),
+        f"{cfg.name} cross cache {len(xk)} x {tuple(xk[0].shape)}")
+    del enc, xk
+    batch = {"tokens": prompt, "frontend": frames}
+    prefill_s = []
+    for _ in range(2):              # the launches of the second call
+        before = (FK.launches.n, FK.tc_launches.n, FO.plain_forwards.n)
+        logits, dt = timed(lambda: M.prefill_logits(cfg, model, batch))
+        prefill_s.append(dt)
+        launches, tc, plain = (c.n - b for c, b in zip(
+            (FK.launches, FK.tc_launches, FO.plain_forwards), before))
+    want = cfg.encoder_layers + 2 * cfg.num_layers
+    check(launches == tc == want and plain == 0,
+          f"{cfg.name} prefill: flash launches {launches}, tensor-core "
+          f"{tc}, plain forwards {plain}; want {want}, {want}, 0")
+    check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.name} prefill logits {tuple(logits.shape)}")
+    moved = {}
+    for name, other in (("frames", {"tokens": prompt,
+                                    "frontend": frames.roll(1, 0)}),
+                        ("prompt", {"tokens": prompt.roll(1, 0),
+                                    "frontend": frames})):
+        rolled, _ = timed(lambda: M.prefill_logits(cfg, model, other))
+        moved[name] = rel_diff(rolled[:, 0], logits[:, 0])
+        check(moved[name] > DEC_TOL,
+              f"{cfg.name}: each lane given the next lane's {name} moves "
+              f"prefill's logits by {moved[name]:.3g} of their largest, "
+              f"not more than the decode bar {DEC_TOL}")
+    del rolled
+    t0 = time.perf_counter()
+    toks, rows, step_s = greedy_decode(cfg, model, prompt, steps, frames)
+    decode_total = time.perf_counter() - t0
+    diff, gate = logits_agree([rows[0], logits[:, 0].cpu()], torch.float32,
+                              f"{cfg.name} decode vs prefill", DEC_TOL)
+    check(all(0 <= t < cfg.vocab_size for ts in toks for t in ts),
+          f"{cfg.name}: greedy tokens out of range")
+    T = P + steps - 1
+    cache = M.init_cache(cfg, B, T)
+    held = sum(t.numel() * t.element_size() for k in ("k", "v", "xk", "xv")
+               for t in cache[k])
+    roof = R.cache_bytes(cfg, ShapeSpec("whisper_text", T, B, "decode"))
+    check(held == roof,
+          f"{cfg.name}: the cache holds {held} K/V bytes, the roofline "
+          f"counts {roof}")
+    step_ms = statistics.median(step_s) * 1e3
+    row.update(encode_s=encode_s, cross_cache_s=cross_s,
+               prefill_s=prefill_s, prefill_flash_launches=launches,
+               prefill_tc_launches=tc,
+               decode_vs_prefill=dict(max_abs_diff=diff, gate=gate,
+                                      rel=diff / gate * DEC_TOL),
+               prefill_moved_by_rolled=moved,
+               decode_total_s=decode_total, decode_step_ms_median=step_ms,
+               decode_tokens_per_s=B / (step_ms * 1e-3),
+               decode_tokens=toks[:4], cache_kv_bytes_held=held,
+               cache_bytes_roofline=roof,
+               tc_launches=FK.tc_launches.n - tc0,
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del cache, model, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"frontend full: {cfg.name} " + json.dumps(row), flush=True)
+    return row
+
+
+def pixtral_api(cfg, model) -> dict:
+    """(c)'s model API: ``prefill_logits`` of ``PIXTRAL_B`` prompts of
+    ``PIXTRAL_PROMPT`` tokens with ``frontend_seq`` patch embeddings at
+    their head (the tensor-core flash kernel carrying every layer, the
+    plain version none) against ``decode_forward`` fed the same prompts
+    step by step, the patch embeddings as ``inputs_embeds`` at those
+    positions: its logits after the prompt within ``DEC_TOL`` x the
+    largest of ``prefill_logits``'; then ``PIXTRAL_STEPS`` greedy steps,
+    timed."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.models import model as M
+    B, P, steps = PIXTRAL_B, PIXTRAL_PROMPT, PIXTRAL_STEPS
+    prompt = recurrent_prompt(cfg, B, P, 25)
+    patches = frontend_frames(cfg, B, 26)
+    n0, tc0, plain0 = FK.launches.n, FK.tc_launches.n, FO.plain_forwards.n
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = M.prefill_logits(cfg, model, {"tokens": prompt,
+                                             "frontend": patches})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches, tc = FK.launches.n - n0, FK.tc_launches.n - tc0
+    plain = FO.plain_forwards.n - plain0
+    check(launches == tc == cfg.num_layers and plain == 0,
+          f"{cfg.name} prefill: flash launches {launches}, tensor-core "
+          f"{tc}, plain forwards {plain}; want {cfg.num_layers}, "
+          f"{cfg.num_layers}, 0")
+    toks, rows, step_s = greedy_decode(cfg, model, prompt, steps, patches)
+    diff, gate = logits_agree([rows[0], want[:, 0].cpu()], torch.float32,
+                              f"{cfg.name} decode vs prefill", DEC_TOL)
+    step_ms = statistics.median(step_s) * 1e3
+    return dict(batch=B, prompt=P, patches=cfg.frontend_seq,
+                prefill_s=prefill_s, prefill_flash_launches=launches,
+                tc_launches=tc,
+                decode_vs_prefill=dict(max_abs_diff=diff, gate=gate,
+                                       rel=diff / gate * DEC_TOL),
+                decode_step_ms_median=step_ms,
+                decode_tokens_per_s=B / (step_ms * 1e-3),
+                decode_tokens=toks[:4])
+
+
+def pixtral_full() -> dict:
+    """(c) pixtral-12b as registered (40 layers, d 5120, 32/8 heads at hd
+    128, vocab 131,072, bf16, random weights from seed 0, drawn on the
+    card): phase 5's workload through ``PagedServer`` (``phase_serve``,
+    with a prefill and a decode iteration profiled), then its model API
+    (``pixtral_api``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = get_config("pixtral-12b")
+    resident = torch.cuda.memory_allocated()
+    check(resident < 4 << 30, f"phase 19: {resident} bytes still allocated "
+                              "before pixtral-12b's weights")
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    print(f"init: pixtral-12b bf16 weights in {init_s:.2f} s, "
+          f"{torch.cuda.memory_allocated()} bytes allocated", flush=True)
+    serve, _, _ = phase_serve(cfg, model, probe=True)
+    api = pixtral_api(cfg, model)
+    row = dict(arch=cfg.name, layers=cfg.num_layers, init_s=init_s,
+               weight_bytes=sum(p.numel() * p.element_size()
+                                for p in model.parameters()),
+               serve=serve, api=api,
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"frontend full: {cfg.name} " + json.dumps(row), flush=True)
+    return row
+
+
+def phase_frontends() -> dict:
+    """(a) both families' float32 lockstep, then (b) whisper-medium and
+    (c) pixtral-12b as registered, each freed before the next."""
+    whisper_lock = whisper_lockstep()
+    pixtral_lock = pixtral_lockstep()
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper = whisper_full()
+    pixtral = pixtral_full()
+    return dict(whisper_lock=whisper_lock, pixtral_lock=pixtral_lock,
+                whisper=whisper, pixtral=pixtral,
+                fp32_core_launches=whisper_lock["fp32_core_launches"],
+                tc_launches=whisper["tc_launches"]
+                + pixtral["api"]["tc_launches"])
 
 
 # --------------------------------------------------------------- phase 7 --
@@ -3224,6 +3614,15 @@ def flash_library(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         block_mask=block_mask, enable_gqa=True)
 
 
+#: whisper-medium's three flash calls at B=4 x H=16 flat heads (G = 1),
+#: hd 64, its 1,500 frames and its 448-token text context: ((BH, S, T,
+#: hd), causal) of the encoder's self-attention, the decoder's
+#: cross-attention (S != T, both partial last tiles) and its causal
+#: self-attention
+WHISPER_FLASH = [((64, 1500, 1500, 64), False), ((64, 448, 1500, 64), False),
+                 ((64, 448, 448, 64), True)]
+
+
 def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
                dtype: torch.dtype, causal: bool, window: int, cap: float,
                groups: int = 1, qk: float = 0.3, seed: int = 0) -> dict:
@@ -3405,6 +3804,12 @@ def flash_cases(timer: Timer, draft: tuple) -> dict:
              for qk in (0.3, FLASH_SHARP)]
     check(all(c["kernel"] == "tensor_cores" for c in hymba),
           "hymba-1.5b's bf16 cases must run on the tensor cores")
+    whisper = [flash_case(timer, *shape, torch.bfloat16, causal, 0, 0.0,
+                          qk=qk)
+               for shape, causal in WHISPER_FLASH
+               for qk in (0.3, FLASH_SHARP)]
+    check(all(c["kernel"] == "tensor_cores" for c in whisper),
+          "whisper-medium's bf16 cases must run on the tensor cores")
     # the float32 calls phase 10's CUDA step makes (gemma2-2b widths, S
     # 512, its global and its local layer): the FP32-core kernel's path
     small = [flash_case(timer, TRAIN_SMALL_B * 8, TRAIN_SMALL_S,
@@ -3414,8 +3819,9 @@ def flash_cases(timer: Timer, draft: tuple) -> dict:
     check(all(c["kernel"] == "fp32_cores" for c in cases + sharp + small
               if c["dtype"] == "float32"),
           "float32 cases must run on the FP32 cores")
-    return dict(cases=cases + sharp + gemma + drafts + hymba + small,
-                gemma=gemma, drafts=drafts, hymba=hymba, small=small,
+    return dict(cases=cases + sharp + gemma + drafts + hymba + whisper
+                + small, gemma=gemma, drafts=drafts, hymba=hymba,
+                whisper=whisper, small=small,
                 grad_max_abs_err=flash_grads())
 
 
@@ -3731,6 +4137,10 @@ def main() -> int:
     del model
     gc.collect()            # the engines' reference cycles hold the weights
     torch.cuda.empty_cache()
+    frontends = phase_frontends()
+    done("phase 19")
+    gc.collect()
+    torch.cuda.empty_cache()
     moe_serve, moe_serve8 = phase_moe_serve()
     done("phase 16")
     gc.collect()
@@ -3782,18 +4192,21 @@ def main() -> int:
     decode_fwd = "src/repro/kernels/paged_attention/kernel.py:61"
     prefill = "src/repro/kernels/paged_attention/kernel.py:222"
     quant = "src/repro/kernels/paged_attention/kernel.py:113-121"
-    # the bf16 pool's kernels carry phases 5, 13, 14, 15, 16 and 18 (b),
-    # the int8 pool's phases 6 and 16 (and 18 (a)'s decode), the FP32-core
-    # kernel phase 4's float32 engines (yi-6b's and olmoe's) and phase 18
-    # (a)'s sharded ones
+    # the bf16 pool's kernels carry phases 5, 13, 14, 15, 16, 18 (b) and
+    # 19 (c), the int8 pool's phases 6 and 16 (and 18 (a)'s decode), the
+    # FP32-core kernel phase 4's float32 engines (yi-6b's and olmoe's),
+    # phase 18 (a)'s sharded ones and phase 19 (a)'s pixtral engine
     full = sharded_full.values()
+    pix_lock, pix_serve = frontends["pixtral_lock"], \
+        frontends["pixtral"]["serve"]
     kernels = [
         entry("paged_attention_decode_split", SPLIT_KV, "same", 1,
               "bfloat16", serve["split_launches"]
               + frontdoor["split_launches"] + tiers["split_launches"]
               + planner["split_launches"] + moe_serve["split_launches"]
               + sum(r["split_launches"] for r in full)
-              + sharded_lock["split_launches"], decode_fwd),
+              + sharded_lock["split_launches"] + pix_serve["split_launches"]
+              + pix_lock["split_launches"], decode_fwd),
         entry("paged_attention_decode_split_int8", SPLIT_KV, "int8", 1,
               "bfloat16", serve8["split_launches"]
               + moe_serve8["split_launches"]
@@ -3802,7 +4215,8 @@ def main() -> int:
               parity_f32["fp32_core_launches"]
               + tier_parity["fp32_core_launches"]
               + moe_parity["f32"]["fp32_core_launches"]
-              + sharded_lock["fp32_core_launches"], prefill),
+              + sharded_lock["fp32_core_launches"]
+              + pix_lock["fp32_core_launches"], prefill),
         entry("paged_attention_int8", FP32_CORES, "int8", 128, "float32",
               parity_int8["fp32_core_launches"]
               + sharded_lock["fp32_core_int8_launches"], quant),
@@ -3810,7 +4224,8 @@ def main() -> int:
               "bfloat16", serve["tc_launches"] + frontdoor["tc_launches"]
               + tiers["tc_launches"] + planner["tc_launches"]
               + moe_serve["tc_launches"]
-              + sum(r["tc_launches"] for r in full), prefill),
+              + sum(r["tc_launches"] for r in full)
+              + pix_serve["tc_launches"], prefill),
         entry("paged_attention_prefill_tc_int8", TENSOR_CORES, "int8", 128,
               "bfloat16", serve8["tc_launches"] + moe_serve8["tc_launches"],
               quant),
@@ -3852,18 +4267,21 @@ def main() -> int:
         })
     # flash on the tensor cores: the main path's case is gemma2-2b's
     # global (window 0) layer, its error the largest of gemma2's four
-    # cases (both scales, both windows), phase 13's draft cases and
-    # hymba's, its launches phase 12's, phase 13's draft forwards and
-    # phase 17's hymba prefills; on the FP32 cores: phase 10's float32
-    # global layer, its error the largest of its float32 cases, its
-    # launches phase 10's and phase 17's float32 hymba lockstep prefills
+    # cases (both scales, both windows), phase 13's draft cases, hymba's
+    # and whisper's, its launches phase 12's, phase 13's draft forwards,
+    # phase 17's hymba prefills and phase 19's whisper and pixtral
+    # calls; on the FP32 cores: phase 10's float32 global layer, its
+    # error the largest of its float32 cases, its launches phase 10's,
+    # phase 17's float32 hymba lockstep prefills and phase 19 (a)'s
+    # float32 whisper
     for name, kernel, head, launches, split in (
             ("flash_attention_tc", "tensor_cores", flash["gemma"][0],
              train["flash_tc_launches"] + frontdoor["flash_tc_launches"]
-             + recurrent["tc_launches"], 0),
+             + recurrent["tc_launches"] + frontends["tc_launches"], 0),
             ("flash_attention", "fp32_cores", flash["small"][0],
              parity_train["flash_fp32_core_launches"]
-             + recurrent["fp32_core_launches"],
+             + recurrent["fp32_core_launches"]
+             + frontends["fp32_core_launches"],
              parity_train["flash_fp32_split_launches"])):
         own = [c for c in flash["cases"] if c["kernel"] == kernel]
         kernels.append({
@@ -3874,7 +4292,7 @@ def main() -> int:
             "launches": launches, "split_launches": split,
             "max_abs_err": max(c["max_abs_err"] for c in (
                 flash["gemma"] + flash["drafts"] + flash["hymba"]
-                if kernel == "tensor_cores" else own)),
+                + flash["whisper"] if kernel == "tensor_cores" else own)),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],

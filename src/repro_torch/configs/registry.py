@@ -3,10 +3,12 @@
 Lists only the archs the port runs so far: the dense GQA decoders it
 serves (yi-6b, minitron-8b, qwen3-32b) and trains (those and gemma2-2b,
 whose local/global layers the paged server refuses, as the reference's
-does), the routed-expert decoder olmoe-1b-7b, and the recurrent families
-xlstm-350m (mLSTM/sLSTM) and hymba-1.5b (attention beside Mamba), which
+does), the routed-expert decoder olmoe-1b-7b, the patch-frontend VLM
+pixtral-12b (served as a text decoder, as the reference serves it), and
+the recurrent families xlstm-350m (mLSTM/sLSTM) and hymba-1.5b
+(attention beside Mamba) and the encoder-decoder whisper-medium, which
 train and decode through ``models.model`` but are not served by the
-paged engine.
+paged engine.  deepseek-v2-236b (MLA) is not listed yet.
 """
 from __future__ import annotations
 
@@ -18,12 +20,14 @@ from repro_torch.configs.base import ArchConfig, SHAPES, ShapeSpec
 #: in the reference registry's order
 _MODULES = {
     "xlstm-350m": "repro_torch.configs.xlstm_350m",
+    "pixtral-12b": "repro_torch.configs.pixtral_12b",
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "yi-6b": "repro_torch.configs.yi_6b",
     "minitron-8b": "repro_torch.configs.minitron_8b",
     "qwen3-32b": "repro_torch.configs.qwen3_32b",
     "hymba-1.5b": "repro_torch.configs.hymba_1p5b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "whisper-medium": "repro_torch.configs.whisper_medium",
 }
 
 

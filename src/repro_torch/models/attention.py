@@ -1,16 +1,19 @@
 """GQA attention, the port of ``repro.models.attention``: full-sequence
-(train / prefill: ``attend_fullseq``, ``gqa_fullseq``) and one-token
-decode against a dense cache (``attend_decode``, ``gqa_decode``).
+(train / prefill / encoder / cross-attention: ``attend_fullseq``,
+``gqa_fullseq``, ``gqa_make_kv``) and one-token decode against a dense
+cache (``attend_decode``, ``gqa_decode``).
 
 The reference computes full-sequence attention as an exact chunked XLA
 scan, which it calls the XLA-level analogue of its flash kernel (both
-agree with the same oracle).  Here the flash kernel itself carries it: a
-self-attention call whose query and key positions are ``arange(S)`` and
-``arange(T)`` (``None``, as ``forward_fullseq`` passes them) goes to
+agree with the same oracle).  Here the flash kernel itself carries it:
 ``mha_flash`` (the CUDA kernel on the card, its plain version on the
-CPU) with the layer's causal flag, window and logit cap.  That covers every call of the families ported so far; calls with
-other positions (encoder offsets), ``kv_override`` (cross-attention) and
-MLA raise ``NotImplementedError`` until their families are ported.
+CPU) with the layer's causal flag, window and logit cap, on
+top-left-aligned iotas.  Positions matter only under a causal mask or a
+window, so a call that has neither (whisper's encoder and its
+cross-attention) takes any positions; a causal or windowed call takes
+``arange(S)`` / ``arange(T)`` (``None``, as ``forward_fullseq`` passes
+them) and raises ``NotImplementedError`` for others.  MLA raises until
+its family is ported.
 
 Decode attention over the dense (linear or ring) cache of
 ``models.model.init_cache`` is plain PyTorch, as the reference computes
@@ -49,15 +52,19 @@ def attend_fullseq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    scale: Optional[float] = None) -> torch.Tensor:
     """Exact attention.  q: (B,S,H,hd), k/v: (B,T,K,hd), GQA via H = K*G;
     q_positions: (S,), k_positions: (T,), ``None`` meaning ``arange``.
-    ``chunk`` (the reference's query-chunk bound on its live score tile)
-    has no effect: the kernel never holds more than one tile of scores."""
+    Without a causal mask or a window every key is visible whatever the
+    positions, so they are not read; with either, positions other than
+    the iotas raise.  ``chunk`` (the reference's query-chunk bound on its
+    live score tile) has no effect: the kernel never holds more than one
+    tile of scores."""
     del chunk
     S, T = q.shape[1], k.shape[1]
-    if not (_is_iota(q_positions, S) and _is_iota(k_positions, T)):
+    if (causal or window) and not (_is_iota(q_positions, S)
+                                   and _is_iota(k_positions, T)):
         raise NotImplementedError(
-            "attend_fullseq: positions other than arange(S) / arange(T) "
-            "(encoder offsets) are not ported yet; the flash kernel takes "
-            "top-left-aligned iotas")
+            "attend_fullseq: a causal or windowed call with positions "
+            "other than arange(S) / arange(T) is not ported; the flash "
+            "kernel masks on top-left-aligned iotas")
     return mha_flash(q, k, v, causal=causal, window=window, cap=cap,
                      scale=scale)
 
@@ -88,18 +95,21 @@ def attend_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, 1, H, v.shape[-1])
 
 
-def _project(cfg: ArchConfig, p, x: torch.Tensor):
+def project_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B,S,d) @ (d,h,hd) -> (B,S,h,hd)."""
     B, S, d = x.shape
-    q = (x @ p["wq"].reshape(d, -1)).reshape(B, S, cfg.num_heads, -1)
-    k = (x @ p["wk"].reshape(d, -1)).reshape(B, S, cfg.num_kv_heads, -1)
-    v = (x @ p["wv"].reshape(d, -1)).reshape(B, S, cfg.num_kv_heads, -1)
+    return (x @ w.reshape(d, -1)).reshape(B, S, w.shape[1], w.shape[2])
+
+
+def _project(cfg: ArchConfig, p, x: torch.Tensor):
+    q, k, v = (project_heads(x, p[w]) for w in ("wq", "wk", "wv"))
     if cfg.use_qk_norm:
         q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
         k = rms_head_norm(p["k_norm"], k, cfg.norm_eps)
     return q, k, v
 
 
-def _out_proj(p, out: torch.Tensor) -> torch.Tensor:
+def out_proj(p, out: torch.Tensor) -> torch.Tensor:
     B, S, H, hd = out.shape
     return out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, -1)
 
@@ -112,25 +122,45 @@ def gqa_fullseq(cfg: ArchConfig, p, x: torch.Tensor,
                                             torch.Tensor]] = None,
                 kv_positions: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
-    """Full-sequence GQA self-attention of one layer: (B,S,d) -> (B,S,d);
-    ``positions`` ``None`` means ``arange(S)``."""
-    if kv_override is not None or kv_positions is not None:
-        raise NotImplementedError(
-            "gqa_fullseq: kv_override (cross-attention) is not ported yet")
+    """Full-sequence GQA of one layer: (B,S,d) -> (B,S,d);
+    ``positions`` ``None`` means ``arange(S)``.  Self-attention projects
+    K/V from ``x``; with ``kv_override`` (cross-attention) K/V are given
+    (the encoder's, from :func:`gqa_make_kv`) at ``kv_positions``, and
+    as in the reference neither q nor K is then roped and K is not
+    qk-normed."""
     if cfg.attention_kind != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: {cfg.attention_kind} attention is not ported yet")
     S = x.shape[1]
-    q, k, v = _project(cfg, p, x)
-    if cfg.use_rope:
+    if kv_override is None:
+        q, k, v = _project(cfg, p, x)
+        kpos = positions
+    else:
+        q = project_heads(x, p["wq"])
+        if cfg.use_qk_norm:
+            q = rms_head_norm(p["q_norm"], q, cfg.norm_eps)
+        k, v = kv_override
+        kpos = kv_positions
+    if cfg.use_rope and kv_override is None:
         pos = positions if positions is not None else torch.arange(
             S, dtype=torch.int32, device=x.device)
         q = rope(q, pos[None, :], cfg.rope_theta)
         k = rope(k, pos[None, :], cfg.rope_theta)
     out = attend_fullseq(q, k, v, q_positions=positions,
-                         k_positions=positions, causal=causal,
+                         k_positions=kpos, causal=causal,
                          window=window, cap=cfg.attn_softcap)
-    return _out_proj(p, out)
+    return out_proj(p, out)
+
+
+def gqa_make_kv(cfg: ArchConfig, p, x: torch.Tensor):
+    """K/V (B,T,Kv,hd) for cross-attention caches (encoder side), K
+    roped at ``arange(T)`` (the encoder's positions) where the arch
+    ropes."""
+    k, v = project_heads(x, p["wk"]), project_heads(x, p["wv"])
+    if cfg.use_rope:
+        pos = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        k = rope(k, pos[None, :], cfg.rope_theta)
+    return k, v
 
 
 def gqa_decode(cfg: ArchConfig, p, x: torch.Tensor, pos: torch.Tensor,
@@ -155,4 +185,4 @@ def gqa_decode(cfg: ArchConfig, p, x: torch.Tensor, pos: torch.Tensor,
     out = attend_decode(q, k_cache, v_cache, lengths=pos,
                         k_positions=k_positions, window=window,
                         cap=cfg.attn_softcap)
-    return _out_proj(p, out), k_cache, v_cache
+    return out_proj(p, out), k_cache, v_cache

@@ -14,8 +14,13 @@ routed-expert (MoE) layer holds ``moe.router (d,E)`` (always float32),
 A hymba layer (``layers/i``) holds ``ln1``, ``attn``, ``mamba`` (the
 Mamba branch, ``models.ssm``), ``bn_attn``, ``bn_ssm``, ``ln2`` and
 ``mlp``; xlstm holds two stacks, ``mlstm_layers/j/{ln1,cell}`` and
-``slstm_layers/j/{ln1,cell}``.  Beside them ``embed.table/head (V,d)``
-(no ``head`` with tied embeddings) and ``final_norm``.  Every container
+``slstm_layers/j/{ln1,cell}``; whisper's encoder-decoder holds
+``enc_layers/j/{ln1,attn,ln2,mlp}``, ``enc_norm``, ``enc_pos (F,d)``,
+``dec_layers/i/{ln1,attn,lnx,xattn,ln2,mlp}`` (``xattn`` laid out as
+``attn``) and ``dec_pos (max_positions,d)``, every norm of it a
+LayerNorm with a float32 ``bias`` beside its ``scale``.  Beside them
+``embed.table/head (V,d)`` (no ``head`` with tied embeddings) and
+``final_norm``.  Every container
 is an ``nn.ParameterDict`` / ``nn.ModuleDict``, so the layer functions
 index it exactly as the reference indexes its pytree
 (``lp["attn"]["wq"]``).  The serving forward lives with the engine
@@ -33,9 +38,11 @@ Two ways to fill it:
 
 :func:`forward_fullseq` and :func:`loss_fn` are the training path's
 forward for the dense, MoE and local/global (gemma2) transformer stacks,
-hymba and xlstm, with per-layer activation checkpointing under
+hymba, xlstm, a patch frontend's (pixtral) and the encoder-decoder
+(whisper), with per-layer activation checkpointing under
 ``cfg.remat_policy``.  :func:`decode_forward` is one token against a
-dense cache from :func:`init_cache`: per-layer tensors, updated in place.
+dense cache from :func:`init_cache`: per-layer tensors, updated in place;
+whisper's cross-attention cache comes from one :func:`encdec_cross_cache`.
 """
 from __future__ import annotations
 
@@ -61,13 +68,15 @@ from repro_torch.models import ssm as S
 EMPTY_POS = 2 ** 30
 
 #: the layer stacks a parameter path can start with
-STACKS = ("layers", "mlstm_layers", "slstm_layers")
+STACKS = ("layers", "mlstm_layers", "slstm_layers", "enc_layers",
+          "dec_layers")
 #: leaves kept in float32 whatever ``param_dtype`` is, beside the norms
-#: and the MoE router (the reference's ``dtype=jnp.float32`` leaves)
-_F32_LEAVES = ("w_if", "b_if", "head_norm", "b_dt", "log_A", "D")
+#: and the MoE router (the reference's ``dtype=jnp.float32`` leaves;
+#: ``bias`` is a LayerNorm's)
+_F32_LEAVES = ("w_if", "b_if", "head_norm", "b_dt", "log_A", "D", "bias")
 #: leaves the reference initialises to a constant
 _ONES = ("head_norm", "b_dt", "D")
-_ZEROS = ("conv_b", "log_A", "b_if")
+_ZEROS = ("conv_b", "log_A", "b_if", "bias")
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -77,26 +86,29 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 def _check_params_supported(cfg: ArchConfig):
     """The parameter layouts ported so far: GQA transformers, dense or
     with routed experts in every layer, with or without gemma2's
-    local/global layers and post-block norms; hymba; xlstm."""
+    local/global layers and post-block norms, and with a patch frontend
+    (pixtral: no leaves of its own); hymba; xlstm; the GQA
+    encoder-decoder (whisper).  MLA and dense first layers before an MoE
+    stack raise."""
     if cfg.moe_num_experts and cfg.moe_first_dense_layers:
         raise NotImplementedError(
             f"{cfg.name}: dense first layers before the MoE stack are not "
             "ported yet")
-    if cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: frontends are not ported "
-                                  "yet")
     if cfg.block_kind == "mlstm":
         return
-    if not (cfg.block_kind in ("transformer", "hymba")
+    if not (cfg.block_kind in ("transformer", "hymba", "encdec")
             and cfg.attention_kind == "gqa"):
         raise NotImplementedError(
-            f"{cfg.name}: only GQA decoders, hymba and xlstm are ported")
+            f"{cfg.name}: only GQA decoders, hymba, xlstm and the GQA "
+            "encoder-decoder are ported")
 
 
 def _check_supported(cfg: ArchConfig):
     """The paged server's guard: plain GQA decoders only, dense or MoE (no
     local/global layers, which the reference's server refuses too, and
-    no post-block norms, which its paged forward does not apply)."""
+    no post-block norms, which its paged forward does not apply).  A
+    patch frontend's model (pixtral) is served as its text decoder: the
+    engine takes tokens, as the reference's does."""
     _check_params_supported(cfg)
     if cfg.block_kind != "transformer" or cfg.local_global_period \
             or cfg.post_block_norm:
@@ -111,6 +123,9 @@ def _n_slstm(cfg: ArchConfig) -> int:
 
 def _stacks(cfg: ArchConfig) -> Dict[str, int]:
     """Layer stack -> its layer count, in the reference's build order."""
+    if cfg.block_kind == "encdec":
+        return {"enc_layers": cfg.encoder_layers,
+                "dec_layers": cfg.num_layers}
     if cfg.block_kind != "mlstm":
         return {"layers": cfg.num_layers}
     n_s = _n_slstm(cfg)
@@ -131,14 +146,26 @@ def _mlp_shapes(cfg: ArchConfig, group: str, ff: int
     return out
 
 
-def _gqa_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+def _gqa_shapes(cfg: ArchConfig, group: str = "attn"
+                ) -> Dict[str, Tuple[int, ...]]:
     d, H, K = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim
-    out = {"attn/wq": (d, H, hd), "attn/wk": (d, K, hd),
-           "attn/wv": (d, K, hd), "attn/wo": (H, hd, d)}
+    out = {f"{group}/wq": (d, H, hd), f"{group}/wk": (d, K, hd),
+           f"{group}/wv": (d, K, hd), f"{group}/wo": (H, hd, d)}
     if cfg.use_qk_norm:
-        out["attn/q_norm"] = (hd,)
-        out["attn/k_norm"] = (hd,)
+        out[f"{group}/q_norm"] = (hd,)
+        out[f"{group}/k_norm"] = (hd,)
+    return out
+
+
+def _norm_shapes(cfg: ArchConfig, name: str) -> Dict[str, Tuple[int, ...]]:
+    """A norm's ``scale``, and a LayerNorm's ``bias`` (the reference gives
+    one to every norm of a GELU encoder-decoder: whisper's)."""
+    d = cfg.d_model
+    out = {f"{name}/scale": (d,)}
+    if cfg.norm_eps and cfg.mlp_kind == "gelu" \
+            and cfg.block_kind == "encdec":
+        out[f"{name}/bias"] = (d,)
     return out
 
 
@@ -169,6 +196,15 @@ def _cell_shapes(cfg: ArchConfig, stack: str) -> Dict[str, Tuple[int, ...]]:
 def _layer_shapes(cfg: ArchConfig, stack: str = "layers"
                   ) -> Dict[str, Tuple[int, ...]]:
     d = cfg.d_model
+    if stack == "enc_layers":
+        return {**_norm_shapes(cfg, "ln1"), **_gqa_shapes(cfg),
+                **_norm_shapes(cfg, "ln2"), **_mlp_shapes(cfg, "mlp",
+                                                          cfg.d_ff)}
+    if stack == "dec_layers":
+        return {**_norm_shapes(cfg, "ln1"), **_gqa_shapes(cfg),
+                **_norm_shapes(cfg, "lnx"), **_gqa_shapes(cfg, "xattn"),
+                **_norm_shapes(cfg, "ln2"), **_mlp_shapes(cfg, "mlp",
+                                                          cfg.d_ff)}
     if stack != "layers":
         return _cell_shapes(cfg, stack)
     if cfg.block_kind == "hymba":
@@ -193,6 +229,18 @@ def _layer_shapes(cfg: ArchConfig, stack: str = "layers"
     return out
 
 
+def _top_shapes(cfg: ArchConfig, stack: str) -> Dict[str, Tuple[int, ...]]:
+    """The leaves outside the layer stacks the reference builds right
+    after ``stack``: whisper's ``enc_norm`` and ``enc_pos`` after the
+    encoder, ``dec_pos`` after the decoder."""
+    if stack == "enc_layers":
+        return {**_norm_shapes(cfg, "enc_norm"),
+                "enc_pos": (cfg.frontend_seq, cfg.d_model)}
+    if stack == "dec_layers":
+        return {"dec_pos": (cfg.max_positions, cfg.d_model)}
+    return {}
+
+
 def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     """Every parameter's path -> shape, in init order."""
     _check_params_supported(cfg)
@@ -205,7 +253,8 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
         for i in range(n):
             for k, s in shapes.items():
                 out[f"{stack}/{i}/{k}"] = s
-    out["final_norm/scale"] = (d,)
+        out.update(_top_shapes(cfg, stack))
+    out.update(_norm_shapes(cfg, "final_norm"))
     return out
 
 
@@ -257,6 +306,13 @@ def _const_init(path: str) -> Optional[float]:
     return None
 
 
+def _param(path: str, shape: Tuple[int, ...], dtype, device
+           ) -> nn.Parameter:
+    return nn.Parameter(torch.empty(
+        shape, dtype=torch.float32 if _is_f32(path) else dtype,
+        device=device), requires_grad=False)
+
+
 def _pdict(shapes: Mapping[str, Tuple[int, ...]], dtype, device,
            prefix: str = ""):
     """A (nested) ``ParameterDict`` of ``shapes`` (relative path ->
@@ -268,20 +324,19 @@ def _pdict(shapes: Mapping[str, Tuple[int, ...]], dtype, device,
         if rest:
             sub.setdefault(head, {})[rest] = s
             continue
-        out[k] = nn.Parameter(torch.empty(
-            s, dtype=torch.float32 if _is_f32(prefix + k) else dtype,
-            device=device), requires_grad=False)
+        out[k] = _param(prefix + k, s, dtype, device)
     for head, shp in sub.items():
         out[head] = _pdict(shp, dtype, device, f"{prefix}{head}/")
     return out
 
 
 class DenseDecoder(nn.Module):
-    """A decoder's weights: ``embed``, its layer stacks (``layers[i]``, or
-    xlstm's ``mlstm_layers[j]`` and ``slstm_layers[j]``) and
-    ``final_norm``.  Every parameter starts with
-    ``requires_grad=False`` (serving); the training path's
-    ``steps.init_train_state`` switches it on."""
+    """A model's weights: ``embed``, its layer stacks (``layers[i]``, or
+    xlstm's ``mlstm_layers[j]`` and ``slstm_layers[j]``, or whisper's
+    ``enc_layers[j]`` and ``dec_layers[i]`` with ``enc_norm``,
+    ``enc_pos`` and ``dec_pos`` after them) and ``final_norm``.  Every
+    parameter starts with ``requires_grad=False`` (serving); the training
+    path's ``steps.init_train_state`` switches it on."""
 
     def __init__(self, cfg: ArchConfig, device: torch.device):
         super().__init__()
@@ -289,10 +344,10 @@ class DenseDecoder(nn.Module):
         self.cfg = cfg
         dtype = _dtype(cfg)
         V, d = cfg.vocab_size, cfg.d_model
-        emb = {"table": (V, d)}
+        emb = {"embed/table": (V, d)}
         if not cfg.tie_embeddings:
-            emb["head"] = (V, d)
-        self.embed = _pdict(emb, dtype, device)
+            emb["embed/head"] = (V, d)
+        self._add_top(emb, dtype, device)
         for stack, n in _stacks(cfg).items():
             groups: Dict[str, Dict[str, Tuple[int, ...]]] = {}
             for path, s in _layer_shapes(cfg, stack).items():
@@ -303,7 +358,22 @@ class DenseDecoder(nn.Module):
                                          f"{stack}/{g}/")
                                for g, ls in groups.items()})
                 for _ in range(n)]))
-        self.final_norm = _pdict({"scale": (d,)}, dtype, device)
+            self._add_top(_top_shapes(cfg, stack), dtype, device)
+        self._add_top(_norm_shapes(cfg, "final_norm"), dtype, device)
+
+    def _add_top(self, shapes: Mapping[str, Tuple[int, ...]], dtype,
+                 device):
+        """Leaves outside the layer stacks: ``a/b`` paths become a
+        ``ParameterDict`` attribute ``a``, a bare ``a`` a parameter."""
+        groups: Dict[str, Dict[str, Tuple[int, ...]]] = {}
+        for path, s in shapes.items():
+            g, _, rest = path.partition("/")
+            if rest:
+                groups.setdefault(g, {})[rest] = s
+            else:
+                setattr(self, g, _param(g, s, dtype, device))
+        for g, ls in groups.items():
+            setattr(self, g, _pdict(ls, dtype, device, f"{g}/"))
 
     def param(self, path: str) -> torch.Tensor:
         """The parameter at a ``param_shapes`` path."""
@@ -441,9 +511,13 @@ def init_cache(cfg: ArchConfig, B: int, T: int,
     * hymba: ``k``/``v`` rings of W = min(window, T) slots, ``kpos`` (B, W)
       and ``mamba`` (``conv``, ``ssm``) per layer;
     * xlstm: ``mlstm`` (``C``, ``n``, ``m``) and ``slstm`` (``c``, ``n``,
-      ``m``, ``h``) per layer of each stack.
+      ``m``, ``h``) per layer of each stack;
+    * whisper: ``k``/``v`` (B, T, Kv, hd) per decoder layer (the
+      self-attention cache), ``xk``/``xv`` (B, F, Kv, hd) per decoder
+      layer (the cross-attention cache, zeros until
+      :func:`encdec_cross_cache` fills it) and ``kpos`` (B, T).
 
-    Encoder-decoder and MLA caches raise until their families are ported.
+    MLA caches raise until their family is ported.
     """
     _check_params_supported(cfg)
     dev = resolve_device(device)
@@ -476,6 +550,14 @@ def init_cache(cfg: ArchConfig, B: int, T: int,
             kv_cache(cfg.num_layers, W)
         c["kpos"] = positions(W)
         c["mamba"] = states(S.mamba_state_specs(cfg, B), cfg.num_layers)
+        return c
+    if cfg.block_kind == "encdec":
+        F = cfg.frontend_seq
+        c["k"], c["v"] = kv_cache(cfg.num_layers, T), \
+            kv_cache(cfg.num_layers, T)
+        c["xk"], c["xv"] = kv_cache(cfg.num_layers, F), \
+            kv_cache(cfg.num_layers, F)
+        c["kpos"] = positions(T)
         return c
     if cfg.local_global_period:
         n_local = (cfg.num_layers + 1) // cfg.local_global_period
@@ -576,6 +658,40 @@ def _hymba_block(cfg: ArchConfig, lp, x: torch.Tensor) -> torch.Tensor:
     return _hymba_fuse(cfg, lp, x, a, m)
 
 
+def _enc_block(cfg: ArchConfig, lp, enc: torch.Tensor) -> torch.Tensor:
+    """An encoder layer: non-causal self-attention (positions play no
+    part), then the MLP."""
+    h = L.norm_forward(cfg, lp["ln1"], enc)
+    enc = enc + A.gqa_fullseq(cfg, lp["attn"], h, None, causal=False)
+    h = L.norm_forward(cfg, lp["ln2"], enc)
+    return enc + L.mlp_forward(cfg, lp["mlp"], h)
+
+
+def _dec_block(cfg: ArchConfig, lp, x: torch.Tensor,
+               enc: torch.Tensor) -> torch.Tensor:
+    """A decoder layer: causal self-attention, cross-attention over the
+    encoder's K/V (projected by this layer's ``xattn``), then the MLP."""
+    h = L.norm_forward(cfg, lp["ln1"], x)
+    x = x + A.gqa_fullseq(cfg, lp["attn"], h, None)
+    h = L.norm_forward(cfg, lp["lnx"], x)
+    xk, xv = A.gqa_make_kv(cfg, lp["xattn"], enc)
+    x = x + A.gqa_fullseq(cfg, lp["xattn"], h, None, causal=False,
+                          kv_override=(xk, xv))
+    h = L.norm_forward(cfg, lp["ln2"], x)
+    return x + L.mlp_forward(cfg, lp["mlp"], h)
+
+
+def _encode(cfg: ArchConfig, params: DenseDecoder,
+            frontend: torch.Tensor) -> torch.Tensor:
+    """The encoder over the frontend's frames (B, F, d), cast to the
+    weights' type: + ``enc_pos``, the layers, ``enc_norm``."""
+    enc = frontend.to(_dtype(cfg)) + params.enc_pos[None]
+    block = _remat(cfg, functools.partial(_enc_block, cfg))
+    for lp in params.enc_layers:
+        enc = block(lp, enc)
+    return L.norm_forward(cfg, params.enc_norm, enc)
+
+
 def _cell_block(cfg: ArchConfig, fullseq, lp, x: torch.Tensor
                 ) -> torch.Tensor:
     h = L.norm_forward(cfg, lp["ln1"], x)
@@ -608,17 +724,28 @@ def forward_fullseq(cfg: ArchConfig, params: DenseDecoder,
                     frontend: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Final hidden states (B,S,d) of the dense, MoE or local/global
-    transformer stack, of hymba or of xlstm; every layer's
-    self-attention runs in the flash kernel (its plain version for CPU
-    tensors).  Frontends, MLA and dense first layers before an MoE stack
-    raise until their families are ported (so ``frontend`` is ignored,
-    as the reference ignores it for an arch without one).  The reference
-    checkpoints gemma2's [local, global] pairs as one unit; here each
-    layer is one."""
+    transformer stack, of hymba, of xlstm or of the encoder-decoder;
+    every attention (self, encoder and cross) runs in the flash kernel
+    (its plain version for CPU tensors).  A patch frontend's embeddings
+    (B, Fs, d) replace the first Fs token embeddings (S >= Fs, as the
+    reference assumes); an encoder-decoder encodes ``frontend`` (B, F, d)
+    and its decoder attends to it (the reference requires it there).  An
+    arch without a frontend ignores ``frontend``, as the reference does.
+    MLA and dense first layers before an MoE stack raise until their
+    families are ported.  The reference checkpoints gemma2's [local,
+    global] pairs as one unit; here each layer is one."""
     _check_params_supported(cfg)
-    del frontend
     x = L.embed_tokens(cfg, params.embed, tokens)
-    if cfg.block_kind == "mlstm":
+    if cfg.frontend == "patch" and frontend is not None:
+        Fs = frontend.shape[1]
+        x = torch.cat([frontend.to(x.dtype), x[:, Fs:, :]], dim=1)
+    if cfg.block_kind == "encdec":
+        enc = _encode(cfg, params, frontend)
+        x = x + params.dec_pos[None, :x.shape[1], :]
+        block = _remat(cfg, functools.partial(_dec_block, cfg))
+        for lp in params.dec_layers:
+            x = block(lp, x, enc)
+    elif cfg.block_kind == "mlstm":
         x = _xlstm_stack(cfg, params, x)
     elif cfg.block_kind == "hymba":
         block = _remat(cfg, functools.partial(_hymba_block, cfg))
@@ -648,6 +775,26 @@ def prefill_logits(cfg: ArchConfig, params: DenseDecoder,
     hidden = forward_fullseq(cfg, params, batch["tokens"],
                              frontend=batch.get("frontend"))
     return L.logits_from_hidden(cfg, params.embed, hidden[:, -1:, :])
+
+
+def encode_frontend(cfg: ArchConfig, params: DenseDecoder,
+                    frontend: torch.Tensor) -> torch.Tensor:
+    """The encoder run once over ``frontend`` (B, F, d): its hidden states
+    (B, F, d) after ``enc_norm``."""
+    if cfg.block_kind != "encdec":
+        raise ValueError(f"{cfg.name} has no encoder")
+    return _encode(cfg, params, frontend)
+
+
+def encdec_cross_cache(cfg: ArchConfig, params: DenseDecoder,
+                       frontend: torch.Tensor
+                       ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """The decode cache's cross-attention K/V from one encode: per decoder
+    layer, ``xk``/``xv`` (B, F, Kv, hd), the lists :func:`init_cache`
+    holds (``torch.stack`` gives the reference's (L, B, F, Kv, hd))."""
+    enc = encode_frontend(cfg, params, frontend)
+    kv = [A.gqa_make_kv(cfg, lp["xattn"], enc) for lp in params.dec_layers]
+    return [k for k, _ in kv], [v for _, v in kv]
 
 
 # ===========================================================================
@@ -695,14 +842,16 @@ def decode_forward(cfg: ArchConfig, params: DenseDecoder, cache,
     :func:`init_cache`) is updated in place and returned: the token's K/V
     go to slot ``pos`` of a linear cache and ``pos % W`` of a ring, every
     ``kpos`` is updated once per step before the layers (it is shared by
-    the layers), recurrent states are replaced per layer.  The
-    reference's ``inputs_embeds`` (a VLM's patch embeddings) raises until
-    a frontend is ported."""
+    the layers), recurrent states are replaced per layer.
+    ``inputs_embeds`` (B,1,d) overrides the token embedding (a VLM's
+    patch positions during prefill-by-decode).  An encoder-decoder's
+    step adds ``dec_pos[pos]`` and attends, after its self-attention, to
+    every frame of the cross cache (``encdec_cross_cache``)."""
     _check_params_supported(cfg)
     if inputs_embeds is not None:
-        raise NotImplementedError(
-            "decode_forward: inputs_embeds (frontends) is not ported yet")
-    x = L.embed_tokens(cfg, params.embed, tokens)
+        x = inputs_embeds.to(device=params.device, dtype=_dtype(cfg))
+    else:
+        x = L.embed_tokens(cfg, params.embed, tokens)
     rows = torch.arange(tokens.shape[0], device=x.device)
     pos = pos.to(device=x.device, dtype=torch.int32)
 
@@ -724,6 +873,28 @@ def decode_forward(cfg: ArchConfig, params: DenseDecoder, cache,
                                     _sub(cache["mamba"], i))
             _put(cache["mamba"], i, new)
             x = _hymba_fuse(cfg, lp, x, a, m)
+
+    elif cfg.block_kind == "encdec":
+        slot = pos.long()
+        upd_pos(cache["kpos"], slot)
+        x = x + params.dec_pos[slot][:, None, :]
+        B, F = x.shape[0], cache["xk"][0].shape[1]
+        xk_positions = torch.arange(F, dtype=torch.int32,
+                                    device=x.device).expand(B, F)
+        full_len = torch.full((B,), F - 1, dtype=torch.int32,
+                              device=x.device)
+        for i, lp in enumerate(params.dec_layers):
+            h = L.norm_forward(cfg, lp["ln1"], x)
+            a, _, _ = A.gqa_decode(cfg, lp["attn"], h, pos, cache["k"][i],
+                                   cache["v"][i], slot, cache["kpos"])
+            x = x + a
+            h = L.norm_forward(cfg, lp["lnx"], x)
+            q = A.project_heads(h, lp["xattn"]["wq"])
+            xa = A.attend_decode(q, cache["xk"][i], cache["xv"][i],
+                                 lengths=full_len, k_positions=xk_positions)
+            x = x + A.out_proj(lp["xattn"], xa)
+            h = L.norm_forward(cfg, lp["ln2"], x)
+            x = x + L.mlp_forward(cfg, lp["mlp"], h)
 
     elif cfg.local_global_period:
         slot_local = (pos % cache["kpos_local"].shape[1]).long()

@@ -48,14 +48,18 @@ def default_opt_cfg(cfg: ArchConfig) -> AdamWConfig:
 def input_specs(cfg: ArchConfig, shape: ShapeSpec
                 ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """Every model input of ``shape``'s step, name -> (shape, dtype): the
-    reference's keys, shapes and types for the ported families (a
-    frontend's input comes with its family)."""
+    reference's keys, shapes and types.  An arch with a frontend takes
+    its stub embeddings ``frontend`` (B, frontend_seq, d_model) in the
+    weights' type for train and prefill; decode takes none."""
     B, S = shape.global_batch, shape.seq_len
-    if shape.kind == "train":
-        return {"tokens": ((B, S), torch.int32),
-                "labels": ((B, S), torch.int32)}
-    if shape.kind == "prefill":
-        return {"tokens": ((B, S), torch.int32)}
+    if shape.kind in ("train", "prefill"):
+        out = {"tokens": ((B, S), torch.int32)}
+        if shape.kind == "train":
+            out["labels"] = ((B, S), torch.int32)
+        if cfg.frontend:
+            out["frontend"] = ((B, cfg.frontend_seq, cfg.d_model),
+                               getattr(torch, cfg.param_dtype))
+        return out
     # decode: one new token against a cache of S
     return {"tokens": ((B, 1), torch.int32), "pos": ((B,), torch.int32)}
 
@@ -64,12 +68,16 @@ def make_batch(cfg: ArchConfig, shape: ShapeSpec, gen: torch.Generator
                ) -> Dict[str, torch.Tensor]:
     """A synthetic batch matching :func:`input_specs`, drawn from ``gen``
     on its device: tokens and labels uniform over the vocabulary, ``pos``
-    ``seq_len - 1``."""
+    ``seq_len - 1``, ``frontend`` normal x 0.02 (the data pipeline's
+    scale) drawn in float32 and cast."""
     out: Dict[str, torch.Tensor] = {}
     for k, (s, dt) in input_specs(cfg, shape).items():
         if k == "pos":
             out[k] = torch.full(s, shape.seq_len - 1, dtype=dt,
                                 device=gen.device)
+        elif k == "frontend":
+            out[k] = (torch.randn(s, generator=gen, dtype=torch.float32,
+                                  device=gen.device) * 0.02).to(dt)
         else:
             out[k] = torch.randint(0, cfg.vocab_size, s, generator=gen,
                                    dtype=dt, device=gen.device)

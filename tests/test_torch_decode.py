@@ -11,10 +11,13 @@ tokens:
   reference's constant inits and fan-ins in ``init_params``;
 * ``init_cache`` shapes, types and fill against the reference's;
 * ``decode_forward`` step by step at T = 24 (hymba's and gemma2's
-  16-slot rings wrap): each step's logits within 1e-5 of the largest
-  |logit|, every cache leaf within 1e-5 of its largest |value| (int32
-  positions equal);
-* ``prefill_logits`` within 1e-5 of the largest |logit|;
+  16-slot rings wrap; whisper's cross caches filled by each side's
+  ``encdec_cross_cache`` from the same frames; pixtral's first
+  ``frontend_seq`` positions fed as ``inputs_embeds``): each step's
+  logits within 1e-5 of the largest |logit|, every cache leaf within
+  1e-5 of its largest |value| (int32 positions equal);
+* ``prefill_logits`` within 1e-5 of the largest |logit| (with the same
+  frames for an arch with a frontend);
 * (``tests/test_torch_decode_bf16.py``) the same step-by-step decode in
   bfloat16;
 * ``input_specs`` / ``make_batch`` against the reference's specs;
@@ -41,7 +44,7 @@ from repro_torch.models import model as M
 from repro_torch.models import steps as ST
 
 ARCHS = ["xlstm-350m", "hymba-1.5b", "gemma2-2b", "yi-6b", "qwen3-32b",
-         "minitron-8b", "olmoe-1b-7b"]
+         "minitron-8b", "olmoe-1b-7b", "whisper-medium", "pixtral-12b"]
 BAR = 1e-5
 B, T = 2, 24
 
@@ -63,6 +66,16 @@ def _np_params(arch, dtype="float32"):
 def _tokens(vocab, seed=0):
     return np.random.default_rng(seed).integers(
         0, vocab, (B, T)).astype(np.int32)
+
+
+def _frontend(cfg, seed=2):
+    """Stub frontend embeddings (B, frontend_seq, d) at the data
+    pipeline's scale, float32 (each side casts them to its weights'
+    type), or None for an arch without a frontend."""
+    if not cfg.frontend:
+        return None
+    return (np.random.default_rng(seed).standard_normal(
+        (B, cfg.frontend_seq, cfg.d_model)) * 0.02).astype(np.float32)
 
 
 def _leaves(tree):
@@ -154,19 +167,32 @@ def _decode_lockstep(arch, dtype, bar, eager=False):
     jparams = jax.tree.map(jnp.asarray, npp)
     model = M.params_from_jax(tcfg, npp, device="cpu")
 
-    def jstep(p, c, t, pos):
-        return JM.decode_forward(jcfg, p, c, t, pos)
+    def jstep(p, c, t, pos, embeds):
+        return JM.decode_forward(jcfg, p, c, t, pos, inputs_embeds=embeds)
     step = jstep if eager else jax.jit(jstep)
     jc = JM.init_cache(jcfg, B, T)
     tc = M.init_cache(tcfg, B, T, "cpu")
+    frames = _frontend(jcfg)
+    if jcfg.block_kind == "encdec":
+        with jax.disable_jit(eager):
+            jc["xk"], jc["xv"] = JM.encdec_cross_cache(
+                jcfg, jparams, jnp.asarray(frames))
+        with torch.no_grad():
+            tc["xk"], tc["xv"] = M.encdec_cross_cache(
+                tcfg, model, torch.from_numpy(frames))
     for t in range(T):
         pos = np.full((B,), t, np.int32)
+        embeds = frames[:, t:t + 1] if jcfg.frontend == "patch" and \
+            t < jcfg.frontend_seq else None
         with jax.disable_jit(eager):
             jl, jc = step(jparams, jc, jnp.asarray(toks[:, t:t + 1]),
-                          jnp.asarray(pos))
-        tl, tc = M.decode_forward(tcfg, model, tc,
-                                  torch.from_numpy(toks[:, t:t + 1]),
-                                  torch.from_numpy(pos))
+                          jnp.asarray(pos),
+                          None if embeds is None else jnp.asarray(embeds))
+        tl, tc = M.decode_forward(
+            tcfg, model, tc, torch.from_numpy(toks[:, t:t + 1]),
+            torch.from_numpy(pos),
+            inputs_embeds=None if embeds is None
+            else torch.from_numpy(embeds))
         jl = np.asarray(jl, np.float32)
         assert tl.dtype == torch.float32 and tl.shape == jl.shape
         np.testing.assert_allclose(tl.numpy(), jl, rtol=0,
@@ -202,11 +228,15 @@ def test_prefill_logits_match_jax(arch):
     jcfg, tcfg = _cfgs(arch)
     npp = _np_params(arch)
     toks = _tokens(jcfg.vocab_size, seed=1)
+    batch = {"tokens": toks}
+    if jcfg.frontend:
+        batch["frontend"] = _frontend(jcfg, seed=3)
     want = np.asarray(JM.prefill_logits(
-        jcfg, jax.tree.map(jnp.asarray, npp), {"tokens": jnp.asarray(toks)}))
+        jcfg, jax.tree.map(jnp.asarray, npp),
+        {k: jnp.asarray(v) for k, v in batch.items()}))
     model = M.params_from_jax(tcfg, npp, device="cpu")
     step = ST.make_prefill_step(tcfg)
-    got = step(model, {"tokens": torch.from_numpy(toks)})
+    got = step(model, {k: torch.from_numpy(v) for k, v in batch.items()})
     assert got.dtype == torch.float32 and got.shape == want.shape == \
         (B, 1, tcfg.vocab_size)
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=0,
@@ -260,20 +290,37 @@ def test_make_batch_matches_reference_specs(shape):
 
 
 def test_decode_api_refuses_what_is_not_ported():
+    """``inputs_embeds``, the encoder-decoder layout and a patch frontend
+    are ported (their results are held against the reference in
+    ``test_decode_forward_matches_jax_step_by_step`` and
+    ``tests/test_torch_frontends.py``); MLA still raises."""
     cfg = get_config("yi-6b").smoke()
     model = M.init_params(cfg, device="cpu")
     cache = M.init_cache(cfg, 1, 4, "cpu")
-    with pytest.raises(NotImplementedError):
-        M.decode_forward(cfg, model, cache, torch.zeros((1, 1), dtype=torch.int32),
-                         torch.zeros((1,), dtype=torch.int32),
-                         inputs_embeds=torch.zeros((1, 1, cfg.d_model)))
-    for kw in (dict(attention_kind="mla"), dict(block_kind="encdec"),
+    embeds = torch.randn((1, 1, cfg.d_model), generator=torch.Generator(
+    ).manual_seed(0))
+    zero = torch.zeros((1,), dtype=torch.int32)
+    logits, _ = M.decode_forward(cfg, model, cache,
+                                 torch.zeros((1, 1), dtype=torch.int32),
+                                 zero, inputs_embeds=embeds)
+    fresh = M.init_cache(cfg, 1, 4, "cpu")
+    other, _ = M.decode_forward(cfg, model, fresh,
+                                torch.zeros((1, 1), dtype=torch.int32), zero)
+    assert logits.shape == (1, 1, cfg.vocab_size)
+    assert not torch.equal(logits, other)       # the embeddings were used
+    for kw in (dict(block_kind="encdec", encoder_layers=1, frontend_seq=4,
+                    max_positions=8),
                dict(frontend="patch", frontend_seq=4)):
-        with pytest.raises(NotImplementedError):
-            M.init_cache(dataclasses.replace(cfg, **kw), 1, 4, "cpu")
+        c = M.init_cache(dataclasses.replace(cfg, **kw), 1, 4, "cpu")
+        assert c["kpos"].shape == (1, 4)
+        assert ("xk" in c) == (kw.get("block_kind") == "encdec")
+    with pytest.raises(NotImplementedError):
+        M.init_cache(dataclasses.replace(cfg, attention_kind="mla"), 1, 4,
+                     "cpu")
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m",
+                                  "whisper-medium", "pixtral-12b"])
 def test_quickstart_launcher_on_cpu(arch, monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     out = quickstart.main(["--arch", arch, "--steps", "3", "--device",

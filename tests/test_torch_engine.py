@@ -125,6 +125,10 @@ SYS11 = SYSTEM + [19, 20, 21]
 INT8_BYTE_SHARE = 1e-3
 #: page scales are absmax/127 of those K/V values: a few ulps apart
 SCALE_RTOL = 1e-5
+#: the scales of a layer past ``lockstep``'s ``scale_layers``: a byte of
+#: an earlier layer that rounds apart moves them by about a quantization
+#: step within the same step (~1.6e-4 relative at pixtral's smoke size)
+DEEP_SCALE_RTOL = 1e-3
 
 
 def _lockstep_workload(vocab):
@@ -134,15 +138,20 @@ def _lockstep_workload(vocab):
 
 
 def lockstep(pair, *, page, use_kernel, kv_dtype, spec_k=0, max_new=10,
-             drafter=None):
+             drafter=None, scale_layers=None):
     """Serve one workload on the JAX engine and the port in lockstep: rid 0
     runs alone through its prefill, rid 1 then shares its partial tail
     page (copy-on-write), rids 2-3 follow, and rid 0 is preempted three
     steps later (swap out, swap back in).  After every step each running
     request maps the same physical pages on both sides, holding the same
     K/V (int8 bytes within ``INT8_BYTE_SHARE``, scales within
-    ``SCALE_RTOL``).  Returns what the two engines must agree on, and
-    the int8 byte mismatches."""
+    ``SCALE_RTOL``).  ``scale_layers`` holds the scales of only the first
+    that many layers to ``SCALE_RTOL`` and those of the later layers to
+    ``DEEP_SCALE_RTOL``: a byte of layer l that rounds apart (as
+    ``INT8_BYTE_SHARE`` allows) moves the attention output, and so the K/V
+    and scales of layer l + 1 on, by about a quantization step within the
+    same step.  Returns what the two engines must agree on, and the int8
+    byte mismatches."""
     jcfg, params, tcfg, model = pair
     prompts = _lockstep_workload(tcfg.vocab_size)
     kw = dict(max_lanes=2, chunk=8, use_kernel=use_kernel, spec_k=spec_k,
@@ -182,10 +191,13 @@ def lockstep(pair, *, page, use_kernel, kv_dtype, spec_k=0, max_new=10,
                 assert d.max(initial=0) <= 1
                 compared += d.size
                 mismatched += int((d > 0).sum())
-                np.testing.assert_allclose(
-                    t.kv_scales[:, idx].numpy(),
-                    np.asarray(j.kv_scales[:, np.asarray(idx)]),
-                    rtol=SCALE_RTOL, atol=0)
+                ts = t.kv_scales[:, idx].numpy()
+                js = np.asarray(j.kv_scales[:, np.asarray(idx)])
+                n = len(ts) if scale_layers is None else scale_layers
+                np.testing.assert_allclose(ts[:n], js[:n], rtol=SCALE_RTOL,
+                                           atol=0)
+                np.testing.assert_allclose(ts[n:], js[n:],
+                                           rtol=DEEP_SCALE_RTOL, atol=0)
             else:
                 np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-5)
     assert mismatched <= INT8_BYTE_SHARE * compared

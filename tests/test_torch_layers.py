@@ -43,22 +43,24 @@ def _eq(j, t, **tol):
 
 @pytest.mark.parametrize("arch", ["yi-6b", "qwen3-32b", "gemma2-2b",
                                   "minitron-8b", "olmoe-1b-7b",
-                                  "xlstm-350m", "hymba-1.5b"])
+                                  "xlstm-350m", "hymba-1.5b",
+                                  "whisper-medium", "pixtral-12b"])
 def test_configs_and_param_count_match_jax(arch):
     for j, t in ((j_get_config(arch), get_config(arch)),
                  (j_get_config(arch).smoke(), get_config(arch).smoke())):
         assert dataclasses.asdict(t) == dataclasses.asdict(j)
         assert param_count(t) == j_base.param_count(j)
-    assert list_archs() == ["xlstm-350m", "gemma2-2b", "yi-6b",
-                            "minitron-8b", "qwen3-32b", "hymba-1.5b",
-                            "olmoe-1b-7b"]
+    assert list_archs() == ["xlstm-350m", "pixtral-12b", "gemma2-2b",
+                            "yi-6b", "minitron-8b", "qwen3-32b",
+                            "hymba-1.5b", "olmoe-1b-7b", "whisper-medium"]
     assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in j_base.SHAPES.items()}
 
 
 @pytest.mark.parametrize("arch", ["yi-6b", "qwen3-32b", "gemma2-2b",
                                   "minitron-8b", "olmoe-1b-7b",
-                                  "xlstm-350m", "hymba-1.5b"])
+                                  "xlstm-350m", "hymba-1.5b",
+                                  "whisper-medium", "pixtral-12b"])
 def test_params_from_jax_unstacks_exactly(arch):
     jcfg = j_get_config(arch).smoke()
     tcfg = get_config(arch).smoke()
@@ -67,13 +69,16 @@ def test_params_from_jax_unstacks_exactly(arch):
                             device="cpu")
     for path in param_shapes(tcfg):
         parts = path.split("/")
-        if parts[0] in ("layers", "mlstm_layers", "slstm_layers"):
+        if parts[0] in ("layers", "mlstm_layers", "slstm_layers",
+                        "enc_layers", "dec_layers"):
             ref = params[parts[0]][parts[2]]
             for key in parts[3:]:
                 ref = ref[key]
             ref = ref[int(parts[1])]
         else:
-            ref = params[parts[0]][parts[1]]
+            ref = params[parts[0]]
+            for key in parts[1:]:
+                ref = ref[key]
         got = model.param(path)
         assert str(got.dtype).replace("torch.", "") == str(ref.dtype)
         np.testing.assert_array_equal(got.float().numpy(),
