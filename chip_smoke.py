@@ -120,17 +120,23 @@ non-zero without printing the final result line):
    tiles), at whisper-medium's three calls (B=4 x H=16, G = 1, hd 64,
    bf16: the encoder's non-causal S=T=1,500, the cross-attention's
    non-causal S=448 over T=1,500 and the decoder's causal S=T=448; the
-   tensor-core kernel, partial last key and query tiles) and at phase
+   tensor-core kernel, partial last key and query tiles), at
+   deepseek-v2-236b's MLA call (B=2 x H=128, G = 1, q/k head dim 192, v
+   head dim 128, causal, S=T=512, in bfloat16 and float32, through the
+   op's zero-padded route to hd 256: the tensor-core kernel and the
+   FP32-core kernel; bytes and operations counted on the unpadded
+   operands, 2 (dk + dv) operations a visible pair and head) and at phase
    10's float32 calls (S=512, window 0 and 128; the
-   FP32-core kernel), each capped case, gemma2's, the drafts' and
-   hymba's and whisper's again with q and k scaled so that scores reach
-   the cap's range (``FLASH_SHARP``); each case
+   FP32-core kernel), each capped case, gemma2's, the drafts',
+   hymba's, whisper's and MLA's again with q and k scaled so that scores
+   reach the cap's range (``FLASH_SHARP``); each case
    prints the kernel its route picked
    (the counts must agree), with times beside the plain version and the
    library call (SDPA without a cap, the compiled ``flex_attention`` with
    a softcap score_mod with one; an FP32-core case also prints the key
    splits its plan picks, and the counts must show them); then the op's
-   gradients against plain autograd.
+   gradients against plain autograd (MLA's unequal head dims among
+   them).
 10. train parity: one ``make_train_step`` on the same float32 weights at
    gemma2-2b's widths (d 2304, 8/4 heads, hd 256, d_ff 9216) with one
    local/global pair, on the card (kernel) and on the CPU (plain); every
@@ -262,6 +268,32 @@ non-zero without printing the final result line):
    tensor-core flash kernel on all 40 layers) against ``decode_forward``
    fed the same prompt with the patches as ``inputs_embeds``, within
    ``DEC_TOL``.
+20. deepseek-v2-236b (after phase 19, pixtral freed first): (a) its
+   registered widths (d 5120, 128 heads, kv_lora 512, q_lora 1536, nope
+   128, rope 64, v 128, vocab 102,400, 2 shared experts, top-6, d_ff
+   12,288, expert d_ff 1,536) cut to 2 layers (the dense first layer
+   and one MoE layer) and 16 routed experts, so that a float32 copy fits
+   in host RAM, the same weights on the card and on the CPU:
+   ``prefill_logits`` of a 2 x 64-token prompt within 1e-5 x the largest
+   |logit| (the FP32-core flash kernel carrying both MLA layers through
+   the padded route, the plain version none), then the prompt fed by
+   ``decode_forward`` and 8 greedy steps under phase 17's lockstep rule.
+   (b) bf16 at the registered widths and 160 experts, cut to 6 layers
+   (the dense first layer and 5 MoE layers), drawn on the card from seed
+   0: ``prefill_logits`` of a 2 x 512-token prompt (the tensor-core flash
+   kernel on all 6 layers, the plain version none; its capacity drops
+   printed), then the prompt fed by ``decode_forward`` and 32 greedy
+   steps.  Capacity routing drops assignments of the prompt's last
+   tokens that the dropless decode keeps, and a bf16 router flips near-
+   ties between the two paths, so the decode path's logits after the
+   prompt are held within ``DEC_TOL`` of a prefill at a capacity that
+   drops nothing, the decode routing the prompt's rows as that prefill
+   did (``FollowPrefillRouting``; how often its own top-6 agreed is
+   printed); it prints prefill ms, decode ms a step and tokens/s, the
+   compressed cache's bytes (equal to ``roofline.cache_bytes``), peak
+   memory, and the launches and busy ms of one profiled decode step
+   beside its floor on weight bytes (the dropless step reads all 160
+   experts of every MoE layer).
 
 Then the script's time, one JSON line ``{"kernels": [...]}`` (the
 paged-attention split-KV
@@ -269,8 +301,8 @@ decode kernel, FP32-core kernel and tensor-core kernel, each on both pool
 types; the cluster matmul's general float32 kernel (K split, and on 128
 x 128 tiles), its wgmma branch and its general bfloat16 kernel; the
 flash kernel
-on the tensor cores and on the FP32 cores; phase 19's launches are in
-their counts) and, last, the result line
+on the tensor cores and on the FP32 cores; phase 19's and phase 20's
+launches are in their counts) and, last, the result line
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the
 repository's ``src/`` beside it.
 """
@@ -3331,6 +3363,257 @@ def phase_frontends() -> dict:
                 + pixtral["api"]["tc_launches"])
 
 
+# -------------------------------------------------------------- phase 20 --
+#: (a) deepseek-v2-236b's float32 lockstep: its registered widths cut to
+#: the dense first layer and one MoE layer, and to 16 routed experts, so
+#: that a float32 copy (7.8 GB) fits in host RAM beside the card's; lanes,
+#: the prompt and the greedy steps after it
+DS_LOCK_CUTS = dict(num_layers=2, moe_num_experts=16)
+DS_LOCK_B, DS_LOCK_PROMPT, DS_LOCK_STEPS = 2, 64, 8
+#: (b) bf16 at the registered widths and 160 routed experts, cut to the
+#: dense first layer and 5 MoE layers (42.5 GB of weights; all 60 layers
+#: would be ~470 GB); lanes, the prompt (prefilled, then fed by decode)
+#: and the greedy steps after it
+DS_LAYERS = 6
+DS_B, DS_PROMPT, DS_STEPS = 2, 512, 32
+
+
+class FollowPrefillRouting:
+    """While active, a prefill's MoE calls are recorded (each layer's
+    top-k expert ids, (B*S, k)); once ``decode`` is set, the decode
+    path's n-th MoE call (step t = n // layers, MoE layer n % layers)
+    routes each lane's row to the experts that prefill chose for its
+    position t, gates from the decode's own router logits at them, for
+    the first S steps, and counts the rows whose own top-k set agreed.
+    Past step S it routes on its own (it wraps
+    ``repro_torch.models.moe._route``)."""
+
+    def __init__(self, B: int, S: int):
+        self.B, self.S = B, S
+        self.prefill, self.decode = [], False
+        self.calls = self.agree = self.rows = 0
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        self._moe, self._real = MOE, MOE._route
+
+        def spy(cfg, router, xf):
+            vals, idx = self._real(cfg, router, xf)
+            if not self.decode:
+                self.prefill.append(idx)
+                return vals, idx
+            layers = len(self.prefill)
+            t, j = divmod(self.calls, layers)
+            self.calls += 1
+            if t >= self.S:
+                return vals, idx
+            forced = self.prefill[j].view(self.B, self.S, -1)[:, t]
+            same = (torch.sort(idx, dim=-1).values
+                    == torch.sort(forced, dim=-1).values).all(dim=-1)
+            self.agree += int(same.sum())
+            self.rows += idx.shape[0]
+            logits = xf.float() @ router
+            return logits.gather(1, forced), forced
+        MOE._route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._moe._route = self._real
+
+
+def deepseek_lockstep() -> dict:
+    """(a) deepseek-v2-236b's registered widths at ``DS_LOCK_CUTS`` in
+    float32, the same weights on both devices: ``prefill_logits`` of a
+    ``DS_LOCK_PROMPT``-token prompt within ``MODEL_TOL`` (1e-5) x the
+    largest |logit| (on the card the FP32-core flash kernel carrying both
+    MLA layers through the padded route, the plain version none), then
+    the prompt fed by ``decode_forward`` and ``DS_LOCK_STEPS`` greedy
+    steps, compared by ``lockstep_streams`` with each step's logits within
+    twice that."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              param_dtype="float32", **DS_LOCK_CUTS)
+    label, tol = "lockstep deepseek-v2-236b", MODEL_TOL[torch.float32]
+    t0 = time.perf_counter()
+    ref_model = M.init_params(cfg, seed=0, device="cpu")
+    model = copy.deepcopy(ref_model).to("cuda")
+    init_s = time.perf_counter() - t0
+    prompt = recurrent_prompt(cfg, DS_LOCK_B, DS_LOCK_PROMPT, 27, "cpu")
+    n0, tc0, plain0 = FK.launches.n, FK.tc_launches.n, FO.plain_forwards.n
+    with torch.no_grad():
+        a = M.prefill_logits(cfg, model, {"tokens": prompt.cuda()})
+        torch.cuda.synchronize()
+        launches, tc = FK.launches.n - n0, FK.tc_launches.n - tc0
+        plain = FO.plain_forwards.n - plain0
+        b = M.prefill_logits(cfg, ref_model, {"tokens": prompt})
+    prefill_diff, gate = logits_agree([a[:, 0], b[:, 0]], torch.float32,
+                                      f"{label} prefill", tol)
+    check(launches == cfg.num_layers and tc == 0 and plain == 0,
+          f"{label}: prefill made {launches} flash launches ({tc} on the "
+          f"tensor cores) and {plain} plain forwards on the card; want "
+          f"{cfg.num_layers}, 0 and 0")
+    ta, ra, _ = greedy_decode(cfg, model, prompt.cuda(), DS_LOCK_STEPS)
+    tb, rb, _ = greedy_decode(cfg, ref_model, prompt, DS_LOCK_STEPS)
+    flips, rel = lockstep_streams(label, (ta, ra), (tb, rb), DS_LOCK_PROMPT,
+                                  tol, 2 * tol)
+    row = dict(arch=cfg.name, layers=cfg.num_layers,
+               experts=cfg.moe_num_experts, init_s=init_s,
+               prefill_max_abs_diff=prefill_diff, prefill_gate=gate,
+               decode_rel_diff=rel, flips=flips,
+               fp32_core_launches=launches, tokens=ta)
+    print(f"{label}: {cfg.num_layers} layers, {cfg.moe_num_experts} "
+          f"experts; prefill logits max |diff| {prefill_diff:.3g} <= "
+          f"{gate:.3g}; {DS_LOCK_STEPS} greedy steps x {DS_LOCK_B} lanes "
+          f"after a {DS_LOCK_PROMPT}-token prompt fed by decode, flips "
+          f"excused {flips}; flash launches {launches}; each step's logits "
+          "max |diff| / max |logit| per lane: "
+          + json.dumps([[float(f"{x:.3g}") for x in r] for r in rel]),
+          flush=True)
+    del model, ref_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def deepseek_full() -> dict:
+    """(b) deepseek-v2-236b at the registered widths and 160 experts, cut
+    to ``DS_LAYERS`` layers, bf16, drawn on the card from seed 0:
+    ``prefill_logits`` of ``DS_B`` x ``DS_PROMPT`` tokens (timed, the
+    tensor-core flash kernel carrying every MLA layer, the plain version
+    none; its capacity drops counted), then the prompt fed by
+    ``decode_forward`` and ``DS_STEPS`` greedy steps.  The decode path's
+    logits after the prompt are held within ``DEC_TOL`` x the largest of
+    a prefill at capacity factor E / k (no assignment drops), the decode
+    routing the prompt's rows to that prefill's experts
+    (``FollowPrefillRouting``).  It prints the compressed cache's bytes
+    beside ``roofline.cache_bytes``, peak memory, and the launches and
+    busy ms of one profiled decode step at a full cache beside the step's
+    floor on weight bytes."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.core import roofline as R
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"),
+                              num_layers=DS_LAYERS)
+    B, P, steps = DS_B, DS_PROMPT, DS_STEPS
+    resident = torch.cuda.memory_allocated()
+    check(resident < 4 << 30, f"phase 20: {resident} bytes still allocated "
+                              "before deepseek-v2-236b's weights")
+    torch.cuda.reset_peak_memory_stats()
+    tc0 = FK.tc_launches.n
+    t0 = time.perf_counter()
+    model = M.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    table = model.embed["table"]
+    row = dict(arch=cfg.name, layers=cfg.num_layers,
+               experts=cfg.moe_num_experts, batch=B, prompt=P,
+               init_s=time.perf_counter() - t0,
+               weight_bytes=sum(p.numel() * p.element_size()
+                                for p in model.parameters()),
+               init_peak_bytes=torch.cuda.max_memory_allocated())
+    print(f"init: deepseek-v2-236b x {cfg.num_layers} layers bf16 weights "
+          f"in {row['init_s']:.2f} s, {row['weight_bytes']} bytes",
+          flush=True)
+    prompt = recurrent_prompt(cfg, B, P, 28)
+    batch = {"tokens": prompt}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    prefill_s = []
+    with RouteRecorder() as rec:     # the first call also warms up
+        logits, dt = timed(lambda: M.prefill_logits(cfg, model, batch))
+    prefill_s.append(dt)
+    dropped = [c.dropped() for c in rec.calls]
+    before = (FK.launches.n, FK.tc_launches.n, FO.plain_forwards.n)
+    logits, dt = timed(lambda: M.prefill_logits(cfg, model, batch))
+    prefill_s.append(dt)
+    launches, tc, plain = (c.n - b for c, b in zip(
+        (FK.launches, FK.tc_launches, FO.plain_forwards), before))
+    check(launches == tc == cfg.num_layers and plain == 0,
+          f"{cfg.name} prefill: flash launches {launches}, tensor-core "
+          f"{tc}, plain forwards {plain}; want {cfg.num_layers}, "
+          f"{cfg.num_layers}, 0")
+    check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
+          and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.name} prefill logits {tuple(logits.shape)}")
+    nodrop = dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.moe_num_experts / cfg.moe_top_k)
+    follow = FollowPrefillRouting(B, P)
+    with follow:
+        want, _ = timed(lambda: M.prefill_logits(nodrop, model, batch))
+        follow.decode = True
+        t0 = time.perf_counter()
+        toks, rows, step_s = greedy_decode(cfg, model, prompt, steps)
+        decode_total = time.perf_counter() - t0
+    check(follow.rows == B * P * (cfg.num_layers - 1),
+          f"{cfg.name}: {follow.rows} decode rows followed the prefill's "
+          f"routing, want {B * P * (cfg.num_layers - 1)}")
+    diff, gate = logits_agree([rows[0], want[:, 0].cpu()], torch.float32,
+                              f"{cfg.name} decode vs prefill", DEC_TOL)
+    check(all(0 <= t < cfg.vocab_size for ts in toks for t in ts),
+          f"{cfg.name}: greedy tokens out of range")
+    T = P + steps
+    cache = M.init_cache(cfg, B, T)
+    fill_decode_cache(cfg, cache, T - 1, 29)
+    held = sum(t.numel() * t.element_size() for k in ("c", "rope")
+               for t in cache[k])
+    roof = R.cache_bytes(cfg, ShapeSpec("deepseek_decode", T, B, "decode"))
+    check(held == roof,
+          f"{cfg.name}: the cache holds {held} bytes, the roofline counts "
+          f"{roof}")
+    tok = torch.tensor(toks[-1], dtype=torch.int32, device="cuda")[:, None]
+    pos = torch.full((B,), T - 1, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        (step_logits, _), step_launches, busy_ms = count_launches(
+            lambda: M.decode_forward(cfg, model, cache, tok, pos))
+    check(bool(torch.isfinite(step_logits).all()),
+          f"{cfg.name}: the profiled decode step's logits are not finite")
+    read = row["weight_bytes"] - table.numel() * table.element_size() \
+        + B * cfg.d_model * table.element_size()
+    step_ms = statistics.median(step_s) * 1e3
+    row.update(prefill_s=prefill_s, prefill_dropped=dropped,
+               prefill_flash_launches=launches, prefill_tc_launches=tc,
+               decode_vs_prefill=dict(max_abs_diff=diff, gate=gate,
+                                      rel=diff / gate * DEC_TOL),
+               decode_vs_dropping_prefill=rel_diff(rows[0], logits[:, 0]),
+               decode_own_routing_agreed=[follow.agree, follow.rows],
+               decode_total_s=decode_total, decode_step_ms_median=step_ms,
+               decode_tokens_per_s=B / (step_ms * 1e-3),
+               decode_tokens=[t for t in toks[:4]], cache_bytes_held=held,
+               cache_bytes_roofline=roof, profiled_step=dict(
+                   launches=step_launches, busy_ms=busy_ms,
+                   weight_bytes_read=read,
+                   floor_ms=read / HBM_BYTES_PER_S * 1e3),
+               tc_launches=FK.tc_launches.n - tc0,
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del cache, model, logits, want, step_logits, table
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"deepseek full: {cfg.name} " + json.dumps(row), flush=True)
+    return row
+
+
+def phase_deepseek() -> dict:
+    """(a) the float32 lockstep, then (b) the bf16 model at the cut
+    depth."""
+    lock = deepseek_lockstep()
+    full = deepseek_full()
+    return dict(lock=lock, full=full,
+                fp32_core_launches=lock["fp32_core_launches"],
+                tc_launches=full["tc_launches"])
+
+
 # --------------------------------------------------------------- phase 7 --
 def matmul_case(timer: Timer, m: int, k: int, n: int, dtype: torch.dtype,
                 seed: int = 0, offset: bool = False) -> dict:
@@ -3623,30 +3906,47 @@ WHISPER_FLASH = [((64, 1500, 1500, 64), False), ((64, 448, 1500, 64), False),
                  ((64, 448, 448, 64), True)]
 
 
+
 def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
                dtype: torch.dtype, causal: bool, window: int, cap: float,
-               groups: int = 1, qk: float = 0.3, seed: int = 0) -> dict:
+               groups: int = 1, qk: float = 0.3, seed: int = 0,
+               dv: int = 0) -> dict:
     """One case of phase 9: the flash kernel against its plain version
     (K/V repeated by ``groups`` for it), then timed beside the plain
     version and the library call (``flash_library``, itself held against
     the plain version and its error recorded), with its bytes, operations
-    (4 hd per visible (query, key) pair per head) and roofline bound.  q
-    and k are N(0, qk^2): scores have std qk^2 (0.09 at the default, as
-    tests/test_kernels.py draws them; 16 at ``FLASH_SHARP``, where the
-    cap bites and the softmax is peaky).  v is N(0, 1)."""
+    (2 (d + dv) per visible (query, key) pair per head: 4 hd where v's
+    head dim is q's) and roofline bound.  q and k are N(0, qk^2): scores
+    have std qk^2 (0.09 at the default, as tests/test_kernels.py draws
+    them; 16 at ``FLASH_SHARP``, where the cap bites and the softmax is
+    peaky).  v is N(0, 1), of head dim ``dv`` (``d`` if 0); where that
+    is not ``d`` the op (``ops.flash_attention``) runs and is timed whole,
+    the kernel on q, k and v zero-padded to ``ops.padded_head_dim`` at
+    the scale 1/sqrt(d), the plain version and the library call on the
+    unpadded operands; the pads and the kernel on padded operands are
+    also timed alone."""
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
     from repro_torch.kernels.flash_attention import ref as FR
+    dv = dv or d
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = (torch.randn(BH, S, d, generator=g, device="cuda") * qk).to(dtype)
     k = (torch.randn(BH // groups, T, d, generator=g, device="cuda")
          * qk).to(dtype)
-    v = torch.randn(BH // groups, T, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(BH // groups, T, dv, generator=g, device="cuda").to(dtype)
     dt = str(dtype).replace("torch.", "")
-    route = FK.route(dtype, d)
-    name = (f"flash BH={BH} S={S} T={T} d={d} G={groups} {dt} "
-            f"causal={causal} window={window} cap={cap} qk={qk}")
+    hd = FO.padded_head_dim(d, dv)
+    route = FK.route(dtype, hd)
+    name = (f"flash BH={BH} S={S} T={T} d={d}" + (f" dv={dv} (padded to "
+                                                  f"{hd})" if dv != d else "")
+            + f" G={groups} {dt} causal={causal} window={window} cap={cap} "
+            f"qk={qk}")
 
     def kernel():
+        if dv != d:
+            with torch.no_grad():
+                return FO.flash_attention(q, k, v, causal, window, cap,
+                                          groups, scale=1 / math.sqrt(d))
         return FK.flash_attention_fwd(q, k, v, causal=causal, window=window,
                                       cap=cap, groups=groups)
 
@@ -3655,7 +3955,7 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
             q, k.repeat_interleave(groups, 0), v.repeat_interleave(groups, 0),
             causal=causal, window=window, cap=cap)
 
-    span, splits = FK.fp32_plan(BH, S, T, d, causal, window) \
+    span, splits = FK.fp32_plan(BH, S, T, hd, causal, window) \
         if route == FK.FP32_CORES else (0, 1)
     counters = (FK.launches, FK.tc_launches, FK.split_launches)
     before = [c.n for c in counters]
@@ -3669,7 +3969,7 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
     err = (out.float() - ref.float()).abs().max().item()
     ref_max = ref.float().abs().max().item()
     tol = FLASH_TOL[dtype]
-    check(out.dtype == dtype and out.shape == q.shape,
+    check(out.dtype == dtype and tuple(out.shape) == (BH, S, dv),
           f"{name}: output {out.dtype} {tuple(out.shape)}")
     check(bool(torch.isfinite(out.float()).all()),
           f"{name}: non-finite kernel output")
@@ -3684,15 +3984,25 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
     library_err = (lib_out.float() - ref.float()).abs().max().item()
     del ref, lib_out
     ms = timer.ms(kernel)
+    parts = {}
+    if dv != d:     # the padded route's parts: the pads, the kernel alone
+        padded = FO.pad_head_dims(q, k, v)
+        parts = dict(pad_ms=timer.ms(lambda: FO.pad_head_dims(q, k, v)),
+                     padded_kernel_ms=timer.ms(lambda: FK.flash_attention_fwd(
+                         *padded, causal=causal, window=window, cap=cap,
+                         groups=groups, scale=1 / math.sqrt(d))))
+        del padded
     plain_ms = timer.ms(plain, reps=5)
     library_ms = timer.ms(library)
     pairs = int(FR.visible_mask(S, T, causal, window, "cuda").sum())
-    flops = 4 * d * BH * pairs
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 2 * (d + dv) * BH * pairs
+    nbytes = (q.numel() + k.numel() + v.numel() + BH * S * dv) \
+        * q.element_size()
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
     bound_ms = max(t_bytes, t_ops)
-    row = dict(BH=BH, S=S, T=T, d=d, groups=groups, dtype=dt,
+    row = dict(BH=BH, S=S, T=T, d=d, dv=dv, padded_hd=hd, groups=groups,
+               dtype=dt,
                causal=causal, window=window, cap=cap, qk=qk, kernel=route,
                span_keys=span, splits=splits, max_abs_err=err,
                ref_max_abs=ref_max, tol=tol, ms=ms,
@@ -3703,9 +4013,11 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
                bytes=nbytes, flops=flops, bound_ms=bound_ms,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                share_of_bound=bound_ms / ms,
-               tflops=flops / (ms * 1e-3) / 1e12)
+               tflops=flops / (ms * 1e-3) / 1e12, **parts)
     print(f"kernel {name}: kernel={route} splits={splits} "
-          f"span_keys={span} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"span_keys={span} ms={ms:.4f} "
+          + "".join(f"{k}={v:.4f} " for k, v in parts.items())
+          + f"plain_ms={plain_ms:.4f} "
           f"library_ms={library_ms:.4f} ({row['library']}, max_abs_err "
           f"{library_err:.3g}, first call {library_first_s:.2f} s) "
           f"bytes={nbytes} flops={flops} "
@@ -3719,17 +4031,19 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
 def flash_grads():
     """The op's gradients (the kernel's forward, the recompute backward)
     against plain autograd through the plain version, on (out ** 2).sum()
-    so the forward's output enters them: the grad tests' shapes and a
-    gemma2 layer's head geometry at S=512 with its cap and a window."""
+    so the forward's output enters them: the grad tests' shapes, a
+    gemma2 layer's head geometry at S=512 with its cap and a window, and
+    MLA's q/k head dim 192 beside v's 128 (the padded route)."""
     from repro_torch.kernels.flash_attention import mha_flash
     from repro_torch.kernels.flash_attention import ref as FR
     worst = 0.0
-    for (B, S, H, Kv, hd, window, cap) in ((2, 128, 2, 2, 32, 0, 0.0),
-                                           (2, 128, 4, 2, 32, 0, 0.0),
-                                           (1, 512, 8, 4, 256, 128, 50.0)):
+    for (B, S, H, Kv, hd, dv, window, cap) in (
+            (2, 128, 2, 2, 32, 32, 0, 0.0), (2, 128, 4, 2, 32, 32, 0, 0.0),
+            (1, 512, 8, 4, 256, 256, 128, 50.0),
+            (2, 128, 4, 4, 192, 128, 0, 0.0)):
         g = torch.Generator(device="cuda").manual_seed(B * S + H)
-        base = [torch.randn(B, S, h, hd, generator=g, device="cuda") * sc
-                for h, sc in ((H, 0.3), (Kv, 0.3), (Kv, 1.0))]
+        base = [torch.randn(B, S, h, e, generator=g, device="cuda") * sc
+                for h, e, sc in ((H, hd, 0.3), (Kv, hd, 0.3), (Kv, dv, 1.0))]
         grads = []
         for use_kernel in (True, False):
             ts = [t.clone().requires_grad_(True) for t in base]
@@ -3738,7 +4052,7 @@ def flash_grads():
             else:
                 G = H // Kv
                 qf = ts[0].transpose(1, 2).reshape(B * H, S, hd)
-                kf, vf = (t.transpose(1, 2).reshape(B * Kv, S, hd)
+                kf, vf = (t.transpose(1, 2).reshape(B * Kv, S, -1)
                           .repeat_interleave(G, 0) for t in ts[1:])
                 out = FR.flash_attention_ref(qf, kf, vf, causal=True,
                                              window=window, cap=cap)
@@ -3749,8 +4063,8 @@ def flash_grads():
             worst = max(worst, err)
             check(torch.allclose(a, b, rtol=FLASH_GRAD_TOL,
                                  atol=FLASH_GRAD_TOL),
-                  f"flash grads B={B} S={S} H={H} Kv={Kv} hd={hd}: max "
-                  f"|err| {err}")
+                  f"flash grads B={B} S={S} H={H} Kv={Kv} hd={hd} dv={dv}: "
+                  f"max |err| {err}")
     print(f"flash grads vs plain autograd: max_abs_err={worst:.3g} "
           f"tol={FLASH_GRAD_TOL}", flush=True)
     return worst
@@ -3810,6 +4124,18 @@ def flash_cases(timer: Timer, draft: tuple) -> dict:
                for qk in (0.3, FLASH_SHARP)]
     check(all(c["kernel"] == "tensor_cores" for c in whisper),
           "whisper-medium's bf16 cases must run on the tensor cores")
+    # deepseek-v2-236b's MLA (phase 20's prefill): B=2 x H=128 flat heads
+    # (G = 1), q/k head dim 192, v 128, causal, S=T=512, in both types
+    # (bf16 on the tensor cores, float32 on the FP32 cores, both at the
+    # padded hd 256)
+    mla = [flash_case(timer, DS_B * 128, DS_PROMPT, DS_PROMPT, 192, dtype,
+                      True, 0, 0.0, qk=qk, dv=128)
+           for dtype in (torch.bfloat16, torch.float32)
+           for qk in (0.3, FLASH_SHARP)]
+    check(all(c["kernel"] == ("tensor_cores" if c["dtype"] == "bfloat16"
+                              else "fp32_cores") for c in mla)
+          and all(c["padded_hd"] == 256 for c in mla),
+          "MLA's flash calls must take the padded route to hd 256")
     # the float32 calls phase 10's CUDA step makes (gemma2-2b widths, S
     # 512, its global and its local layer): the FP32-core kernel's path
     small = [flash_case(timer, TRAIN_SMALL_B * 8, TRAIN_SMALL_S,
@@ -3820,8 +4146,8 @@ def flash_cases(timer: Timer, draft: tuple) -> dict:
               if c["dtype"] == "float32"),
           "float32 cases must run on the FP32 cores")
     return dict(cases=cases + sharp + gemma + drafts + hymba + whisper
-                + small, gemma=gemma, drafts=drafts, hymba=hymba,
-                whisper=whisper, small=small,
+                + mla + small, gemma=gemma, drafts=drafts, hymba=hymba,
+                whisper=whisper, mla=mla, small=small,
                 grad_max_abs_err=flash_grads())
 
 
@@ -4141,6 +4467,10 @@ def main() -> int:
     done("phase 19")
     gc.collect()
     torch.cuda.empty_cache()
+    deepseek = phase_deepseek()
+    done("phase 20")
+    gc.collect()
+    torch.cuda.empty_cache()
     moe_serve, moe_serve8 = phase_moe_serve()
     done("phase 16")
     gc.collect()
@@ -4269,19 +4599,22 @@ def main() -> int:
     # global (window 0) layer, its error the largest of gemma2's four
     # cases (both scales, both windows), phase 13's draft cases, hymba's
     # and whisper's, its launches phase 12's, phase 13's draft forwards,
-    # phase 17's hymba prefills and phase 19's whisper and pixtral
-    # calls; on the FP32 cores: phase 10's float32 global layer, its
-    # error the largest of its float32 cases, its launches phase 10's,
-    # phase 17's float32 hymba lockstep prefills and phase 19 (a)'s
-    # float32 whisper
+    # phase 17's hymba prefills, phase 19's whisper and pixtral calls and
+    # phase 20 (b)'s MLA prefills; on the FP32 cores: phase 10's float32
+    # global layer, its error the largest of its float32 cases (MLA's
+    # among them), its launches phase 10's, phase 17's float32 hymba
+    # lockstep prefills, phase 19 (a)'s float32 whisper and phase 20
+    # (a)'s float32 MLA prefill
     for name, kernel, head, launches, split in (
             ("flash_attention_tc", "tensor_cores", flash["gemma"][0],
              train["flash_tc_launches"] + frontdoor["flash_tc_launches"]
-             + recurrent["tc_launches"] + frontends["tc_launches"], 0),
+             + recurrent["tc_launches"] + frontends["tc_launches"]
+             + deepseek["tc_launches"], 0),
             ("flash_attention", "fp32_cores", flash["small"][0],
              parity_train["flash_fp32_core_launches"]
              + recurrent["fp32_core_launches"]
-             + frontends["fp32_core_launches"],
+             + frontends["fp32_core_launches"]
+             + deepseek["fp32_core_launches"],
              parity_train["flash_fp32_split_launches"])):
         own = [c for c in flash["cases"] if c["kernel"] == kernel]
         kernels.append({
@@ -4292,7 +4625,9 @@ def main() -> int:
             "launches": launches, "split_launches": split,
             "max_abs_err": max(c["max_abs_err"] for c in (
                 flash["gemma"] + flash["drafts"] + flash["hymba"]
-                + flash["whisper"] if kernel == "tensor_cores" else own)),
+                + flash["whisper"] + [c for c in flash["mla"]
+                                      if c["kernel"] == kernel]
+                if kernel == "tensor_cores" else own)),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],

@@ -6,9 +6,11 @@ whose local/global layers the paged server refuses, as the reference's
 does), the routed-expert decoder olmoe-1b-7b, the patch-frontend VLM
 pixtral-12b (served as a text decoder, as the reference serves it), and
 the recurrent families xlstm-350m (mLSTM/sLSTM) and hymba-1.5b
-(attention beside Mamba) and the encoder-decoder whisper-medium, which
-train and decode through ``models.model`` but are not served by the
-paged engine.  deepseek-v2-236b (MLA) is not listed yet.
+(attention beside Mamba), the encoder-decoder whisper-medium and
+deepseek-v2-236b (MLA attention, a dense first layer before routed and
+shared experts), which train and decode through ``models.model`` but are
+not served by the paged engine.  That is every arch of the reference's
+registry.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ _MODULES = {
     "minitron-8b": "repro_torch.configs.minitron_8b",
     "qwen3-32b": "repro_torch.configs.qwen3_32b",
     "hymba-1.5b": "repro_torch.configs.hymba_1p5b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "whisper-medium": "repro_torch.configs.whisper_medium",
 }

@@ -12,22 +12,37 @@ summed back onto it.  That backward is the reference's XLA backward, not
 a Pallas kernel, so it stays plain PyTorch: it is the one place where the
 plain version runs on the card (counted by :data:`backward_recomputes`).
 
+v may have its own head dim ``dv`` beside q and k's ``dk`` (MLA's 128
+beside 192; the reference's ``attend_fullseq`` takes that, its Pallas
+kernel does not), and the output is ``(..., dv)``.  The kernel takes one
+head dim from :data:`kernel.HEAD_DIMS` for q, k and v, so a CUDA call
+with ``dk != dv``, or with a ``dk`` the kernel lacks, runs on q, k and v
+zero-padded along the head dim to the smallest of those at least
+``max(dk, dv)`` (:func:`pad_head_dims`), at the unpadded scale, and its
+output is sliced back to ``dv``.  That is exact: zero columns add
+nothing to q·k, and P·V's padded columns are dropped.  A call no head
+dim of the kernel covers raises; nothing falls back to the plain
+version.  The backward recomputes on the unpadded tensors.
+
 Deliberate differences: the reference asserts that its 128-row tiles
 divide S and T; the kernel masks partial tiles, so any S and T are
 accepted.  ``interpret`` has no meaning here and is not taken; ``scale``
-(the kernel's, default ``1/sqrt(d)``) is.
+(default ``1/sqrt(dk)``) is.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.launch import LaunchCounter
 
-__all__ = ["flash_attention", "mha_flash", "flash_attention_ref"]
+__all__ = ["flash_attention", "mha_flash", "flash_attention_ref",
+           "pad_head_dims"]
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -37,10 +52,39 @@ plain_forwards = LaunchCounter()
 backward_recomputes = LaunchCounter()
 
 
+def padded_head_dim(dk: int, dv: int) -> int:
+    """The head dim the kernel runs a call of q/k head dim ``dk`` and v
+    head dim ``dv`` at: ``dk`` itself where ``dk == dv`` and the kernel
+    has it, else the smallest of :data:`kernel.HEAD_DIMS` at least
+    ``max(dk, dv)`` (256 for MLA's 192 / 128)."""
+    if dk == dv and dk in K.HEAD_DIMS:
+        return dk
+    for d in K.HEAD_DIMS:
+        if d >= max(dk, dv):
+            return d
+    raise ValueError(f"head dims q/k {dk}, v {dv}: the kernel takes at "
+                     f"most {K.HEAD_DIMS[-1]}")
+
+
+def pad_head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """q, k and v zero-padded along the head dim (the last) to
+    :func:`padded_head_dim` of their own (the tensors themselves where
+    that is no change)."""
+    d = padded_head_dim(q.shape[-1], v.shape[-1])
+    return tuple(t if t.shape[-1] == d else F.pad(t, (0, d - t.shape[-1]))
+                 for t in (q, k, v))
+
+
 def _forward(q, k, v, causal, window, cap, groups, scale):
     if q.device.type == "cuda":
-        return K.flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                     cap=cap, scale=scale, groups=groups)
+        dk, dv = q.shape[-1], v.shape[-1]
+        sc = scale if scale is not None else 1.0 / math.sqrt(dk)
+        qp, kp, vp = pad_head_dims(q, k, v)
+        out = K.flash_attention_fwd(qp, kp, vp, causal=causal,
+                                    window=window, cap=cap, scale=sc,
+                                    groups=groups)
+        return out if out.shape[-1] == dv else out[..., :dv]
     if q.device.type == "cpu":
         plain_forwards.n += 1
         if groups > 1:
@@ -80,14 +124,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0, cap: float = 0.0,
                     groups: int = 1, *,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q: (BH, S, d); k/v: (BH // groups, T, d) — heads pre-flattened,
-    KV-major (query head ``b`` reads KV head ``b // groups``).  Returns
-    (BH, S, d) in q's type; differentiable in q, k and v."""
+    """q: (BH, S, dk); k: (BH // groups, T, dk); v: (BH // groups, T, dv)
+    — heads pre-flattened, KV-major (query head ``b`` reads KV head
+    ``b // groups``).  Returns (BH, S, dv) in q's type; differentiable in
+    q, k and v."""
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: float32 "
                         "or bfloat16, one type")
-    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape \
-            or k.shape[2] != q.shape[2]:
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 \
+            or v.shape[:2] != k.shape[:2] or k.shape[2] != q.shape[2]:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if groups < 1 or q.shape[0] != k.shape[0] * groups:
@@ -103,17 +148,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def mha_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0, cap: float = 0.0,
               scale: Optional[float] = None) -> torch.Tensor:
-    """(B,S,H,hd) x (B,T,Kv,hd) GQA wrapper -> (B,S,H,hd).
+    """(B,S,H,dk) x (B,T,Kv,dk) x (B,T,Kv,dv) GQA wrapper -> (B,S,H,dv).
 
     The shared KV head is indexed inside the kernel: flat query head
     ``b*H + kv*G + g`` reads KV row ``b*Kv + kv = (b*H + kv*G + g) // G``,
     so the G-fold expansion never exists in device memory in the
     forward."""
-    B, S, H, hd = q.shape
-    T, Kv = k.shape[1], k.shape[2]
+    B, S, H, dk = q.shape
+    T, Kv, dv = k.shape[1], k.shape[2], v.shape[3]
     G = H // Kv
-    qf = q.transpose(1, 2).reshape(B * H, S, hd)
-    kf = k.transpose(1, 2).reshape(B * Kv, T, hd)
-    vf = v.transpose(1, 2).reshape(B * Kv, T, hd)
+    qf = q.transpose(1, 2).reshape(B * H, S, dk)
+    kf = k.transpose(1, 2).reshape(B * Kv, T, dk)
+    vf = v.transpose(1, 2).reshape(B * Kv, T, dv)
     out = flash_attention(qf, kf, vf, causal, window, cap, G, scale=scale)
-    return out.reshape(B, H, S, hd).transpose(1, 2)
+    return out.reshape(B, H, S, dv).transpose(1, 2)

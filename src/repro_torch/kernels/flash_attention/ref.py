@@ -39,7 +39,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         cap: float = 0.0, scale: Optional[float] = None
                         ) -> torch.Tensor:
-    """q: (BH,S,d); k/v: (BH,T,d).  Returns (BH,S,d) in v's type."""
+    """q: (BH,S,dk); k: (BH,T,dk); v: (BH,T,dv).  Returns (BH,S,dv) in
+    v's type; ``scale`` defaults to ``1/sqrt(dk)``."""
     BH, S, d = q.shape
     T = k.shape[1]
     sc = scale if scale is not None else 1.0 / math.sqrt(d)

@@ -1,7 +1,9 @@
-"""GQA attention, the port of ``repro.models.attention``: full-sequence
+"""Attention, the port of ``repro.models.attention``: GQA full-sequence
 (train / prefill / encoder / cross-attention: ``attend_fullseq``,
 ``gqa_fullseq``, ``gqa_make_kv``) and one-token decode against a dense
-cache (``attend_decode``, ``gqa_decode``).
+cache (``attend_decode``, ``gqa_decode``); deepseek-v2's MLA
+full-sequence (``mla_fullseq``) and absorbed decode against its
+compressed cache (``mla_decode``).
 
 The reference computes full-sequence attention as an exact chunked XLA
 scan, which it calls the XLA-level analogue of its flash kernel (both
@@ -12,14 +14,19 @@ top-left-aligned iotas.  Positions matter only under a causal mask or a
 window, so a call that has neither (whisper's encoder and its
 cross-attention) takes any positions; a causal or windowed call takes
 ``arange(S)`` / ``arange(T)`` (``None``, as ``forward_fullseq`` passes
-them) and raises ``NotImplementedError`` for others.  MLA raises until
-its family is ported.
+them) and raises ``NotImplementedError`` for others.  MLA's full-sequence
+attention goes through the same op with q/k head dim ``nope + rope``
+(192) and v head dim ``v_head`` (128), each of the H heads its own KV
+head (G = 1), the roped key shared by the heads broadcast over them.
+Its projections are plain matrix products, as the reference's are XLA
+einsums.
 
 Decode attention over the dense (linear or ring) cache of
 ``models.model.init_cache`` is plain PyTorch, as the reference computes
 it in XLA: scores in float32, a mask from the absolute position each
-slot holds.  The paged engine's decode attention is the paged kernel's
-(``runtime/server.py``).
+slot holds.  So is MLA's absorbed decode over its compressed cache
+(scores against ``c`` and the shared roped key, float32).  The paged
+engine's decode attention is the paged kernel's (``runtime/server.py``).
 """
 from __future__ import annotations
 
@@ -186,3 +193,87 @@ def gqa_decode(cfg: ArchConfig, p, x: torch.Tensor, pos: torch.Tensor,
                         k_positions=k_positions, window=window,
                         cap=cfg.attn_softcap)
     return out_proj(p, out), k_cache, v_cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2)
+# ---------------------------------------------------------------------------
+
+def _mla_scale(cfg: ArchConfig) -> float:
+    return 1.0 / math.sqrt(cfg.mla_qk_nope_dim + cfg.mla_qk_rope_dim)
+
+
+def _mla_q(cfg: ArchConfig, p, x: torch.Tensor, positions: torch.Tensor):
+    """The low-rank query: (B,S,H,nope) and (B,S,H,rope), the latter roped
+    at ``positions`` ((S,) or (B,S))."""
+    dn = cfg.mla_qk_nope_dim
+    cq = rms_head_norm(p["q_norm"], x @ p["w_dq"], cfg.norm_eps)
+    q = project_heads(cq, p["w_uq"])                     # (B,S,H,dn+dr)
+    pos = positions if positions.dim() == 2 else positions[None, :]
+    return q[..., :dn], rope(q[..., dn:], pos, cfg.rope_theta)
+
+
+def mla_compress_kv(cfg: ArchConfig, p, x: torch.Tensor,
+                    positions: torch.Tensor):
+    """(B,S,r_kv) normed compressed KV and the (B,S,rope) roped key the
+    heads share."""
+    r_kv = cfg.mla_kv_lora_rank
+    ckv = x @ p["w_dkv"]                                  # (B,S,r_kv+dr)
+    c = rms_head_norm(p["kv_norm"], ckv[..., :r_kv], cfg.norm_eps)
+    pos = positions if positions.dim() == 2 else positions[None, :]
+    k_rope = rope(ckv[..., None, r_kv:], pos, cfg.rope_theta)[..., 0, :]
+    return c, k_rope
+
+
+def mla_fullseq(cfg: ArchConfig, p, x: torch.Tensor,
+                positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Training / prefill MLA of one layer: (B,S,d) -> (B,S,d), causal;
+    ``positions`` ``None`` means ``arange(S)``.  Per-head K and V are
+    decompressed from ``c`` and attend through the flash op at q/k head
+    dim ``nope + rope`` and v head dim ``v_head``."""
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    pos = positions if positions is not None else torch.arange(
+        S, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(cfg, p, x, pos)
+    c, k_rope = mla_compress_kv(cfg, p, x, pos)
+    k_nope = project_heads(c, p["w_uk"])                  # (B,S,H,dn)
+    v = project_heads(c, p["w_uv"])                       # (B,S,H,dv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, k_rope.shape[-1])], dim=-1)
+    out = attend_fullseq(q, k, v, q_positions=positions,
+                         k_positions=positions, causal=True,
+                         scale=_mla_scale(cfg))
+    return out_proj(p, out)
+
+
+def mla_decode(cfg: ArchConfig, p, x: torch.Tensor, pos: torch.Tensor,
+               c_cache: torch.Tensor, rope_cache: torch.Tensor,
+               slot: torch.Tensor, k_positions: torch.Tensor):
+    """Absorbed-matrix MLA decode against the compressed cache.
+
+    x: (B,1,d); c_cache: (B,T,r_kv); rope_cache: (B,T,rope).  The token's
+    ``c`` and roped key are written at ``slot`` in place; scores are
+    taken in compressed space (``q_c = q_nope @ W_uk``, float32 against
+    ``c`` plus the roped part), ``ctx_c = probs @ c`` and ``v = ctx_c @
+    W_uv``: the reference's serving formulation, 576 cached values a token
+    and layer.  Returns (out, c_cache, rope_cache)."""
+    B = x.shape[0]
+    q_nope, q_rope = _mla_q(cfg, p, x, pos[:, None])      # (B,1,H,*)
+    c_new, kr_new = mla_compress_kv(cfg, p, x, pos[:, None])
+    rows = torch.arange(B, device=x.device)
+    c_cache[rows, slot] = c_new[:, 0]
+    rope_cache[rows, slot] = kr_new[:, 0]
+    # absorb W_uk: (B,H,dn) x (r,H,dn) -> (B,H,r)
+    q_c = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], p["w_uk"])
+    s = (torch.matmul(q_c.float(), c_cache.float().transpose(1, 2))
+         + torch.matmul(q_rope[:, 0].float(),
+                        rope_cache.float().transpose(1, 2))) \
+        * _mla_scale(cfg)                                  # (B,H,T)
+    mask = (k_positions <= pos[:, None])[:, None, :]
+    s = torch.where(mask, s, s.new_full((), NEG_INF))
+    pr = torch.softmax(s, dim=-1).to(c_cache.dtype)
+    ctx_c = torch.matmul(pr, c_cache)                      # (B,H,r)
+    out = torch.einsum("bhr,rhv->bhv", ctx_c, p["w_uv"])   # (B,H,dv)
+    return out_proj(p, out[:, None]), c_cache, rope_cache

@@ -11,6 +11,11 @@ norms ``pln1``/``pln2`` and the norms' ``scale`` (always float32); a
 routed-expert (MoE) layer holds ``moe.router (d,E)`` (always float32),
 ``moe.w_gate/w_up (E,d,f)`` and ``moe.w_down (E,f,d)`` in place of
 ``mlp``, and with shared experts ``moe.shared.{w_gate,w_up,w_down}``.
+An MLA layer's ``attn`` (deepseek-v2) holds ``w_dq (d,r_q)``, ``q_norm
+(r_q,)``, ``w_uq (r_q,H,nope+rope)``, ``w_dkv (d,r_kv+rope)``, ``kv_norm
+(r_kv,)``, ``w_uk (r_kv,H,nope)``, ``w_uv (r_kv,H,v)`` and ``wo
+(H,v,d)``; an MoE model with ``moe_first_dense_layers`` puts that many
+dense layers in a ``first_layers`` stack before ``layers``.
 A hymba layer (``layers/i``) holds ``ln1``, ``attn``, ``mamba`` (the
 Mamba branch, ``models.ssm``), ``bn_attn``, ``bn_ssm``, ``ln2`` and
 ``mlp``; xlstm holds two stacks, ``mlstm_layers/j/{ln1,cell}`` and
@@ -38,8 +43,9 @@ Two ways to fill it:
 
 :func:`forward_fullseq` and :func:`loss_fn` are the training path's
 forward for the dense, MoE and local/global (gemma2) transformer stacks,
-hymba, xlstm, a patch frontend's (pixtral) and the encoder-decoder
-(whisper), with per-layer activation checkpointing under
+hymba, xlstm, a patch frontend's (pixtral), the encoder-decoder
+(whisper) and MLA behind dense first layers (deepseek-v2), with
+per-layer activation checkpointing under
 ``cfg.remat_policy``.  :func:`decode_forward` is one token against a
 dense cache from :func:`init_cache`: per-layer tensors, updated in place;
 whisper's cross-attention cache comes from one :func:`encdec_cross_cache`.
@@ -68,8 +74,8 @@ from repro_torch.models import ssm as S
 EMPTY_POS = 2 ** 30
 
 #: the layer stacks a parameter path can start with
-STACKS = ("layers", "mlstm_layers", "slstm_layers", "enc_layers",
-          "dec_layers")
+STACKS = ("first_layers", "layers", "mlstm_layers", "slstm_layers",
+          "enc_layers", "dec_layers")
 #: leaves kept in float32 whatever ``param_dtype`` is, beside the norms
 #: and the MoE router (the reference's ``dtype=jnp.float32`` leaves;
 #: ``bias`` is a LayerNorm's)
@@ -83,24 +89,27 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
 
 
+def _n_first(cfg: ArchConfig) -> int:
+    """Dense layers before the MoE stack (the reference's
+    ``moe_first_dense_layers``, read only where there are experts)."""
+    return cfg.moe_first_dense_layers if cfg.moe_num_experts else 0
+
+
 def _check_params_supported(cfg: ArchConfig):
-    """The parameter layouts ported so far: GQA transformers, dense or
-    with routed experts in every layer, with or without gemma2's
-    local/global layers and post-block norms, and with a patch frontend
-    (pixtral: no leaves of its own); hymba; xlstm; the GQA
-    encoder-decoder (whisper).  MLA and dense first layers before an MoE
-    stack raise."""
-    if cfg.moe_num_experts and cfg.moe_first_dense_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: dense first layers before the MoE stack are not "
-            "ported yet")
+    """The parameter layouts ported: transformers with GQA or MLA
+    attention, dense or with routed (and shared) experts, with or without
+    dense first layers, gemma2's local/global layers and post-block norms,
+    and a patch frontend (pixtral: no leaves of its own); hymba; xlstm;
+    the GQA encoder-decoder (whisper).  MLA elsewhere raises."""
     if cfg.block_kind == "mlstm":
         return
-    if not (cfg.block_kind in ("transformer", "hymba", "encdec")
-            and cfg.attention_kind == "gqa"):
+    if not (cfg.attention_kind == "gqa" and cfg.block_kind in (
+            "transformer", "hymba", "encdec")
+            or cfg.attention_kind == "mla"
+            and cfg.block_kind == "transformer"):
         raise NotImplementedError(
-            f"{cfg.name}: only GQA decoders, hymba, xlstm and the GQA "
-            "encoder-decoder are ported")
+            f"{cfg.name}: {cfg.attention_kind} attention in a "
+            f"{cfg.block_kind} stack is not ported")
 
 
 def _check_supported(cfg: ArchConfig):
@@ -108,8 +117,19 @@ def _check_supported(cfg: ArchConfig):
     local/global layers, which the reference's server refuses too, and
     no post-block norms, which its paged forward does not apply).  A
     patch frontend's model (pixtral) is served as its text decoder: the
-    engine takes tokens, as the reference's does."""
+    engine takes tokens, as the reference's does.  MLA raises, as the
+    reference's server asserts GQA; so do dense first layers, which the
+    reference's paged forward would skip (it walks ``layers`` for every
+    layer index, and a static index past the stack is clamped)."""
     _check_params_supported(cfg)
+    if cfg.attention_kind != "gqa":
+        raise NotImplementedError(
+            f"{cfg.name}: the paged server serves GQA attention only, "
+            f"not {cfg.attention_kind}")
+    if _n_first(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the paged server does not serve dense first "
+            "layers before the MoE stack")
     if cfg.block_kind != "transformer" or cfg.local_global_period \
             or cfg.post_block_norm:
         raise NotImplementedError(
@@ -127,6 +147,10 @@ def _stacks(cfg: ArchConfig) -> Dict[str, int]:
         return {"enc_layers": cfg.encoder_layers,
                 "dec_layers": cfg.num_layers}
     if cfg.block_kind != "mlstm":
+        n_first = _n_first(cfg)
+        if n_first:
+            return {"first_layers": n_first,
+                    "layers": cfg.num_layers - n_first}
         return {"layers": cfg.num_layers}
     n_s = _n_slstm(cfg)
     out = {"mlstm_layers": cfg.num_layers - n_s}
@@ -156,6 +180,18 @@ def _gqa_shapes(cfg: ArchConfig, group: str = "attn"
         out[f"{group}/q_norm"] = (hd,)
         out[f"{group}/k_norm"] = (hd,)
     return out
+
+
+def _mla_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    d, H = cfg.d_model, cfg.num_heads
+    r_kv, r_q = cfg.mla_kv_lora_rank, cfg.mla_q_lora_rank
+    dn, dr, dv = cfg.mla_qk_nope_dim, cfg.mla_qk_rope_dim, \
+        cfg.mla_v_head_dim
+    shapes = {"w_dq": (d, r_q), "q_norm": (r_q,), "w_uq": (r_q, H, dn + dr),
+              "w_dkv": (d, r_kv + dr), "kv_norm": (r_kv,),
+              "w_uk": (r_kv, H, dn), "w_uv": (r_kv, H, dv),
+              "wo": (H, dv, d)}
+    return {f"attn/{k}": s for k, s in shapes.items()}
 
 
 def _norm_shapes(cfg: ArchConfig, name: str) -> Dict[str, Tuple[int, ...]]:
@@ -205,14 +241,16 @@ def _layer_shapes(cfg: ArchConfig, stack: str = "layers"
                 **_norm_shapes(cfg, "lnx"), **_gqa_shapes(cfg, "xattn"),
                 **_norm_shapes(cfg, "ln2"), **_mlp_shapes(cfg, "mlp",
                                                           cfg.d_ff)}
-    if stack != "layers":
+    if stack not in ("layers", "first_layers"):
         return _cell_shapes(cfg, stack)
     if cfg.block_kind == "hymba":
         return {"ln1/scale": (d,), **_gqa_shapes(cfg), **_mamba_shapes(cfg),
                 "bn_attn/scale": (d,), "bn_ssm/scale": (d,),
                 "ln2/scale": (d,), **_mlp_shapes(cfg, "mlp", cfg.d_ff)}
-    out = {"ln1/scale": (d,), **_gqa_shapes(cfg), "ln2/scale": (d,)}
-    if cfg.moe_num_experts:
+    attn = _mla_shapes(cfg) if cfg.attention_kind == "mla" \
+        else _gqa_shapes(cfg)
+    out = {"ln1/scale": (d,), **attn, "ln2/scale": (d,)}
+    if cfg.moe_num_experts and stack == "layers":
         E, f = cfg.moe_num_experts, cfg.moe_d_ff
         out["moe/router"] = (d, E)
         out["moe/w_gate"] = (E, d, f)
@@ -260,14 +298,16 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
 
 def _fan_in(cfg: ArchConfig, path: str, shape: Tuple[int, ...]) -> int:
     """The reference ParamFactory's fan-in: the first dim unless the
-    reference's parameter definition names another (``wo``: H*hd, a dense
-    ``w_down``: its ff, an expert ``w_down``: ``moe_d_ff``, sLSTM's ``r``:
-    hd, embeddings: d; Mamba's ``w_dt_up`` (dtr) and ``w_out`` (di) name
-    their first dim).  So the experts' ``w_gate``/``w_up`` (E, d, f) draw
-    with fan-in E, as the reference's do."""
+    reference's parameter definition names another (``wo (H, hd, d)``:
+    H*hd, MLA's ``(H, v, d)``: H*v, a dense ``w_down``: its ff, an expert
+    ``w_down``: ``moe_d_ff``, sLSTM's ``r``: hd, embeddings: d; Mamba's
+    ``w_dt_up`` (dtr) and ``w_out`` (di) and MLA's ``w_uq`` (r_q) and
+    ``w_uk``/``w_uv`` (r_kv) name their first dim).  So the experts'
+    ``w_gate``/``w_up`` (E, d, f) draw with fan-in E, as the reference's
+    do."""
     leaf = path.rsplit("/", 1)[-1]
     if leaf == "wo":
-        return cfg.num_heads * cfg.resolved_head_dim
+        return shape[0] * shape[1]
     if leaf == "w_down":
         return shape[-2]
     if leaf == "r":
@@ -279,7 +319,8 @@ def _fan_in(cfg: ArchConfig, path: str, shape: Tuple[int, ...]) -> int:
 
 def _is_norm(path: str) -> bool:
     leaf = path.rsplit("/", 1)[-1]
-    return leaf in ("q_norm", "k_norm") or path.endswith("scale")
+    return leaf in ("q_norm", "k_norm", "kv_norm") or \
+        path.endswith("scale")
 
 
 def _is_slstm_bias(path: str) -> bool:
@@ -331,7 +372,8 @@ def _pdict(shapes: Mapping[str, Tuple[int, ...]], dtype, device,
 
 
 class DenseDecoder(nn.Module):
-    """A model's weights: ``embed``, its layer stacks (``layers[i]``, or
+    """A model's weights: ``embed``, its layer stacks (``layers[i]``,
+    after ``first_layers[j]`` where there are dense first layers, or
     xlstm's ``mlstm_layers[j]`` and ``slstm_layers[j]``, or whisper's
     ``enc_layers[j]`` and ``dec_layers[i]`` with ``enc_norm``,
     ``enc_pos`` and ``dec_pos`` after them) and ``final_norm``.  Every
@@ -515,9 +557,10 @@ def init_cache(cfg: ArchConfig, B: int, T: int,
     * whisper: ``k``/``v`` (B, T, Kv, hd) per decoder layer (the
       self-attention cache), ``xk``/``xv`` (B, F, Kv, hd) per decoder
       layer (the cross-attention cache, zeros until
-      :func:`encdec_cross_cache` fills it) and ``kpos`` (B, T).
-
-    MLA caches raise until their family is ported.
+      :func:`encdec_cross_cache` fills it) and ``kpos`` (B, T);
+    * MLA: ``c`` (B, T, r_kv) and ``rope`` (B, T, rope) per layer (the
+      compressed cache, ``first_layers`` then ``layers``) and ``kpos``
+      (B, T).
     """
     _check_params_supported(cfg)
     dev = resolve_device(device)
@@ -557,6 +600,13 @@ def init_cache(cfg: ArchConfig, B: int, T: int,
             kv_cache(cfg.num_layers, T)
         c["xk"], c["xv"] = kv_cache(cfg.num_layers, F), \
             kv_cache(cfg.num_layers, F)
+        c["kpos"] = positions(T)
+        return c
+    if cfg.attention_kind == "mla":
+        c["c"] = [torch.zeros((B, T, cfg.mla_kv_lora_rank), dtype=dt,
+                              device=dev) for _ in range(cfg.num_layers)]
+        c["rope"] = [torch.zeros((B, T, cfg.mla_qk_rope_dim), dtype=dt,
+                                 device=dev) for _ in range(cfg.num_layers)]
         c["kpos"] = positions(T)
         return c
     if cfg.local_global_period:
@@ -617,7 +667,10 @@ def _tf_block(cfg: ArchConfig, lp, x: torch.Tensor,
               positions: Optional[torch.Tensor], *,
               window: int) -> torch.Tensor:
     h = L.norm_forward(cfg, lp["ln1"], x)
-    a = A.gqa_fullseq(cfg, lp["attn"], h, positions, window=window)
+    if cfg.attention_kind == "mla":
+        a = A.mla_fullseq(cfg, lp["attn"], h, positions)
+    else:
+        a = A.gqa_fullseq(cfg, lp["attn"], h, positions, window=window)
     if cfg.post_block_norm:
         a = L.norm_forward(cfg, lp["pln1"], a)
     x = x + a
@@ -629,6 +682,12 @@ def _tf_block(cfg: ArchConfig, lp, x: torch.Tensor,
     if cfg.post_block_norm:
         m = L.norm_forward(cfg, lp["pln2"], m)
     return x + m
+
+
+def _tf_layers(params: DenseDecoder) -> List[nn.ModuleDict]:
+    """A transformer's layers in order: ``first_layers`` (dense), then
+    ``layers``."""
+    return list(getattr(params, "first_layers", ())) + list(params.layers)
 
 
 def _layer_window(cfg: ArchConfig, i: int) -> int:
@@ -731,9 +790,9 @@ def forward_fullseq(cfg: ArchConfig, params: DenseDecoder,
     reference assumes); an encoder-decoder encodes ``frontend`` (B, F, d)
     and its decoder attends to it (the reference requires it there).  An
     arch without a frontend ignores ``frontend``, as the reference does.
-    MLA and dense first layers before an MoE stack raise until their
-    families are ported.  The reference checkpoints gemma2's [local,
-    global] pairs as one unit; here each layer is one."""
+    Dense first layers run before the MoE stack.  The reference
+    checkpoints gemma2's [local, global] pairs as one unit; here each
+    layer is one."""
     _check_params_supported(cfg)
     x = L.embed_tokens(cfg, params.embed, tokens)
     if cfg.frontend == "patch" and frontend is not None:
@@ -752,7 +811,7 @@ def forward_fullseq(cfg: ArchConfig, params: DenseDecoder,
         for lp in params.layers:
             x = block(lp, x)
     else:
-        for i, lp in enumerate(params.layers):
+        for i, lp in enumerate(_tf_layers(params)):
             block = _remat(cfg, functools.partial(
                 _tf_block, cfg, window=_layer_window(cfg, i)))
             x = block(lp, x, None)          # positions: arange(S)
@@ -846,7 +905,11 @@ def decode_forward(cfg: ArchConfig, params: DenseDecoder, cache,
     ``inputs_embeds`` (B,1,d) overrides the token embedding (a VLM's
     patch positions during prefill-by-decode).  An encoder-decoder's
     step adds ``dec_pos[pos]`` and attends, after its self-attention, to
-    every frame of the cross cache (``encdec_cross_cache``)."""
+    every frame of the cross cache (``encdec_cross_cache``).  MLA decodes
+    against its compressed cache through ``first_layers`` then
+    ``layers``, the MoE layers dropless.  A GQA model with dense first
+    layers raises: the reference's step walks ``layers`` alone for every
+    layer index."""
     _check_params_supported(cfg)
     if inputs_embeds is not None:
         x = inputs_embeds.to(device=params.device, dtype=_dtype(cfg))
@@ -896,6 +959,23 @@ def decode_forward(cfg: ArchConfig, params: DenseDecoder, cache,
             h = L.norm_forward(cfg, lp["ln2"], x)
             x = x + L.mlp_forward(cfg, lp["mlp"], h)
 
+    elif cfg.attention_kind == "mla":
+        slot = pos.long()
+        upd_pos(cache["kpos"], slot)
+        for i, lp in enumerate(_tf_layers(params)):
+            h = L.norm_forward(cfg, lp["ln1"], x)
+            a, _, _ = A.mla_decode(cfg, lp["attn"], h, pos, cache["c"][i],
+                                   cache["rope"][i], slot, cache["kpos"])
+            if cfg.post_block_norm:
+                a = L.norm_forward(cfg, lp["pln1"], a)
+            x = x + a
+            h = L.norm_forward(cfg, lp["ln2"], x)
+            if "moe" in lp:
+                m = MOE.moe_forward(cfg, lp["moe"], h, dropless=True)
+            else:
+                m = L.mlp_forward(cfg, lp["mlp"], h)
+            x = x + m
+
     elif cfg.local_global_period:
         slot_local = (pos % cache["kpos_local"].shape[1]).long()
         slot_global = pos.long()
@@ -925,6 +1005,10 @@ def decode_forward(cfg: ArchConfig, params: DenseDecoder, cache,
             x = x + m
 
     else:  # plain GQA transformer (incl. MoE: olmoe)
+        if _n_first(cfg):
+            raise NotImplementedError(
+                f"{cfg.name}: the reference's GQA decode step walks "
+                "`layers` alone, past its dense first layers")
         slot = pos.long()
         upd_pos(cache["kpos"], slot)
         for i, lp in enumerate(params.layers):

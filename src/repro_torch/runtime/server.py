@@ -219,7 +219,7 @@ class PagedServer:
         self.device = resolve_device(device)
         if engine is None:
             engine = EngineConfig()
-        if not (cfg.block_kind == "transformer" and cfg.attention_kind == "gqa"
+        if not (cfg.block_kind == "transformer"
                 and not cfg.local_global_period):
             raise ValueError("paged engine supports plain-GQA transformer "
                              "archs")

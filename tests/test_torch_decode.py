@@ -7,8 +7,9 @@ weights on both sides (``params_from_jax``) and the same numpy-seeded
 tokens:
 
 * ``param_shapes`` against the reference's parameter tree for the
-  recurrent families (every leaf, its shape and type), and the
-  reference's constant inits and fan-ins in ``init_params``;
+  recurrent families and deepseek-v2's MLA and ``first_layers`` (every
+  leaf, its shape and type), and the reference's constant inits and
+  fan-ins in ``init_params``;
 * ``init_cache`` shapes, types and fill against the reference's;
 * ``decode_forward`` step by step at T = 24 (hymba's and gemma2's
   16-slot rings wrap; whisper's cross caches filled by each side's
@@ -23,6 +24,7 @@ tokens:
 * ``input_specs`` / ``make_batch`` against the reference's specs;
 * ``python -m repro_torch.launch.quickstart --device cpu``.
 """
+import contextlib
 import dataclasses
 import functools
 import tempfile
@@ -44,7 +46,8 @@ from repro_torch.models import model as M
 from repro_torch.models import steps as ST
 
 ARCHS = ["xlstm-350m", "hymba-1.5b", "gemma2-2b", "yi-6b", "qwen3-32b",
-         "minitron-8b", "olmoe-1b-7b", "whisper-medium", "pixtral-12b"]
+         "minitron-8b", "olmoe-1b-7b", "whisper-medium", "pixtral-12b",
+         "deepseek-v2-236b"]
 BAR = 1e-5
 B, T = 2, 24
 
@@ -91,7 +94,8 @@ def test_every_family_is_registered():
     assert set(ARCHS) == set(list_archs())
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "hymba-1.5b",
+                                  "deepseek-v2-236b"])
 def test_param_shapes_cover_reference_leaves(arch):
     """Every leaf of the reference's tree, full size and smoke, in
     float32 and bfloat16: the port's paths cover it exactly, each with
@@ -119,7 +123,8 @@ def test_param_shapes_cover_reference_leaves(arch):
                         "torch.", "") == jnp.dtype(leaf.dtype).name, path
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["xlstm-350m", "hymba-1.5b",
+                                  "deepseek-v2-236b"])
 def test_init_params_constants_and_fan_in(arch):
     cfg = get_config(arch).smoke()
     model = M.init_params(cfg, seed=0, device="cpu")
@@ -153,13 +158,63 @@ def test_init_cache_matches_reference(arch):
                                           np.asarray(v, np.float32))
 
 
-def _decode_lockstep(arch, dtype, bar, eager=False):
+class _FollowReferenceRouting:
+    """While active, each MoE call of the port routes its rows to the
+    experts the reference's matching call chose (its ``lax.top_k``,
+    recorded as the reference runs op by op; the reference steps first),
+    with gates from the port's own router logits at those experts.  A row
+    whose own top-k differs must be a near-tie: the port's own k-th
+    largest logit at most :data:`ROUTE_TIE` x the row's largest |logit|
+    above the forced experts' smallest.  ``flips`` counts those rows."""
+
+    def __enter__(self):
+        from repro_torch.models import moe as TMOE
+        self._tmoe, self._t_real = TMOE, TMOE._route
+        self._j_real = jax.lax.top_k
+        self.queue, self.flips, self.rows = [], 0, 0
+
+        def j_spy(x, k):
+            vals, idx = self._j_real(x, k)
+            self.queue.append(np.asarray(idx).reshape(-1, k))
+            return vals, idx
+
+        def t_spy(cfg, router, xf):
+            vals, idx = self._t_real(cfg, router, xf)
+            forced = torch.from_numpy(np.array(self.queue.pop(0))).long()
+            logits = xf.float() @ router
+            chosen = logits.gather(1, forced)
+            for r in range(idx.shape[0]):
+                self.rows += 1
+                if set(idx[r].tolist()) == set(forced[r].tolist()):
+                    continue
+                self.flips += 1
+                gap = float(vals[r, -1] - chosen[r].min())
+                assert gap <= ROUTE_TIE * float(logits[r].abs().max()), \
+                    (r, idx[r].tolist(), forced[r].tolist(), gap)
+            return chosen, forced
+
+        jax.lax.top_k, TMOE._route = j_spy, t_spy
+        return self
+
+    def __exit__(self, *exc):
+        jax.lax.top_k, self._tmoe._route = self._j_real, self._t_real
+
+
+#: a routing near-tie, of the row's largest |router logit|: bf16 inputs
+#: (8 bits of mantissa, ~4e-3 relative) that differ by an ulp move a
+#: logit of the router's product by a few 1e-3 of the largest
+ROUTE_TIE = 2e-2
+
+
+def _decode_lockstep(arch, dtype, bar, eager=False, follow=False):
     """The reference's and the port's ``decode_forward`` over the same T
     tokens from empty caches: each step's logits within ``bar`` of the
     largest |logit|, every cache leaf within ``bar`` of its largest
     |value| (int32 positions equal).  ``eager`` runs the reference op by
     op (``jax.disable_jit``), rounding after every operation as the
-    port does."""
+    port does.  ``follow`` (with ``eager``) routes the port's MoE rows to
+    the reference's experts (:class:`_FollowReferenceRouting`).  Returns
+    the routing flips so excused (0 without ``follow``)."""
     jcfg, tcfg = (dataclasses.replace(c, param_dtype=dtype)
                   for c in _cfgs(arch))
     npp = _np_params(arch, dtype)
@@ -180,42 +235,50 @@ def _decode_lockstep(arch, dtype, bar, eager=False):
         with torch.no_grad():
             tc["xk"], tc["xv"] = M.encdec_cross_cache(
                 tcfg, model, torch.from_numpy(frames))
-    for t in range(T):
-        pos = np.full((B,), t, np.int32)
-        embeds = frames[:, t:t + 1] if jcfg.frontend == "patch" and \
-            t < jcfg.frontend_seq else None
-        with jax.disable_jit(eager):
-            jl, jc = step(jparams, jc, jnp.asarray(toks[:, t:t + 1]),
-                          jnp.asarray(pos),
-                          None if embeds is None else jnp.asarray(embeds))
-        tl, tc = M.decode_forward(
-            tcfg, model, tc, torch.from_numpy(toks[:, t:t + 1]),
-            torch.from_numpy(pos),
-            inputs_embeds=None if embeds is None
-            else torch.from_numpy(embeds))
-        jl = np.asarray(jl, np.float32)
-        assert tl.dtype == torch.float32 and tl.shape == jl.shape
-        np.testing.assert_allclose(tl.numpy(), jl, rtol=0,
-                                   atol=bar * np.abs(jl).max(),
-                                   err_msg=f"step {t}")
-        got = _port_leaves(tc)
-        for k, v in _leaves(jc):
-            k, v = jax.tree_util.keystr(k), np.asarray(v)
-            assert str(got[k].dtype).replace("torch.", "") == \
-                jnp.dtype(v.dtype).name, k
-            if v.dtype == np.int32:
-                np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
-            else:
-                v = v.astype(np.float32)
-                np.testing.assert_allclose(
-                    got[k].float().numpy(), v, rtol=0,
-                    atol=bar * max(np.abs(v).max(), 1e-30),
-                    err_msg=f"step {t} {k}")
+    assert eager or not follow, "the reference's routing is read op by op"
+    routes = _FollowReferenceRouting() if follow else None
+    with routes or contextlib.nullcontext():
+        for t in range(T):
+            pos = np.full((B,), t, np.int32)
+            embeds = frames[:, t:t + 1] if jcfg.frontend == "patch" and \
+                t < jcfg.frontend_seq else None
+            with jax.disable_jit(eager):
+                jl, jc = step(jparams, jc, jnp.asarray(toks[:, t:t + 1]),
+                              jnp.asarray(pos),
+                              None if embeds is None else jnp.asarray(embeds))
+            tl, tc = M.decode_forward(
+                tcfg, model, tc, torch.from_numpy(toks[:, t:t + 1]),
+                torch.from_numpy(pos),
+                inputs_embeds=None if embeds is None
+                else torch.from_numpy(embeds))
+            jl = np.asarray(jl, np.float32)
+            assert tl.dtype == torch.float32 and tl.shape == jl.shape
+            np.testing.assert_allclose(tl.numpy(), jl, rtol=0,
+                                       atol=bar * np.abs(jl).max(),
+                                       err_msg=f"step {t}")
+            got = _port_leaves(tc)
+            for k, v in _leaves(jc):
+                k, v = jax.tree_util.keystr(k), np.asarray(v)
+                assert str(got[k].dtype).replace("torch.", "") == \
+                    jnp.dtype(v.dtype).name, k
+                if v.dtype == np.int32:
+                    np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
+                else:
+                    v = v.astype(np.float32)
+                    np.testing.assert_allclose(
+                        got[k].float().numpy(), v, rtol=0,
+                        atol=bar * max(np.abs(v).max(), 1e-30),
+                        err_msg=f"step {t} {k}")
     if jcfg.sliding_window:
         W = jcfg.sliding_window
         kpos = tc["kpos_local" if jcfg.local_global_period else "kpos"]
         assert W < T and int(kpos.max()) == T - 1 and \
             int(kpos.min()) == T - W       # the ring wrapped
+    if not follow:
+        return 0
+    assert not routes.queue and routes.rows == T * B * sum(
+        "moe" in lp for lp in M._tf_layers(model))
+    return routes.flips
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -290,10 +353,13 @@ def test_make_batch_matches_reference_specs(shape):
 
 
 def test_decode_api_refuses_what_is_not_ported():
-    """``inputs_embeds``, the encoder-decoder layout and a patch frontend
-    are ported (their results are held against the reference in
+    """``inputs_embeds``, the encoder-decoder layout, a patch frontend and
+    MLA are ported (their results are held against the reference in
     ``test_decode_forward_matches_jax_step_by_step`` and
-    ``tests/test_torch_frontends.py``); MLA still raises."""
+    ``tests/test_torch_frontends.py``): the MLA cache holds the
+    compressed ``c``, the shared roped key ``rope`` and ``kpos``.  A GQA
+    model with dense first layers still raises in ``decode_forward``:
+    the reference's step walks ``layers`` alone."""
     cfg = get_config("yi-6b").smoke()
     model = M.init_params(cfg, device="cpu")
     cache = M.init_cache(cfg, 1, 4, "cpu")
@@ -314,13 +380,25 @@ def test_decode_api_refuses_what_is_not_ported():
         c = M.init_cache(dataclasses.replace(cfg, **kw), 1, 4, "cpu")
         assert c["kpos"].shape == (1, 4)
         assert ("xk" in c) == (kw.get("block_kind") == "encdec")
-    with pytest.raises(NotImplementedError):
-        M.init_cache(dataclasses.replace(cfg, attention_kind="mla"), 1, 4,
-                     "cpu")
+    mla = get_config("deepseek-v2-236b").smoke()
+    c = M.init_cache(mla, 1, 4, "cpu")
+    assert set(c) == {"c", "rope", "kpos"}
+    assert [tuple(t.shape) for t in c["c"]] == [
+        (1, 4, mla.mla_kv_lora_rank)] * mla.num_layers
+    assert [tuple(t.shape) for t in c["rope"]] == [
+        (1, 4, mla.mla_qk_rope_dim)] * mla.num_layers
+    assert c["kpos"].shape == (1, 4)
+    moe = dataclasses.replace(cfg, moe_num_experts=4, moe_top_k=2,
+                              moe_d_ff=32, moe_first_dense_layers=1)
+    with pytest.raises(NotImplementedError, match="first layers|layers"):
+        M.decode_forward(moe, M.init_params(moe, device="cpu"),
+                         M.init_cache(moe, 1, 4, "cpu"),
+                         torch.zeros((1, 1), dtype=torch.int32), zero)
 
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "xlstm-350m",
-                                  "whisper-medium", "pixtral-12b"])
+                                  "whisper-medium", "pixtral-12b",
+                                  "deepseek-v2-236b"])
 def test_quickstart_launcher_on_cpu(arch, monkeypatch, tmp_path, capsys):
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     out = quickstart.main(["--arch", arch, "--steps", "3", "--device",

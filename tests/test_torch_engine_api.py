@@ -190,14 +190,23 @@ def test_features_not_ported_raise(smoke, what, make):
 
 
 def test_moe_model_not_ported():
-    """MoE layers are ported (olmoe's layout builds); an MoE stack behind
-    dense first layers is not."""
+    """MoE layers are ported (olmoe's layout builds), and so is an MoE
+    stack behind dense first layers (deepseek-v2's ``first_layers``):
+    its model builds.  ``PagedServer`` refuses it, and MLA, as the
+    reference's server cannot run them (it asserts GQA and walks
+    ``layers`` alone)."""
     cfg = dataclasses.replace(get_config("yi-6b").smoke(), moe_num_experts=4,
                               moe_top_k=2, moe_d_ff=32)
     assert "moe" in init_params(cfg, device="cpu").layers[0]
-    with pytest.raises(NotImplementedError):
-        init_params(dataclasses.replace(cfg, moe_first_dense_layers=1),
-                    device="cpu")
+    first = dataclasses.replace(cfg, moe_first_dense_layers=1)
+    model = init_params(first, device="cpu")
+    assert len(model.first_layers) == 1 and len(model.layers) == 1
+    assert "mlp" in model.first_layers[0] and "moe" in model.layers[0]
+    with pytest.raises(NotImplementedError, match="first layers"):
+        PagedServer(first, model, device="cpu")
+    mla = get_config("deepseek-v2-236b").smoke()
+    with pytest.raises(NotImplementedError, match="mla"):
+        PagedServer(mla, init_params(mla, device="cpu"), device="cpu")
 
 
 def test_default_device_is_cuda(smoke):

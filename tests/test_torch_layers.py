@@ -44,7 +44,8 @@ def _eq(j, t, **tol):
 @pytest.mark.parametrize("arch", ["yi-6b", "qwen3-32b", "gemma2-2b",
                                   "minitron-8b", "olmoe-1b-7b",
                                   "xlstm-350m", "hymba-1.5b",
-                                  "whisper-medium", "pixtral-12b"])
+                                  "whisper-medium", "pixtral-12b",
+                                  "deepseek-v2-236b"])
 def test_configs_and_param_count_match_jax(arch):
     for j, t in ((j_get_config(arch), get_config(arch)),
                  (j_get_config(arch).smoke(), get_config(arch).smoke())):
@@ -52,7 +53,8 @@ def test_configs_and_param_count_match_jax(arch):
         assert param_count(t) == j_base.param_count(j)
     assert list_archs() == ["xlstm-350m", "pixtral-12b", "gemma2-2b",
                             "yi-6b", "minitron-8b", "qwen3-32b",
-                            "hymba-1.5b", "olmoe-1b-7b", "whisper-medium"]
+                            "hymba-1.5b", "deepseek-v2-236b",
+                            "olmoe-1b-7b", "whisper-medium"]
     assert {k: dataclasses.asdict(v) for k, v in SHAPES.items()} == \
         {k: dataclasses.asdict(v) for k, v in j_base.SHAPES.items()}
 
@@ -60,7 +62,8 @@ def test_configs_and_param_count_match_jax(arch):
 @pytest.mark.parametrize("arch", ["yi-6b", "qwen3-32b", "gemma2-2b",
                                   "minitron-8b", "olmoe-1b-7b",
                                   "xlstm-350m", "hymba-1.5b",
-                                  "whisper-medium", "pixtral-12b"])
+                                  "whisper-medium", "pixtral-12b",
+                                  "deepseek-v2-236b"])
 def test_params_from_jax_unstacks_exactly(arch):
     jcfg = j_get_config(arch).smoke()
     tcfg = get_config(arch).smoke()
@@ -69,8 +72,8 @@ def test_params_from_jax_unstacks_exactly(arch):
                             device="cpu")
     for path in param_shapes(tcfg):
         parts = path.split("/")
-        if parts[0] in ("layers", "mlstm_layers", "slstm_layers",
-                        "enc_layers", "dec_layers"):
+        if parts[0] in ("first_layers", "layers", "mlstm_layers",
+                        "slstm_layers", "enc_layers", "dec_layers"):
             ref = params[parts[0]][parts[2]]
             for key in parts[3:]:
                 ref = ref[key]
