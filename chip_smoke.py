@@ -294,6 +294,31 @@ non-zero without printing the final result line):
    memory, and the launches and busy ms of one profiled decode step
    beside its floor on weight bytes (the dropless step reads all 160
    experts of every MoE layer).
+21. dry-run against the card (last, after phase 12): the sharded step's
+   dry-run (``launch.dryrun``: DTensors of fake tensors on a fake
+   process group, traced in subprocesses started together at the
+   phase's start) held against the same step run on the card.  (a)
+   yi-6b ``decode_step`` at its registered widths, B=8 against a
+   32,768-slot cache, on a one-device mesh: the bytes the card's tensors
+   requested of the caching allocator once params, cache and batch are
+   placed equal the dry-run's argument bytes within 0.1%
+   (``memory_allocated``, its blocks rounded up, printed beside them),
+   ``FlopCounterMode`` over
+   the card's step equals its ``cost.flops`` exactly, and the step
+   launches no hand-written kernel.  (b) gemma2-2b's train step at
+   phase 12's cut (S=4096, B=2): argument bytes within 0.1%, the card's
+   count equals ``cost.flops - kernel_flops`` exactly (the flash
+   forward is a ctypes launch ``FlopCounterMode`` cannot see; its
+   recompute in the backward is the plain version and counts on both
+   sides), and over a second step, outside ``FlopCounterMode``,
+   ``max_memory_allocated`` (and the requested peak) less what was
+   resident before, printed beside the predicted argument + temp bytes, the tensor-core flash kernel launched twice a
+   layer and the plain forward never.  (c) yi-6b ``decode_32k`` and
+   deepseek-v2-236b ``train_4k`` at full size on the single-pod (16, 16)
+   mesh under megatron: per-device argument + temp bytes against 80 GB,
+   collective bytes and the three roofline terms at ``launch.mesh``'s
+   measured peaks and NVLink's data-sheet rate (``dryrun full:`` lines).
+   Prints the phase's seconds.
 
 Then the script's time, one JSON line ``{"kernels": [...]}`` (the
 paged-attention split-KV
@@ -301,7 +326,7 @@ decode kernel, FP32-core kernel and tensor-core kernel, each on both pool
 types; the cluster matmul's general float32 kernel (K split, and on 128
 x 128 tiles), its wgmma branch and its general bfloat16 kernel; the
 flash kernel
-on the tensor cores and on the FP32 cores; phase 19's and phase 20's
+on the tensor cores and on the FP32 cores; phases 19, 20 and 21's
 launches are in their counts) and, last, the result line
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the
 repository's ``src/`` beside it.
@@ -4374,6 +4399,223 @@ def phase_train_full() -> dict:
     return row
 
 
+# -------------------------------------------------------------- phase 21 --
+#: phase 21's one-device cells: yi-6b decode (B=8 against 32,768 slots)
+#: and gemma2-2b train at phase 12's cut
+DRYRUN_DECODE = ("yi-6b", 32_768, 8, "decode")
+DRYRUN_TRAIN = ("gemma2-2b", 4_096, TRAIN_FULL_B, "train")
+#: phase 21 (c): full-size cells on the single-pod (16, 16) mesh
+DRYRUN_FULL = (("yi-6b", "decode_32k"), ("deepseek-v2-236b", "train_4k"))
+#: card memory the per-device bytes are held against
+CARD_BYTES = 80e9
+
+_TRACE_ONE = r"""
+import json, sys
+from repro_torch.configs import ShapeSpec, get_config
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.dryrun import trace_step
+arch, S, B, kind = json.loads(sys.argv[1])
+rec = trace_step(get_config(arch), ShapeSpec(kind, S, B, kind),
+                 mesh_lib.make_local_mesh(1, 1))
+mesh_lib.release_fake_world()
+print(json.dumps(rec))
+"""
+
+
+def _spawn_traces() -> dict:
+    """Phase 21's dry-runs, each in a process of its own, all started at
+    once: the two one-device cells and the full-size cells (through the
+    dry-run's CLI, which writes their records)."""
+    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    procs = {cell: subprocess.Popen(
+        [sys.executable, "-c", _TRACE_ONE, json.dumps(cell)], env=env,
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cell in (DRYRUN_DECODE, DRYRUN_TRAIN)}
+    for arch, shape in DRYRUN_FULL:
+        procs[(arch, shape)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single"], env=env, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return procs
+
+
+def _collect(procs: dict, key, timeout: float = 600) -> str:
+    try:
+        out, err = procs[key].communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        for p in procs.values():
+            p.kill()
+        raise
+    check(procs[key].returncode == 0, f"phase 21 trace {key}: {err[-3000:]}")
+    return out
+
+
+def _requested() -> int:
+    """The bytes the live tensors asked the caching allocator for (its
+    ``memory_allocated`` counts its blocks, rounded up)."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def _placed(fn) -> tuple:
+    """(what ``fn`` returns, the card bytes it left allocated: requested
+    by the tensors, and in the allocator's blocks)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    base, base_blocks = _requested(), torch.cuda.memory_allocated()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _requested() - base, torch.cuda.memory_allocated() \
+        - base_blocks
+
+
+def phase_dryrun(smi: str) -> dict:
+    """Phase 21 (see the module docstring)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.hero import roofline_table as RT
+    from repro_torch.kernels.cluster_matmul import kernel as CK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.kernels.paged_attention import kernel as PK
+    from repro_torch.models import model as M
+    from repro_torch.models import steps as ST
+    t_phase = time.perf_counter()
+    procs = _spawn_traces()
+    out = {}
+    # flash (all, tensor cores), its plain forward and recompute, paged
+    # (bf16 / f32 pool, int8 pool), the cluster matmul
+    counters = (FK.launches, FK.tc_launches, FO.plain_forwards,
+                FO.backward_recomputes, PK.launches, PK.int8_launches,
+                CK.launches)
+
+    # (a) yi-6b decode: the dry-run on a one-device mesh, the step on the
+    # card
+    arch, T, B, kind = DRYRUN_DECODE
+    cfg = get_config(arch)
+    shape = ShapeSpec(kind, T, B, kind)
+    (params, cache, batch), placed, blocks = _placed(lambda: (
+        M.init_params(cfg, seed=0), M.init_cache(cfg, B, T),
+        ST.make_batch(cfg, shape, torch.Generator("cuda").manual_seed(0))))
+    for c in counters:
+        c.reset()
+    with FlopCounterMode(display=False) as fc:
+        logits, cache = ST.make_decode_step(cfg)(params, cache, batch)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    launched = [c.n for c in counters]
+    check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "phase 21 (a) logits")
+    del params, cache, batch, logits
+    rec = json.loads(_collect(procs, DRYRUN_DECODE).strip().splitlines()[-1])
+    args = rec["memory"]["argument_size_in_bytes"]
+    row = dict(arch=arch, B=B, T=T, card_bytes=placed, dryrun_bytes=args,
+               bytes_rel=(placed - args) / args, card_blocks=blocks,
+               blocks_rel=(blocks - args) / args, card_flops=card_flops,
+               dryrun_flops=rec["cost"]["flops"],
+               kernel_flops=rec["kernel_flops"],
+               temp_bytes=rec["memory"]["temp_size_in_bytes"],
+               trace_s=rec["trace_s"], launches=launched)
+    print(f"dryrun decode: {smi} " + json.dumps(row), flush=True)
+    check(abs(placed - args) <= 1e-3 * args,
+          f"phase 21 (a): {placed} bytes placed, dry-run {args}")
+    check(card_flops == rec["cost"]["flops"] and rec["kernel_flops"] == 0,
+          f"phase 21 (a): card {card_flops} FLOPs, dry-run "
+          f"{rec['cost']['flops']}")
+    check(launched == [0] * len(counters),
+          f"phase 21 (a): decode_forward launched {launched}")
+    out["decode"] = row
+
+    # (b) gemma2-2b train at phase 12's cut
+    arch, S, B, kind = DRYRUN_TRAIN
+    cfg = get_config(arch)
+    shape = ShapeSpec("train_4k", S, B, kind)
+    opt = ST.default_opt_cfg(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    check(resident < 4 << 30, f"phase 21 (b): {resident} bytes still "
+          "allocated before it")
+    (state, batch), placed, blocks = _placed(lambda: (
+        ST.init_train_state(cfg, opt, seed=0),
+        ST.make_batch(cfg, shape, torch.Generator("cuda").manual_seed(0))))
+    step = ST.make_train_step(cfg, opt)
+    for c in counters:
+        c.reset()
+    with FlopCounterMode(display=False) as fc:
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    launched = [c.n for c in counters]
+    check(math.isfinite(float(metrics["loss"])), "phase 21 (b) loss")
+    # the peak of a second step, outside FlopCounterMode (which holds
+    # more alive)
+    del metrics
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    requested_peak = torch.cuda.memory_stats()["requested_bytes.all.peak"]
+    check(math.isfinite(float(metrics["loss"])), "phase 21 (b) loss")
+    tc_launches = FK.tc_launches.n          # both steps'
+    check(tc_launches == 2 * launched[1], f"phase 21 (b): {tc_launches} "
+          "tensor-core flash launches over two steps")
+    del state, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = json.loads(_collect(procs, DRYRUN_TRAIN).strip().splitlines()[-1])
+    mem = rec["memory"]
+    args = mem["argument_size_in_bytes"]
+    predicted = args + mem["temp_size_in_bytes"]
+    row = dict(arch=arch, B=B, S=S, card_bytes=placed, dryrun_bytes=args,
+               bytes_rel=(placed - args) / args, card_blocks=blocks,
+               blocks_rel=(blocks - args) / args, card_flops=card_flops,
+               dryrun_flops=rec["cost"]["flops"],
+               kernel_flops=rec["kernel_flops"], card_peak=peak,
+               card_requested_peak=requested_peak, resident=resident,
+               predicted_peak=predicted,
+               peak_gap=peak - resident - predicted,
+               peak_rel=(peak - resident - predicted) / predicted,
+               trace_s=rec["trace_s"], flash_tc_launches=tc_launches,
+               launches=launched)
+    print(f"dryrun train: {smi} " + json.dumps(row), flush=True)
+    check(abs(placed - args) <= 1e-3 * args,
+          f"phase 21 (b): {placed} bytes placed, dry-run {args}")
+    check(card_flops == rec["cost"]["flops"] - rec["kernel_flops"],
+          f"phase 21 (b): card {card_flops} FLOPs, dry-run "
+          f"{rec['cost']['flops']} - kernel {rec['kernel_flops']}")
+    check(launched[0] == launched[1] == 2 * cfg.num_layers
+          and launched[2] == 0 and launched[3] == cfg.num_layers
+          and launched[4:] == [0, 0, 0],
+          f"phase 21 (b): launches {launched}")
+    out["train"] = row
+
+    # (c) full-size cells on the (16, 16) mesh
+    out["full"] = []
+    for arch, shape_name in DRYRUN_FULL:
+        _collect(procs, (arch, shape_name))
+        rec = RT.load_cell(arch, shape_name, "single")
+        check(rec is not None and rec["status"] == "ok",
+              f"phase 21 (c) {arch} {shape_name}: {rec}")
+        r = RT.analyze_cell(arch, shape_name, "single")
+        mem = rec["memory"]
+        dev = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+        row = dict(arch=arch, shape=shape_name, devices=rec["devices"],
+                   args_bytes=mem["argument_size_in_bytes"],
+                   temp_bytes=mem["temp_size_in_bytes"], device_bytes=dev,
+                   card_share=dev / CARD_BYTES, fits=dev <= CARD_BYTES,
+                   flops=rec["cost"]["flops"],
+                   collective_bytes=rec["collective_bytes"],
+                   t_compute=r["t_compute"], t_memory=r["t_memory"],
+                   t_collective=r["t_collective"], dominant=r["dominant"],
+                   trace_s=rec["trace_s"])
+        print(f"dryrun full: {smi} " + json.dumps(row), flush=True)
+        out["full"].append(row)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"dryrun: phase 21 in {out['phase_s']:.2f} s", flush=True)
+    return out
+
+
 # ------------------------------------------------------------------ main --
 def main() -> int:
     if not torch.cuda.is_available():
@@ -4496,6 +4738,8 @@ def main() -> int:
     done("phase 11")
     train = phase_train_full()
     done("phase 12")
+    dryrun = phase_dryrun(smi)
+    done("phase 21")
 
     def entry(name, kernel, kv, C, dtype, launches, replaces):
         """A paged-attention kernel on one pool type: its head case is
@@ -4599,8 +4843,8 @@ def main() -> int:
     # global (window 0) layer, its error the largest of gemma2's four
     # cases (both scales, both windows), phase 13's draft cases, hymba's
     # and whisper's, its launches phase 12's, phase 13's draft forwards,
-    # phase 17's hymba prefills, phase 19's whisper and pixtral calls and
-    # phase 20 (b)'s MLA prefills; on the FP32 cores: phase 10's float32
+    # phase 17's hymba prefills, phase 19's whisper and pixtral calls,
+    # phase 20 (b)'s MLA prefills and phase 21 (b)'s train step; on the FP32 cores: phase 10's float32
     # global layer, its error the largest of its float32 cases (MLA's
     # among them), its launches phase 10's, phase 17's float32 hymba
     # lockstep prefills, phase 19 (a)'s float32 whisper and phase 20
@@ -4609,7 +4853,8 @@ def main() -> int:
             ("flash_attention_tc", "tensor_cores", flash["gemma"][0],
              train["flash_tc_launches"] + frontdoor["flash_tc_launches"]
              + recurrent["tc_launches"] + frontends["tc_launches"]
-             + deepseek["tc_launches"], 0),
+             + deepseek["tc_launches"]
+             + dryrun["train"]["flash_tc_launches"], 0),
             ("flash_attention", "fp32_cores", flash["small"][0],
              parity_train["flash_fp32_core_launches"]
              + recurrent["fp32_core_launches"]

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-from repro_torch.kernels.launch import LaunchCounter
+from repro_torch.kernels.launch import LaunchCounter, kernel_scope
 
 __all__ = ["flash_attention", "mha_flash", "flash_attention_ref",
            "pad_head_dims"]
@@ -87,11 +87,12 @@ def _forward(q, k, v, causal, window, cap, groups, scale):
         return out if out.shape[-1] == dv else out[..., :dv]
     if q.device.type == "cpu":
         plain_forwards.n += 1
-        if groups > 1:
-            k = k.repeat_interleave(groups, dim=0)
-            v = v.repeat_interleave(groups, dim=0)
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   cap=cap, scale=scale)
+        with kernel_scope("flash_attention"):
+            if groups > 1:
+                k = k.repeat_interleave(groups, dim=0)
+                v = v.repeat_interleave(groups, dim=0)
+            return flash_attention_ref(q, k, v, causal=causal,
+                                       window=window, cap=cap, scale=scale)
     raise ValueError(f"unsupported device {q.device}")
 
 

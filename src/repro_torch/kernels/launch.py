@@ -10,6 +10,8 @@ reused.  Nothing here runs when a module is imported.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import functools
 import hashlib
@@ -45,6 +47,23 @@ class LaunchCounter:
 
     def reset(self):
         self.n = 0
+
+
+#: the kernels whose plain version the running code is inside, innermost
+#: last: on a CPU tensor a wrapper runs its plain version inside
+#: :func:`kernel_scope`, so a tracer (``launch.step_stats``) can tell the
+#: work a hand-written kernel does on the card from the rest
+KERNEL_SCOPES: contextvars.ContextVar[tuple] = contextvars.ContextVar(
+    "repro_torch_kernel_scopes", default=())
+
+
+@contextlib.contextmanager
+def kernel_scope(name: str):
+    tok = KERNEL_SCOPES.set(KERNEL_SCOPES.get() + (name,))
+    try:
+        yield
+    finally:
+        KERNEL_SCOPES.reset(tok)
 
 
 def _nvcc() -> str:

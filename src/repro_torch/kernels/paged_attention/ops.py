@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.launch import kernel_scope
 from repro_torch.kernels.paged_attention import kernel as K
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref, paged_prefill_ref,
@@ -103,9 +104,11 @@ def paged_decode_fused(q, kv_pages, block_table, page_counts, lengths, *,
         return K.paged_decode_fwd(q, kv_pages, block_table, page_counts,
                                   lengths, pages_per_step=pages_per_step,
                                   kv_scales=kv_scales)
-    return paged_attention_ref(q, kv_pages[:, 0], kv_pages[:, 1],
-                               mask_block_table(block_table, page_counts),
-                               lengths, **_scales(kv_scales))
+    with kernel_scope("paged_decode"):
+        return paged_attention_ref(
+            q, kv_pages[:, 0], kv_pages[:, 1],
+            mask_block_table(block_table, page_counts), lengths,
+            **_scales(kv_scales))
 
 
 def paged_prefill_fused(q, kv_pages, block_table, page_counts, lengths,
@@ -118,9 +121,11 @@ def paged_prefill_fused(q, kv_pages, block_table, page_counts, lengths,
                                    lengths, q_start,
                                    pages_per_step=pages_per_step,
                                    kv_scales=kv_scales)
-    return paged_prefill_ref(q, kv_pages[:, 0], kv_pages[:, 1],
-                             mask_block_table(block_table, page_counts),
-                             lengths, q_start, **_scales(kv_scales))
+    with kernel_scope("paged_prefill"):
+        return paged_prefill_ref(
+            q, kv_pages[:, 0], kv_pages[:, 1],
+            mask_block_table(block_table, page_counts), lengths, q_start,
+            **_scales(kv_scales))
 
 
 def paged_attention(q, k_pages, v_pages, block_table, lengths, *,

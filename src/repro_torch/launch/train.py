@@ -6,8 +6,11 @@
 Runs the full loop (``Trainer.run_with_recovery``: async checkpoints,
 restart on failure, straggler watchdog) on ``cuda`` unless ``--device
 cpu`` is given.  Data is sharded per host by ``--host-id`` /
-``--num-hosts``.  The reference's ``--profile`` (sharding profile) and
-dry-run have no counterpart here.
+``--num-hosts``.  The reference's ``--profile`` has no counterpart: the
+trainer runs without a mesh, where a sharding profile changes nothing.
+The sharded step and its dry-run over a production mesh are
+``models.steps.lowerable`` and ``python -m repro_torch.launch.dryrun
+--profile``.
 """
 from __future__ import annotations
 

@@ -17,6 +17,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.parallel.sharding import (
+    current_mesh, local_region, placements, pspec_entry, shard, shard_index,
+)
 
 # vocab rows upcast per matmul in ``logits_from_hidden`` (bounds the f32
 # copy of a bf16 head to a slice instead of the whole V x d matrix)
@@ -90,6 +93,7 @@ def mlp_forward(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
         h = act * up
     else:
         h = F.gelu(up, approximate="tanh")
+    h = shard(h, "dp", None, "tp")
     return h @ p["w_down"]
 
 
@@ -97,11 +101,40 @@ def mlp_forward(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
 # Embedding + logits
 # ---------------------------------------------------------------------------
 
+def lookup_rows(table: torch.Tensor, idx: torch.Tensor,
+                row_axis: Optional[str]) -> torch.Tensor:
+    """``table[idx]``.  Under a mesh each device looks up its own rows of
+    ``idx`` (split over ``dp``) in its rows of ``table`` (split over
+    ``row_axis``, its columns gathered): a row another device holds is
+    zero here, and the result is the sum over the devices that split the
+    table (vocab-parallel embedding)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return table[idx.long()]
+    from torch.distributed.tensor import Partial, Shard
+    t_pl = placements(table.shape, (row_axis, None), mesh)
+    i_pl = placements(idx.shape, ("dp",) + (None,) * (idx.dim() - 1), mesh)
+    out = tuple(Partial() if isinstance(t, Shard) else i
+                for t, i in zip(t_pl, i_pl))
+    first, n = shard_index(mesh, pspec_entry(table.shape, (row_axis, None),
+                                             mesh, 0))
+
+    def body(table, idx):
+        if n == 1:
+            return table[idx.long()]
+        local = idx.long() - first * table.shape[0]
+        inside = (local >= 0) & (local < table.shape[0])
+        rows = table[local.clamp(0, table.shape[0] - 1)]
+        return torch.where(inside[..., None], rows, rows.new_zeros(()))
+    return local_region("lookup", body, (table, idx), (t_pl, i_pl), [out])
+
+
 def embed_tokens(cfg: ArchConfig, p, tokens: torch.Tensor) -> torch.Tensor:
-    x = p["table"][tokens.long()]
+    x = lookup_rows(p["table"], tokens, "tp")
     if cfg.embedding_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
-    return x
+    # the residual stream is sequence-parallel between blocks
+    return shard(x, "dp", "sp", None)
 
 
 def head_matrix(cfg: ArchConfig, p) -> torch.Tensor:
@@ -131,8 +164,27 @@ def _xent_chunk(cfg: ArchConfig, w: torch.Tensor, h: torch.Tensor,
     logits in float32 (bf16 operands upcast: their products are exact in
     float32, the reference's ``preferred_element_type``)."""
     logits = softcap(h.float() @ w.float().t(), cfg.final_softcap)
+    logits = shard(logits, "dp", None, "tp")
+    if current_mesh() is not None:
+        return _xent_sharded(logits, lab)
     lse = torch.logsumexp(logits, dim=-1)                      # (B,c)
     correct = logits.gather(-1, lab.long()[..., None])[..., 0]  # (B,c)
+    return (lse - correct).sum()
+
+
+def _xent_sharded(logits: torch.Tensor, lab: torch.Tensor) -> torch.Tensor:
+    """:func:`_xent_chunk`'s sum on logits whose vocabulary is split over
+    devices, in reductions DTensor splits too (the reference's form): the
+    max and the sum of the exponentials over the vocabulary, and the
+    label's logit as a masked sum, each a partial result per shard
+    reduced once across them."""
+    m = shard(logits.detach().amax(dim=-1, keepdim=True), "dp", None, None)
+    total = shard(torch.exp(logits - m).sum(dim=-1), "dp", None)
+    lse = torch.log(total) + m[..., 0]
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    hit = iota == lab.long()[..., None]
+    correct = shard(torch.where(hit, logits, torch.zeros(
+        (), device=logits.device)).sum(dim=-1), "dp", None)
     return (lse - correct).sum()
 
 

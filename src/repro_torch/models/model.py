@@ -49,6 +49,11 @@ per-layer activation checkpointing under
 ``cfg.remat_policy``.  :func:`decode_forward` is one token against a
 dense cache from :func:`init_cache`: per-layer tensors, updated in place;
 whisper's cross-attention cache comes from one :func:`encdec_cross_cache`.
+
+:func:`param_axes` and :func:`cache_axes` give every leaf its logical
+axes (the reference's ``ParamFactory`` annotations, per layer), and the
+forward carries the reference's ``shard`` constraints; they act only
+under a mesh (``parallel.sharding``, ``steps.lowerable``).
 """
 from __future__ import annotations
 
@@ -67,6 +72,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as S
+from repro_torch.parallel.sharding import Axes, shard
 
 # "slot not written" marker for position caches.  Must be a large POSITIVE
 # value: masks keep slots with kpos <= current position, so an empty slot
@@ -296,6 +302,75 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     return out
 
 
+#: logical axes of a leaf, by its group and name (the reference's
+#: ``ParamFactory`` calls); a norm's ``scale`` / ``bias`` and every leaf
+#: not named here are replicated
+_GQA_AXES = {"wq": ("fsdp", "tp", None), "wk": ("fsdp", "tp", None),
+             "wv": ("fsdp", "tp", None), "wo": ("tp", None, "fsdp")}
+_MLA_AXES = {"w_dq": ("fsdp", None), "w_uq": (None, "tp", None),
+             "w_dkv": ("fsdp", None), "w_uk": (None, "tp", None),
+             "w_uv": (None, "tp", None), "wo": ("tp", None, "fsdp")}
+_MLP_AXES = {"w_gate": ("fsdp", "tp"), "w_up": ("fsdp", "tp"),
+             "w_down": ("tp", "fsdp")}
+_MOE_AXES = {"router": (None, None), "w_gate": ("ep", "fsdp", None),
+             "w_up": ("ep", "fsdp", None), "w_down": ("ep", None, "fsdp")}
+_MAMBA_AXES = {"w_in": ("fsdp", "tp"), "conv_w": (None, "tp"),
+               "conv_b": ("tp",), "w_dt_down": ("tp", None),
+               "w_dt_up": (None, "tp"), "b_dt": ("tp",),
+               "w_B": ("tp", None), "w_C": ("tp", None),
+               "log_A": ("tp", None), "D": ("tp",),
+               "w_out": ("tp", "fsdp")}
+_MLSTM_AXES = {"wq": ("fsdp", "tp", None), "wk": ("fsdp", "tp", None),
+               "wv": ("fsdp", "tp", None), "w_if": ("fsdp", None),
+               "w_og": ("fsdp", "tp"), "head_norm": ("tp", None),
+               "w_out": ("tp", "fsdp")}
+_SLSTM_AXES = {"w_in": ("fsdp", None, "tp", None),
+               "r": (None, "tp", None, None), "b": (None, "tp", None),
+               "head_norm": ("tp", None), "w_out": ("tp", "fsdp")}
+
+
+def _leaf_axes(cfg: ArchConfig, path: str, ndim: int
+               ) -> Tuple[Optional[str], ...]:
+    """The logical axes of the leaf at ``path`` (no stack dim: the port's
+    leaves are per layer)."""
+    parts = path.split("/")
+    if parts[0] in STACKS:
+        stack, parts = parts[0], parts[2:]
+    else:
+        stack = None
+    leaf, group = parts[-1], parts[:-1]
+    table: Mapping[str, Tuple[Optional[str], ...]] = {}
+    if group == ["embed"]:
+        table = {"table": ("tp", "fsdp"), "head": ("tp", "fsdp")}
+    elif not group and leaf in ("enc_pos", "dec_pos"):
+        table = {leaf: (None, "fsdp")}
+    elif group and group[0] in ("attn", "xattn"):
+        table = _MLA_AXES if cfg.attention_kind == "mla" \
+            and group[0] == "attn" else _GQA_AXES
+    elif group in (["mlp"], ["moe", "shared"]):
+        table = _MLP_AXES
+    elif group == ["moe"]:
+        table = _MOE_AXES
+    elif group == ["mamba"]:
+        table = _MAMBA_AXES
+    elif group == ["cell"]:
+        table = _MLSTM_AXES if stack == "mlstm_layers" else _SLSTM_AXES
+    return table.get(leaf, (None,) * ndim)
+
+
+def param_specs(cfg: ArchConfig) -> Dict[str, Tuple]:
+    """Every :func:`param_shapes` path -> (shape, dtype)."""
+    dt = _dtype(cfg)
+    return {path: (s, torch.float32 if _is_f32(path) else dt)
+            for path, s in param_shapes(cfg).items()}
+
+
+def param_axes(cfg: ArchConfig) -> Dict[str, Axes]:
+    """Every :func:`param_shapes` path -> its logical :class:`Axes`."""
+    return {path: Axes(_leaf_axes(cfg, path, len(shape)))
+            for path, shape in param_shapes(cfg).items()}
+
+
 def _fan_in(cfg: ArchConfig, path: str, shape: Tuple[int, ...]) -> int:
     """The reference ParamFactory's fan-in: the first dim unless the
     reference's parameter definition names another (``wo (H, hd, d)``:
@@ -434,6 +509,17 @@ class DenseDecoder(nn.Module):
         return self.embed["table"].device
 
 
+def set_param(model: DenseDecoder, path: str, t: torch.Tensor):
+    """Make ``t`` the parameter at a ``param_shapes`` path."""
+    head, _, leaf = path.rpartition("/")
+    parent = model.param(head) if head else model
+    p = nn.Parameter(t, requires_grad=False)
+    if isinstance(parent, nn.ParameterDict):
+        parent[leaf] = p
+    else:
+        setattr(parent, leaf, p)
+
+
 @torch.no_grad()
 def init_params(cfg: ArchConfig, seed: int = 0,
                 device: DeviceLike = None) -> DenseDecoder:
@@ -562,22 +648,37 @@ def init_cache(cfg: ArchConfig, B: int, T: int,
       compressed cache, ``first_layers`` then ``layers``) and ``kpos``
       (B, T).
     """
-    _check_params_supported(cfg)
     dev = resolve_device(device)
+
+    def alloc(spec):
+        if isinstance(spec, list):
+            return [alloc(s) for s in spec]
+        if isinstance(spec, dict):
+            return {k: alloc(v) for k, v in spec.items()}
+        shape, dt = spec
+        if dt == torch.int32:           # a position leaf
+            return torch.full(shape, EMPTY_POS, dtype=dt, device=dev)
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    return alloc(cache_specs(cfg, B, T))
+
+
+def cache_specs(cfg: ArchConfig, B: int, T: int) -> Dict[str, Any]:
+    """:func:`init_cache`'s tree with a ``(shape, dtype)`` pair for every
+    tensor, nothing allocated."""
+    _check_params_supported(cfg)
     kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     dt = _dtype(cfg)
 
-    def kv_cache(n: int, slots: int) -> List[torch.Tensor]:
-        return [torch.zeros((B, slots, kv, hd), dtype=dt, device=dev)
-                for _ in range(n)]
+    def kv_cache(n: int, slots: int) -> List[Tuple]:
+        return [((B, slots, kv, hd), dt) for _ in range(n)]
 
-    def positions(slots: int) -> torch.Tensor:
-        return torch.full((B, slots), EMPTY_POS, dtype=torch.int32,
-                          device=dev)
+    def positions(slots: int) -> Tuple:
+        return ((B, slots), torch.int32)
 
     def states(specs: S.StateSpecs, n: int) -> Dict[str, List]:
-        return {k: [torch.zeros(s, dtype=sdt, device=dev)
-                    for _ in range(n)] for k, (s, sdt) in specs.items()}
+        return {k: [(s, sdt) for _ in range(n)]
+                for k, (s, sdt) in specs.items()}
 
     c: Dict[str, Any] = {}
     if cfg.block_kind == "mlstm":
@@ -603,10 +704,10 @@ def init_cache(cfg: ArchConfig, B: int, T: int,
         c["kpos"] = positions(T)
         return c
     if cfg.attention_kind == "mla":
-        c["c"] = [torch.zeros((B, T, cfg.mla_kv_lora_rank), dtype=dt,
-                              device=dev) for _ in range(cfg.num_layers)]
-        c["rope"] = [torch.zeros((B, T, cfg.mla_qk_rope_dim), dtype=dt,
-                                 device=dev) for _ in range(cfg.num_layers)]
+        c["c"] = [((B, T, cfg.mla_kv_lora_rank), dt)
+                  for _ in range(cfg.num_layers)]
+        c["rope"] = [((B, T, cfg.mla_qk_rope_dim), dt)
+                     for _ in range(cfg.num_layers)]
         c["kpos"] = positions(T)
         return c
     if cfg.local_global_period:
@@ -623,6 +724,42 @@ def init_cache(cfg: ArchConfig, B: int, T: int,
     c["k"], c["v"] = kv_cache(cfg.num_layers, T), kv_cache(cfg.num_layers, T)
     c["kpos"] = positions(T)
     return c
+
+
+#: logical axes of the recurrent state leaves (the reference's
+#: ``*_state_specs``)
+_STATE_AXES = {
+    "mlstm": {"C": ("dp", "tp", None, None), "n": ("dp", "tp", None),
+              "m": ("dp", "tp")},
+    "slstm": {k: ("dp", "tp", None) for k in ("c", "n", "m", "h")},
+    "mamba": {"conv": ("dp", None, "tp"), "ssm": ("dp", "tp", None)},
+}
+
+
+def cache_axes(cfg: ArchConfig, B: int, T: int) -> Dict[str, Any]:
+    """The logical :class:`Axes` of every :func:`init_cache` leaf, in its
+    layout (per-layer lists).  A K/V cache reads the current mesh
+    (:func:`attention.kv_cache_axes`), as the reference's does."""
+    def per_layer(axes, n: int):
+        return [Axes(axes)] * n
+
+    shapes = cache_specs(cfg, B, T)
+    out: Dict[str, Any] = {}
+    for key, leaf in shapes.items():
+        if key in _STATE_AXES:
+            out[key] = {k: per_layer(_STATE_AXES[key][k], len(v))
+                        for k, v in leaf.items()}
+        elif key.startswith("kpos"):
+            out[key] = Axes(("dp", None))
+        elif cfg.block_kind == "hymba":
+            out[key] = per_layer(("dp", None, None, None), len(leaf))
+        elif cfg.block_kind == "encdec":
+            out[key] = per_layer(("dp", None, "tp", None), len(leaf))
+        elif cfg.attention_kind == "mla":
+            out[key] = per_layer(("dp", "sp", None), len(leaf))
+        else:
+            out[key] = per_layer(A.kv_cache_axes(cfg), len(leaf))
+    return out
 
 
 def stack_cache(cache: Mapping[str, Any]) -> Dict[str, Any]:
@@ -663,25 +800,35 @@ def _remat(cfg: ArchConfig, fn):
     return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
 
 
+def _residual(x: torch.Tensor, branch: torch.Tensor) -> torch.Tensor:
+    """``x + branch``, the branch first laid out as the sequence-parallel
+    residual (a reduce-scatter of a row-parallel product under a mesh),
+    its gradient gathered back whole over the sequence (the
+    all-gather), as the matrix products that made it take it."""
+    return x + shard(branch, "dp", "sp", None, grad=("dp", None, None))
+
+
 def _tf_block(cfg: ArchConfig, lp, x: torch.Tensor,
               positions: Optional[torch.Tensor], *,
               window: int) -> torch.Tensor:
-    h = L.norm_forward(cfg, lp["ln1"], x)
+    # block entry: one explicit sequence all-gather; the residual itself
+    # stays sequence-sharded between blocks
+    h = shard(L.norm_forward(cfg, lp["ln1"], x), "dp", None, None)
     if cfg.attention_kind == "mla":
         a = A.mla_fullseq(cfg, lp["attn"], h, positions)
     else:
         a = A.gqa_fullseq(cfg, lp["attn"], h, positions, window=window)
     if cfg.post_block_norm:
         a = L.norm_forward(cfg, lp["pln1"], a)
-    x = x + a
-    h = L.norm_forward(cfg, lp["ln2"], x)
+    x = _residual(x, a)
+    h = shard(L.norm_forward(cfg, lp["ln2"], x), "dp", None, None)
     if "moe" in lp:     # capacity routing over all B*S rows of the batch
         m = MOE.moe_forward(cfg, lp["moe"], h)
     else:
         m = L.mlp_forward(cfg, lp["mlp"], h)
     if cfg.post_block_norm:
         m = L.norm_forward(cfg, lp["pln2"], m)
-    return x + m
+    return shard(_residual(x, m), "dp", "sp", None)
 
 
 def _tf_layers(params: DenseDecoder) -> List[nn.ModuleDict]:
@@ -703,15 +850,16 @@ def _hymba_fuse(cfg: ArchConfig, lp, x: torch.Tensor, a: torch.Tensor,
     """The mean of the two normed branches, then the MLP."""
     fused = 0.5 * (L.norm_forward(cfg, lp["bn_attn"], a) +
                    L.norm_forward(cfg, lp["bn_ssm"], m))
-    x = x + fused
-    h = L.norm_forward(cfg, lp["ln2"], x)
-    return x + L.mlp_forward(cfg, lp["mlp"], h)
+    x = _residual(x, fused)
+    h = shard(L.norm_forward(cfg, lp["ln2"], x), "dp", None, None)
+    return shard(_residual(x, L.mlp_forward(cfg, lp["mlp"], h)),
+                 "dp", "sp", None)
 
 
 def _hymba_block(cfg: ArchConfig, lp, x: torch.Tensor) -> torch.Tensor:
     """Attention (the flash kernel, windowed) and Mamba on the same
     normed input."""
-    h = L.norm_forward(cfg, lp["ln1"], x)
+    h = shard(L.norm_forward(cfg, lp["ln1"], x), "dp", None, None)
     a = A.gqa_fullseq(cfg, lp["attn"], h, None, window=cfg.sliding_window)
     m = S.mamba_fullseq(cfg, lp["mamba"], h)
     return _hymba_fuse(cfg, lp, x, a, m)
@@ -720,41 +868,45 @@ def _hymba_block(cfg: ArchConfig, lp, x: torch.Tensor) -> torch.Tensor:
 def _enc_block(cfg: ArchConfig, lp, enc: torch.Tensor) -> torch.Tensor:
     """An encoder layer: non-causal self-attention (positions play no
     part), then the MLP."""
-    h = L.norm_forward(cfg, lp["ln1"], enc)
-    enc = enc + A.gqa_fullseq(cfg, lp["attn"], h, None, causal=False)
-    h = L.norm_forward(cfg, lp["ln2"], enc)
-    return enc + L.mlp_forward(cfg, lp["mlp"], h)
+    h = shard(L.norm_forward(cfg, lp["ln1"], enc), "dp", None, None)
+    enc = _residual(enc, A.gqa_fullseq(cfg, lp["attn"], h, None,
+                                       causal=False))
+    h = shard(L.norm_forward(cfg, lp["ln2"], enc), "dp", None, None)
+    return _residual(enc, L.mlp_forward(cfg, lp["mlp"], h))
 
 
 def _dec_block(cfg: ArchConfig, lp, x: torch.Tensor,
                enc: torch.Tensor) -> torch.Tensor:
     """A decoder layer: causal self-attention, cross-attention over the
     encoder's K/V (projected by this layer's ``xattn``), then the MLP."""
-    h = L.norm_forward(cfg, lp["ln1"], x)
-    x = x + A.gqa_fullseq(cfg, lp["attn"], h, None)
-    h = L.norm_forward(cfg, lp["lnx"], x)
+    h = shard(L.norm_forward(cfg, lp["ln1"], x), "dp", None, None)
+    x = _residual(x, A.gqa_fullseq(cfg, lp["attn"], h, None))
+    h = shard(L.norm_forward(cfg, lp["lnx"], x), "dp", None, None)
     xk, xv = A.gqa_make_kv(cfg, lp["xattn"], enc)
-    x = x + A.gqa_fullseq(cfg, lp["xattn"], h, None, causal=False,
-                          kv_override=(xk, xv))
-    h = L.norm_forward(cfg, lp["ln2"], x)
-    return x + L.mlp_forward(cfg, lp["mlp"], h)
+    x = _residual(x, A.gqa_fullseq(cfg, lp["xattn"], h, None, causal=False,
+                                   kv_override=(xk, xv)))
+    h = shard(L.norm_forward(cfg, lp["ln2"], x), "dp", None, None)
+    return shard(_residual(x, L.mlp_forward(cfg, lp["mlp"], h)),
+                 "dp", "sp", None)
 
 
 def _encode(cfg: ArchConfig, params: DenseDecoder,
             frontend: torch.Tensor) -> torch.Tensor:
     """The encoder over the frontend's frames (B, F, d), cast to the
     weights' type: + ``enc_pos``, the layers, ``enc_norm``."""
-    enc = frontend.to(_dtype(cfg)) + params.enc_pos[None]
+    enc = shard(frontend.to(_dtype(cfg)) + params.enc_pos[None],
+                "dp", "sp", None)
     block = _remat(cfg, functools.partial(_enc_block, cfg))
     for lp in params.enc_layers:
         enc = block(lp, enc)
-    return L.norm_forward(cfg, params.enc_norm, enc)
+    return shard(L.norm_forward(cfg, params.enc_norm, enc), "dp", None, None)
 
 
 def _cell_block(cfg: ArchConfig, fullseq, lp, x: torch.Tensor
                 ) -> torch.Tensor:
-    h = L.norm_forward(cfg, lp["ln1"], x)
-    return x + fullseq(cfg, lp["cell"], h)
+    h = shard(L.norm_forward(cfg, lp["ln1"], x), "dp", None, None)
+    return shard(_residual(x, fullseq(cfg, lp["cell"], h)),
+                 "dp", "sp", None)
 
 
 def _xlstm_stack(cfg: ArchConfig, params: DenseDecoder,
@@ -824,6 +976,9 @@ def loss_fn(cfg: ArchConfig, params: DenseDecoder,
     ``batch["labels"]`` (float32 scalar)."""
     hidden = forward_fullseq(cfg, params, batch["tokens"],
                              frontend=batch.get("frontend"))
+    # gather the sequence-parallel residual once; the chunked loss then
+    # keeps only (B, chunk, V/tp) logits alive
+    hidden = shard(hidden, "dp", None, None)
     return L.chunked_xent(cfg, params.embed, hidden, batch["labels"])
 
 
@@ -915,11 +1070,10 @@ def decode_forward(cfg: ArchConfig, params: DenseDecoder, cache,
         x = inputs_embeds.to(device=params.device, dtype=_dtype(cfg))
     else:
         x = L.embed_tokens(cfg, params.embed, tokens)
-    rows = torch.arange(tokens.shape[0], device=x.device)
     pos = pos.to(device=x.device, dtype=torch.int32)
 
     def upd_pos(kp: torch.Tensor, slot: torch.Tensor):
-        kp[rows, slot] = pos
+        A.write_positions(kp, slot, pos)
 
     if cfg.block_kind == "mlstm":
         x = _decode_xlstm(cfg, params, cache, x)
@@ -940,7 +1094,7 @@ def decode_forward(cfg: ArchConfig, params: DenseDecoder, cache,
     elif cfg.block_kind == "encdec":
         slot = pos.long()
         upd_pos(cache["kpos"], slot)
-        x = x + params.dec_pos[slot][:, None, :]
+        x = x + L.lookup_rows(params.dec_pos, slot, None)[:, None, :]
         B, F = x.shape[0], cache["xk"][0].shape[1]
         xk_positions = torch.arange(F, dtype=torch.int32,
                                     device=x.device).expand(B, F)
@@ -953,8 +1107,9 @@ def decode_forward(cfg: ArchConfig, params: DenseDecoder, cache,
             x = x + a
             h = L.norm_forward(cfg, lp["lnx"], x)
             q = A.project_heads(h, lp["xattn"]["wq"])
-            xa = A.attend_decode(q, cache["xk"][i], cache["xv"][i],
-                                 lengths=full_len, k_positions=xk_positions)
+            xa = A.attend_by_heads(q, cache["xk"][i], cache["xv"][i],
+                                   lengths=full_len,
+                                   k_positions=xk_positions)
             x = x + A.out_proj(lp["xattn"], xa)
             h = L.norm_forward(cfg, lp["ln2"], x)
             x = x + L.mlp_forward(cfg, lp["mlp"], h)

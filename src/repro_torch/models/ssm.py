@@ -15,16 +15,25 @@ fragile in bf16).  Parameters are the reference's (``build_mlstm``,
 ``build_slstm``, ``build_mamba``) under the same names; the
 ``*_state_specs`` functions give each recurrent state's ``(shape,
 dtype)`` by name.
+
+Heads (mLSTM, sLSTM) and channels (Mamba) recur independently, so under
+a mesh (``parallel.sharding``) each scan runs per device on its own
+under ``local_map`` (:func:`_by_heads`); without one it runs as before.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.attention import project_heads
 from repro_torch.models.layers import rms_head_norm
+from repro_torch.parallel.sharding import (
+    current_mesh, heads_axis, local_region, placements, shard,
+)
 
 NEG_INF = -1e30
 #: Mamba time steps whose decay and input terms are formed at once (bounds
@@ -40,8 +49,16 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _proj_heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``einsum("bsd,dhk->bshk", x, w)`` in x's type."""
+    """``einsum("bsd,dhk->bshk", x, w)`` in x's type.  Under a mesh an
+    sLSTM ``w_in`` (d, 4, H, hd) goes gate by gate: flattening its
+    trailing dims with the heads split would give DTensor a strided
+    layout."""
     B, S, d = x.shape
+    if w.dim() == 4 and current_mesh() is not None:
+        return torch.stack([_proj_heads(x, w[:, g])
+                            for g in range(w.shape[1])], dim=2)
+    if w.dim() == 3:
+        return project_heads(x, w)
     return (x @ w.reshape(d, -1)).reshape(B, S, *w.shape[1:])
 
 
@@ -83,7 +100,8 @@ def _mlstm_out(cfg: ArchConfig, p, x: torch.Tensor,
     """Head norm, output gate and output projection: h (B,S,H,hd) f32."""
     B, S, d = x.shape
     h = rms_head_norm(p["head_norm"], h, cfg.norm_eps)
-    h = h.reshape(B, S, d).to(x.dtype)
+    h = shard(h.reshape(B, S, d), "dp", None,
+              heads_axis(h.shape[2])).to(x.dtype)
     og = torch.sigmoid(x @ p["w_og"])
     return (h * og) @ p["w_out"]
 
@@ -92,19 +110,41 @@ def mlstm_fullseq(cfg: ArchConfig, p, x: torch.Tensor,
                   chunk: int = 256) -> torch.Tensor:
     """Chunkwise-parallel mLSTM over the full sequence.  x: (B,S,d).  The
     chunk is the largest divisor of S that is at most ``chunk``."""
-    B, S, d = x.shape
-    H, hd = cfg.num_heads, cfg.resolved_head_dim
     q, k, v = _mlstm_qkv(cfg, p, x)
     log_i, log_f = _mlstm_gates(p, x)
+    # heads are independent: under a mesh each device scans its own
+    heads = ("dp", None, "tp", None)
+    h = _by_heads("mlstm", functools.partial(_mlstm_chunks, chunk=chunk),
+                  (q, k, v, log_i, log_f),
+                  (heads, heads, heads, heads[:3], heads[:3]),
+                  [(q.shape, heads)])
+    return _mlstm_out(cfg, p, x, h)
 
+
+def _by_heads(name: str, fn, args, axes, outs):
+    """``fn(*args)``, under a mesh on each device's heads
+    (``local_region`` with the logical ``axes`` of each arg and the
+    ``(shape, axes)`` of each output)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return fn(*args)
+    pl = [placements(t.shape, a, mesh) for t, a in zip(args, axes)]
+    return local_region(name, fn, args, pl,
+                        [placements(s, a, mesh) for s, a in outs])
+
+
+def _mlstm_chunks(q, k, v, log_i, log_f, *, chunk: int) -> torch.Tensor:
+    """The chunkwise-parallel mLSTM recurrence: q, k, v (B,S,H,hd) and
+    the log gates (B,S,H) -> h (B,S,H,hd), float32."""
+    B, S, H, hd = q.shape
     c = min(chunk, S)
     while S % c:
         c -= 1
-    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
 
-    C_prev = x.new_zeros((B, H, hd, hd), dtype=torch.float32)
-    n_prev = x.new_zeros((B, H, hd), dtype=torch.float32)
-    m_prev = x.new_zeros((B, H), dtype=torch.float32)
+    C_prev = q.new_zeros((B, H, hd, hd), dtype=torch.float32)
+    n_prev = q.new_zeros((B, H, hd), dtype=torch.float32)
+    m_prev = q.new_zeros((B, H), dtype=torch.float32)
     hs = []
     for s0 in range(0, S, c):
         qc, kc, vc = (t[:, s0:s0 + c] for t in (q, k, v))   # (B,c,H,hd)
@@ -141,8 +181,7 @@ def mlstm_fullseq(cfg: ArchConfig, p, x: torch.Tensor,
         n_prev = n_prev * w_old[..., None] + \
             torch.einsum("bsh,bshk->bhk", w_s, kc)
         m_prev = m_new
-    h = torch.cat(hs, dim=1) if len(hs) > 1 else hs[0]      # (B,S,H,hd)
-    return _mlstm_out(cfg, p, x, h)
+    return torch.cat(hs, dim=1) if len(hs) > 1 else hs[0]   # (B,S,H,hd)
 
 
 def mlstm_decode(cfg: ArchConfig, p, x: torch.Tensor, state: dict
@@ -151,8 +190,18 @@ def mlstm_decode(cfg: ArchConfig, p, x: torch.Tensor, state: dict
     q, k, v = (t[:, 0] for t in _mlstm_qkv(cfg, p, x))      # (B,H,hd)
     log_i, log_f = _mlstm_gates(p, x)
     li, lf = log_i[:, 0], log_f[:, 0]                        # (B,H)
-
     C, n, m = state["C"], state["n"], state["m"]
+    hk, hc = ("dp", "tp", None), ("dp", "tp", None, None)
+    h, C, n, m_new = _by_heads(
+        "mlstm_decode", _mlstm_cell, (q, k, v, li, lf, C, n, m),
+        (hk, hk, hk, hk[:2], hk[:2], hc, hk, hk[:2]),
+        [(q.shape, hk), (C.shape, hc), (n.shape, hk), (m.shape, hk[:2])])
+    out = _mlstm_out(cfg, p, x, h[:, None])
+    return out, {"C": C, "n": n, "m": m_new}
+
+
+def _mlstm_cell(q, k, v, li, lf, C, n, m):
+    """One recurrent mLSTM step: (h, C, n, m) after the token."""
     m_new = torch.maximum(lf + m, li)
     w_old = torch.exp(lf + m - m_new)
     w_in = torch.exp(li - m_new)
@@ -162,9 +211,7 @@ def mlstm_decode(cfg: ArchConfig, p, x: torch.Tensor, state: dict
     num = torch.einsum("bhk,bhkj->bhj", q, C)
     denom = torch.maximum(torch.einsum("bhk,bhk->bh", q, n).abs(),
                           torch.exp(-m_new))
-    h = num / denom[..., None]                               # (B,H,hd)
-    out = _mlstm_out(cfg, p, x, h[:, None])
-    return out, {"C": C, "n": n, "m": m_new}
+    return num / denom[..., None], C, n, m_new               # (B,H,hd)
 
 
 def mlstm_reference(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
@@ -207,23 +254,51 @@ def _slstm_out(cfg: ArchConfig, p, x: torch.Tensor,
                h: torch.Tensor) -> torch.Tensor:
     B, S, d = x.shape
     h = rms_head_norm(p["head_norm"], h, cfg.norm_eps)
-    return h.reshape(B, S, d).to(x.dtype) @ p["w_out"]
+    h = shard(h.reshape(B, S, d), "dp", None, heads_axis(h.shape[2]))
+    return h.to(x.dtype) @ p["w_out"]
 
 
 def slstm_fullseq(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
-    B, S, d = x.shape
     xp = _proj_heads(x, p["w_in"])                           # (B,S,4,H,hd)
-    state = zero_state(slstm_state_specs(cfg, B), x.device)
+    heads = (None, "tp", None, None)
+    h = _by_heads("slstm", functools.partial(_slstm_scan, cfg),
+                  (xp, p["r"], p["b"]),
+                  (("dp", None, None, "tp", None), heads, heads[:3]),
+                  [((xp.shape[0], xp.shape[1]) + xp.shape[3:],
+                    ("dp", None, "tp", None))])
+    return _slstm_out(cfg, p, x, h)                          # (B,S,H,hd)
+
+
+def _slstm_scan(cfg: ArchConfig, xp: torch.Tensor, r: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """The sLSTM recurrence over xp (B,S,4,H,hd) from a zero state ->
+    h (B,S,H,hd); heads are independent (``r`` is block-diagonal)."""
+    B, S, _, H, hd = xp.shape
+    state = zero_state({k: ((B, H, hd), torch.float32)
+                        for k in ("c", "n", "m", "h")}, xp.device)
     hs = []
     for t in range(S):
-        state = _slstm_step(cfg, p, xp[:, t], state)
+        state = _slstm_step(cfg, {"r": r, "b": b}, xp[:, t], state)
         hs.append(state["h"])
-    return _slstm_out(cfg, p, x, torch.stack(hs, dim=1))    # (B,S,H,hd)
+    return torch.stack(hs, dim=1)
 
 
 def slstm_decode(cfg: ArchConfig, p, x: torch.Tensor, state: dict):
     xp = _proj_heads(x, p["w_in"])[:, 0]
-    state = _slstm_step(cfg, p, xp, state)
+    keys = ("c", "n", "m", "h")
+    hk = ("dp", "tp", None)
+
+    def step(xp, r, b, *st):
+        new = _slstm_step(cfg, {"r": r, "b": b}, xp, dict(zip(keys, st)))
+        return tuple(new[k] for k in keys)
+
+    new = _by_heads(
+        "slstm_decode", step, (xp, p["r"], p["b"]) + tuple(
+            state[k] for k in keys),
+        (("dp", None, "tp", None), (None, "tp", None, None),
+         (None, "tp", None)) + (hk,) * 4,
+        [(state[k].shape, hk) for k in keys])
+    state = dict(zip(keys, new))
     return _slstm_out(cfg, p, x, state["h"][:, None]), state
 
 
@@ -254,8 +329,9 @@ def _mamba_inner(cfg: ArchConfig, p, xz: torch.Tensor,
     conv = sum(conv_in[:, j:j + S, :].float() * w[j]
                for j in range(cfg.ssm_conv_width))
     conv = torch.nn.functional.silu(conv + p["conv_b"].float())
-    dt = _softplus(conv @ p["w_dt_down"].float() @ p["w_dt_up"].float()
-                   + p["b_dt"])                              # (B,S,di)
+    # the low-rank dt projection whole on every device between its halves
+    down = shard(conv @ p["w_dt_down"].float(), "dp", None, None)
+    dt = _softplus(down @ p["w_dt_up"].float() + p["b_dt"])  # (B,S,di)
     Bp = conv @ p["w_B"].float()
     Cp = conv @ p["w_C"].float()
     return xpart, z, conv, dt, Bp, Cp
@@ -272,8 +348,8 @@ def mamba_fullseq(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     reference's ``h = exp(dt A) h + (dt u) B``, ``y = h . C``; the
     step-independent factors are formed :data:`MAMBA_BLOCK` steps at a
     time, element for element the same arithmetic."""
-    B, S, d = x.shape
-    di, _, N = mamba_dims(cfg)
+    B = x.shape[0]
+    di = mamba_dims(cfg)[0]
     A = -torch.exp(p["log_A"])                               # (di,N) < 0
     xz = x @ p["w_in"]
     xpart = xz[..., :di]
@@ -281,7 +357,19 @@ def mamba_fullseq(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     conv_in = torch.cat([pad, xpart], dim=1)
     xpart, z, conv, dt, Bp, Cp = _mamba_inner(cfg, p, xz, conv_in)
 
-    h = x.new_zeros((B, di, N), dtype=torch.float32)
+    # channels are independent: under a mesh each device scans its own
+    ch = ("dp", None, "tp")
+    y = _by_heads("mamba", _mamba_scan, (dt, conv, Bp, Cp, A),
+                  (ch, ch, ("dp", None, None), ("dp", None, None),
+                   ("tp", None)), [(dt.shape, ch)])
+    return _mamba_out(p, x, y + conv * p["D"], z)               # (B,S,di)
+
+
+def _mamba_scan(dt, conv, Bp, Cp, A) -> torch.Tensor:
+    """The selective scan from a zero state: dt, conv (B,S,di), Bp, Cp
+    (B,S,N), A (di,N) -> y (B,S,di) without the skip term."""
+    B, S, di = dt.shape
+    h = dt.new_zeros((B, di, A.shape[1]), dtype=torch.float32)
     ys = []
     for s0 in range(0, S, MAMBA_BLOCK):
         sl = slice(s0, s0 + MAMBA_BLOCK)
@@ -293,8 +381,7 @@ def mamba_fullseq(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
             hs.append(h)
         ys.append(torch.einsum("bsdn,bsn->bsd", torch.stack(hs, dim=1),
                                Cp[:, sl]))
-    y = torch.cat(ys, dim=1) + conv * p["D"]                 # (B,S,di)
-    return _mamba_out(p, x, y, z)
+    return torch.cat(ys, dim=1)
 
 
 def mamba_decode(cfg: ArchConfig, p, x: torch.Tensor, state: dict):

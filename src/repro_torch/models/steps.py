@@ -13,8 +13,16 @@ reference jits the step and donates the state; here the state is updated
 in place and the same dict comes back (the decode step updates its
 cache in place too).  :func:`input_specs` gives every model input's
 ``(shape, dtype)`` and :func:`make_batch` draws a batch of them from a
-``torch.Generator``; the reference's sharding (``input_axes``,
-``*_axes``, ``lowerable``) is not ported.
+``torch.Generator``.
+
+The sharded step: :func:`input_axes`, :func:`train_state_specs` and
+:func:`train_state_axes` give every input and every leaf of the state
+its shape and logical axes, and :func:`lowerable` lays them over a
+``DeviceMesh`` as DTensors (``parallel.sharding.placements``) and
+returns the same eager step to run on them under the mesh and a
+sharding profile, so the model's own ``shard`` constraints resolve
+against that mesh.  The dry-run (``launch.dryrun``) runs it on fake
+tensors; over a ``gloo`` group it runs on real ones.
 
 :func:`state_tree` and :func:`load_state_tree` map the state to and from
 the reference's train-state layout (layers stacked as ``(L, ...)``), the
@@ -32,6 +40,9 @@ from repro_torch.device import DeviceLike
 from repro_torch.models import model as M
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.optim.compress import ef_compress_grads, init_residual
+from repro_torch.parallel.sharding import (
+    Axes, mesh_context, placements, sharding_profile, tree_map_axes,
+)
 
 
 def default_opt_cfg(cfg: ArchConfig) -> AdamWConfig:
@@ -62,6 +73,18 @@ def input_specs(cfg: ArchConfig, shape: ShapeSpec
         return out
     # decode: one new token against a cache of S
     return {"tokens": ((B, 1), torch.int32), "pos": ((B,), torch.int32)}
+
+
+def input_axes(cfg: ArchConfig, shape: ShapeSpec) -> Dict[str, Axes]:
+    """The logical axes of every input of :func:`input_specs`."""
+    if shape.kind == "decode":
+        return {"tokens": Axes(("dp", None)), "pos": Axes(("dp",))}
+    out = {"tokens": Axes(("dp", None))}
+    if shape.kind == "train":
+        out["labels"] = Axes(("dp", None))
+    if cfg.frontend:
+        out["frontend"] = Axes(("dp", None, None))
+    return out
 
 
 def make_batch(cfg: ArchConfig, shape: ShapeSpec, gen: torch.Generator
@@ -191,3 +214,113 @@ def load_state_tree(cfg: ArchConfig, state: Dict[str, Any],
     if "resid" in state:
         fill(state["resid"], tree["resid"], "resid")
     return state
+
+
+# ---------------------------------------------------------------------------
+# The sharded step
+# ---------------------------------------------------------------------------
+
+def train_state_specs(cfg: ArchConfig, opt_cfg: AdamWConfig,
+                      compress: bool = False) -> Dict[str, Any]:
+    """The train state's tree with a ``(shape, dtype)`` pair for every
+    tensor: ``params`` in their types, ``m``, ``v``, ``master`` and
+    ``resid`` in float32, ``step`` an int32 scalar."""
+    p = M.param_specs(cfg)
+    f32 = {path: (s, torch.float32) for path, (s, _) in p.items()}
+    opt: Dict[str, Any] = {"m": f32, "v": dict(f32),
+                           "step": ((), torch.int32)}
+    if opt_cfg.use_master:
+        opt["master"] = dict(f32)
+    st = {"params": p, "opt": opt}
+    if compress:
+        st["resid"] = dict(f32)
+    return st
+
+
+def train_state_axes(cfg: ArchConfig, opt_cfg: AdamWConfig,
+                     compress: bool = False) -> Dict[str, Any]:
+    """The logical axes of :func:`train_state_specs`: every optimizer
+    leaf those of its parameter, ``step`` none."""
+    ax = M.param_axes(cfg)
+    opt: Dict[str, Any] = {"m": ax, "v": ax, "step": Axes(())}
+    if opt_cfg.use_master:
+        opt["master"] = ax
+    st = {"params": ax, "opt": opt}
+    if compress:
+        st["resid"] = ax
+    return st
+
+
+def _dtensors(spec_tree, axes_tree, mesh, fill=None):
+    """A DTensor of every ``(shape, dtype)`` leaf, laid out by its logical
+    axes over ``mesh``: zeros, int32 leaves ``fill`` where given.  Under
+    a ``FakeTensorMode`` the local shards are fake."""
+    from torch.distributed import tensor as dt
+
+    def make(spec, axes):
+        shape, dtype = spec
+        pl = placements(shape, axes, mesh)
+        if fill is not None and dtype == torch.int32:
+            return dt.full(shape, fill, dtype=dtype, device_mesh=mesh,
+                           placements=pl)
+        return dt.zeros(shape, dtype=dtype, device_mesh=mesh,
+                        placements=pl)
+    return tree_map_axes(make, spec_tree, axes_tree)
+
+
+def sharded_model(cfg: ArchConfig, tensors: Mapping[str, torch.Tensor]
+                  ) -> M.DenseDecoder:
+    """A :class:`DenseDecoder` whose parameters are ``tensors``
+    (``param_shapes`` path -> tensor, e.g. DTensors), built on the meta
+    device so no full-size weight is ever allocated."""
+    model = M.DenseDecoder(cfg, torch.device("meta"))
+    for path, t in tensors.items():
+        M.set_param(model, path, t)
+    return model
+
+
+def lowerable(cfg: ArchConfig, shape: ShapeSpec, mesh,
+              opt_cfg: Optional[AdamWConfig] = None,
+              compress: bool = False, profile: str = "megatron"):
+    """``(fn, args)``: ``fn(*args)`` runs ``shape``'s step on DTensors laid
+    out over ``mesh`` by the logical axes (under a ``FakeTensorMode``
+    the shards are fake and nothing is allocated).  The args are the
+    train state and batch (train), the params and batch (prefill), or
+    the params, cache and batch (decode); ``fn`` is the eager
+    :func:`make_train_step` / :func:`make_prefill_step` /
+    :func:`make_decode_step` run under ``sharding_profile(profile)``,
+    ``mesh_context(mesh)`` and DTensor's implicit replication (a plain
+    tensor the model makes, a mask or a position, is the same on every
+    device)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    opt_cfg = opt_cfg or default_opt_cfg(cfg)
+    with sharding_profile(profile), mesh_context(mesh):
+        batch = _dtensors(input_specs(cfg, shape), input_axes(cfg, shape),
+                          mesh)
+        if shape.kind == "train":
+            st = _dtensors(train_state_specs(cfg, opt_cfg, compress),
+                           train_state_axes(cfg, opt_cfg, compress), mesh)
+            st["params"] = sharded_model(cfg, st["params"])
+            st["params"].requires_grad_(True)
+            step = make_train_step(cfg, opt_cfg, compress)
+            args = (st, batch)
+        else:
+            params = sharded_model(cfg, _dtensors(
+                M.param_specs(cfg), M.param_axes(cfg), mesh))
+            if shape.kind == "prefill":
+                step = make_prefill_step(cfg)
+                args = (params, batch)
+            else:
+                T = max(cfg.cache_len(shape), 1)
+                B = shape.global_batch
+                cache = _dtensors(M.cache_specs(cfg, B, T),
+                                  M.cache_axes(cfg, B, T), mesh,
+                                  fill=M.EMPTY_POS)
+                step = make_decode_step(cfg)
+                args = (params, cache, batch)
+
+    def fn(*a):
+        with sharding_profile(profile), mesh_context(mesh), \
+                implicit_replication():
+            return step(*a)
+    return fn, args

@@ -56,7 +56,9 @@ def test_port_imports_neither_jax_nor_reference():
               "configs.olmoe_1b_7b", "configs.minitron_8b", "models.ssm",
               "configs.xlstm_350m", "configs.hymba_1p5b",
               "launch.quickstart", "parallel", "parallel.sharding",
-              "runtime.sharded_server", "launch.serve"):
+              "runtime.sharded_server", "launch.serve", "launch.dryrun",
+              "launch.step_stats", "hero.roofline_table",
+              "hero.tab2_resources"):
         assert f"repro_torch.{m}" in out["modules"], m
     assert expected <= set(out["modules"]) | {"repro_torch.runtime",
                                               "repro_torch.kernels"}
