@@ -8,13 +8,16 @@ non-zero without printing the final result line):
 
 1. info: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions; TF32 is switched off for matmuls and cuDNN.
-2. build: the paged-attention, cluster-matmul and flash-attention CUDA
-   kernels, compiled from the checkout's sources with ``nvcc`` for
-   ``sm_90a``, one compiler per source, all started together.
+2. build: the paged-attention, cluster-matmul (its grid-stride
+   instantiations, which an SM budget launches, as a second source) and
+   flash-attention CUDA kernels, compiled from the checkout's sources
+   with ``nvcc`` for ``sm_90a``, one compiler per source, all started
+   together.
 3. kernel vs plain: the paged-attention kernels against their
    plain-PyTorch version at yi-6b attention geometry (B=8, H=32, Kv=4,
    hd=128, page 16, a 1,024-page pool, ragged lengths 1..1,024 with an
-   empty lane and aliased shared-prefix pages), C in {1, 5, 128} (5: the
+   empty lane and aliased shared-prefix pages; the pool drawn on the
+   card), C in {1, 5, 128} (5: the
    verify width) with q in float32 and bfloat16, on a pool in q's type
    and on an int8 pool with its scales, and every case but float32 C=1
    again with q scaled so that scores have std 4 (``PAGED_SHARP``); each
@@ -133,7 +136,9 @@ non-zero without printing the final result line):
    prints the kernel its route picked
    (the counts must agree), with times beside the plain version and the
    library call (SDPA without a cap, the compiled ``flex_attention`` with
-   a softcap score_mod with one; an FP32-core case also prints the key
+   a softcap score_mod with one, only at gemma2's and phase 10's global
+   layers: each capped shape and mask compiles its own, for seconds; an
+   FP32-core case also prints the key
    splits its plan picks, and the counts must show them); then the op's
    gradients against plain autograd (MLA's unequal head dims among
    them).
@@ -210,11 +215,12 @@ non-zero without printing the final result line):
    from seed 0): (b) ``prefill_logits`` at B=2, S=3072, the tensor-core
    flash kernel carrying all 32 hymba layers and the plain version none,
    with one layer's attention and Mamba scan (xlstm: sLSTM and mLSTM)
-   timed apart; (c) 256 prompt tokens fed by ``decode_forward``, whose
+   timed apart; (c) 64 prompt tokens fed by ``decode_forward``, whose
    last logits must equal ``prefill_logits`` of the same tokens within
    6e-2 x the largest |logit| on the bf16 model at 8 layers of full
-   width and on float32 weights as registered (``DEC_TOL``; the bf16
-   model as registered drifts further and is recorded), then 32 greedy
+   width and on float32 weights at 16 layers (``DEC_F32_LAYERS``)
+   (``DEC_TOL``; the bf16 model as registered drifts further and is
+   recorded), then 32 greedy
    steps of the bf16 model (ms per step); (d)
    one decode step at decode_32k (B=128, position 32,767, the cache
    filled from a seed, ``kpos`` holding the last 2,048 positions): ms
@@ -232,9 +238,10 @@ non-zero without printing the final result line):
    every step, every cluster used, every shard's tensors on the card and
    every shard's kernel on every layer of every iteration, the plain
    version never.  (b) (after phase 15, while yi-6b is loaded) phase 5's
-   workload at full width at (1, 1) with 8 lanes x 1,024 pages, (2, 1)
-   with 4 x 512 a cluster, (4, 1) with 2 x 256 and (2, 2) with 4 x 512:
-   tokens equal to phase 5's under the near-tie rule, every cluster
+   requests cut to 16 new tokens, at full width at (1, 1) with 8 lanes x
+   1,024 pages, (2, 1) with 4 x 512 a cluster, (4, 1) with 2 x 256 and
+   (2, 2) with 4 x 512: tokens equal to the first 16 of phase 5's under
+   the near-tie rule, every cluster
    dispatched to, every shard's kernel on every layer of every
    iteration; it prints each mesh's ``cluster_report()``, tokens/s,
    iteration medians, kernel launches of a prefill and a decode
@@ -255,16 +262,17 @@ non-zero without printing the final result line):
    24 layers, bf16, seed 0): ``encode_frontend`` of 4 x 1,500 seeded
    frames, ``encdec_cross_cache``, ``prefill_logits`` over its 448-token
    text context (the tensor-core flash kernel carrying 24 encoder + 24
-   self + 24 cross calls, the plain version none), then the context fed
-   by ``decode_forward`` and 32 greedy steps: the decode path's logits
-   within 6e-2 x the largest of the prefill's (``DEC_TOL``); it prints
+   self + 24 cross calls, the plain version none), then the context's
+   first 64 tokens fed by ``decode_forward`` and 32 greedy steps: the
+   decode path's logits within 6e-2 x the largest of a prefill's of the
+   same tokens (``DEC_TOL``); it prints
    encode, prefill and decode ms, decode tokens/s, the cache's K/V
    bytes (equal to ``roofline.cache_bytes``) and peak memory.  (c)
    pixtral-12b as registered (40 layers, vocab 131,072, bf16, seed 0,
    drawn on the card) serves phase 5's workload (every request
    finishes, the paged kernels on every layer of every iteration; a
    prefill and a decode iteration profiled), then ``prefill_logits`` of
-   a 512-token prompt with 256 patch embeddings at its head (the
+   a 320-token prompt with 256 patch embeddings at its head (the
    tensor-core flash kernel on all 40 layers) against ``decode_forward``
    fed the same prompt with the patches as ``inputs_embeds``, within
    ``DEC_TOL``.
@@ -282,13 +290,13 @@ non-zero without printing the final result line):
    (the dense first layer and 5 MoE layers), drawn on the card from seed
    0: ``prefill_logits`` of a 2 x 512-token prompt (the tensor-core flash
    kernel on all 6 layers, the plain version none; its capacity drops
-   printed), then the prompt fed by ``decode_forward`` and 32 greedy
-   steps.  Capacity routing drops assignments of the prompt's last
-   tokens that the dropless decode keeps, and a bf16 router flips near-
-   ties between the two paths, so the decode path's logits after the
-   prompt are held within ``DEC_TOL`` of a prefill at a capacity that
-   drops nothing, the decode routing the prompt's rows as that prefill
-   did (``FollowPrefillRouting``; how often its own top-6 agreed is
+   printed), then the prompt's first 128 tokens fed by
+   ``decode_forward`` and 32 greedy steps.  Capacity routing drops
+   assignments of the prompt's last tokens that the dropless decode
+   keeps, and a bf16 router flips near-ties between the two paths, so
+   the decode path's logits after those tokens are held within
+   ``DEC_TOL`` of their prefill at a capacity that drops nothing, the
+   decode routing their rows as that prefill did (``FollowPrefillRouting``; how often its own top-6 agreed is
    printed); it prints prefill ms, decode ms a step and tokens/s, the
    compressed cache's bytes (equal to ``roofline.cache_bytes``), peak
    memory, and the launches and busy ms of one profiled decode step
@@ -296,8 +304,9 @@ non-zero without printing the final result line):
    experts of every MoE layer).
 21. dry-run against the card (last, after phase 12): the sharded step's
    dry-run (``launch.dryrun``: DTensors of fake tensors on a fake
-   process group, traced in subprocesses started together at the
-   phase's start) held against the same step run on the card.  (a)
+   process group, traced in subprocesses started together before phase
+   17, on the host's idle cores) held against the same step run on the
+   card.  (a)
    yi-6b ``decode_step`` at its registered widths, B=8 against a
    32,768-slot cache, on a one-device mesh: the bytes the card's tensors
    requested of the caching allocator once params, cache and batch are
@@ -319,14 +328,42 @@ non-zero without printing the final result line):
    collective bytes and the three roofline terms at ``launch.mesh``'s
    measured peaks and NVLink's data-sheet rate (``dryrun full:`` lines).
    Prints the phase's seconds.
+22. the last entry points (after phase 21): (a) Fig.4's measured half
+   (``hero.fig4_cluster_speedup``): a row-tiled float32 product at
+   1024^3 and 2048^3 over 1, 2, 4 and 8 clusters sharing the card, each
+   on its own stream with a budget of the card's SMs // 8
+   (``core.cluster.make_card_clusters``), the cluster matmul kernel
+   within that budget as each cluster's body (its grid at most budget x
+   the blocks an SM holds, walking its tiles by grid stride); prints per
+   count the wall (launches queued behind a sleep, and paced by the
+   host), each cluster's own time, the speedup over one cluster, the
+   bound on a cluster's SM share, each budget's blocks an SM, and the
+   card's name and power limit.  The budgeted launches are counted over
+   that run alone; every count's C must agree with the plain version and
+   with one unbudgeted call within 2e-4, the wall for n >= 2 clusters
+   must be under 0.8 x the sum of the clusters' own times (their
+   launches overlap), and a budget on a wgmma product must raise.  (b)
+   ``launch.train_100m`` at full width (10 layers, d 640, 10 heads over
+   5 KV heads, hd 64, vocab 50,304, bf16): 60 steps at batch 8 x seq
+   256, a checkpoint every 20 steps; the tensor-core flash kernel must
+   carry every attention forward and recompute (20 a step), the plain
+   version none, and the loss must decrease; prints step ms, flash
+   launches a step, first and last loss.  (c) ``launch.serve_paged``'s
+   schedule (the reference's smoke config, bf16 weights from seed 0 on
+   the card, carried to the CPU): the card's engine and the CPU's must
+   give equal iterations, transfers, preemptions, prefix hits, RAB and
+   pool stats, and equal tokens but for a stream's first flip at a
+   near-tie (phase 4's rule); the paged kernels carry every layer of
+   every iteration.  Phase 22 takes ~1 min.
 
 Then the script's time, one JSON line ``{"kernels": [...]}`` (the
 paged-attention split-KV
 decode kernel, FP32-core kernel and tensor-core kernel, each on both pool
 types; the cluster matmul's general float32 kernel (K split, and on 128
-x 128 tiles), its wgmma branch and its general bfloat16 kernel; the
+x 128 tiles), the same within an SM budget (phase 22 (a)), its wgmma
+branch and its general bfloat16 kernel; the
 flash kernel
-on the tensor cores and on the FP32 cores; phases 19, 20 and 21's
+on the tensor cores and on the FP32 cores; phases 19-22's
 launches are in their counts) and, last, the result line
 ``{"ok": true, "device": {...}}``.  It needs a CUDA device and the
 repository's ``src/`` beside it.
@@ -499,7 +536,8 @@ def attention_case(C: int, dtype: torch.dtype, int8: bool = False,
     lanes and pool with fewer heads.  With ``int8`` the pool is int8
     with (P, 2, Kv) float32 scales, as the quantized engine keeps it.
     q ~ N(0, 0.09), or with ``sharp`` scaled so the scores have std
-    ``PAGED_SHARP``."""
+    ``PAGED_SHARP``.  The tables and q come from numpy's generator, the
+    pool from the card's, both seeded with ``seed``."""
     from repro_torch.kernels.paged_attention.ops import (
         page_counts_for, pad_block_table,
     )
@@ -522,15 +560,17 @@ def attention_case(C: int, dtype: torch.dtype, int8: bool = False,
     dev = "cuda"
     q = torch.from_numpy(rng.standard_normal((B, C, H, hd), np.float32)
                          ).to(dev)
+    # the pool is drawn on the card: numpy took ~0.5 s a case for it
+    g = torch.Generator(device=dev).manual_seed(seed)
     if int8:
-        kv = torch.from_numpy(rng.integers(-127, 128, (P, 2, page, Kv, hd))
-                              .astype(np.int8)).to(dev)
-        scales = torch.from_numpy(rng.uniform(
-            1e-3, 2e-2, (P, 2, Kv)).astype(np.float32)).to(dev)
+        kv = torch.randint(-127, 128, (P, 2, page, Kv, hd), generator=g,
+                           dtype=torch.int8, device=dev)
+        scales = torch.empty((P, 2, Kv), device=dev).uniform_(
+            1e-3, 2e-2, generator=g)
         k = kv[:, 0].float() * scales[:, 0, None, :, None]
     else:
-        kv = torch.from_numpy(rng.standard_normal(
-            (P, 2, page, Kv, hd), np.float32) * 0.5).to(dev, dtype)
+        kv = (torch.randn((P, 2, page, Kv, hd), generator=g, device=dev)
+              * 0.5).to(dtype)
         scales = None
         k = kv[:, 0].float()
     # a score is q.k / sqrt(hd): its std is q's std times k's rms
@@ -718,13 +758,29 @@ def _lockstep(engines, requests, preempt_rid: int, preempt_after: int,
     return (outs, launched) if counters else outs
 
 
+def host_and_card(cfg) -> tuple:
+    """The same weights on the CPU and on the card: drawn on the card
+    from seed 0, then copied to the host (the host's generator takes
+    ~10-20 s for one of phases 4, 19 and 20's models)."""
+    from repro_torch.models.model import init_params
+    model = init_params(cfg, seed=0)
+    return copy.deepcopy(model).to("cpu"), model
+
+
 def parity_models(dtype: str = "float32"):
     """Phase 4's weights (``dtype``) at yi-6b widths x 2 layers, on the CPU
-    and (a copy) on the card."""
+    and on the card: float32 drawn on the card (``host_and_card``);
+    bfloat16 still drawn by the host's generator and copied to the card.
+    Drawn on the card, the bf16 int8 + ``spec_k=4`` sampled lockstep met
+    a flip its rerun cannot weigh (a token at the top-p edge of the
+    lockstep's row, which the rerun's int8 pages, re-packed as its own
+    chunks wrote them, keep)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import init_params
     cfg = dataclasses.replace(get_config("yi-6b"), num_layers=2,
                               param_dtype=dtype)
+    if dtype == "float32":
+        return (cfg, *host_and_card(cfg))
     cpu_model = init_params(cfg, seed=0, device="cpu")
     return cfg, cpu_model, copy.deepcopy(cpu_model).to("cuda")
 
@@ -1267,14 +1323,14 @@ MOE_PARITY_CF, MOE_PARITY_CHUNK = 0.5, 64
 
 
 def moe_parity_models(dtype: str):
-    """Phase 4's MoE weights (``dtype``), as ``parity_models``."""
+    """Phase 4's MoE weights (``dtype``) at olmoe-1b-7b widths x 2 layers,
+    drawn on the card (``host_and_card``): its bfloat16 lockstep weighs a
+    flip on the lockstep's own rows, not on a rerun."""
     from repro_torch.configs import get_config
-    from repro_torch.models.model import init_params
     cfg = dataclasses.replace(get_config("olmoe-1b-7b"), num_layers=2,
                               param_dtype=dtype,
                               moe_capacity_factor=MOE_PARITY_CF)
-    cpu_model = init_params(cfg, seed=0, device="cpu")
-    return cfg, cpu_model, copy.deepcopy(cpu_model).to("cuda")
+    return (cfg, *host_and_card(cfg))
 
 
 def phase_moe_parity() -> dict:
@@ -1443,11 +1499,12 @@ def phase_tier_parity(models, devices=("cuda", "cpu")) -> dict:
 
 
 # --------------------------------------------------------------- phase 5 --
-def serve_workload(cfg, kv_dtype: str = "bf16", spec_k: int = 0):
+def serve_workload(cfg, kv_dtype: str = "bf16", spec_k: int = 0,
+                   max_new: int = 32):
     """Phases 5 and 6's engine spec and requests: 12 greedy requests of
-    300-700 prompt tokens and 32 new tokens each; rids 0, 8, 9 and 10
-    share a 256-token prefix (0 runs in the first wave and publishes it,
-    the other three are admitted after it finishes)."""
+    300-700 prompt tokens and ``max_new`` (32) new tokens each; rids 0,
+    8, 9 and 10 share a 256-token prefix (0 runs in the first wave and
+    publishes it, the other three are admitted after it finishes)."""
     from repro_torch.runtime import (
         CacheConfig, EngineConfig, GenerationRequest, SamplingParams,
     )
@@ -1464,7 +1521,7 @@ def serve_workload(cfg, kv_dtype: str = "bf16", spec_k: int = 0):
             rng.integers(0, cfg.vocab_size, 256).tolist()
         prompt = head + rng.integers(0, cfg.vocab_size, n - 256).tolist()
         requests.append(GenerationRequest(rid, tuple(prompt),
-                                          SamplingParams(max_new=32)))
+                                          SamplingParams(max_new=max_new)))
     return ecfg, requests
 
 
@@ -1492,7 +1549,8 @@ def echo_wave(requests, results) -> list:
 
 
 def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0,
-                mesh: tuple = None, probe: bool = False) -> tuple:
+                mesh: tuple = None, probe: bool = False,
+                max_new: int = 32) -> tuple:
     """Serve the workload at full width; the kernels of the pool's type
     must carry every layer of every iteration (their counts are read from
     0 just before the run and just after): the tensor-core kernel every
@@ -1514,7 +1572,7 @@ def phase_serve(cfg, model, kv_dtype: str = "bf16", spec_k: int = 0,
     from repro_torch.kernels.paged_attention import ref as R
     from repro_torch.runtime import make_engine
     torch.cuda.reset_peak_memory_stats()
-    ecfg, requests = serve_workload(cfg, kv_dtype, spec_k)
+    ecfg, requests = serve_workload(cfg, kv_dtype, spec_k, max_new)
     shards = 1
     if mesh is not None:
         C, H, lanes, pages = mesh
@@ -1686,6 +1744,10 @@ SHARDED_LOCK = [(2, 2, "bf16", 0), (4, 1, "bf16", 0), (2, 1, "int8", 4)]
 #: card: (clusters, heads, lanes a cluster, pages a cluster)
 SHARDED_FULL = [(1, 1, 8, 1024), (2, 1, 4, 512), (4, 1, 2, 256),
                 (2, 2, 4, 512)]
+#: (b)'s new tokens a request: the first 16 of phase 5's 32.  They were
+#: all 32 until the whole script passed 1,200 s on a slower host; the
+#: four meshes' runs and their flips' reruns took ~110 s
+SHARDED_NEW = 16
 
 
 def count_launches(fn) -> tuple:
@@ -1856,10 +1918,11 @@ def excuse_path_flip(label: str, prompt, a, b, makers: dict,
 
 
 def phase_sharded_serve(cfg, model, phase5_tokens: dict) -> dict:
-    """Phase 18 (b): yi-6b as registered serves phase 5's workload on the
-    sharded engine at each ``SHARDED_FULL`` mesh, every shard on the one
-    card (``phase_serve`` with ``mesh``).  The tokens must be phase 5's
-    unsharded run's but for near-ties (``excuse_path_flip``: the meshes
+    """Phase 18 (b): yi-6b as registered serves phase 5's requests, cut to
+    ``SHARDED_NEW`` new tokens, on the sharded engine at each
+    ``SHARDED_FULL`` mesh, every shard on the one card (``phase_serve``
+    with ``mesh``).  The tokens must be the first of phase 5's unsharded
+    run's but for near-ties (``excuse_path_flip``: the meshes
     schedule the workload differently, so a token decoded in one run may
     come from a prefill chunk in the other); every cluster must be
     dispatched to (``layer2_cluster_balance``); the peak memory at (2, 2)
@@ -1877,19 +1940,21 @@ def phase_sharded_serve(cfg, model, phase5_tokens: dict) -> dict:
         C, H = mesh[:2]
         gc.collect()
         torch.cuda.empty_cache()
-        row, tokens, run = phase_serve(cfg, model, mesh=mesh)
+        row, tokens, run = phase_serve(cfg, model, mesh=mesh,
+                                       max_new=SHARDED_NEW)
         label = f"sharded full ({C}, {H})"
         # a rerun on one cluster of the mesh: each cluster runs the same
         # program on its own lanes, so one cluster's engine (as many lanes,
         # pages and heads) gives a request alone the mesh's numerics
         # without stepping the idle clusters
         one = dataclasses.replace(run["ecfg"], clusters=1)
-        flat, requests = serve_workload(cfg)
+        flat, requests = serve_workload(cfg, max_new=SHARDED_NEW)
         excused = 0
         for r in requests:
             excused += excuse_path_flip(
                 f"{label} vs phase 5 rid {r.rid}", r.prompt,
-                list(tokens[r.rid]), list(phase5_tokens[r.rid]),
+                list(tokens[r.rid]),
+                list(phase5_tokens[r.rid][:SHARDED_NEW]),
                 {"mesh": lambda: make_engine(cfg, model, one),
                  "unsharded": lambda: make_engine(cfg, model, flat)}, dtype)
         bal = layer2_cluster_balance(layer1_decode(run["rows"]),
@@ -2689,19 +2754,26 @@ LOCK_TOL = {"hymba-1.5b": MODEL_TOL[torch.float32], "xlstm-350m": 4e-5}
 LOCK_STEP_TOL = {k: 2 * v for k, v in LOCK_TOL.items()}
 LOCK_B, LOCK_PROMPT, LOCK_STEPS, LOCK_WINDOW = 2, 40, 16, 32
 #: (b) the full-width prefill; (c) the prompt fed by decode and the greedy
-#: steps timed after it
+#: steps timed after it.  The prompt was 256 tokens until the whole script
+#: passed 1,200 s on a slower host: fed one token a step through three
+#: models of each family, it took ~60 s
 PREFILL_B, PREFILL_S = 2, 3072
-DEC_B, DEC_PROMPT, DEC_STEPS = 2, 256, 32
+DEC_B, DEC_PROMPT, DEC_STEPS = 2, 64, 32
 #: (d) timed steps at decode_32k
 D32K_STEPS = 5
 #: (c)'s bar, of the largest |logit|: ``MODEL_TOL``'s bf16 bar, held on
 #: the bf16 model at ``DEC_GATE_LAYERS`` layers of full width and on
-#: float32 weights as registered.  As registered, a bf16 model's decode
-#: and prefill drift further apart (random weights amplify the rounding
-#: layer by layer, in the reference as in the port), so that difference
-#: is recorded
+#: float32 weights at ``DEC_F32_LAYERS`` layers.  As registered, a bf16
+#: model's decode and prefill drift further apart (random weights amplify
+#: the rounding layer by layer, in the reference as in the port), so that
+#: difference is recorded
 DEC_TOL = MODEL_TOL[torch.bfloat16]
 DEC_GATE_LAYERS = 8
+#: the float32 gate's depth: 16 of hymba's 32 alike layers and of
+#: xlstm's 24 (two of its three sLSTM groups).  It ran as registered until
+#: the script neared 1,100 s on a slower host; the prompt fed one token a
+#: step through the float32 model was its longest part
+DEC_F32_LAYERS = 16
 
 
 def recurrent_prompt(cfg, B: int, S: int, seed: int,
@@ -2972,15 +3044,17 @@ def recurrent_full(cfg, timer: Timer) -> dict:
     del logits
 
     # (c) decode against prefill, held to ``DEC_TOL``: the bf16 model at
-    # ``DEC_GATE_LAYERS`` layers, float32 weights as registered; the bf16
-    # model as registered is recorded and its greedy steps timed
+    # ``DEC_GATE_LAYERS`` layers, float32 weights at ``DEC_F32_LAYERS``;
+    # the bf16 model as registered is recorded and its greedy steps timed
     prompt = recurrent_prompt(cfg, DEC_B, DEC_PROMPT, 19)
     for c in (FK.launches, FK.tc_launches):
         c.reset()
     gates = {}
     for label, dc in (
             ("bf16", dataclasses.replace(cfg, num_layers=DEC_GATE_LAYERS)),
-            ("f32", dataclasses.replace(cfg, param_dtype="float32"))):
+            ("f32", dataclasses.replace(
+                cfg, param_dtype="float32",
+                num_layers=min(cfg.num_layers, DEC_F32_LAYERS)))):
         dm = M.init_params(dc, seed=0)
         with torch.no_grad():
             want = M.prefill_logits(dc, dm, {"tokens": prompt})[:, 0]
@@ -2992,12 +3066,12 @@ def recurrent_full(cfg, timer: Timer) -> dict:
         gates[label] = dict(layers=dc.num_layers, max_abs_diff=diff,
                             gate=gate, rel=diff / gate * DEC_TOL)
         del dm, want
-    row["prefill_256_fp32_launches"] = FK.launches.n - FK.tc_launches.n
-    row["prefill_256_tc_launches"] = FK.tc_launches.n
+    row["prefill_dec_fp32_launches"] = FK.launches.n - FK.tc_launches.n
+    row["prefill_dec_tc_launches"] = FK.tc_launches.n
     FK.tc_launches.reset()
     with torch.no_grad():
         want = M.prefill_logits(cfg, model, {"tokens": prompt})[:, 0]
-    row["prefill_256_tc_launches"] += FK.tc_launches.n
+    row["prefill_dec_tc_launches"] += FK.tc_launches.n
     t0 = time.perf_counter()
     toks, rows, step_s = greedy_decode(cfg, model, prompt, DEC_STEPS)
     row["decode_total_s"] = time.perf_counter() - t0
@@ -3058,9 +3132,9 @@ def phase_recurrent(timer: Timer) -> dict:
     full = {a: recurrent_full(get_config(a), timer) for a in RECURRENT}
     return dict(lockstep=lock, full=full,
                 fp32_core_launches=sum(r["flash_launches"] for r in lock)
-                + sum(r["prefill_256_fp32_launches"] for r in full.values()),
+                + sum(r["prefill_dec_fp32_launches"] for r in full.values()),
                 tc_launches=sum(r["prefill_tc_launches"]
-                                + r["prefill_256_tc_launches"]
+                                + r["prefill_dec_tc_launches"]
                                 for r in full.values()))
 
 
@@ -3071,11 +3145,16 @@ def phase_recurrent(timer: Timer) -> dict:
 FRONT_LOCK_LAYERS = 2
 FRONT_LOCK_B, FRONT_LOCK_PROMPT, FRONT_LOCK_STEPS = 2, 16, 8
 #: (b) whisper-medium as registered: lanes, its 448-token text context
-#: (prefilled, and fed by decode before the greedy steps), greedy steps
+#: (prefilled), greedy steps, and the context's first tokens fed by
+#: decode before them.  All 448 were fed until the whole script passed
+#: 1,200 s on a slower host (480 steps through 24 + 24 layers: ~20 s)
 WHISPER_B, WHISPER_TEXT, WHISPER_STEPS = 4, 448, 32
+WHISPER_DEC_TEXT = 64
 #: (c) pixtral-12b's model API: lanes, a prompt whose first
-#: ``frontend_seq`` (256) positions are patch embeddings, greedy steps
-PIXTRAL_B, PIXTRAL_PROMPT, PIXTRAL_STEPS = 2, 512, 8
+#: ``frontend_seq`` (256) positions are patch embeddings, greedy steps.
+#: The prompt was 512 tokens until the whole script passed 1,200 s on a
+#: slower host (fed one token a step through 40 layers, it took 35 s)
+PIXTRAL_B, PIXTRAL_PROMPT, PIXTRAL_STEPS = 2, 320, 8
 
 
 def frontend_frames(cfg, B: int, seed: int, device="cuda") -> torch.Tensor:
@@ -3106,8 +3185,7 @@ def whisper_lockstep() -> dict:
         get_config("whisper-medium"), num_layers=FRONT_LOCK_LAYERS,
         encoder_layers=FRONT_LOCK_LAYERS, param_dtype="float32")
     label, tol = "lockstep whisper-medium", MODEL_TOL[torch.float32]
-    ref_model = M.init_params(cfg, seed=0, device="cpu")
-    model = copy.deepcopy(ref_model).to("cuda")
+    ref_model, model = host_and_card(cfg)
     batch = {"tokens": recurrent_prompt(cfg, FRONT_LOCK_B,
                                         FRONT_LOCK_PROMPT, 22, "cpu"),
              "frontend": frontend_frames(cfg, FRONT_LOCK_B, 21, "cpu")}
@@ -3164,12 +3242,10 @@ def pixtral_lockstep() -> dict:
     (``phase_parity``): tokens identical, and the paged kernels carrying
     every layer of every iteration of the CUDA engine."""
     from repro_torch.configs import get_config
-    from repro_torch.models.model import init_params
     cfg = dataclasses.replace(get_config("pixtral-12b"),
                               num_layers=FRONT_LOCK_LAYERS,
                               param_dtype="float32")
-    cpu_model = init_params(cfg, seed=0, device="cpu")
-    models = (cfg, cpu_model, copy.deepcopy(cpu_model).to("cuda"))
+    models = (cfg, *host_and_card(cfg))
     excused, _, launched, _ = phase_parity(models)
     check(excused == 0, f"pixtral-12b lockstep: {excused} tokens differ")
     check(launched["launches"] == cfg.num_layers * launched["iterations"],
@@ -3185,9 +3261,10 @@ def whisper_full() -> dict:
     seeded frames and ``encdec_cross_cache``, ``prefill_logits`` over
     its ``WHISPER_TEXT``-token text context (the tensor-core flash kernel
     carrying 24 encoder, 24 self- and 24 cross-attention calls, the
-    plain version none), then the context fed by ``decode_forward`` and
-    ``WHISPER_STEPS`` greedy steps: the decode path's logits after the
-    context within ``DEC_TOL`` x the largest of ``prefill_logits``'.
+    plain version none), then the context's first ``WHISPER_DEC_TEXT``
+    tokens fed by ``decode_forward`` and ``WHISPER_STEPS`` greedy steps:
+    the decode path's logits after them within ``DEC_TOL`` x the largest
+    of ``prefill_logits``' of the same tokens.
     That bar sees the frames and the prompts: handing each lane the next
     lane's frames, or the next lane's prompt, must move
     ``prefill_logits`` by more than it.  It prints encode, prefill and
@@ -3262,10 +3339,13 @@ def whisper_full() -> dict:
               f"prefill's logits by {moved[name]:.3g} of their largest, "
               f"not more than the decode bar {DEC_TOL}")
     del rolled
+    dec = prompt[:, :WHISPER_DEC_TEXT]
+    want, _ = timed(lambda: M.prefill_logits(cfg, model, {
+        "tokens": dec, "frontend": frames}))
     t0 = time.perf_counter()
-    toks, rows, step_s = greedy_decode(cfg, model, prompt, steps, frames)
+    toks, rows, step_s = greedy_decode(cfg, model, dec, steps, frames)
     decode_total = time.perf_counter() - t0
-    diff, gate = logits_agree([rows[0], logits[:, 0].cpu()], torch.float32,
+    diff, gate = logits_agree([rows[0], want[:, 0].cpu()], torch.float32,
                               f"{cfg.name} decode vs prefill", DEC_TOL)
     check(all(0 <= t < cfg.vocab_size for ts in toks for t in ts),
           f"{cfg.name}: greedy tokens out of range")
@@ -3281,7 +3361,8 @@ def whisper_full() -> dict:
     row.update(encode_s=encode_s, cross_cache_s=cross_s,
                prefill_s=prefill_s, prefill_flash_launches=launches,
                prefill_tc_launches=tc,
-               decode_vs_prefill=dict(max_abs_diff=diff, gate=gate,
+               decode_vs_prefill=dict(text=WHISPER_DEC_TEXT,
+                                      max_abs_diff=diff, gate=gate,
                                       rel=diff / gate * DEC_TOL),
                prefill_moved_by_rolled=moved,
                decode_total_s=decode_total, decode_step_ms_median=step_ms,
@@ -3290,7 +3371,7 @@ def whisper_full() -> dict:
                cache_bytes_roofline=roof,
                tc_launches=FK.tc_launches.n - tc0,
                peak_memory_bytes=torch.cuda.max_memory_allocated())
-    del cache, model, logits
+    del cache, model, logits, want
     gc.collect()
     torch.cuda.empty_cache()
     print(f"frontend full: {cfg.name} " + json.dumps(row), flush=True)
@@ -3401,6 +3482,9 @@ DS_LOCK_B, DS_LOCK_PROMPT, DS_LOCK_STEPS = 2, 64, 8
 #: and the greedy steps after it
 DS_LAYERS = 6
 DS_B, DS_PROMPT, DS_STEPS = 2, 512, 32
+#: the prompt's first tokens fed by decode before the greedy steps.  All
+#: 512 were fed until the whole script passed 1,200 s on a slower host
+DS_DEC_PROMPT = 128
 
 
 class FollowPrefillRouting:
@@ -3463,8 +3547,7 @@ def deepseek_lockstep() -> dict:
                               param_dtype="float32", **DS_LOCK_CUTS)
     label, tol = "lockstep deepseek-v2-236b", MODEL_TOL[torch.float32]
     t0 = time.perf_counter()
-    ref_model = M.init_params(cfg, seed=0, device="cpu")
-    model = copy.deepcopy(ref_model).to("cuda")
+    ref_model, model = host_and_card(cfg)
     init_s = time.perf_counter() - t0
     prompt = recurrent_prompt(cfg, DS_LOCK_B, DS_LOCK_PROMPT, 27, "cpu")
     n0, tc0, plain0 = FK.launches.n, FK.tc_launches.n, FO.plain_forwards.n
@@ -3508,12 +3591,12 @@ def deepseek_full() -> dict:
     to ``DS_LAYERS`` layers, bf16, drawn on the card from seed 0:
     ``prefill_logits`` of ``DS_B`` x ``DS_PROMPT`` tokens (timed, the
     tensor-core flash kernel carrying every MLA layer, the plain version
-    none; its capacity drops counted), then the prompt fed by
-    ``decode_forward`` and ``DS_STEPS`` greedy steps.  The decode path's
-    logits after the prompt are held within ``DEC_TOL`` x the largest of
-    a prefill at capacity factor E / k (no assignment drops), the decode
-    routing the prompt's rows to that prefill's experts
-    (``FollowPrefillRouting``).  It prints the compressed cache's bytes
+    none; its capacity drops counted), then the prompt's first
+    ``DS_DEC_PROMPT`` tokens fed by ``decode_forward`` and ``DS_STEPS``
+    greedy steps.  The decode path's logits after them are held within
+    ``DEC_TOL`` x the largest of a prefill of the same tokens at capacity
+    factor E / k (no assignment drops), the decode routing their rows to
+    that prefill's experts (``FollowPrefillRouting``).  It prints the compressed cache's bytes
     beside ``roofline.cache_bytes``, peak memory, and the launches and
     busy ms of one profiled decode step at a full cache beside the step's
     floor on weight bytes."""
@@ -3574,16 +3657,19 @@ def deepseek_full() -> dict:
           f"{cfg.name} prefill logits {tuple(logits.shape)}")
     nodrop = dataclasses.replace(
         cfg, moe_capacity_factor=cfg.moe_num_experts / cfg.moe_top_k)
-    follow = FollowPrefillRouting(B, P)
+    Pd = DS_DEC_PROMPT
+    dec = {"tokens": prompt[:, :Pd]}
+    dropping, _ = timed(lambda: M.prefill_logits(cfg, model, dec))
+    follow = FollowPrefillRouting(B, Pd)
     with follow:
-        want, _ = timed(lambda: M.prefill_logits(nodrop, model, batch))
+        want, _ = timed(lambda: M.prefill_logits(nodrop, model, dec))
         follow.decode = True
         t0 = time.perf_counter()
-        toks, rows, step_s = greedy_decode(cfg, model, prompt, steps)
+        toks, rows, step_s = greedy_decode(cfg, model, dec["tokens"], steps)
         decode_total = time.perf_counter() - t0
-    check(follow.rows == B * P * (cfg.num_layers - 1),
+    check(follow.rows == B * Pd * (cfg.num_layers - 1),
           f"{cfg.name}: {follow.rows} decode rows followed the prefill's "
-          f"routing, want {B * P * (cfg.num_layers - 1)}")
+          f"routing, want {B * Pd * (cfg.num_layers - 1)}")
     diff, gate = logits_agree([rows[0], want[:, 0].cpu()], torch.float32,
                               f"{cfg.name} decode vs prefill", DEC_TOL)
     check(all(0 <= t < cfg.vocab_size for ts in toks for t in ts),
@@ -3609,9 +3695,9 @@ def deepseek_full() -> dict:
     step_ms = statistics.median(step_s) * 1e3
     row.update(prefill_s=prefill_s, prefill_dropped=dropped,
                prefill_flash_launches=launches, prefill_tc_launches=tc,
-               decode_vs_prefill=dict(max_abs_diff=diff, gate=gate,
-                                      rel=diff / gate * DEC_TOL),
-               decode_vs_dropping_prefill=rel_diff(rows[0], logits[:, 0]),
+               decode_vs_prefill=dict(prompt=Pd, max_abs_diff=diff,
+                                      gate=gate, rel=diff / gate * DEC_TOL),
+               decode_vs_dropping_prefill=rel_diff(rows[0], dropping[:, 0]),
                decode_own_routing_agreed=[follow.agree, follow.rows],
                decode_total_s=decode_total, decode_step_ms_median=step_ms,
                decode_tokens_per_s=B / (step_ms * 1e-3),
@@ -3622,7 +3708,7 @@ def deepseek_full() -> dict:
                    floor_ms=read / HBM_BYTES_PER_S * 1e3),
                tc_launches=FK.tc_launches.n - tc0,
                peak_memory_bytes=torch.cuda.max_memory_allocated())
-    del cache, model, logits, want, step_logits, table
+    del cache, model, logits, want, dropping, step_logits, table
     gc.collect()
     torch.cuda.empty_cache()
     print(f"deepseek full: {cfg.name} " + json.dumps(row), flush=True)
@@ -3935,7 +4021,7 @@ WHISPER_FLASH = [((64, 1500, 1500, 64), False), ((64, 448, 1500, 64), False),
 def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
                dtype: torch.dtype, causal: bool, window: int, cap: float,
                groups: int = 1, qk: float = 0.3, seed: int = 0,
-               dv: int = 0) -> dict:
+               dv: int = 0, library: bool = True) -> dict:
     """One case of phase 9: the flash kernel against its plain version
     (K/V repeated by ``groups`` for it), then timed beside the plain
     version and the library call (``flash_library``, itself held against
@@ -3949,7 +4035,9 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
     the kernel on q, k and v zero-padded to ``ops.padded_head_dim`` at
     the scale 1/sqrt(d), the plain version and the library call on the
     unpadded operands; the pads and the kernel on padded operands are
-    also timed alone."""
+    also timed alone.  Without ``library`` the library call is not made
+    (its fields are None): a capped case compiles its own
+    ``flex_attention``, 3-20 s each on the card's host."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import ops as FO
     from repro_torch.kernels.flash_attention import ref as FR
@@ -4001,13 +4089,16 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
     check(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
           f"{name}: kernel vs plain max |err| {err}")
     del out
-    library = flash_library(q, k, v, causal, window, cap)
-    t0 = time.perf_counter()
-    lib_out = library().squeeze(0)
-    torch.cuda.synchronize()
-    library_first_s = time.perf_counter() - t0
-    library_err = (lib_out.float() - ref.float()).abs().max().item()
-    del ref, lib_out
+    library_ms = library_err = library_first_s = None
+    if library:
+        lib = flash_library(q, k, v, causal, window, cap)
+        t0 = time.perf_counter()
+        lib_out = lib().squeeze(0)
+        torch.cuda.synchronize()
+        library_first_s = time.perf_counter() - t0
+        library_err = (lib_out.float() - ref.float()).abs().max().item()
+        del lib_out
+    del ref
     ms = timer.ms(kernel)
     parts = {}
     if dv != d:     # the padded route's parts: the pads, the kernel alone
@@ -4018,7 +4109,8 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
                          groups=groups, scale=1 / math.sqrt(d))))
         del padded
     plain_ms = timer.ms(plain, reps=5)
-    library_ms = timer.ms(library)
+    if library:
+        library_ms = timer.ms(lib)
     pairs = int(FR.visible_mask(S, T, causal, window, "cuda").sum())
     flops = 2 * (d + dv) * BH * pairs
     nbytes = (q.numel() + k.numel() + v.numel() + BH * S * dv) \
@@ -4032,7 +4124,8 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
                span_keys=span, splits=splits, max_abs_err=err,
                ref_max_abs=ref_max, tol=tol, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms,
-               library="flex_attention" if cap else "sdpa",
+               library=("flex_attention" if cap else "sdpa")
+               if library else None,
                library_max_abs_err=library_err,
                library_first_call_s=library_first_s,
                bytes=nbytes, flops=flops, bound_ms=bound_ms,
@@ -4043,9 +4136,10 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
           f"span_keys={span} ms={ms:.4f} "
           + "".join(f"{k}={v:.4f} " for k, v in parts.items())
           + f"plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} ({row['library']}, max_abs_err "
-          f"{library_err:.3g}, first call {library_first_s:.2f} s) "
-          f"bytes={nbytes} flops={flops} "
+          + (f"library_ms={library_ms:.4f} ({row['library']}, max_abs_err "
+             f"{library_err:.3g}, first call {library_first_s:.2f} s) "
+             if library_ms is not None else "library_ms=None (not timed) ")
+          + f"bytes={nbytes} flops={flops} "
           f"bound_ms={bound_ms:.5f} ({row['bound_by']}) "
           f"share_of_bound={row['share_of_bound']:.4f} "
           f"tflops={row['tflops']:.2f} max_abs_err={err:.3g} "
@@ -4104,10 +4198,15 @@ def phase_flash(timer: Timer, draft: tuple) -> dict:
     no window, no cap) at both scales (the tensor-core kernel), then the
     float32 calls of phase 10 (S=512, windows 0 and 128; the FP32-core
     kernel).
-    Each capped (shape, type, mask) compiles its own ``flex_attention``,
-    more than dynamo's default limit of 8 recompiles; past the limit flex
-    would run unfused and its time would not be the library's, so the
-    limit is raised and hitting it fails the phase."""
+    The library call is timed beside every uncapped case (SDPA) and, of
+    the capped ones, beside the windowless global layers of gemma2 and of
+    phase 10, the kernels line's head cases: each capped (shape, type,
+    mask) compiles its own ``flex_attention``, 3-20 s of the host's time
+    each (the twelve at test_kernels' shapes took 85 s, for calls of a
+    few microseconds).  Past
+    dynamo's limit of recompiles flex would run unfused and its time would
+    not be the library's, so the limit is raised and hitting it fails the
+    phase."""
     import torch._dynamo
     with torch._dynamo.config.patch(recompile_limit=64,
                                     fail_on_recompile_limit_hit=True):
@@ -4115,17 +4214,18 @@ def phase_flash(timer: Timer, draft: tuple) -> dict:
 
 
 def flash_cases(timer: Timer, draft: tuple) -> dict:
-    cases = [flash_case(timer, BH, S, T, d, dtype, causal, window, cap)
+    cases = [flash_case(timer, BH, S, T, d, dtype, causal, window, cap,
+                        library=not cap)
              for (BH, S, T, d) in FLASH_SHAPES
              for (causal, window, cap) in FLASH_MASKS
              for dtype in (torch.float32, torch.bfloat16)]
     sharp = [flash_case(timer, BH, S, T, d, dtype, causal, window, cap,
-                        qk=FLASH_SHARP)
+                        qk=FLASH_SHARP, library=False)
              for (BH, S, T, d) in FLASH_SHAPES
              for (causal, window, cap) in FLASH_MASKS if cap
              for dtype in (torch.float32, torch.bfloat16)]
     gemma = [flash_case(timer, 16, 4096, 4096, 256, torch.bfloat16, True,
-                        window, 50.0, groups=2, qk=qk)
+                        window, 50.0, groups=2, qk=qk, library=not window)
              for qk in (0.3, FLASH_SHARP) for window in (0, 4096)]
     check(all(c["kernel"] == "tensor_cores" for c in gemma),
           "gemma2-2b's bf16 cases must run on the tensor cores")
@@ -4165,7 +4265,7 @@ def flash_cases(timer: Timer, draft: tuple) -> dict:
     # 512, its global and its local layer): the FP32-core kernel's path
     small = [flash_case(timer, TRAIN_SMALL_B * 8, TRAIN_SMALL_S,
                         TRAIN_SMALL_S, 256, torch.float32, True, window,
-                        50.0, groups=2)
+                        50.0, groups=2, library=not window)
              for window in (0, TRAIN_CUTS["sliding_window"])]
     check(all(c["kernel"] == "fp32_cores" for c in cases + sharp + small
               if c["dtype"] == "float32"),
@@ -4211,8 +4311,7 @@ def phase_train_parity() -> dict:
           f"{TRAIN_SMALL_S}", flush=True)
     print(f"train parity cut: param_dtype {full.param_dtype} -> float32",
           flush=True)
-    cpu_model = M.init_params(cfg, seed=0, device="cpu")
-    gpu_model = copy.deepcopy(cpu_model).to("cuda")
+    cpu_model, gpu_model = host_and_card(cfg)
     batch = train_small_batch(cfg)
     opt = ST.default_opt_cfg(cfg)
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -4424,31 +4523,54 @@ print(json.dumps(rec))
 
 def _spawn_traces() -> dict:
     """Phase 21's dry-runs, each in a process of its own, all started at
-    once: the two one-device cells and the full-size cells (through the
-    dry-run's CLI, which writes their records)."""
-    env = {**__import__("os").environ, "PYTHONPATH": str(ROOT / "src"),
-           "CUDA_VISIBLE_DEVICES": ""}
-    procs = {cell: subprocess.Popen(
-        [sys.executable, "-c", _TRACE_ONE, json.dumps(cell)], env=env,
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for cell in (DRYRUN_DECODE, DRYRUN_TRAIN)}
+    once, early (before phase 17), so that they trace on the host's idle
+    cores while the card runs phases 17-11: the two one-device cells and
+    the full-size cells (through the dry-run's CLI, which writes their
+    records).  Their output goes to temporary files, so that none blocks
+    on a full pipe before phase 21 reads it, and every one still running
+    when the script exits is killed."""
+    import atexit
+    import os
+    import tempfile
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    argv = {cell: [sys.executable, "-c", _TRACE_ONE, json.dumps(cell)]
+            for cell in (DRYRUN_DECODE, DRYRUN_TRAIN)}
     for arch, shape in DRYRUN_FULL:
-        procs[(arch, shape)] = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--mesh", "single"], env=env, cwd=ROOT,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        argv[(arch, shape)] = [sys.executable, "-m",
+                               "repro_torch.launch.dryrun", "--arch", arch,
+                               "--shape", shape, "--mesh", "single"]
+    procs = {}
+    for key, cmd in argv.items():
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        # at the lowest priority: phase 17's host-bound decode loops share
+        # the cores with them
+        procs[key] = (subprocess.Popen(
+            cmd, env=env, cwd=ROOT, stdout=out, stderr=err, text=True,
+            preexec_fn=lambda: os.nice(19)), out, err)
+
+    def stop():
+        for proc, _, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    atexit.register(stop)
     return procs
 
 
 def _collect(procs: dict, key, timeout: float = 600) -> str:
+    proc, out, err = procs[key]
     try:
-        out, err = procs[key].communicate(timeout=timeout)
+        proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
-        for p in procs.values():
+        for p, _, _ in procs.values():
             p.kill()
         raise
-    check(procs[key].returncode == 0, f"phase 21 trace {key}: {err[-3000:]}")
-    return out
+    out.seek(0)
+    err.seek(0)
+    check(proc.returncode == 0,
+          f"phase 21 trace {key}: {err.read()[-3000:]}")
+    return out.read()
 
 
 def _requested() -> int:
@@ -4469,8 +4591,9 @@ def _placed(fn) -> tuple:
         - base_blocks
 
 
-def phase_dryrun(smi: str) -> dict:
-    """Phase 21 (see the module docstring)."""
+def phase_dryrun(smi: str, procs: dict) -> dict:
+    """Phase 21 (see the module docstring); ``procs``: its dry-runs, as
+    ``_spawn_traces`` started them."""
     from torch.utils.flop_counter import FlopCounterMode
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.hero import roofline_table as RT
@@ -4481,7 +4604,6 @@ def phase_dryrun(smi: str) -> dict:
     from repro_torch.models import model as M
     from repro_torch.models import steps as ST
     t_phase = time.perf_counter()
-    procs = _spawn_traces()
     out = {}
     # flash (all, tensor cores), its plain forward and recompute, paged
     # (bf16 / f32 pool, int8 pool), the cluster matmul
@@ -4617,6 +4739,278 @@ def phase_dryrun(smi: str) -> dict:
 
 
 # ------------------------------------------------------------------ main --
+# -------------------------------------------------------------- phase 22 --
+#: phase 22 (a): a cluster's launches must overlap: the wall of n clusters
+#: under this share of the sum of their own times
+OVERLAP_SHARE = 0.8
+#: phase 22 (b): train_100m at full width, and its checkpoint interval
+T100M_STEPS, T100M_BATCH, T100M_SEQ, T100M_CKPT = 60, 8, 256, 20
+
+
+def phase_fig4(timer: Timer, smi: str) -> dict:
+    """(a) Fig.4's measured half on the card: ``hero.fig4_cluster_speedup``
+    at 1, 2, 4 and 8 SM-budgeted clusters, 1024^3 and 2048^3 float32.  The
+    budgeted launches are counted over that run alone; then each count's
+    C is held against the plain version and against one unbudgeted
+    kernel call at the f32 matmul bar, and for n >= 2 the wall must be
+    under ``OVERLAP_SHARE`` x the sum of the clusters' own times.  A
+    budget on a wgmma-routed product must raise, and two bf16 products
+    on the general branch within a budget must agree with the plain
+    version at the bf16 bar.  Then one cluster's
+    block at each count and size is timed alone within its budget,
+    unbudgeted and by ``torch.matmul``; the kernels line's case is 1024^3
+    over 8 clusters (a 128 x 1024 @ 1024 x 1024 block within 16 SMs),
+    also timed by its plain version."""
+    from repro_torch.hero import fig4_cluster_speedup as F4
+    from repro_torch.kernels.cluster_matmul import kernel as CK
+    from repro_torch.kernels.cluster_matmul import ref as CR
+    tol = MATMUL_TOL[torch.float32]
+    x = torch.zeros(256, 256, dtype=torch.bfloat16, device="cuda")
+    refused = None
+    try:
+        CK.matmul(x, x, sms=16)
+    except ValueError as e:
+        refused = e
+    check(refused is not None, "a budget on a wgmma product did not raise")
+    print(f"fig4: a budget on the wgmma branch raises: {refused}",
+          flush=True)
+    for c in (CK.launches, CK.budgeted_launches, CK.wgmma_launches):
+        c.reset()
+    t0 = time.perf_counter()
+    rows = [r for size in F4.SIZES for r in F4.measure(size, "cuda")]
+    wall_s = time.perf_counter() - t0
+    launches, budgeted = CK.launches.n, CK.budgeted_launches.n
+    check(budgeted > 0 and launches == budgeted and
+          CK.wgmma_launches.n == 0,
+          f"fig4: {budgeted} budgeted of {launches} launches, "
+          f"{CK.wgmma_launches.n} wgmma")
+    F4.print_measured(rows, smi)
+    errs = []
+    for size in F4.SIZES:
+        a, b = F4.operands(size, "cuda")
+        plain = CR.cluster_matmul_ref(a, b).float()
+        whole = CK.matmul(a, b).float()
+        for r in (r for r in rows if r["size"] == size):
+            n, out = r["n_clusters"], r["out"].float()
+            err = (out - plain).abs().max().item()
+            err_whole = (out - whole).abs().max().item()
+            check(out.shape == (size, size)
+                  and bool(torch.isfinite(out).all()),
+                  f"fig4 {size}^3 x {n}: output {tuple(out.shape)}")
+            check(torch.allclose(out, plain, rtol=tol, atol=tol),
+                  f"fig4 {size}^3 x {n}: vs plain max |err| {err}")
+            check(torch.allclose(out, whole, rtol=tol, atol=tol),
+                  f"fig4 {size}^3 x {n}: vs one unbudgeted call max |err| "
+                  f"{err_whole}")
+            own = sum(r["cluster_ms"])
+            if n > 1:
+                check(r["wall_ms"] < OVERLAP_SHARE * own,
+                      f"fig4 {size}^3 x {n}: the clusters did not overlap: "
+                      f"wall {r['wall_ms']:.4f} ms >= {OVERLAP_SHARE} x "
+                      f"their own {own:.4f} ms")
+            r.update(max_abs_err=err, max_abs_err_unbudgeted=err_whole,
+                     overlap=r["wall_ms"] / own)
+            errs.append(err)
+            print(f"fig4 {size}^3 x {n}: sms={r['sms']} "
+                  f"resident_blocks={r['resident']} tile={r['tile']} "
+                  f"splits={r['splits']} wall_ms={r['wall_ms']:.4f} "
+                  f"wall_host_paced_ms={r['wall_host_paced_ms']:.4f} "
+                  f"enqueue_ms={r['enqueue_ms']:.4f} "
+                  f"cluster_ms={[round(t, 4) for t in r['cluster_ms']]} "
+                  f"speedup={r['speedup']:.3f} bound_ms={r['bound_ms']:.5f} "
+                  f"wall/own={r['overlap']:.3f} max_abs_err={err:.3g} "
+                  f"vs_unbudgeted={err_whole:.3g}", flush=True)
+    # the bf16 general kernel within a budget too (Fig.4 is float32):
+    # 127^3 (both operands through registers) and 768^3 with A 2 bytes off
+    # 16 (16-byte copies, K tiles shifted), against the plain version at
+    # the bf16 bar
+    bar = MATMUL_TOL[torch.bfloat16]
+    for m, k, off in ((127, 127, 0), (768, 768, 1)):
+        g = torch.Generator(device="cuda").manual_seed(3)
+        a = torch.randn(m, k, generator=g, device="cuda").to(torch.bfloat16)
+        b = (torch.randn(k, m, generator=g, device="cuda")
+             / math.sqrt(k)).to(torch.bfloat16)
+        if off:
+            a = torch.empty(m * k + off, dtype=torch.bfloat16,
+                            device="cuda")[off:].view(m, k).copy_(a)
+        check(CK.route(torch.bfloat16, m, k, m, aligned=not off)
+              == CK.GENERAL, f"bf16 {m}^3: not on the general branch")
+        out = CK.matmul(a, b, sms=16).float()
+        plain = CR.cluster_matmul_ref(a, b).float()
+        err = (out - plain).abs().max().item()
+        check(torch.allclose(out, plain, rtol=bar, atol=bar),
+              f"fig4: budgeted bf16 {m}^3 vs plain max |err| {err}")
+        print(f"fig4: budgeted bf16 {m}^3 (A {2 * off} bytes off 16) "
+              f"max_abs_err={err:.3g} tol={bar}", flush=True)
+    # one cluster's block at each count and size, timed alone (L2
+    # flushed): within its budget, unbudgeted and by torch.matmul; the
+    # kernels line's case is 1024^3 over 8 clusters
+    for r in rows:
+        size, n, sms = r["size"], r["n_clusters"], r["sms"]
+        a, b = F4.operands(size, "cuda")
+        at = a[:size // n]
+        r.update(block_ms=timer.ms(lambda: CK.matmul(at, b, sms=sms)),
+                 block_unbudgeted_ms=timer.ms(lambda: CK.matmul(at, b)),
+                 block_library_ms=timer.ms(lambda: torch.matmul(at, b)))
+        print(f"fig4 block {size // n}x{size}x{size} within {sms} SMs: "
+              f"ms={r['block_ms']:.4f} unbudgeted_ms="
+              f"{r['block_unbudgeted_ms']:.4f} library_ms="
+              f"{r['block_library_ms']:.4f} bound_share_ms="
+              f"{r['bound_ms']:.5f}", flush=True)
+    head = next(r for r in rows if (r["size"], r["n_clusters"]) == (1024, 8))
+    a, b = F4.operands(1024, "cuda")
+    at = a[:head["m"]]
+    m, k, n_cols = head["m"], 1024, 1024
+    nbytes = (m * k + k * n_cols + m * n_cols) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * k * n_cols / PEAK_OPS_PER_S[torch.float32] * 1e3
+    case = dict(
+        m=m, k=k, n=n_cols, sms=head["sms"], max_abs_err=max(errs),
+        ms=head["block_ms"], unbudgeted_ms=head["block_unbudgeted_ms"],
+        plain_ms=timer.ms(lambda: CR.cluster_matmul_ref(at, b), reps=5),
+        library_ms=head["block_library_ms"], bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bound_share_ms=head["bound_ms"])
+    print("fig4 kernel case: " + " ".join(
+        f"{k_}={v:.5g}" if isinstance(v, float) else f"{k_}={v}"
+        for k_, v in case.items()), flush=True)
+    for r in rows:
+        del r["out"]
+    return dict(rows=rows, launches=launches, budgeted_launches=budgeted,
+                wall_s=wall_s, case=case)
+
+
+def phase_train_100m(device="cuda") -> dict:
+    """(b) ``launch.train_100m`` at full width (10 layers, d 640, 10 heads
+    of 64 over 5 KV heads, vocab 50,304, bf16 with a float32 master):
+    ``T100M_STEPS`` steps at batch ``T100M_BATCH`` x seq ``T100M_SEQ``
+    through ``Trainer.run_with_recovery``, a checkpoint every
+    ``T100M_CKPT`` steps into a temporary directory (deleted afterwards).
+    The flash kernel's tensor-core branch must carry every attention
+    forward and its recompute (2 x 10 a step), the plain forward none;
+    the loss must decrease (the entry point raises otherwise)."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import latest_step
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.launch import train_100m as T100
+    cfg = T100.model_100m()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_t100m_")
+    counters = (FK.launches, FK.tc_launches, FO.plain_forwards,
+                FO.backward_recomputes)
+    try:
+        for c in counters:
+            c.reset()
+        t0 = time.perf_counter()
+        res = T100.main(["--steps", str(T100M_STEPS), "--batch",
+                         str(T100M_BATCH), "--seq", str(T100M_SEQ),
+                         "--ckpt", ckpt, "--ckpt-every", str(T100M_CKPT),
+                         "--device", str(device)])
+        wall = time.perf_counter() - t0
+        launches, tc, plain, recomputes = (c.n for c in counters)
+        committed = sorted(int(d.name.split("_")[1]) for d in
+                           Path(ckpt).iterdir() if (d / "COMMITTED").exists())
+        last = latest_step(ckpt)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    steps = res["final_step"]
+    check(steps == T100M_STEPS and res["restarts"] == 0,
+          f"train_100m: {steps} steps, {res['restarts']} restarts")
+    check(committed == list(range(T100M_CKPT, T100M_STEPS + 1, T100M_CKPT))
+          and last == T100M_STEPS, f"train_100m: commits {committed}")
+    on_card = torch.device(device).type == "cuda"
+    calls = 2 * cfg.num_layers * steps
+    want = (calls, 0) if on_card else (0, calls)
+    check((launches, plain) == want and tc == launches,
+          f"train_100m: flash launches {launches} (tensor cores {tc}), plain "
+          f"forwards {plain}, want {want}: 2 x {cfg.num_layers} layers x "
+          f"{steps} steps")
+    losses = [m["loss"] for m in res["metrics"]]
+    step_ms = [m["step_s"] * 1e3 for m in res["metrics"][1:]]
+    tokens = T100M_BATCH * T100M_SEQ
+    med = statistics.median(step_ms)
+    row = dict(steps=steps, batch=T100M_BATCH, seq=T100M_SEQ,
+               params_estimate=T100.param_estimate(cfg),
+               step_ms_median=med, tokens_per_s=tokens / med * 1e3,
+               first_loss=losses[0], last_loss=losses[-1],
+               flash_launches=launches, flash_tc_launches=tc,
+               flash_launches_per_step=launches / steps,
+               backward_recomputes=recomputes, checkpoints=committed,
+               wall_s=wall, logged_steps=len(losses))
+    print("train_100m: " + " ".join(
+        f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in row.items()), flush=True)
+    return row
+
+
+def phase_serve_paged(device="cuda") -> dict:
+    """(c) ``launch.serve_paged``'s schedule (the reference's smoke config,
+    bf16 weights from seed 0 drawn on ``device``, then carried to the
+    CPU) served on ``device`` and on the CPU: iterations, transfers,
+    preemptions, RAB / pool / backing-store stats and every request's
+    finish reason, prefix-hit tokens and preemptions must be equal, and
+    its tokens too, but for a stream's first flip at a near-tie
+    (``excuse_first_flip``: phase 4's rule, on both engines' logits for
+    the context served alone).  On the card the paged kernels must carry
+    every layer of every iteration (tensor cores for the chunks,
+    split-KV for the decodes)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import kernel as K
+    from repro_torch.kernels.paged_attention import ref as KR
+    from repro_torch.launch import serve_paged as SP
+    from repro_torch.models.model import init_params
+    from repro_torch.runtime import make_engine
+    cfg = get_config("yi-6b").smoke()
+    model = init_params(cfg, seed=0, device=device)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    counters = (K.launches, K.tc_launches, K.split_launches, KR.calls)
+    for c in counters:
+        c.reset()
+    card = SP.run(cfg, model, device=device)
+    launches, tc, split, plain = (c.n for c in counters)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cpu = SP.run(cfg, cpu_model, device="cpu")
+    for key in ("iterations", "h2d", "d2h", "preemptions", "rab", "pool",
+                "backing", "lifecycles"):
+        check(card[key] == cpu[key],
+              f"serve_paged {key}: {card[key]} != CPU {cpu[key]}")
+    check(card["preemptions"] >= 1, "serve_paged: no preemption")
+    requests = {r.rid: r for r in SP.requests(8)}
+
+    def make_pair():
+        return [make_engine(cfg, m, SP.engine_config(device=d), device=d)
+                for m, d in ((model, device), (cpu_model, "cpu"))]
+    flips = 0
+    for rid, got in card["results"].items():
+        want = cpu["results"][rid]
+        for key in ("finish_reason", "prefix_hit_tokens", "preemptions"):
+            check(got[key] == want[key],
+                  f"serve_paged rid {rid} {key}: {got[key]} != {want[key]}")
+        if rid == SP.VIP["rid"]:
+            from repro_torch.runtime import SamplingParams
+            prompt, sp = tuple(SP.VIP["prompt"]), SamplingParams(max_new=6)
+        else:
+            prompt, sp = tuple(requests[rid].prompt), requests[rid].sampling
+        flips += excuse_first_flip(
+            f"serve_paged rid {rid}", prompt, got["tokens"], want["tokens"],
+            rerun_rows(make_pair, rid, sp), sp, torch.bfloat16)
+    on_card = torch.device(device).type == "cuda"
+    n_layers = cfg.num_layers
+    if on_card:
+        check(launches == tc + split and plain == 0 and tc > 0 and split > 0
+              and launches % n_layers == 0,
+              f"serve_paged: paged launches {launches} (tensor cores {tc}, "
+              f"split-KV {split}), plain {plain}")
+    row = dict(iterations=card["iterations"], preemptions=card["preemptions"],
+               prefix_hit_tokens=card["pool"]["prefix_hit_tokens"],
+               tokens=sum(len(r["tokens"]) for r in card["results"].values()),
+               flips_excused=flips, paged_launches=launches, tc_launches=tc,
+               split_launches=split, plain_calls=plain)
+    print(f"serve_paged: {row}", flush=True)
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4647,10 +5041,11 @@ def main() -> int:
 
     # 2. build (one nvcc per source, all started together)
     t0 = time.perf_counter()
-    launch.build([K.SOURCE, CK.SOURCE, FK.SOURCE])
+    sources = (K.SOURCE, CK.SOURCE, CK.BUDGETED_SOURCE, FK.SOURCE)
+    launch.build(sources)
     print("build: " + ", ".join(
         f"{src.name} -> {launch.library_path(src).name}"
-        for src in (K.SOURCE, CK.SOURCE, FK.SOURCE))
+        for src in sources)
         + f" in {time.perf_counter() - t0:.2f} s", flush=True)
 
     done("phase 2")
@@ -4717,6 +5112,7 @@ def main() -> int:
     done("phase 16")
     gc.collect()
     torch.cuda.empty_cache()
+    traces = _spawn_traces()        # phase 21's, on the host's idle cores
     recurrent = phase_recurrent(timer)
     done("phase 17")
 
@@ -4738,8 +5134,12 @@ def main() -> int:
     done("phase 11")
     train = phase_train_full()
     done("phase 12")
-    dryrun = phase_dryrun(smi)
+    dryrun = phase_dryrun(smi, traces)
     done("phase 21")
+    fig4 = phase_fig4(timer, smi)
+    train100m = phase_train_100m()
+    serve_paged = phase_serve_paged()
+    done("phase 22")
 
     def entry(name, kernel, kv, C, dtype, launches, replaces):
         """A paged-attention kernel on one pool type: its head case is
@@ -4780,7 +5180,8 @@ def main() -> int:
               + planner["split_launches"] + moe_serve["split_launches"]
               + sum(r["split_launches"] for r in full)
               + sharded_lock["split_launches"] + pix_serve["split_launches"]
-              + pix_lock["split_launches"], decode_fwd),
+              + pix_lock["split_launches"] + serve_paged["split_launches"],
+              decode_fwd),
         entry("paged_attention_decode_split_int8", SPLIT_KV, "int8", 1,
               "bfloat16", serve8["split_launches"]
               + moe_serve8["split_launches"]
@@ -4799,7 +5200,8 @@ def main() -> int:
               + tiers["tc_launches"] + planner["tc_launches"]
               + moe_serve["tc_launches"]
               + sum(r["tc_launches"] for r in full)
-              + pix_serve["tc_launches"], prefill),
+              + pix_serve["tc_launches"] + serve_paged["tc_launches"],
+              prefill),
         entry("paged_attention_prefill_tc_int8", TENSOR_CORES, "int8", 128,
               "bfloat16", serve8["tc_launches"] + moe_serve8["tc_launches"],
               quant),
@@ -4839,6 +5241,23 @@ def main() -> int:
             "held_against_plain": True,
             "cases": own,
         })
+    # the general float32 kernel within an SM budget: phase 22 (a)'s Fig.4
+    # clusters, its case one cluster's block of 1024^3 over 8, its error
+    # the largest over every count and size against the plain version
+    case = fig4["case"]
+    kernels.append({
+        "name": "cluster_matmul_budgeted", "route": "cuda",
+        "source": "src/repro_torch/kernels/cluster_matmul/csrc/"
+                  "cluster_matmul.cu",
+        "replaces": "src/repro/kernels/cluster_matmul/kernel.py:48",
+        "launches": fig4["budgeted_launches"],
+        "max_abs_err": case["max_abs_err"], "ms": case["ms"],
+        "plain_ms": case["plain_ms"], "bound_ms": case["bound_ms"],
+        "bound_by": case["bound_by"], "library_ms": case["library_ms"],
+        "held_against_plain": True, "sms": case["sms"],
+        "unbudgeted_ms": case["unbudgeted_ms"],
+        "bound_share_ms": case["bound_share_ms"], "cases": fig4["rows"],
+    })
     # flash on the tensor cores: the main path's case is gemma2-2b's
     # global (window 0) layer, its error the largest of gemma2's four
     # cases (both scales, both windows), phase 13's draft cases, hymba's
@@ -4854,7 +5273,8 @@ def main() -> int:
              train["flash_tc_launches"] + frontdoor["flash_tc_launches"]
              + recurrent["tc_launches"] + frontends["tc_launches"]
              + deepseek["tc_launches"]
-             + dryrun["train"]["flash_tc_launches"], 0),
+             + dryrun["train"]["flash_tc_launches"]
+             + train100m["flash_tc_launches"], 0),
             ("flash_attention", "fp32_cores", flash["small"][0],
              parity_train["flash_fp32_core_launches"]
              + recurrent["fp32_core_launches"]

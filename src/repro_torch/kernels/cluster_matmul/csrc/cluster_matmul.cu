@@ -148,9 +148,26 @@
 // elements the register path, whose loads for a tile have only the
 // previous tile's MMAs to hide under.
 //
+// An SM budget (the general branch, both types; Fig.4's clusters sharing
+// one card): the wrapper passes max_blocks = budget x the blocks an SM
+// holds (cluster_matmul_resident, from cudaOccupancyMaxActiveBlocksPer-
+// Multiprocessor), and the launch takes a second instantiation of the
+// kernel whose grid holds min(items, max_blocks) blocks, each walking the
+// (tile, split) items by grid stride.  The per-item body is the same
+// function in both (inlined), so an unbudgeted launch runs exactly the
+// kernel of one item a block.  A budget caps the blocks in flight; the
+// hardware scheduler, not this code, places them on SMs.  This file is
+// built twice, as two libraries whose nvcc runs go in parallel: as it is
+// (one item a block, and the wgmma branch), and through
+// cluster_matmul_budgeted.cu, which defines CLUSTER_MATMUL_BUDGETED (the
+// grid-stride instantiations alone), so each build compiles half the
+// general kernels.
+//
 // Plain C interface (loaded with ctypes): cluster_matmul_launch (general,
 // both types) and cluster_matmul_wgmma_launch return cudaGetLastError()
-// after the launch; 0 means launched.
+// after the launch; 0 means launched.  The budgeted build exports
+// cluster_matmul_launch (max_blocks > 0) and cluster_matmul_resident (the
+// budgeted kernel's blocks an SM) instead.
 
 #include <cuda.h>   // CUtensorMap and its enums (types only)
 #include <cuda_bf16.h>
@@ -158,6 +175,12 @@
 
 #include <stddef.h>
 #include <stdint.h>
+
+#ifdef CLUSTER_MATMUL_BUDGETED
+constexpr bool kBudgeted = true;    // the grid-stride instantiations
+#else
+constexpr bool kBudgeted = false;   // one item a block
+#endif
 
 // --------------------------------------------- f32, general (any shape) --
 namespace gen {
@@ -247,26 +270,25 @@ __device__ __forceinline__ bool last_split(int* ticket, int splits,
   return last;
 }
 
-// Block (tile, split) = (blockIdx.x / splits, blockIdx.x % splits): the
-// splits of a tile are neighbours in the grid, so they run together.
-// With splits == 1 the block writes its tile of C; otherwise (64 x 64
-// tiles only) it writes its float32 partial to part[blockIdx.x], and the
-// tile's last block to finish sums the partials in split order (0, 1,
-// ...) into C.
+// Item (tile, split) = (item / splits, item % splits): the splits of a
+// tile are neighbours in the item order, so they run together.  With
+// splits == 1 the block writes its tile of C; otherwise (64 x 64 tiles
+// only) it writes its float32 partial to part[item], and the tile's last
+// block to finish sums the partials in split order (0, 1, ...) into C.
+// Every thread of the block calls it; it primes the shared-memory ring
+// itself, so a block can take one item after another.
 template <int BM, int BN>
-__global__ void __launch_bounds__(Cfg<BM, BN>::kThreads,
-                                  512 / Cfg<BM, BN>::kThreads)
-matmul_f32_general_kernel(const float* __restrict__ A,
-                          const float* __restrict__ B, float* __restrict__ C,
-                          float* __restrict__ part, int* __restrict__ tickets,
-                          int M, int N, int K, int splits) {
+__device__ __forceinline__ void f32_general_item(
+    const float* __restrict__ A, const float* __restrict__ B,
+    float* __restrict__ C, float* __restrict__ part,
+    int* __restrict__ tickets, int M, int N, int K, int splits, int item) {
   using G = Cfg<BM, BN>;
   extern __shared__ __align__(16) float smem[];
   __shared__ int last_flag;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = warp / G::kWarpsN, wn = warp % G::kWarpsN;
   const int lm = lane / 4, ln = lane % 4;
-  const int tile = int(blockIdx.x) / splits, split = int(blockIdx.x) % splits;
+  const int tile = item / splits, split = item % splits;
 
   // grouped tile order: kGroupM tile rows walk the tile columns together
   const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
@@ -391,8 +413,8 @@ matmul_f32_general_kernel(const float* __restrict__ A,
     store_c();
     return;
   }
-  // the partial, 16 bytes at a time, into this block's slot
-  float* mine = part + size_t(blockIdx.x) * BM * BN;
+  // the partial, 16 bytes at a time, into this item's slot
+  float* mine = part + size_t(item) * BM * BN;
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
@@ -424,24 +446,62 @@ matmul_f32_general_kernel(const float* __restrict__ A,
   store_c();
 }
 
+// kStride false: one item a block, the grid holding every item (no
+// budget).  kStride true (an SM budget): a grid of at most budget x
+// resident blocks, each walking the items by grid stride, item = block,
+// block + grid, ...; the split-K tickets and the combine are the same
+// per item, so the result does not depend on which block takes which.
+template <int BM, int BN, bool kStride>
+__global__ void __launch_bounds__(Cfg<BM, BN>::kThreads,
+                                  512 / Cfg<BM, BN>::kThreads)
+matmul_f32_general_kernel(const float* __restrict__ A,
+                          const float* __restrict__ B, float* __restrict__ C,
+                          float* __restrict__ part, int* __restrict__ tickets,
+                          int M, int N, int K, int splits, int items) {
+  if constexpr (kStride) {
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      f32_general_item<BM, BN>(A, B, C, part, tickets, M, N, K, splits,
+                               item);
+      __syncthreads();   // the ring and the flag are free for the next item
+    }
+  } else {
+    f32_general_item<BM, BN>(A, B, C, part, tickets, M, N, K, splits,
+                             int(blockIdx.x));
+  }
+}
+
+// Above 48 KB a block needs the opt-in, once per kernel and process.
+template <typename Kernel>
+cudaError_t opt_in(Kernel kernel, size_t smem, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e == cudaSuccess) done = true;
+  return e;
+}
+
+// This build's kernel (kBudgeted: the grid-stride one); with `resident`
+// it reports the blocks one SM holds at once instead of launching.
 template <int BM, int BN>
 cudaError_t launch(const float* a, const float* b, float* c, float* part,
                    int* tickets, int m, int n, int k, int splits,
-                   cudaStream_t stream) {
+                   int max_blocks, cudaStream_t stream,
+                   int* resident = nullptr) {
   using G = Cfg<BM, BN>;
-  auto kernel = matmul_f32_general_kernel<BM, BN>;
-  static bool opted_in = false;   // above 48 KB a block needs the opt-in
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(G::kSmem));
-    if (e != cudaSuccess) return e;
-    opted_in = true;
-  }
-  const long long blocks =
+  auto kernel = matmul_f32_general_kernel<BM, BN, kBudgeted>;
+  static bool opted_in = false;
+  const cudaError_t e = opt_in(kernel, G::kSmem, opted_in);
+  if (e != cudaSuccess) return e;
+  if (resident)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(resident, kernel,
+                                                         G::kThreads,
+                                                         G::kSmem);
+  const long long items =
       (long long)((m + BM - 1) / BM) * ((n + BN - 1) / BN) * splits;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<unsigned(blocks), G::kThreads, G::kSmem, stream>>>(
-      a, b, c, part, tickets, m, n, k, splits);
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long grid = kBudgeted && items > max_blocks ? max_blocks : items;
+  kernel<<<unsigned(grid), G::kThreads, G::kSmem, stream>>>(
+      a, b, c, part, tickets, m, n, k, splits, int(items));
   return cudaGetLastError();
 }
 
@@ -602,10 +662,13 @@ struct Operand {
   }
 };
 
-// Block (tile, split) = (blockIdx.x / splits, blockIdx.x % splits), as in
-// gen: with splits == 1 the block writes its tile of C; otherwise (64 x 64
-// tiles only) it writes its float32 partial to part[blockIdx.x], and the
-// tile's last block to finish sums the partials in split order into C.
+// Item (tile, split) = (item / splits, item % splits), as in gen: with
+// splits == 1 the block writes its tile of C; otherwise (64 x 64 tiles
+// only) it writes its float32 partial to part[item], and the tile's last
+// block to finish sums the partials in split order into C.  Every thread
+// of the block calls it; it primes the ring (and, for a shifted A, zeroes
+// A's leading elements) itself, so a block can take one item after
+// another.
 // WA, WB: the access widths (bytes) of A and B.  WB divides B's base
 // address and row pitch; WA divides A's row pitch, and A's K tiles start
 // `sa` elements early (K tile kt covers k in [32kt - sa, 32kt - sa +
@@ -617,11 +680,11 @@ struct Operand {
 // the copies' src-size, before 0 in shared memory by the thread that
 // copied them.
 template <int BM, int BN, int WA, int WB>
-__global__ void __launch_bounds__(kThreads, BM == 128 ? 2 : 4)
-matmul_bf16_general_kernel(const bf16* __restrict__ A,
-                           const bf16* __restrict__ B, bf16* __restrict__ C,
-                           float* __restrict__ part, int* __restrict__ tickets,
-                           int M, int N, int K, int sa, int splits) {
+__device__ __forceinline__ void bf16_general_item(
+    const bf16* __restrict__ A, const bf16* __restrict__ B,
+    bf16* __restrict__ C, float* __restrict__ part,
+    int* __restrict__ tickets, int M, int N, int K, int sa, int splits,
+    int item) {
   using G = Cfg<BM, BN>;
   using OA = Operand<BM, kBK, G::kALd, WA>;
   using OB = Operand<kBK, BN, G::kBLd, WB>;
@@ -629,7 +692,7 @@ matmul_bf16_general_kernel(const bf16* __restrict__ A,
   __shared__ int last_flag;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wm = warp / 2, wn = warp % 2;
-  const int tile = int(blockIdx.x) / splits, split = int(blockIdx.x) % splits;
+  const int tile = item / splits, split = item % splits;
 
   // grouped tile order: kGroupM tile rows walk the tile columns together
   const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
@@ -805,7 +868,7 @@ matmul_bf16_general_kernel(const bf16* __restrict__ A,
     store_c();
     return;
   }
-  float* mine = part + size_t(blockIdx.x) * BM * BN;
+  float* mine = part + size_t(item) * BM * BN;
 #pragma unroll
   for (int mi = 0; mi < G::kMI; ++mi)
 #pragma unroll
@@ -835,6 +898,27 @@ matmul_bf16_general_kernel(const bf16* __restrict__ A,
   store_c();
 }
 
+// One item a block (kStride false), or a grid-stride walk of the items
+// under an SM budget (kStride true), as gen's kernel.
+template <int BM, int BN, int WA, int WB, bool kStride>
+__global__ void __launch_bounds__(kThreads, BM == 128 ? 2 : 4)
+matmul_bf16_general_kernel(const bf16* __restrict__ A,
+                           const bf16* __restrict__ B, bf16* __restrict__ C,
+                           float* __restrict__ part, int* __restrict__ tickets,
+                           int M, int N, int K, int sa, int splits,
+                           int items) {
+  if constexpr (kStride) {
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      bf16_general_item<BM, BN, WA, WB>(A, B, C, part, tickets, M, N, K, sa,
+                                        splits, item);
+      __syncthreads();   // the ring and the flag are free for the next item
+    }
+  } else {
+    bf16_general_item<BM, BN, WA, WB>(A, B, C, part, tickets, M, N, K, sa,
+                                      splits, int(blockIdx.x));
+  }
+}
+
 struct Args {
   const bf16* a;
   const bf16* b;
@@ -842,25 +926,30 @@ struct Args {
   float* part;
   int* tickets;
   int m, n, k, sa, splits;
+  int max_blocks;      // the budgeted build's grid cap (blocks)
+  int* resident;       // non-null: report the kernel's blocks an SM
+                       // holds instead of launching
   cudaStream_t stream;
 };
 
 template <int BM, int WA, int WB>
 cudaError_t launch(const Args& p) {
   using G = Cfg<BM, BM>;
-  auto kernel = matmul_bf16_general_kernel<BM, BM, WA, WB>;
-  static bool opted_in = false;   // above 48 KB a block needs the opt-in
-  if (!opted_in) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(G::kSmem));
-    if (e != cudaSuccess) return e;
-    opted_in = true;
-  }
-  const long long blocks = (long long)((p.m + BM - 1) / BM) *
-                           ((p.n + BM - 1) / BM) * p.splits;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<unsigned(blocks), kThreads, G::kSmem, p.stream>>>(
-      p.a, p.b, p.c, p.part, p.tickets, p.m, p.n, p.k, p.sa, p.splits);
+  auto kernel = matmul_bf16_general_kernel<BM, BM, WA, WB, kBudgeted>;
+  static bool opted_in = false;
+  const cudaError_t e = gen::opt_in(kernel, G::kSmem, opted_in);
+  if (e != cudaSuccess) return e;
+  if (p.resident)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(p.resident, kernel,
+                                                         kThreads, G::kSmem);
+  const long long items = (long long)((p.m + BM - 1) / BM) *
+                          ((p.n + BM - 1) / BM) * p.splits;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const long long grid =
+      kBudgeted && items > p.max_blocks ? p.max_blocks : items;
+  kernel<<<unsigned(grid), kThreads, G::kSmem, p.stream>>>(
+      p.a, p.b, p.c, p.part, p.tickets, p.m, p.n, p.k, p.sa, p.splits,
+      int(items));
   return cudaGetLastError();
 }
 
@@ -896,6 +985,7 @@ inline bool access_fits(int w, const void* base, long long pitch_bytes,
 
 }  // namespace bf
 
+#ifndef CLUSTER_MATMUL_BUDGETED
 // ------------------------------------------------------- bf16, wgmma --
 namespace wg {
 
@@ -1177,6 +1267,7 @@ bool encode_2d(EncodeTiled fn, CUtensorMap* map, const void* base, int rows,
 }
 
 }  // namespace wg
+#endif  // CLUSTER_MATMUL_BUDGETED
 
 // The general branch, any shape.  dtype: 0 = float32, 1 = bfloat16 (A, B
 // and C alike).  `tile` 128 (128 x 128 tiles, splits 1) or 64 (64 x 64)
@@ -1189,14 +1280,17 @@ bool encode_2d(EncodeTiled fn, CUtensorMap* map, const void* base, int rows,
 // 4, 8 or 16 bytes) of A and B: wb divides B's base address and row pitch
 // (2n bytes), wa divides A's row pitch (2k bytes) and A's base address
 // taken sa elements early (0 <= sa < wa / 2; sa = 0 with wa = 2).
+// `max_blocks`: 0 in this build, the grid cap (> 0) in the budgeted one.
 // Anything else is refused with cudaErrorInvalidValue.  Launches on
 // `stream`; does not synchronise.
 extern "C" int cluster_matmul_launch(int dtype, const void* a, const void* b,
                                      void* c, int m, int n, int k, int tile,
                                      int splits, int wa, int wb, int sa,
-                                     void* part, void* tickets,
-                                     void* stream) {
-  if (m <= 0 || n <= 0 || k < 0 || splits < 1 || (dtype != 0 && dtype != 1))
+                                     int max_blocks, void* part,
+                                     void* tickets, void* stream) {
+  if (m <= 0 || n <= 0 || k < 0 || splits < 1 ||
+      (kBudgeted ? max_blocks < 1 : max_blocks != 0) ||
+      (dtype != 0 && dtype != 1))
     return int(cudaErrorInvalidValue);
   if (dtype == 0) sa = 0;
   const int bk = dtype == 0 ? gen::kBK : bf::kBK;
@@ -1214,9 +1308,11 @@ extern "C" int cluster_matmul_launch(int dtype, const void* a, const void* b,
     float* fc = static_cast<float*>(c);
     cudaError_t e = cudaErrorInvalidValue;
     if (tile == 128 && splits == 1)
-      e = gen::launch<128, 128>(fa, fb, fc, fp, tk, m, n, k, splits, s);
+      e = gen::launch<128, 128>(fa, fb, fc, fp, tk, m, n, k, splits,
+                                max_blocks, s);
     else if (tile == 64)
-      e = gen::launch<64, 64>(fa, fb, fc, fp, tk, m, n, k, splits, s);
+      e = gen::launch<64, 64>(fa, fb, fc, fp, tk, m, n, k, splits,
+                              max_blocks, s);
     return int(e);
   }
   if (!(tile == 64 || (tile == 128 && splits == 1)) ||
@@ -1226,10 +1322,35 @@ extern "C" int cluster_matmul_launch(int dtype, const void* a, const void* b,
     return int(cudaErrorInvalidValue);
   const bf::Args p{static_cast<const bf::bf16*>(a),
                    static_cast<const bf::bf16*>(b), static_cast<bf::bf16*>(c),
-                   fp, tk, m, n, k, sa, splits, s};
+                   fp, tk, m, n, k, sa, splits, max_blocks, nullptr, s};
   return int(tile == 128 ? bf::launch_wa<128>(wa, wb, p)
                          : bf::launch_wa<64>(wa, wb, p));
 }
+
+#ifdef CLUSTER_MATMUL_BUDGETED
+// The blocks of the general kernel's grid-stride (budgeted) form that one
+// SM holds at once, for a tile (64 or 128) and, in bfloat16 (dtype 1),
+// A's and B's access widths: cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// with the kernel's threads and shared memory.  The wrapper caps a
+// budgeted grid at budget x this.
+extern "C" int cluster_matmul_resident(int dtype, int tile, int wa, int wb,
+                                       int* blocks) {
+  if (!blocks || (tile != 64 && tile != 128)) return int(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return int(tile == 128
+                   ? gen::launch<128, 128>(nullptr, nullptr, nullptr, nullptr,
+                                           nullptr, 0, 0, 0, 1, 0, nullptr,
+                                           blocks)
+                   : gen::launch<64, 64>(nullptr, nullptr, nullptr, nullptr,
+                                         nullptr, 0, 0, 0, 1, 0, nullptr,
+                                         blocks));
+  if (dtype != 1) return int(cudaErrorInvalidValue);
+  bf::Args p{};
+  p.resident = blocks;
+  return int(tile == 128 ? bf::launch_wa<128>(wa, wb, p)
+                         : bf::launch_wa<64>(wa, wb, p));
+}
+#else
 
 // The wgmma branch: bfloat16 A (m, k), B (k, n), C (m, n), row-major, with
 // k % 8 == 0, n % 8 == 0 and 16-byte-aligned bases (TMA's rule; anything
@@ -1266,3 +1387,4 @@ extern "C" int cluster_matmul_wgmma_launch(const void* a, const void* b,
       map_a, map_b, static_cast<__nv_bfloat16*>(c), m, n, k);
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // CLUSTER_MATMUL_BUDGETED

@@ -26,14 +26,26 @@ FP32 cores through a ring of 4-byte copies; bfloat16 on the tensor cores
 its copies stay aligned whatever its base).  The library is built with
 ``nvcc`` at first launch (``kernels.launch``); every launch adds one to
 :data:`launches`, a launch of the wgmma branch also to
-:data:`wgmma_launches`, and a general launch with K split to
-:data:`split_launches`.
+:data:`wgmma_launches`, a general launch with K split to
+:data:`split_launches`, and a launch under an SM budget to
+:data:`budgeted_launches`.
+
+``matmul(a, b, sms=s)`` runs a general-branch product within a budget of
+``s`` SMs (Fig.4's clusters sharing one card, ``core.cluster``): the plan
+is the one for a card of ``s`` SMs (:func:`general_plan`), and the grid
+holds at most ``s`` x :func:`resident_blocks` blocks, each walking the
+(tile, split) items by grid stride.  Those grid-stride kernels are a
+second library, built from :data:`BUDGETED_SOURCE` beside the first.  The
+budget caps the blocks in flight; the hardware scheduler places them on
+SMs.  A budget on a product :func:`route` sends to the wgmma branch
+raises ``ValueError``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -41,6 +53,9 @@ from repro_torch.kernels.launch import SMS, LaunchCounter, load, \
     split_scratch
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "cluster_matmul.cu"
+#: the same kernels' grid-stride instantiations (``SOURCE`` compiled with
+#: ``CLUSTER_MATMUL_BUDGETED``), built in parallel with it
+BUDGETED_SOURCE = SOURCE.with_name("cluster_matmul_budgeted.cu")
 #: element-type codes of the C interface
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the launch grid's row dimension holds ceil(m / 128) <= 65535 blocks
@@ -52,6 +67,8 @@ launches = LaunchCounter()
 wgmma_launches = LaunchCounter()
 #: launches of its general branch with K split over blocks
 split_launches = LaunchCounter()
+#: launches of its general branch within an SM budget
+budgeted_launches = LaunchCounter()
 
 #: the two branches :func:`route` chooses between
 WGMMA, GENERAL = "wgmma", "general"
@@ -112,23 +129,27 @@ def a_access(address: int, row_bytes: int) -> tuple:
     return 2, 0
 
 
-def fills_a_wave(m: int, n: int) -> bool:
-    """Whether an (m, n) output in 128 x 128 tiles gives every SM a block
-    (:data:`SMS` tiles or more)."""
-    return -(-m // 128) * -(-n // 128) >= SMS
+def fills_a_wave(m: int, n: int, sms: Optional[int] = None) -> bool:
+    """Whether an (m, n) output in 128 x 128 tiles gives every SM of a
+    budget of ``sms`` (None: the card's :data:`SMS`) a block."""
+    return -(-m // 128) * -(-n // 128) >= (SMS if sms is None else sms)
 
 
 def general_plan(m: int, k: int, n: int,
-                 dtype: torch.dtype = torch.float32) -> tuple:
-    """(tile, splits) of a product on the general kernel: 128 x 128 tiles
-    and no split where they give a wave (:data:`SMS` blocks); else 64 x 64
-    tiles, with K (in tiles of :data:`BK` for float32, :data:`BK_BF16`
-    for bfloat16) split so that the grid holds about
+                 dtype: torch.dtype = torch.float32,
+                 sms: Optional[int] = None) -> tuple:
+    """(tile, splits) of a product on the general kernel within a budget
+    of ``sms`` SMs (None: the card's :data:`SMS`): 128 x 128 tiles and no
+    split where they give a wave (``sms`` blocks); else 64 x 64 tiles,
+    with K (in tiles of :data:`BK` for float32, :data:`BK_BF16` for
+    bfloat16) split so that the grid holds about
     :data:`SPLIT_BLOCKS_PER_SM` (float32) or
     :data:`SPLIT_BLOCKS_PER_SM_BF16` (bfloat16) blocks an SM, each split
     at least :data:`MIN_SPLIT_TILES` or :data:`MIN_SPLIT_TILES_BF16`
-    tiles deep, no split empty."""
-    if fills_a_wave(m, n):
+    tiles deep, no split empty.  A plan is a function of the shape, the
+    type and the budget alone."""
+    sms = SMS if sms is None else sms
+    if fills_a_wave(m, n, sms):
         return 128, 1
     bf16 = dtype == torch.bfloat16
     tiles = -(-m // 64) * -(-n // 64)
@@ -136,25 +157,55 @@ def general_plan(m: int, k: int, n: int,
     splits = min(k_tiles // (MIN_SPLIT_TILES_BF16 if bf16
                              else MIN_SPLIT_TILES),
                  (SPLIT_BLOCKS_PER_SM_BF16 if bf16 else SPLIT_BLOCKS_PER_SM)
-                 * SMS // tiles)
+                 * sms // tiles)
     if splits <= 1:
         return 64, 1
     per = -(-k_tiles // splits)
     return 64, -(-k_tiles // per)
 
 
+def _general_entry(lib: ctypes.CDLL) -> None:
+    fn = lib.cluster_matmul_launch
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                   + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load(SOURCE)
-    fn = lib.cluster_matmul_launch
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
+    _general_entry(lib)
     fn = lib.cluster_matmul_wgmma_launch
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _budgeted_library() -> ctypes.CDLL:
+    lib = load(BUDGETED_SOURCE)
+    _general_entry(lib)
+    fn = lib.cluster_matmul_resident
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def resident_blocks(dtype: torch.dtype, tile: int, wa: int = 4,
+                    wb: int = 4) -> int:
+    """The blocks an SM holds at once of the general kernel's budgeted
+    (grid-stride) form for ``tile`` (64 or 128) and, in bfloat16, A's and
+    B's access widths (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    on the current device)."""
+    out = ctypes.c_int(0)
+    err = _budgeted_library().cluster_matmul_resident(
+        _DTYPES[dtype], tile, wa, wb, ctypes.addressof(out))
+    if err or out.value < 1:
+        raise RuntimeError(f"cluster matmul occupancy query failed: CUDA "
+                           f"error {err}, {out.value} blocks an SM")
+    return out.value
 
 
 def _check(a: torch.Tensor, b: torch.Tensor):
@@ -174,10 +225,16 @@ def _check(a: torch.Tensor, b: torch.Tensor):
             raise ValueError(f"{name} must be contiguous")
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           sms: Optional[int] = None) -> torch.Tensor:
     """C = A @ B: a (m, k), b (k, n), both float32 or both bfloat16, on
-    one CUDA device.  Returns (m, n) in a's type."""
+    one CUDA device.  Returns (m, n) in a's type.  ``sms``: run within a
+    budget of that many SMs (general branch only; see the module
+    docstring)."""
     _check(a, b)
+    if sms is not None and (isinstance(sms, bool) or not isinstance(sms, int)
+                            or sms < 1):
+        raise ValueError(f"an SM budget is a positive int, got {sms!r}")
     m, k = a.shape
     n = b.shape[1]
     out = torch.empty((m, n), dtype=a.dtype, device=a.device)
@@ -185,7 +242,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return out
     branch = route(a.dtype, m, k, n, aligned=all(
         t.data_ptr() % 16 == 0 for t in (a, b, out)))
-    lib = _library()
+    if sms is not None and branch == WGMMA:
+        raise ValueError(
+            f"an SM budget of {sms} on a {m}x{k}x{n} {a.dtype} product the "
+            "wgmma branch takes: only the general branch runs within a "
+            "budget")
+    lib = _library() if sms is None else _budgeted_library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         if branch == WGMMA:
@@ -196,7 +258,12 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                             access_width(b.data_ptr(), 2 * n)) \
                 if a.dtype == torch.bfloat16 else ((4, 0), 4)
             # a shifted A walks k + sa
-            tile, splits = general_plan(m, k + sa, n, a.dtype)
+            if sms is None:
+                tile, splits = general_plan(m, k + sa, n, a.dtype)
+                max_blocks = 0
+            else:
+                tile, splits = general_plan(m, k + sa, n, a.dtype, sms=sms)
+                max_blocks = sms * resident_blocks(a.dtype, tile, wa, wb)
             part = tickets = None
             if splits > 1:
                 tiles = -(-m // tile) * -(-n // tile)
@@ -206,6 +273,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             err = lib.cluster_matmul_launch(
                 _DTYPES[a.dtype], a.data_ptr(), b.data_ptr(),
                 out.data_ptr(), m, n, k, tile, splits, wa, wb, sa,
+                max_blocks,
                 part.data_ptr() if part is not None else None,
                 tickets.data_ptr() if tickets is not None else None, stream)
     if err:
@@ -216,4 +284,6 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         wgmma_launches.n += 1
     elif splits > 1:
         split_launches.n += 1
+    if sms is not None:
+        budgeted_launches.n += 1
     return out

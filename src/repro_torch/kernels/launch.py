@@ -6,7 +6,9 @@ with ``ctypes``.  The build happens at first use, from the checkout's own
 sources, into ``build/kernels/`` at the repository root (listed in
 ``.gitignore``); a library's file name carries a hash of its source and the
 compiler flags, so an edited source is rebuilt and an unchanged one is
-reused.  Nothing here runs when a module is imported.
+reused (the hash covers the local headers a source includes with
+``#include "..."``, so a source that includes another is rebuilt when
+that one changes).  Nothing here runs when a module is imported.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -74,9 +77,25 @@ def _nvcc() -> str:
     return path
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _source_bytes(source: Path, seen: set) -> bytes:
+    """``source``'s bytes followed by those of the local files it includes
+    (``#include "..."``, relative to it), each file once."""
+    source = Path(source).resolve()
+    if source in seen:
+        return b""
+    seen.add(source)
+    text = source.read_bytes()
+    return text + b"".join(
+        _source_bytes(source.parent / name.decode(), seen)
+        for name in _LOCAL_INCLUDE.findall(text))
+
+
 def library_path(source: Path) -> Path:
     """Where ``source``'s shared library lives once built."""
-    h = hashlib.sha256(Path(source).read_bytes())
+    h = hashlib.sha256(_source_bytes(source, set()))
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 

@@ -58,7 +58,8 @@ def test_port_imports_neither_jax_nor_reference():
               "launch.quickstart", "parallel", "parallel.sharding",
               "runtime.sharded_server", "launch.serve", "launch.dryrun",
               "launch.step_stats", "hero.roofline_table",
-              "hero.tab2_resources"):
+              "hero.tab2_resources", "hero.fig4_cluster_speedup",
+              "hero.run", "launch.train_100m", "launch.serve_paged"):
         assert f"repro_torch.{m}" in out["modules"], m
     assert expected <= set(out["modules"]) | {"repro_torch.runtime",
                                               "repro_torch.kernels"}
