@@ -125,14 +125,18 @@ non-zero without printing the final result line):
    non-causal S=448 over T=1,500 and the decoder's causal S=T=448; the
    tensor-core kernel, partial last key and query tiles), at
    deepseek-v2-236b's MLA call (B=2 x H=128, G = 1, q/k head dim 192, v
-   head dim 128, causal, S=T=512, in bfloat16 and float32, through the
-   op's zero-padded route to hd 256: the tensor-core kernel and the
-   FP32-core kernel; bytes and operations counted on the unpadded
-   operands, 2 (dk + dv) operations a visible pair and head) and at phase
+   head dim 128, causal, S=T=512: in bfloat16 on the tensor-core
+   kernel's own (192, 128) instantiation, no pad, one launch, the old
+   route (zero pads to hd 256, the hd-256 kernel, the slice) timed
+   beside it; in float32 through the op's zero-padded route to hd 256 on
+   the FP32-core kernel; bytes and operations counted on the unpadded
+   operands, 2 (dk + dv) operations a visible pair and head), at
+   train_100m's call (B=8 x H=10 over Kv=5, hd 64, bf16, causal,
+   S=T=256; the tensor-core kernel) and at phase
    10's float32 calls (S=512, window 0 and 128; the
    FP32-core kernel), each capped case, gemma2's, the drafts',
-   hymba's, whisper's and MLA's again with q and k scaled so that scores
-   reach the cap's range (``FLASH_SHARP``); each case
+   hymba's, whisper's, MLA's and train_100m's again with q and k scaled
+   so that scores reach the cap's range (``FLASH_SHARP``); each case
    prints the kernel its route picked
    (the counts must agree), with times beside the plain version and the
    library call (SDPA without a cap, the compiled ``flex_attention`` with
@@ -289,9 +293,10 @@ non-zero without printing the final result line):
    (b) bf16 at the registered widths and 160 experts, cut to 6 layers
    (the dense first layer and 5 MoE layers), drawn on the card from seed
    0: ``prefill_logits`` of a 2 x 512-token prompt (the tensor-core flash
-   kernel on all 6 layers, the plain version none; its capacity drops
-   printed), then the prompt's first 128 tokens fed by
-   ``decode_forward`` and 32 greedy steps.  Capacity routing drops
+   kernel on all 6 layers at MLA's own head dims, the plain version none,
+   each call's output held against the plain version on its inputs
+   within the bf16 bar; its capacity drops printed), then the prompt's
+   first 128 tokens fed by ``decode_forward`` and 32 greedy steps.  Capacity routing drops
    assignments of the prompt's last tokens that the dropless decode
    keeps, and a bf16 router flips near-ties between the two paths, so
    the decode path's logits after those tokens are held within
@@ -3643,7 +3648,8 @@ def deepseek_full() -> dict:
     prefill_s.append(dt)
     dropped = [c.dropped() for c in rec.calls]
     before = (FK.launches.n, FK.tc_launches.n, FO.plain_forwards.n)
-    logits, dt = timed(lambda: M.prefill_logits(cfg, model, batch))
+    with FlashCalls() as flash:
+        logits, dt = timed(lambda: M.prefill_logits(cfg, model, batch))
     prefill_s.append(dt)
     launches, tc, plain = (c.n - b for c, b in zip(
         (FK.launches, FK.tc_launches, FO.plain_forwards), before))
@@ -3651,6 +3657,15 @@ def deepseek_full() -> dict:
           f"{cfg.name} prefill: flash launches {launches}, tensor-core "
           f"{tc}, plain forwards {plain}; want {cfg.num_layers}, "
           f"{cfg.num_layers}, 0")
+    # every MLA layer's call at its own head dims (q/k 192, v 128: no pad,
+    # the output the kernel's own), held against the plain version
+    flash_err = flash.against_plain(f"{cfg.name} prefill")
+    check(all(q.shape[-1] == cfg.mla_qk_nope_dim + cfg.mla_qk_rope_dim
+              and v.shape[-1] == out.shape[-1] == cfg.mla_v_head_dim
+              for q, k, v, kw, out in flash.calls),
+          f"{cfg.name} prefill: flash calls at head dims "
+          f"{[(c[0].shape[-1], c[2].shape[-1]) for c in flash.calls]}")
+    del flash
     check(tuple(logits.shape) == (B, 1, cfg.vocab_size)
           and logits.dtype == torch.float32
           and bool(torch.isfinite(logits).all()),
@@ -3695,6 +3710,7 @@ def deepseek_full() -> dict:
     step_ms = statistics.median(step_s) * 1e3
     row.update(prefill_s=prefill_s, prefill_dropped=dropped,
                prefill_flash_launches=launches, prefill_tc_launches=tc,
+               prefill_flash_max_abs_err=flash_err,
                decode_vs_prefill=dict(prompt=Pd, max_abs_diff=diff,
                                       gate=gate, rel=diff / gate * DEC_TOL),
                decode_vs_dropping_prefill=rel_diff(rows[0], dropping[:, 0]),
@@ -4008,6 +4024,53 @@ def flash_library(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         block_mask=block_mask, enable_gqa=True)
 
 
+class FlashCalls:
+    """While active, records every call of the flash kernel's wrapper
+    (``kernel.flash_attention_fwd``, through which ``ops`` reaches it):
+    its operands, keywords and output, kept by reference (no copy, no
+    device work) so that a timed run stays as it is; the launches and
+    their counts are the wrapper's own.  ``against_plain`` then holds each
+    output against the plain version on the same operands."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import kernel as FK
+        self.calls, self._fk, self._fn = [], FK, FK.flash_attention_fwd
+
+        def record(q, k, v, **kw):
+            out = self._fn(q, k, v, **kw)
+            self.calls.append((q, k, v, kw, out))
+            return out
+
+        FK.flash_attention_fwd = record
+        return self
+
+    def __exit__(self, *exc):
+        self._fk.flash_attention_fwd = self._fn
+
+    def against_plain(self, label: str) -> float:
+        """The largest |kernel - plain| over the recorded calls; fails
+        past the output type's ``FLASH_TOL``."""
+        from repro_torch.kernels.flash_attention import ref as FR
+        worst = 0.0
+        for q, k, v, kw, out in self.calls:
+            G = kw.get("groups", 1)
+            ref = FR.flash_attention_ref(
+                q, k.repeat_interleave(G, 0), v.repeat_interleave(G, 0),
+                causal=kw.get("causal", True), window=kw.get("window", 0),
+                cap=kw.get("cap", 0.0), scale=kw.get("scale"))
+            tol = FLASH_TOL[out.dtype]
+            err = (out.float() - ref.float()).abs().max().item()
+            check(torch.allclose(out.float(), ref.float(), rtol=tol,
+                                 atol=tol),
+                  f"{label}: flash call {tuple(q.shape)} x "
+                  f"{tuple(v.shape)} vs plain max |err| {err}")
+            worst = max(worst, err)
+            del ref
+        print(f"{label}: {len(self.calls)} flash calls vs plain: "
+              f"max_abs_err={worst:.3g}", flush=True)
+        return worst
+
+
 #: whisper-medium's three flash calls at B=4 x H=16 flat heads (G = 1),
 #: hd 64, its 1,500 frames and its 448-token text context: ((BH, S, T,
 #: hd), causal) of the encoder's self-attention, the decoder's
@@ -4015,6 +4078,10 @@ def flash_library(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #: self-attention
 WHISPER_FLASH = [((64, 1500, 1500, 64), False), ((64, 448, 1500, 64), False),
                  ((64, 448, 448, 64), True)]
+#: train_100m's flash call (``launch/train_100m.py``: B=8 x H=10 flat
+#: heads over B x Kv=5 KV rows, hd 64, causal, S=T=256): (BH, S, T, hd),
+#: groups
+TRAIN_100M_FLASH = ((8 * 10, 256, 256, 64), 2)
 
 
 
@@ -4031,13 +4098,18 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
     have std qk^2 (0.09 at the default, as tests/test_kernels.py draws
     them; 16 at ``FLASH_SHARP``, where the cap bites and the softmax is
     peaky).  v is N(0, 1), of head dim ``dv`` (``d`` if 0); where that
-    is not ``d`` the op (``ops.flash_attention``) runs and is timed whole,
-    the kernel on q, k and v zero-padded to ``ops.padded_head_dim`` at
-    the scale 1/sqrt(d), the plain version and the library call on the
-    unpadded operands; the pads and the kernel on padded operands are
-    also timed alone.  Without ``library`` the library call is not made
-    (its fields are None): a capped case compiles its own
-    ``flex_attention``, 3-20 s each on the card's host."""
+    is not ``d`` the op (``ops.flash_attention``) runs and is timed whole
+    at the scale 1/sqrt(d): the kernel on the operands as they are where
+    it has the pair (bf16 MLA: no pad, its output the kernel's own), else
+    on q, k and v zero-padded to ``ops.padded_head_dim``; the plain
+    version and the library call take the unpadded operands.  The padded
+    route's parts are timed alone, the pads to hd 256 and the kernel on
+    the padded operands, and on the native route the whole old route
+    (pads, kernel, slice) beside them.  Without ``library`` the library
+    call is not made (its fields are None): a capped case compiles its
+    own ``flex_attention``, 3-20 s each on the card's host."""
+    import torch.nn.functional as F
+
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import ops as FO
     from repro_torch.kernels.flash_attention import ref as FR
@@ -4048,10 +4120,12 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
          * qk).to(dtype)
     v = torch.randn(BH // groups, T, dv, generator=g, device="cuda").to(dtype)
     dt = str(dtype).replace("torch.", "")
-    hd = FO.padded_head_dim(d, dv)
-    route = FK.route(dtype, hd)
-    name = (f"flash BH={BH} S={S} T={T} d={d}" + (f" dv={dv} (padded to "
-                                                  f"{hd})" if dv != d else "")
+    hd = FO.padded_head_dim(d, dv, dtype)
+    route = FK.route(dtype, d, dv)
+    native = dv != d and hd == d
+    name = (f"flash BH={BH} S={S} T={T} d={d}"
+            + (f" dv={dv} (native)" if native else f" dv={dv} (padded to "
+               f"{hd})" if dv != d else "")
             + f" G={groups} {dt} causal={causal} window={window} cap={cap} "
             f"qk={qk}")
 
@@ -4070,6 +4144,7 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
 
     span, splits = FK.fp32_plan(BH, S, T, hd, causal, window) \
         if route == FK.FP32_CORES else (0, 1)
+    tc_plan = FK.tc_plan(BH, S, d, dv) if route == FK.TENSOR_CORES else None
     counters = (FK.launches, FK.tc_launches, FK.split_launches)
     before = [c.n for c in counters]
     out = kernel()
@@ -4088,6 +4163,12 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
           f"{name}: non-finite kernel output")
     check(torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol),
           f"{name}: kernel vs plain max |err| {err}")
+    if native:      # the kernel's own output: no pad of the operands, no
+        # slice of a wider output
+        check(all(a is b for a, b in zip(FO.pad_head_dims(q, k, v),
+                                         (q, k, v)))
+              and out._base is None and out.is_contiguous(),
+              f"{name}: the native route padded or sliced")
     del out
     library_ms = library_err = library_first_s = None
     if library:
@@ -4102,11 +4183,23 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
     ms = timer.ms(kernel)
     parts = {}
     if dv != d:     # the padded route's parts: the pads, the kernel alone
-        padded = FO.pad_head_dims(q, k, v)
-        parts = dict(pad_ms=timer.ms(lambda: FO.pad_head_dims(q, k, v)),
+        width = FK.HEAD_DIMS[-1] if native else hd
+
+        def pad():
+            return [F.pad(t, (0, width - t.shape[-1])) for t in (q, k, v)]
+
+        def padded_route():
+            return FK.flash_attention_fwd(
+                *pad(), causal=causal, window=window, cap=cap,
+                groups=groups, scale=1 / math.sqrt(d))[..., :dv]
+
+        padded = pad()
+        parts = dict(pad_ms=timer.ms(pad),
                      padded_kernel_ms=timer.ms(lambda: FK.flash_attention_fwd(
                          *padded, causal=causal, window=window, cap=cap,
                          groups=groups, scale=1 / math.sqrt(d))))
+        if native:
+            parts["padded_route_ms"] = timer.ms(padded_route)
         del padded
     plain_ms = timer.ms(plain, reps=5)
     if library:
@@ -4118,10 +4211,11 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_OPS_PER_S[dtype] * 1e3
     bound_ms = max(t_bytes, t_ops)
-    row = dict(BH=BH, S=S, T=T, d=d, dv=dv, padded_hd=hd, groups=groups,
-               dtype=dt,
+    row = dict(BH=BH, S=S, T=T, d=d, dv=dv, padded_hd=hd, native=native,
+               groups=groups, dtype=dt,
                causal=causal, window=window, cap=cap, qk=qk, kernel=route,
-               span_keys=span, splits=splits, max_abs_err=err,
+               span_keys=span, splits=splits,
+               tc_plan=tc_plan and tc_plan._asdict(), max_abs_err=err,
                ref_max_abs=ref_max, tol=tol, ms=ms,
                plain_ms=plain_ms, library_ms=library_ms,
                library=("flex_attention" if cap else "sdpa")
@@ -4133,7 +4227,9 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
                share_of_bound=bound_ms / ms,
                tflops=flops / (ms * 1e-3) / 1e12, **parts)
     print(f"kernel {name}: kernel={route} splits={splits} "
-          f"span_keys={span} ms={ms:.4f} "
+          f"span_keys={span} "
+          + (f"tc_plan={tuple(tc_plan)} " if tc_plan else "")
+          + f"ms={ms:.4f} "
           + "".join(f"{k}={v:.4f} " for k, v in parts.items())
           + f"plain_ms={plain_ms:.4f} "
           + (f"library_ms={library_ms:.4f} ({row['library']}, max_abs_err "
@@ -4251,16 +4347,24 @@ def flash_cases(timer: Timer, draft: tuple) -> dict:
           "whisper-medium's bf16 cases must run on the tensor cores")
     # deepseek-v2-236b's MLA (phase 20's prefill): B=2 x H=128 flat heads
     # (G = 1), q/k head dim 192, v 128, causal, S=T=512, in both types
-    # (bf16 on the tensor cores, float32 on the FP32 cores, both at the
-    # padded hd 256)
+    # (bf16 on the tensor cores' own (192, 128) instantiation, float32 on
+    # the FP32 cores at the padded hd 256)
     mla = [flash_case(timer, DS_B * 128, DS_PROMPT, DS_PROMPT, 192, dtype,
                       True, 0, 0.0, qk=qk, dv=128)
            for dtype in (torch.bfloat16, torch.float32)
            for qk in (0.3, FLASH_SHARP)]
-    check(all(c["kernel"] == ("tensor_cores" if c["dtype"] == "bfloat16"
-                              else "fp32_cores") for c in mla)
-          and all(c["padded_hd"] == 256 for c in mla),
-          "MLA's flash calls must take the padded route to hd 256")
+    check(all((c["kernel"], c["padded_hd"], c["native"]) == (
+        ("tensor_cores", 192, True) if c["dtype"] == "bfloat16"
+        else ("fp32_cores", 256, False)) for c in mla),
+          "MLA's flash calls: bf16 must run natively on the tensor cores, "
+          "float32 padded to hd 256 on the FP32 cores")
+    # train_100m's attention (phase 22 (b)'s steps): hd 64, G = 2
+    (BH, S, T, d), groups = TRAIN_100M_FLASH
+    train100m = [flash_case(timer, BH, S, T, d, torch.bfloat16, True, 0, 0.0,
+                            groups=groups, qk=qk)
+                 for qk in (0.3, FLASH_SHARP)]
+    check(all(c["kernel"] == "tensor_cores" for c in train100m),
+          "train_100m's bf16 cases must run on the tensor cores")
     # the float32 calls phase 10's CUDA step makes (gemma2-2b widths, S
     # 512, its global and its local layer): the FP32-core kernel's path
     small = [flash_case(timer, TRAIN_SMALL_B * 8, TRAIN_SMALL_S,
@@ -4271,9 +4375,9 @@ def flash_cases(timer: Timer, draft: tuple) -> dict:
               if c["dtype"] == "float32"),
           "float32 cases must run on the FP32 cores")
     return dict(cases=cases + sharp + gemma + drafts + hymba + whisper
-                + mla + small, gemma=gemma, drafts=drafts, hymba=hymba,
-                whisper=whisper, mla=mla, small=small,
-                grad_max_abs_err=flash_grads())
+                + mla + train100m + small, gemma=gemma, drafts=drafts,
+                hymba=hymba, whisper=whisper, mla=mla, train100m=train100m,
+                small=small, grad_max_abs_err=flash_grads())
 
 
 # -------------------------------------------------------------- phase 10 --
@@ -5260,8 +5364,8 @@ def main() -> int:
     })
     # flash on the tensor cores: the main path's case is gemma2-2b's
     # global (window 0) layer, its error the largest of gemma2's four
-    # cases (both scales, both windows), phase 13's draft cases, hymba's
-    # and whisper's, its launches phase 12's, phase 13's draft forwards,
+    # cases (both scales, both windows), phase 13's draft cases, hymba's,
+    # whisper's, train_100m's and bf16 MLA's, its launches phase 12's, phase 13's draft forwards,
     # phase 17's hymba prefills, phase 19's whisper and pixtral calls,
     # phase 20 (b)'s MLA prefills and phase 21 (b)'s train step; on the FP32 cores: phase 10's float32
     # global layer, its error the largest of its float32 cases (MLA's
@@ -5290,8 +5394,8 @@ def main() -> int:
             "launches": launches, "split_launches": split,
             "max_abs_err": max(c["max_abs_err"] for c in (
                 flash["gemma"] + flash["drafts"] + flash["hymba"]
-                + flash["whisper"] + [c for c in flash["mla"]
-                                      if c["kernel"] == kernel]
+                + flash["whisper"] + flash["train100m"]
+                + [c for c in flash["mla"] if c["kernel"] == kernel]
                 if kernel == "tensor_cores" else own)),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

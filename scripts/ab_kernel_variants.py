@@ -3,10 +3,11 @@
 against an earlier commit's kernels.
 
     python3 scripts/ab_kernel_variants.py \
-        [--parts flash,split,prefill_f32_variants,matmul_bf16_general]
+        [--parts flash,split,prefill_f32_variants,matmul_bf16_general,
+                 flash_tc]
     python3 scripts/ab_kernel_variants.py --parent DIR \
         [--parts prefill_f32,decode,serve,matmul_f32_general,flash_f32,
-                 matmul_bf16_general]
+                 matmul_bf16_general,flash_tc]
 
 Each variant is a kernel source of the checkout with one text edit, built
 with ``nvcc`` like the kernel itself (``kernels.launch``) under a name of
@@ -91,6 +92,29 @@ process, in turns (A, B, ..., B, A), so all numbers come from one card.
   reversed; then the library call (SDPA or the compiled
   ``flex_attention``, ``chip_smoke.flash_library``) once a case.
 
+* The tensor-core flash forward (``flash_tc``) at the main path's bf16
+  calls (``chip_smoke.py`` phase 9): hd 64 at whisper-medium's three
+  (``WHISPER_FLASH``), hymba-1.5b's (G = 5, window 2048, S=T=3072) and
+  train_100m's (G = 2, causal, S=T=256); deepseek-v2's MLA (BH 256, q/k
+  192, v 128, causal, S=T=512); gemma2-2b's (hd 256, G = 2, cap 50,
+  S=T=4096) and phase 13's drafts (hd 128, G = 8, S=T=320 / 576).  ms
+  by ``chip_smoke.Timer`` and max |err| against the plain version on
+  flat and sharp inputs, in turns (A, B, ..., B, A): ``as_is`` (the
+  plan ``kernel.tc_plan`` picks), the hd-64 cases also under each plan
+  forced (``wide``: three consumers, ``narrow``: two, both 128-key tiles)
+  and under each tile plan of ``FLASH_TC_PLANS`` (the source's
+  ``Plan64Wide`` line rewritten, that plan forced), and, with
+  ``--parent``, the parent's kernel at every case (at MLA its route: q,
+  k and v zero-padded to hd 256, the hd-256 kernel, the output sliced to
+  128).  The other cases run ``as_is`` and the parent only (the plans
+  change no other instantiation).  Each JSON line is one timing; a
+  ``summary`` line a case gives the median of each side's turns, SDPA's
+  median, and whether the parent's and this tree's outputs are equal
+  bit for bit.  First, every build's tensor-core entries with their
+  registers, spills and whether ptxas serialized their wgmma (``ptxas
+  -v``); a plan whose setmaxnreg sum the entry's registers cannot hold is
+  not launched (it would wait forever).
+
 With ``--parent DIR`` (a checkout of an earlier commit, e.g. unpacked by
 ``git archive``) it runs this: the paged-attention wrapper of DIR
 (its module and its ``.cu``) against this checkout's, in turns (parent,
@@ -113,9 +137,11 @@ from __future__ import annotations
 import argparse
 import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -221,6 +247,19 @@ FLASH_F32_VARIANTS = {
     "no_copies": [("    if (it > 0) stage_v(it - 1 + kSlots);", "", 1),
                   ("    stage_k(it + kSlots);", "", 1)],
 }
+#: tile plans the tensor-core flash kernel's hd-64 ``Plan64Wide`` is
+#: rewritten to (``flash_tc``): (consumer warpgroups, keys a tile, ring
+#: stages, blocks an SM, registers a consumer / producer thread), as
+#: ``tc::TilePlan`` takes them.  The source's own two plans are the sides
+#: ``wide`` (3, 128, 2, 1, 160, 24) and ``narrow`` (2, 128, 2, 1, 240, 24)
+FLASH_TC_PLANS = {
+    "c2_k64_s2": (2, 64, 2, 1, 240, 24),    # hd 128's plan, the parent's
+    "c3_k64_s2": (3, 64, 2, 1, 160, 24),
+    "c3_k128_s3": (3, 128, 3, 1, 160, 24),
+    "c2_k64_s4": (2, 64, 4, 1, 240, 24),
+    "c2_k64_b2": (2, 64, 2, 2, 104, 24),    # two blocks an SM
+}
+FLASH_TC_PLAN_LINE = "using Plan64Wide = TilePlan<"
 #: variants whose values are wrong by design: they time what is left
 TIMING_ONLY = {"s_bcast", "no_s",
                "no_pv", "no_s_pv", "no_stage", "no_softmax", "exit_only",
@@ -278,6 +317,41 @@ def variant_source(src: Path, edits, name: str) -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(text)
     return out
+
+
+def ptxas_reports(sources: dict, entry: str) -> dict:
+    """Per name of ``sources`` (name -> .cu), (kernel, registers, spill
+    store bytes, spill load bytes, why ptxas serialized its wgmma or None)
+    of every entry whose mangled name holds ``entry``, as ``ptxas -v``
+    reports them: one ``nvcc`` a source, all started together."""
+    from repro_torch.kernels import launch
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {name: subprocess.Popen(
+            [launch._nvcc(), *launch.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(Path(tmp) / f"{name}.so"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, src in sources.items()}
+        outs = {name: proc.communicate()[0] for name, proc in procs.items()}
+    rows = {}
+    for name, out in outs.items():
+        lines = out.splitlines()
+        rows[name] = []
+        for i, line in enumerate(lines):
+            m = re.search(r"Compiling entry function '(\S*)'", line)
+            if not m or entry not in m.group(1):
+                continue
+            tail = " ".join(lines[i + 1:i + 4])
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", tail)
+            regs = re.search(r"Used (\d+) registers", tail)
+            rows[name].append((m.group(1),
+                               int(regs.group(1)) if regs else None,
+                               *(map(int, spill.groups()) if spill
+                                 else (None, None)),
+                               next((ln.split("serialized", 1)[1].strip()
+                                     for ln in lines if m.group(1) in ln
+                                     and "serialized" in ln), None)))
+    return rows
 
 
 def device_us(fn, flush: torch.Tensor, name_part: str, reps: int = 20):
@@ -812,6 +886,147 @@ def flash_f32_ab(card: str, parent) -> None:
                 flush=True)
 
 
+def flash_tc_ab(card: str, parent) -> None:
+    """The tensor-core flash forward's hd-64 tile plans, and the parent's
+    kernel, at the main path's bf16 calls (see the module docstring)."""
+    import math
+
+    import torch.nn.functional as F
+
+    import chip_smoke as CS
+    from repro_torch.kernels import launch
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+    PK = _parent_module(parent, "flash_attention", "parent_flash") \
+        if parent else None
+    src = FK.SOURCE
+    line = next(ln for ln in src.read_text().splitlines()
+                if FLASH_TC_PLAN_LINE in ln)
+    sources = {"as_is": src, **{n: variant_source(
+        src, [(line, f"{FLASH_TC_PLAN_LINE}{', '.join(map(str, plan))}>;",
+               1)], "tc_" + n) for n, plan in FLASH_TC_PLANS.items()}}
+    launch.build(list(sources.values()) + ([PK.SOURCE] if PK else []))
+    # side -> (source, the hd-64 plan forced: 0 wide, 1 narrow, None the
+    # route's)
+    sides = {"as_is": ("as_is", None), "wide": ("as_is", 0),
+             "narrow": ("as_is", 1), **{n: (n, 0) for n in FLASH_TC_PLANS}}
+    for name, rows in ptxas_reports(
+            {**sources, **({"parent": PK.SOURCE} if PK else {})},
+            "flash_fwd_tc_kernel").items():
+        for kernel, regs, st, ld, serialized in rows:
+            print(json.dumps({"card": card, "kernel": "flash_tc",
+                              "side": name, "entry": kernel,
+                              "registers": regs, "spill_store_bytes": st,
+                              "spill_load_bytes": ld,
+                              "wgmma_serialized": serialized}), flush=True)
+            # setmaxnreg.inc waits for registers the block does not hold
+            # if the entry count is below the plan's sum: such a plan
+            # would hang, so it is not launched
+            m = re.search(r"TilePlanILi(\d+)ELi\d+ELi\d+ELi\d+ELi(\d+)E"
+                          r"Li(\d+)E", kernel)
+            if m and name in sides:
+                c, creg, preg = map(int, m.groups())
+                if (regs or 0) * 128 * (c + 1) < 128 * (c * creg + preg):
+                    print(json.dumps({"card": card, "side": name,
+                                      "skipped": f"{regs} registers at "
+                                      "entry hold no setmaxnreg plan "
+                                      f"{m.group(0)}"}), flush=True)
+                    sides.pop(name)
+    timer = CS.Timer()
+    # (name, BH, S, T, dk, dv, groups, causal, window, cap)
+    cases = [(f"whisper_{i}", *shape[:3], 64, 64, 1, causal, 0, 0.0)
+             for i, (shape, causal) in enumerate(CS.WHISPER_FLASH)]
+    cases += [("hymba", 50, CS.PREFILL_S, CS.PREFILL_S, 64, 64, 5, True,
+               2048, 0.0),
+              ("train_100m", *CS.TRAIN_100M_FLASH[0][:3], 64, 64,
+               CS.TRAIN_100M_FLASH[1], True, 0, 0.0),
+              ("mla", CS.DS_B * 128, CS.DS_PROMPT, CS.DS_PROMPT, 192, 128, 1,
+               True, 0, 0.0),
+              ("gemma2", 16, 4096, 4096, 256, 256, 2, True, 0, 50.0)]
+    cases += [(f"draft_{S}", 32, S, S, 128, 128, 8, True, 0, 0.0)
+              for S in (320, 576)]
+    inputs = {}
+    for name, BH, S, T, dk, dv, G, causal, window, cap in cases:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        for sharp, qk in (("flat", 0.3), ("sharp", CS.FLASH_SHARP)):
+            q = (torch.randn(BH, S, dk, generator=g, device="cuda") * qk
+                 ).bfloat16()
+            k = (torch.randn(BH // G, T, dk, generator=g, device="cuda")
+                 * qk).bfloat16()
+            v = torch.randn(BH // G, T, dv, generator=g, device="cuda"
+                            ).bfloat16()
+            ref = FR.flash_attention_ref(
+                q, k.repeat_interleave(G, 0), v.repeat_interleave(G, 0),
+                causal=causal, window=window, cap=cap)
+            inputs[name, sharp] = (q, k, v, ref)
+
+    def call(mod, name, q, k, v):
+        _, BH, S, T, dk, dv, G, causal, window, cap = next(
+            c for c in cases if c[0] == name)
+        kw = dict(causal=causal, window=window, cap=cap, groups=G,
+                  scale=1 / math.sqrt(dk))
+        if mod is PK and dk != dv:    # the parent's route: pad, slice
+            return mod.flash_attention_fwd(
+                *(F.pad(t, (0, 256 - t.shape[-1])) for t in (q, k, v)),
+                **kw)[..., :dv]
+        return mod.flash_attention_fwd(q, k, v, **kw)
+
+    order = (["parent"] if PK else []) + list(sides) + list(sides)[::-1] \
+        + (["parent"] if PK else [])
+    plan = FK.tc_plan
+    times, outs = {}, {}
+    try:
+        for side in order:
+            mod = PK if side == "parent" else FK
+            if side != "parent":
+                source, forced = sides[side]
+                FK.SOURCE = sources[source]
+                FK._library.cache_clear()
+                FK.tc_plan = plan if forced is None else (
+                    lambda BH, S, dk, dv, i=forced: FK.TC_PLANS[dk, dv][
+                        min(i, len(FK.TC_PLANS[dk, dv]) - 1)])
+            for name, BH, S, T, dk, dv, *_ in cases:
+                if side not in ("parent", "as_is") and dk != 64:
+                    continue
+                errs, passes = {}, {}
+                tol = CS.FLASH_TOL[torch.bfloat16]
+                for sharp in ("flat", "sharp"):
+                    q, k, v, ref = inputs[name, sharp]
+                    out = call(mod, name, q, k, v)
+                    torch.cuda.synchronize()
+                    errs[sharp] = (out.float() - ref.float()).abs().max() \
+                        .item()
+                    passes[sharp] = torch.allclose(
+                        out.float(), ref.float(), rtol=tol, atol=tol)
+                    if side in ("parent", "as_is"):
+                        outs[side, name, sharp] = out
+                q, k, v, _ = inputs[name, "flat"]
+                ms = timer.ms(lambda: call(mod, name, q, k, v))
+                times.setdefault((side, name), []).append(ms)
+                print(json.dumps({
+                    "card": card, "kernel": "flash_tc", "side": side,
+                    "plan": None if side == "parent" else
+                    FK.tc_plan(BH, S, dk, dv), "case": name,
+                    "BH": BH, "S": S, "T": T, "dk": dk, "dv": dv, "ms": ms,
+                    "max_abs_err": errs, "passes": passes}), flush=True)
+    finally:
+        FK.SOURCE, FK.tc_plan = src, plan
+        FK._library.cache_clear()
+    for name, BH, S, T, dk, dv, G, causal, window, cap in cases:
+        q, k, v, _ = inputs[name, "flat"]
+        sdpa = None if cap else timer.ms(
+            CS.flash_library(q, k, v, causal, window, cap))
+        med = {side: statistics.median(t) for (side, n), t in times.items()
+               if n == name}
+        equal = {sharp: torch.equal(outs["parent", name, sharp],
+                                    outs["as_is", name, sharp])
+                 for sharp in ("flat", "sharp")} if PK else None
+        print(json.dumps({"card": card, "kernel": "flash_tc",
+                          "summary": name, "median_ms": med,
+                          "sdpa_ms": sdpa, "bit_equal_to_parent": equal}),
+              flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None,
@@ -821,15 +1036,16 @@ def main() -> int:
                     help="comma-separated parts to run (default: all of "
                     "the mode's: flash, split, "
                     "prefill_f32_variants, matmul_f32_general, "
-                    "flash_f32, matmul_bf16_general; with --parent "
-                    "prefill_f32, decode, serve, matmul_f32_general, "
-                    "flash_f32, matmul_bf16_general)")
+                    "flash_f32, matmul_bf16_general, flash_tc; with "
+                    "--parent prefill_f32, decode, serve, "
+                    "matmul_f32_general, flash_f32, matmul_bf16_general, "
+                    "flash_tc)")
     args = ap.parse_args()
     modes = {False: ("flash", "split", "prefill_f32_variants",
                      "matmul_f32_general", "flash_f32",
-                     "matmul_bf16_general"),
+                     "matmul_bf16_general", "flash_tc"),
              True: ("prefill_f32", "decode", "serve", "matmul_f32_general",
-                    "flash_f32", "matmul_bf16_general")}[
+                    "flash_f32", "matmul_bf16_general", "flash_tc")}[
         args.parent is not None]
     parts = modes if args.parts is None else tuple(args.parts.split(","))
     if not set(parts) <= set(modes):
@@ -850,6 +1066,8 @@ def main() -> int:
         flash_f32_ab(card, args.parent)
     if "matmul_bf16_general" in parts:
         matmul_bf16_general_ab(card, args.parent)
+    if "flash_tc" in parts:
+        flash_tc_ab(card, args.parent)
     if args.parent is not None:
         if set(parts) & {"prefill_f32", "decode", "serve"}:
             parent_ab(args.parent, card, parts)

@@ -19,34 +19,48 @@
 // type (float32 or bfloat16).
 //
 // Two kernels, chosen by the wrapper (kernel.py::route) from the type and
-// hd alone, never on a failure: bfloat16 with hd in {64, 128, 256} runs on
-// the tensor cores (namespace tc); float32 (whose 2e-4 bar is out of bf16
-// and TF32 reach) and bf16 at hd 16 and 32 run on the FP32 cores
-// (namespace fp32).
+// the head dims alone, never on a failure: bfloat16 with hd in {64, 128,
+// 256}, and MLA's q/k 192 beside v 128, runs on the tensor cores
+// (namespace tc); float32 (whose 2e-4 bar is out of bf16 and TF32 reach)
+// and bf16 at hd 16 and 32 run on the FP32 cores (namespace fp32).  Other
+// pairs of unequal head dims reach them zero-padded to one hd (ops.py).
 //
 // What bounds it on the card: attention at S = 4096 reuses every K/V tile
 // across 64 query rows, so it is bound by operations (4 hd per visible
 // (query, key) pair), at the tensor cores' ~989 TFLOP/s in bf16.
 //
 // The tensor-core kernel (TMA + wgmma; the FlashAttention-3 arrangement
-// without its intra-warpgroup overlap):
-//   * one block of three warpgroups owns 128 query rows of one flat head:
-//     warpgroups 0 and 1 are consumers (setmaxnreg 240) with 64 rows each,
-//     warpgroup 2 the producer (setmaxnreg 24), one of whose threads keeps
-//     the ring full;
-//   * Q (128 x hd) is loaded once by TMA and stays in shared memory; K and
-//     V tiles of 64 keys go through a 2-stage ring, each tile hd / 64 TMA
-//     boxes of 64 columns (128 bytes, 128-byte swizzle) x 64 rows, each
-//     stage with "full" (expect_tx) and "empty" (every consumer thread)
-//     mbarriers for K and for V apart, so K of the next tile lands while V
-//     of this one is read.  3-D tensor maps (hd, rows, head) zero-fill
-//     rows past S and T inside each head, so any S and T are right;
-//   * S = Q . K^T is wgmma m64n64k16 over hd with both operands K-major
-//     in shared memory; O += P . V is wgmma m64n{hd}k16 over the 64 keys
-//     with P the A operand straight from registers (S's accumulator
-//     layout is the A fragment's, packed to bf16) and V the MN-major B
-//     operand (transpose bit, LBO 8 KB from one 64-column box to the
-//     next, SBO 1 KB), so S never goes through shared memory;
+// without its intra-warpgroup overlap), one instantiation per (q/k head
+// dim DK, v head dim DV) with a tile plan of its own (tc::Plan):
+//   * one block of C + 1 warpgroups owns 64 C query rows of one flat head:
+//     warpgroups 0..C-1 are consumers with 64 rows each, warpgroup C the
+//     producer (setmaxnreg 24), one of whose threads keeps the ring full.
+//     C = 2 (setmaxnreg 240), but C = 3 (setmaxnreg 160) at hd 64 where
+//     the grid fills two waves of the card;
+//   * Q (64 C x DK) is loaded once by TMA and stays in shared memory; K
+//     and V tiles of BK keys (64; 128 at hd 64) go through a 2-stage ring,
+//     a K tile DK / 64 TMA boxes of 64 columns (128 bytes, 128-byte
+//     swizzle) x BK rows and a V tile DV / 64 of them, each stage with
+//     "full" (expect_tx, K's and V's own byte counts) and "empty" (every
+//     consumer thread) mbarriers for K and for V apart, so K of the next
+//     tile lands while V of this one is read.  3-D tensor maps (head dim,
+//     rows, head) zero-fill rows past S and T inside each head, so any S
+//     and T are right;
+//   * S = Q . K^T is wgmma m64n{BK}k16 over DK (MLA: 12 steps over three
+//     boxes) with both operands K-major in shared memory; O += P . V is
+//     wgmma m64n{DV}k16 over the BK keys with P the A operand straight
+//     from registers (S's accumulator layout is the A fragment's, packed
+//     to bf16) and V the MN-major B operand (transpose bit, LBO BK x 128
+//     bytes from one 64-column box to the next, SBO 1 KB), so S never
+//     goes through shared memory.  MLA's (192, 128) runs at its own dims:
+//     no zero pads, (192 + 128) / 512 of the operations of hd 256;
+//   * hd 64 (whisper, hymba, train_100m): a 64 x 64 tile's S and P.V are
+//     four small MMAs each between two waits and the softmax, and two
+//     consumers a block left too few warps an SM to hide that chain;
+//     128-key tiles give twice the MMA work per wait, and three consumers
+//     1.5 times the warps where the grid is large enough that its 192-row
+//     blocks still fill the last wave (plans picked by measurement,
+//     PERF.md section 6);
 //   * the online softmax runs on the accumulator in registers: each thread
 //     holds two rows, the row max and sum reduce over the 4 threads of a
 //     quad; exp2 of log2-scaled scores; the cap as cap - 2 cap / (e^(2x /
@@ -58,13 +72,20 @@
 //     the window's first tile, keys past T); a consumer skips a tile none
 //     of its rows can see, still releasing its stage.  The walk bounds are
 //     the FP32-core kernel's, and the heaviest causal tiles start first;
-//   * registers: O is hd / 2 float32 a thread (128 at hd 256), S 32, P 16.
+//   * registers: O is DV / 2 float32 a thread (128 at hd 256), S BK / 2,
+//     P BK / 4.
 //   What still holds it back: each consumer runs S, softmax and P.V in
-//   turn (the two consumers overlap each other, not their own MMA with
-//   their softmax), two stages hold one tile of prefetch at hd 256, and
-//   the epilogue writes O from registers with 4-byte stores.  Next step: the
+//   turn (the consumers overlap each other, not their own MMA with their
+//   softmax), two stages hold one tile of prefetch at hd 256, and the
+//   epilogue writes O from registers with 4-byte stores.  Next step: the
 //   FlashAttention-3 ping-pong (S of tile j + 1 issued before the softmax
-//   of tile j) and a TMA store of O.
+//   of tile j) and a TMA store of O.  Issuing a tile's P.V behind the next
+//   tile's S in one warpgroup (FlashAttention-3's intra-warpgroup overlap)
+//   was tried at hd 64 (PERF.md section 6): under per-tile branches ptxas
+//   serialized the wgmma; as a branch-free walk of the warpgroup's live
+//   tiles, first one peeled, it ran, but with two or three consumers a
+//   block covering each other's softmax it moved the kept plans by a few
+//   percent either way, too little for a second form of this loop.
 //
 // The FP32-core kernel (namespace fp32): float32 at every hd (its 2e-4
 // bar is out of bf16's and TF32's reach) and bf16 at hd 16 and 32.  What
@@ -609,27 +630,58 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 }  // namespace fp32
 
 // -------------------------------------------------- tensor cores, bf16 --
-// q, k, v bfloat16 with hd in {64, 128, 256}; see the design note at the
-// top of the file.
+// q, k, v bfloat16 with hd in {64, 128, 256}, or q/k 192 beside v 128
+// (MLA); see the design note at the top of the file.
 namespace tc {
 
-constexpr int kConsumers = 2;        // warpgroups running wgmma, 64 rows each
-constexpr int kBQ = 64 * kConsumers; // query rows per block
-constexpr int kBK = 64;              // keys per K/V tile
-constexpr int kStages = 2;           // K/V ring depth
-constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int HD>
+// A tile plan: C consumer warpgroups of 64 query rows each (kBQ rows a
+// block), K/V tiles of BK keys through an ST-deep ring, BL blocks an SM,
+// and the registers setmaxnreg gives a consumer thread (CR) and the
+// producer's (PR).  Those must fit the block's share of the SM's 65,536
+// registers as the launch bounds set it at entry (a multiple of 8 a
+// thread).
+template <int C, int BK, int ST, int BL, int CR, int PR>
+struct TilePlan {
+  static constexpr int kConsumers = C;
+  static constexpr int kBQ = 64 * C;
+  static constexpr int kBK = BK;
+  static constexpr int kStages = ST;
+  static constexpr int kBlocks = BL;
+  static constexpr int kThreads = 128 * (C + 1);
+  static constexpr int kConsumerRegs = CR;
+  static constexpr int kProducerRegs = PR;
+  static_assert(BK == 64 || BK == 128, "S runs on m64n64k16 or m64n128k16");
+  static_assert(C * 128 * CR + 128 * PR <=
+                    kThreads * (65536 / (kThreads * BL) / 8 * 8),
+                "setmaxnreg asks for more registers than the block holds");
+};
+
+// The plans: two consumers, 64-key tiles, two stages, one block an SM (hd
+// 128, hd 256 and MLA's (192, 128)) ...
+using Plan = TilePlan<2, 64, 2, 1, 240, 24>;
+// ... and two at hd 64, where a 64 x 64 tile's S and P.V are too small to
+// cover the fixed costs of a step (two waits, the softmax): 128-key tiles,
+// twice the MMA work per wait, with three consumers (192 query rows, 1.5x
+// the warps an SM) where the grid fills two waves of the card, and two
+// (128 rows) where it does not, so that the last wave is not half empty
+// (kernel.py::tc_plan picks; scripts/ab_kernel_variants.py --parts
+// flash_tc measured them)
+using Plan64Wide = TilePlan<3, 128, 2, 1, 160, 24>;
+using Plan64 = TilePlan<2, 128, 2, 1, 240, 24>;
+
+template <int DK, int DV, class P>
 struct Smem {
-  static constexpr int kBoxes = HD / 64;                // 64-column boxes
-  static constexpr int kQBytes = kBQ * HD * 2;
-  static constexpr int kTileBytes = kBK * HD * 2;       // one K or V tile
+  static constexpr int kQBytes = P::kBQ * DK * 2;
+  static constexpr int kKBytes = P::kBK * DK * 2;       // one K tile
+  static constexpr int kVBytes = P::kBK * DV * 2;       // one V tile
   // the 1 KB the swizzled tiles' alignment may cost, Q, the K and V rings,
   // then full/empty mbarriers: Q's, and K's and V's per stage
   static constexpr size_t kBytes = 1024 + size_t(kQBytes) +
-                                   2 * size_t(kStages) * kTileBytes +
-                                   (1 + 4 * kStages) * sizeof(uint64_t);
+                                   size_t(P::kStages) * (kKBytes + kVBytes) +
+                                   (1 + 4 * P::kStages) * sizeof(uint64_t);
+  static_assert(kBytes <= 232448, "over the 227 KB a block may opt in to");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -728,6 +780,45 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// D (64 x 128, f32) += A (64 x 16, K-major, shared) . B (16 x 128,
+// K-major, shared): S = Q . K^T over a 128-key tile.
+__device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
+                                                  uint64_t desc_a,
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// S += Q . K^T over one 16-deep step, on the tile's width of keys
+template <int BK>
+__device__ __forceinline__ void wgmma_s(float (&d)[BK / 2], uint64_t desc_a,
+                                        uint64_t desc_b) {
+  if constexpr (BK == 128) wgmma_ss_m64n128k16(d, desc_a, desc_b);
+  else wgmma_ss_m64n64k16(d, desc_a, desc_b);
 }
 
 // D (64 x 64, f32) += A (64 x 16, bf16, registers) . B (16 x 64,
@@ -833,31 +924,39 @@ __device__ __forceinline__ void wgmma_rs_m64n256k16(float (&d)[128],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-template <int HD>
-__device__ __forceinline__ void wgmma_pv(float (&o)[HD / 2],
+// O += P . V over one 16-key step, on v's head dim DV
+template <int DV>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DV / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  if constexpr (HD == 256) wgmma_rs_m64n256k16(o, a, desc_b);
-  else if constexpr (HD == 128) wgmma_rs_m64n128k16(o, a, desc_b);
+  if constexpr (DV == 256) wgmma_rs_m64n256k16(o, a, desc_b);
+  else if constexpr (DV == 128) wgmma_rs_m64n128k16(o, a, desc_b);
   else wgmma_rs_m64n64k16(o, a, desc_b);
 }
 
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+// Q and K have head dim DK (DK / 64 boxes of 64 columns), V and the
+// output DV; the plan P sets the tiles, the warpgroups and the ring.
+template <int DK, int DV, class P>
+__global__ void __launch_bounds__(P::kThreads, P::kBlocks)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                     const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
                     __nv_bfloat16* __restrict__ out, int S, int T_len,
                     int groups, int causal, int window, float cap,
                     float scale) {
-  using L = Smem<HD>;
+  using L = Smem<DK, DV, P>;
+  constexpr int kConsumers = P::kConsumers, kBQ = P::kBQ, kBK = P::kBK,
+                kStages = P::kStages;
+  constexpr int kQBoxes = DK / 64, kVBoxes = DV / 64;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte-swizzled TMA tiles and their descriptors want 1 KB alignment
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  uint8_t* qs = smem;                          // kBoxes x (kBQ rows x 128 B)
-  uint8_t* ks = qs + L::kQBytes;               // kStages x (kBoxes x 8 KB)
-  uint8_t* vs = ks + kStages * L::kTileBytes;
-  uint64_t* full_q = reinterpret_cast<uint64_t*>(vs + kStages * L::kTileBytes);
+  // Q: kQBoxes boxes of kBQ rows x 128 B; per stage, a K tile of kQBoxes
+  // boxes and a V tile of kVBoxes boxes, each of kBK rows x 128 B
+  uint8_t* qs = smem;
+  uint8_t* ks = qs + L::kQBytes;
+  uint8_t* vs = ks + kStages * L::kKBytes;
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(vs + kStages * L::kVBytes);
   uint64_t* full_k = full_q + 1;
   uint64_t* full_v = full_k + kStages;
   uint64_t* empty_k = full_v + kStages;
@@ -887,27 +986,28 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (wgi == kConsumers) {
     // ------------------------------------------------ producer --
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(
+        P::kProducerRegs));
     if (threadIdx.x == kConsumers * 128) {
       const int kvb = b / groups;
       // the full box bytes land whatever the edge (TMA zero-fills rows
       // past S and T)
       mbar_expect_tx(full_q, L::kQBytes);
-      for (int j = 0; j < L::kBoxes; ++j)
+      for (int j = 0; j < kQBoxes; ++j)
         tma_load_3d(qs + j * kBQ * 128, &map_q, full_q, 64 * j, q0, b);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         const int k0 = k_lo + it * kBK;
         const uint32_t parity = ((it / kStages) - 1) & 1;
         if (it >= kStages) mbar_wait(&empty_k[s], parity);
-        mbar_expect_tx(&full_k[s], L::kTileBytes);
-        for (int j = 0; j < L::kBoxes; ++j)
-          tma_load_3d(ks + s * L::kTileBytes + j * kBK * 128, &map_k,
+        mbar_expect_tx(&full_k[s], L::kKBytes);
+        for (int j = 0; j < kQBoxes; ++j)
+          tma_load_3d(ks + s * L::kKBytes + j * kBK * 128, &map_k,
                       &full_k[s], 64 * j, k0, kvb);
         if (it >= kStages) mbar_wait(&empty_v[s], parity);
-        mbar_expect_tx(&full_v[s], L::kTileBytes);
-        for (int j = 0; j < L::kBoxes; ++j)
-          tma_load_3d(vs + s * L::kTileBytes + j * kBK * 128, &map_v,
+        mbar_expect_tx(&full_v[s], L::kVBytes);
+        for (int j = 0; j < kVBoxes; ++j)
+          tma_load_3d(vs + s * L::kVBytes + j * kBK * 128, &map_v,
                       &full_v[s], 64 * j, k0, kvb);
       }
     }
@@ -915,7 +1015,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   // -------------------------------------------------- consumers --
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(
+      P::kConsumerRegs));
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
   const int r0 = q0 + wgi * 64;                 // this warpgroup's rows
   // this thread's two rows: lane/4 and lane/4 + 8 of its warp's 16
@@ -931,9 +1032,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   const float k2 = cap != 0.f ? 2.f * kLog2e / cap : 0.f;
   const uint8_t* q_w = qs + wgi * 64 * 128;     // its rows of every box
 
-  float o[HD / 2];
+  float o[DV / 2];
 #pragma unroll
-  for (int i = 0; i < HD / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
   float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
   mbar_wait(full_q, 0);
 
@@ -942,19 +1043,19 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     const uint32_t parity = (it / kStages) & 1;
     const int k0 = k_lo + it * kBK;
     bool live = wg_live && k0 <= k_last_w && k0 + kBK > k_first_w;
-    // S = Q . K^T: m64n64k16 over hd; A and B K-major, +32 bytes per
+    // S = Q . K^T: m64n{kBK}k16 over DK; A and B K-major, +32 bytes per
     // 16-deep step inside a box's 128-byte rows, then the next box
-    float sc[32];
+    float sc[kBK / 2];
     mbar_wait(&full_k[s], parity);
     if (live) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+      for (int i = 0; i < kBK / 2; ++i) sc[i] = 0.f;
       fence_regs(sc);
       wgmma_fence();
-      const uint8_t* kt = ks + s * L::kTileBytes;
+      const uint8_t* kt = ks + s * L::kKBytes;
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        wgmma_ss_m64n64k16(
+      for (int kk = 0; kk < DK / 16; ++kk)
+        wgmma_s<kBK>(
             sc, gmma_desc(q_w + (kk / 4) * kBQ * 128 + (kk % 4) * 32, 16, 1024),
             gmma_desc(kt + (kk / 4) * kBK * 128 + (kk % 4) * 32, 16, 1024));
       wgmma_commit();
@@ -974,7 +1075,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
                         (window && r0 + 63 - k0 >= window);
       float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < kBK / 2; ++i) {
         float x = sc[i] * scale;
         if (cap != 0.f) x = cap - __fdividef(two_cap, exp2f(x * k2) + 1.f);
         x *= kLog2e;
@@ -1003,7 +1104,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       // p = exp(s - m), 0 where masked; l sums p as is, P.V takes it
       // rounded to bf16 (the reference's p.astype(v.dtype))
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < kBK / 2; ++i) {
         const bool hi = (i / 2) % 2;
         const float p = sc[i] == kNegInf ? 0.f
                                          : exp2f(sc[i] - (hi ? m_b : m_a));
@@ -1021,19 +1122,20 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
         pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
       }
 #pragma unroll
-      for (int i = 0; i < HD / 2; ++i) o[i] *= (i / 2) % 2 ? al_b : al_a;
+      for (int i = 0; i < DV / 2; ++i) o[i] *= (i / 2) % 2 ? al_b : al_a;
     }
 
-    // O += P . V: V MN-major (keys x hd row-major), LBO = 8 KB from one
-    // 64-column box to the next, SBO = 1 KB, +16 rows per 16-key step
+    // O += P . V: V MN-major (keys x DV row-major), LBO = kBK x 128 bytes
+    // from one 64-column box to the next, SBO = 1 KB, +16 rows per 16-key
+    // step
     mbar_wait(&full_v[s], parity);
     if (live) {
       fence_regs(o);
       wgmma_fence();
-      const uint8_t* vt = vs + s * L::kTileBytes;
+      const uint8_t* vt = vs + s * L::kVBytes;
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk)
-        wgmma_pv<HD>(o, pa[kk], gmma_desc(vt + kk * 16 * 128, kBK * 128, 1024));
+        wgmma_pv<DV>(o, pa[kk], gmma_desc(vt + kk * 16 * 128, kBK * 128, 1024));
       wgmma_commit();
       wgmma_wait0();
       fence_regs(o);
@@ -1052,13 +1154,13 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   // accumulator i holds row row_a or row_b and column 8*(i/4) +
   // 2*(lane%4) + i%2: each quad writes 16 contiguous bytes of a row
 #pragma unroll
-  for (int i = 0; i < HD / 2; i += 2) {
+  for (int i = 0; i < DV / 2; i += 2) {
     const bool hi = (i / 2) % 2;
     const int row = hi ? row_b : row_a;
     const int col = 8 * (i / 4) + 2 * (lane % 4);
     const float inv = hi ? inv_b : inv_a;
     if (row < S)
-      *reinterpret_cast<uint32_t*>(out + (size_t(b) * S + row) * HD + col) =
+      *reinterpret_cast<uint32_t*>(out + (size_t(b) * S + row) * DV + col) =
           pack_bf16(o[i] * inv, o[i + 1] * inv);
   }
 }
@@ -1110,18 +1212,18 @@ bool encode_3d(EncodeTiled fn, CUtensorMap* map, const void* base, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int DK, int DV, class P>
 cudaError_t launch(EncodeTiled fn, const void* q, const void* k,
                    const void* v, void* out, int BH, int S, int T_len,
                    int groups, int causal, int window, float cap, float scale,
                    cudaStream_t stream) {
   CUtensorMap map_q, map_k, map_v;
-  if (!encode_3d(fn, &map_q, q, BH, S, HD, kBQ) ||
-      !encode_3d(fn, &map_k, k, BH / groups, T_len, HD, kBK) ||
-      !encode_3d(fn, &map_v, v, BH / groups, T_len, HD, kBK))
+  if (!encode_3d(fn, &map_q, q, BH, S, DK, P::kBQ) ||
+      !encode_3d(fn, &map_k, k, BH / groups, T_len, DK, P::kBK) ||
+      !encode_3d(fn, &map_v, v, BH / groups, T_len, DV, P::kBK))
     return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_tc_kernel<HD>;
-  constexpr size_t smem = Smem<HD>::kBytes;
+  auto kernel = flash_fwd_tc_kernel<DK, DV, P>;
+  constexpr size_t smem = Smem<DK, DV, P>::kBytes;
   static bool opted_in = false;
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -1129,8 +1231,8 @@ cudaError_t launch(EncodeTiled fn, const void* q, const void* k,
     if (e != cudaSuccess) return e;
     opted_in = true;
   }
-  const dim3 grid((S + kBQ - 1) / kBQ, BH);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((S + P::kBQ - 1) / P::kBQ, BH);
+  kernel<<<grid, P::kThreads, smem, stream>>>(
       map_q, map_k, map_v, static_cast<__nv_bfloat16*>(out), S, T_len,
       groups, causal, window, cap, scale);
   return cudaGetLastError();
@@ -1187,16 +1289,19 @@ extern "C" int flash_attention_launch(int dtype, const void* q,
   return static_cast<int>(e);
 }
 
-// The tensor-core kernel: q, k, v and out bfloat16, hd in {64, 128, 256},
-// T >= 1, 16-byte-aligned bases (TMA's rule; anything else is refused with
-// cudaErrorInvalidValue: the wrapper's route sends bf16 with other head
-// dims to flash_attention_launch).  Encodes the three tensor maps, then
-// launches on `stream`; does not synchronise.
+// The tensor-core kernel: q, k, v and out bfloat16; q and k of head dim
+// hd, v and out of head dim dv, (hd, dv) one of (64, 64), (128, 128),
+// (256, 256) and MLA's (192, 128); `rows` the query rows of a block, which
+// names the plan: 128, or at hd 64 also 192; T >= 1, 16-byte-aligned bases
+// (TMA's rule).  Anything else is refused with cudaErrorInvalidValue (the
+// wrapper's route sends bf16 with other head dims to
+// flash_attention_launch, or zero-pads them there).  Encodes the three
+// tensor maps, then launches on `stream`; does not synchronise.
 extern "C" int flash_attention_tc_launch(const void* q, const void* k,
                                          const void* v, void* out, int BH,
-                                         int S, int T_len, int hd,
-                                         int groups, int causal, int window,
-                                         float cap, float scale,
+                                         int S, int T_len, int hd, int dv,
+                                         int rows, int groups, int causal,
+                                         int window, float cap, float scale,
                                          void* stream) {
   if (BH < 1 || BH > 65535 || S < 1 || T_len < 1 || groups < 1 ||
       BH % groups ||
@@ -1208,21 +1313,21 @@ extern "C" int flash_attention_tc_launch(const void* q, const void* k,
   cudaError_t e = tc::encode_fn(&fn);
   if (e != cudaSuccess) return int(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 64:
-      e = tc::launch<64>(fn, q, k, v, out, BH, S, T_len, groups, causal,
-                         window, cap, scale, s);
-      break;
-    case 128:
-      e = tc::launch<128>(fn, q, k, v, out, BH, S, T_len, groups, causal,
-                          window, cap, scale, s);
-      break;
-    case 256:
-      e = tc::launch<256>(fn, q, k, v, out, BH, S, T_len, groups, causal,
-                          window, cap, scale, s);
-      break;
-    default:
-      e = cudaErrorInvalidValue;
-  }
+#define FLASH_TC(DK_, DV_, P_)                                              \
+  tc::launch<DK_, DV_, P_>(fn, q, k, v, out, BH, S, T_len, groups, causal,  \
+                           window, cap, scale, s)
+  if (hd == 64 && dv == 64 && rows == 192)
+    e = FLASH_TC(64, 64, tc::Plan64Wide);
+  else if (hd == 64 && dv == 64 && rows == 128)
+    e = FLASH_TC(64, 64, tc::Plan64);
+  else if (hd == 128 && dv == 128 && rows == 128)
+    e = FLASH_TC(128, 128, tc::Plan);
+  else if (hd == 256 && dv == 256 && rows == 128)
+    e = FLASH_TC(256, 256, tc::Plan);
+  else if (hd == 192 && dv == 128 && rows == 128)
+    e = FLASH_TC(192, 128, tc::Plan);
+  else
+    e = cudaErrorInvalidValue;
+#undef FLASH_TC
   return static_cast<int>(e);
 }

@@ -3,19 +3,24 @@
 ``flash_attention_fwd(q, k, v, ...)`` launches the hand-written kernel
 that replaces the reference's Pallas
 ``repro.kernels.flash_attention.kernel.flash_attention_fwd``: q
-``(BH, S, d)``, k/v ``(BH // groups, T, d)`` with flat query head ``b``
-reading KV row ``b // groups`` (KV-major heads, as ``ops.mha_flash``
-lays them out), causal / sliding-window masks on top-left-aligned iotas
-and an optional tanh logit cap; float32 or bfloat16, d in
-:data:`HEAD_DIMS`.  It takes CUDA tensors only: a CPU tensor is the
-caller's cue to use the plain version (``ops`` dispatches), never this
-module's.  The kernel masks partial tiles, so any S and T are right (the
-reference asserts that its tiles divide S and T).
+``(BH, S, d)``, k ``(BH // groups, T, d)``, v ``(BH // groups, T, dv)``
+with flat query head ``b`` reading KV row ``b // groups`` (KV-major
+heads, as ``ops.mha_flash`` lays them out), causal / sliding-window masks
+on top-left-aligned iotas and an optional tanh logit cap; float32 or
+bfloat16, ``dv = d`` in :data:`HEAD_DIMS`, or in bfloat16 a pair of
+:data:`TC_PAIRS` (MLA's q/k 192 beside v 128).  It takes CUDA tensors
+only: a CPU tensor is the caller's cue to use the plain version (``ops``
+dispatches), never this module's.  The kernel masks partial tiles, so
+any S and T are right (the reference asserts that its tiles divide S and
+T).
 
 The source holds two kernels, and :func:`route` picks one from the type
-and the head dim alone (never on a failure): bfloat16 at hd 64, 128 and
-256 runs on the tensor cores (TMA + wgmma), float32 and bf16 at hd 16
-and 32 on the FP32 cores.  Where the FP32-core grid is under a wave of
+and the head dims alone (never on a failure): bfloat16 at hd 64, 128 and
+256 and at MLA's (192, 128) runs on the tensor cores (TMA + wgmma, the
+tile plans of :data:`TC_PLANS`, one picked by :func:`tc_plan`), float32
+and bf16 at hd 16 and 32 on the FP32 cores; :func:`head_dims` says at
+which dims a call runs (``ops`` zero-pads any other pair to one hd).
+Where the FP32-core grid is under a wave of
 the card, :func:`fp32_plan` splits each query tile's key walk over
 blocks, combined in one launch (the float32 partials and the tickets are
 scratch this module keeps per device and stream).  The library is built
@@ -30,7 +35,7 @@ import functools
 import heapq
 import math
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -39,9 +44,32 @@ from repro_torch.kernels.launch import SMS, LaunchCounter, load, \
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 HEAD_DIMS = (16, 32, 64, 128, 256)
-#: head dims the tensor-core kernel takes: whole 64-column (128-byte) TMA
-#: boxes
-TC_HEAD_DIMS = (64, 128, 256)
+#: (q/k head dim, v head dim) pairs of unequal dims the tensor-core kernel
+#: takes as they are, in bfloat16: MLA's (deepseek-v2) 128 + 64 beside 128
+TC_PAIRS = ((192, 128),)
+
+
+class TcPlan(NamedTuple):
+    """A tile plan of the tensor-core kernel (``csrc`` ``tc::Plan``):
+    consumer warpgroups of 64 query rows, keys a K/V tile, ring stages,
+    blocks an SM."""
+    consumers: int
+    keys: int
+    stages: int
+    blocks: int
+
+
+#: the tensor-core kernel's instantiations (head dims of whole 64-column,
+#: 128-byte TMA boxes), (dk, dv) -> its tile plans, widest first, as
+#: ``csrc/flash_attention.cu`` sets them (``tc::Plan``, ``Plan64Wide``,
+#: ``Plan64``): 128 query rows a block and 64-key tiles; at hd 64 128-key
+#: tiles, with 192 rows where the grid fills two waves (:func:`tc_plan`)
+TC_PLANS = {(64, 64): (TcPlan(3, 128, 2, 1), TcPlan(2, 128, 2, 1)),
+            (128, 128): (TcPlan(2, 64, 2, 1),),
+            (256, 256): (TcPlan(2, 64, 2, 1),),
+            (192, 128): (TcPlan(2, 64, 2, 1),)}
+#: shared memory a block may opt in to on the H100 (227 KB)
+SMEM_LIMIT = 232448
 #: element-type codes of the C interface
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the launch grid's head dimension holds at most 65535 blocks
@@ -69,13 +97,53 @@ FP32_SPLIT_COST = 100
 _fp32_buffers: dict = {}
 
 
-def route(dtype: torch.dtype, hd: int) -> str:
-    """The kernel a call of ``dtype`` with head dim ``hd`` takes:
-    :data:`TENSOR_CORES` for bfloat16 at hd in :data:`TC_HEAD_DIMS`,
-    :data:`FP32_CORES` for float32 (its 2e-4 bar is out of the tensor
-    cores' reach) and for bfloat16 at hd 16 and 32 (less than one
-    128-byte TMA box a row)."""
-    if dtype == torch.bfloat16 and hd in TC_HEAD_DIMS:
+def tc_plan(BH: int, S: int, dk: int, dv: int) -> TcPlan:
+    """The tile plan of a tensor-core call: the instantiation's widest
+    where its grid (``BH`` x ceil(S / rows) blocks of 64 x consumers query
+    rows) fills two waves of :data:`SMS` SMs, else its narrowest (fewer
+    rows a block: more blocks, so the last wave is not half empty)."""
+    plans = TC_PLANS[dk, dv]
+    if BH * -(-S // (64 * plans[0].consumers)) >= 2 * SMS:
+        return plans[0]
+    return plans[-1]
+
+
+def tc_smem_bytes(dk: int, dv: int, p: TcPlan) -> int:
+    """Dynamic shared memory of a tensor-core block of the instantiation
+    (dk, dv) under plan ``p``, as ``tc::Smem`` counts it: 1 KB of alignment
+    slack, Q, the stages' K and V tiles (bf16), and 1 + 4 x stages
+    mbarriers."""
+    return (1024 + 64 * p.consumers * dk * 2
+            + p.stages * p.keys * (dk + dv) * 2 + (1 + 4 * p.stages) * 8)
+
+
+def head_dims(dtype: torch.dtype, dk: int, dv: int) -> tuple:
+    """(q/k, v) head dims the kernels run a call of ``dtype`` with q/k head
+    dim ``dk`` and v head dim ``dv`` at: the call's own where they take it
+    as it is (``dk == dv`` in :data:`HEAD_DIMS`, or a bfloat16 pair of
+    :data:`TC_PAIRS`), else (d, d) with d the smallest of
+    :data:`HEAD_DIMS` at least ``max(dk, dv)``, to which ``ops`` zero-pads
+    q, k and v (float32 MLA: 256).  Raises where none is that wide."""
+    if (dk == dv and dk in HEAD_DIMS) or (
+            dtype == torch.bfloat16 and (dk, dv) in TC_PAIRS):
+        return dk, dv
+    for d in HEAD_DIMS:
+        if d >= max(dk, dv):
+            return d, d
+    raise ValueError(f"head dims q/k {dk}, v {dv}: the kernel takes at "
+                     f"most {HEAD_DIMS[-1]}")
+
+
+def route(dtype: torch.dtype, dk: int, dv: Optional[int] = None) -> str:
+    """The kernel a call of ``dtype`` with q/k head dim ``dk`` and v head
+    dim ``dv`` (``dk`` if None) takes, at :func:`head_dims`:
+    :data:`TENSOR_CORES` for bfloat16 at an instantiation of
+    :data:`TC_PLANS` (hd 64, 128, 256, MLA's (192, 128)),
+    :data:`FP32_CORES` for float32 (its 2e-4
+    bar is out of the tensor cores' reach) and for bfloat16 at hd 16 and
+    32 (less than one 128-byte TMA box a row)."""
+    dk, dv = head_dims(dtype, dk, dk if dv is None else dv)
+    if dtype == torch.bfloat16 and (dk, dv) in TC_PLANS:
         return TENSOR_CORES
     return FP32_CORES
 
@@ -142,7 +210,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.flash_attention_tc_launch
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
@@ -158,13 +226,17 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, groups: int):
         raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the "
                          "kernel takes float32 or bfloat16 q, k and v of "
                          "one type")
-    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+    if q.dim() != 3 or k.dim() != 3 or v.dim() != 3 \
+            or v.shape[:2] != k.shape[:2]:
         raise ValueError(f"bad shapes: q {tuple(q.shape)} (want BH,S,d), "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} (want "
-                         "BH/groups,T,d)")
+                         "BH/groups,T,d and BH/groups,T,dv)")
     BH, S, d = q.shape
-    if k.shape[2] != d or d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} (k {k.shape[2]}) not in {HEAD_DIMS}")
+    dv = v.shape[2]
+    if k.shape[2] != d or head_dims(q.dtype, d, dv) != (d, dv):
+        raise ValueError(f"head dims q {d}, k {k.shape[2]}, v {dv}: the "
+                         f"kernels take one of {HEAD_DIMS} for all three, "
+                         f"or in bfloat16 (q/k, v) in {TC_PAIRS}")
     if groups < 1 or BH != k.shape[0] * groups:
         raise ValueError(f"BH={BH} != {k.shape[0]} kv rows x groups="
                          f"{groups}")
@@ -186,16 +258,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 0,
                         cap: float = 0.0, scale: Optional[float] = None,
                         groups: int = 1) -> torch.Tensor:
-    """q: (BH, S, d); k/v: (BH // groups, T, d), one CUDA device, one type.
-    Returns (BH, S, d) in q's type."""
+    """q: (BH, S, d); k: (BH // groups, T, d); v: (BH // groups, T, dv),
+    one CUDA device, one type.  Returns (BH, S, dv) in q's type."""
     _check(q, k, v, groups)
     BH, S, d = q.shape
-    T = k.shape[1]
-    out = torch.empty_like(q)
+    T, dv = k.shape[1], v.shape[2]
+    out = q.new_empty(BH, S, dv)
     if out.numel() == 0:
         return out
     sc = scale if scale is not None else 1.0 / math.sqrt(d)
-    kernel = route(q.dtype, d)
+    kernel = route(q.dtype, d, dv)
     if T == 0 and kernel == TENSOR_CORES:
         # no key at all: every row is fully masked and gives 0 (a tensor
         # map cannot describe an empty K/V)
@@ -204,10 +276,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if kernel == TENSOR_CORES:
+            rows = 64 * tc_plan(BH, S, d, dv).consumers
             err = lib.flash_attention_tc_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
-                S, T, d, groups, int(bool(causal)), int(window), float(cap),
-                float(sc), stream)
+                S, T, d, dv, rows, groups, int(bool(causal)), int(window),
+                float(cap), float(sc), stream)
         else:
             span, splits = fp32_plan(BH, S, T, d, bool(causal), int(window))
             ml = acc = tickets = 0

@@ -14,15 +14,19 @@ plain version runs on the card (counted by :data:`backward_recomputes`).
 
 v may have its own head dim ``dv`` beside q and k's ``dk`` (MLA's 128
 beside 192; the reference's ``attend_fullseq`` takes that, its Pallas
-kernel does not), and the output is ``(..., dv)``.  The kernel takes one
-head dim from :data:`kernel.HEAD_DIMS` for q, k and v, so a CUDA call
-with ``dk != dv``, or with a ``dk`` the kernel lacks, runs on q, k and v
-zero-padded along the head dim to the smallest of those at least
-``max(dk, dv)`` (:func:`pad_head_dims`), at the unpadded scale, and its
-output is sliced back to ``dv``.  That is exact: zero columns add
-nothing to q·k, and P·V's padded columns are dropped.  A call no head
-dim of the kernel covers raises; nothing falls back to the plain
-version.  The backward recomputes on the unpadded tensors.
+kernel does not), and the output is ``(..., dv)``.  Two routes, picked
+from the type and the dims alone (``kernel.head_dims``): a bfloat16 call
+at MLA's (192, 128) goes to the tensor-core kernel as it is (no pad, no
+copy, no slice: the kernel has an instantiation for it), and so does any
+call with ``dk == dv`` in :data:`kernel.HEAD_DIMS`.  Any other pair
+(float32 MLA, the smoke config's (24, 16), a ``dk`` the kernels lack)
+runs on q, k and v zero-padded along the head dim to the smallest of
+:data:`kernel.HEAD_DIMS` at least ``max(dk, dv)`` (:func:`pad_head_dims`),
+at the unpadded scale, and its output is sliced back to ``dv``.  That is
+exact: zero columns add nothing to q·k, and P·V's padded columns are
+dropped.  A call no head dim of the kernel covers raises, and so does a
+launch the kernel refuses; nothing falls back to the padded route or the
+plain version.  The backward recomputes on the unpadded tensors.
 
 Deliberate differences: the reference asserts that its 128-row tiles
 divide S and T; the kernel masks partial tiles, so any S and T are
@@ -52,39 +56,42 @@ plain_forwards = LaunchCounter()
 backward_recomputes = LaunchCounter()
 
 
-def padded_head_dim(dk: int, dv: int) -> int:
-    """The head dim the kernel runs a call of q/k head dim ``dk`` and v
-    head dim ``dv`` at: ``dk`` itself where ``dk == dv`` and the kernel
-    has it, else the smallest of :data:`kernel.HEAD_DIMS` at least
-    ``max(dk, dv)`` (256 for MLA's 192 / 128)."""
-    if dk == dv and dk in K.HEAD_DIMS:
-        return dk
-    for d in K.HEAD_DIMS:
-        if d >= max(dk, dv):
-            return d
-    raise ValueError(f"head dims q/k {dk}, v {dv}: the kernel takes at "
-                     f"most {K.HEAD_DIMS[-1]}")
+def padded_head_dim(dk: int, dv: int, dtype: torch.dtype) -> int:
+    """The q/k head dim the kernel runs a ``dtype`` call of q/k head dim
+    ``dk`` and v head dim ``dv`` at (``kernel.head_dims``): ``dk`` itself
+    where the kernel takes the pair as it is (``dk == dv`` in
+    :data:`kernel.HEAD_DIMS`, bfloat16 MLA's (192, 128)), else the
+    smallest of :data:`kernel.HEAD_DIMS` at least ``max(dk, dv)`` (256
+    for float32 MLA)."""
+    return K.head_dims(dtype, dk, dv)[0]
 
 
 def pad_head_dims(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """q, k and v zero-padded along the head dim (the last) to
-    :func:`padded_head_dim` of their own (the tensors themselves where
-    that is no change)."""
-    d = padded_head_dim(q.shape[-1], v.shape[-1])
+    """q and k zero-padded along the head dim (the last) to the q/k head
+    dim ``kernel.head_dims`` gives their type and dims, v to its v head
+    dim (the tensors themselves where that is no change: on the native
+    routes all three)."""
+    dk, dv = K.head_dims(q.dtype, q.shape[-1], v.shape[-1])
     return tuple(t if t.shape[-1] == d else F.pad(t, (0, d - t.shape[-1]))
-                 for t in (q, k, v))
+                 for t, d in ((q, dk), (k, dk), (v, dv)))
+
+
+def _kernel_forward(q, k, v, causal, window, cap, groups, scale):
+    """The CUDA route: the kernel on q, k and v as they are or zero-padded
+    (:func:`pad_head_dims`), at the scale of the unpadded ``dk``, the
+    output sliced back to ``dv`` where it was padded."""
+    dk, dv = q.shape[-1], v.shape[-1]
+    sc = scale if scale is not None else 1.0 / math.sqrt(dk)
+    qp, kp, vp = pad_head_dims(q, k, v)
+    out = K.flash_attention_fwd(qp, kp, vp, causal=causal, window=window,
+                                cap=cap, scale=sc, groups=groups)
+    return out if out.shape[-1] == dv else out[..., :dv]
 
 
 def _forward(q, k, v, causal, window, cap, groups, scale):
     if q.device.type == "cuda":
-        dk, dv = q.shape[-1], v.shape[-1]
-        sc = scale if scale is not None else 1.0 / math.sqrt(dk)
-        qp, kp, vp = pad_head_dims(q, k, v)
-        out = K.flash_attention_fwd(qp, kp, vp, causal=causal,
-                                    window=window, cap=cap, scale=sc,
-                                    groups=groups)
-        return out if out.shape[-1] == dv else out[..., :dv]
+        return _kernel_forward(q, k, v, causal, window, cap, groups, scale)
     if q.device.type == "cpu":
         plain_forwards.n += 1
         with kernel_scope("flash_attention"):

@@ -240,30 +240,151 @@ def test_route_by_dtype_and_head_dim(dtype, hd, want):
     assert K.route(dtype, hd) == want
 
 
-def tc_emulation(q, k, v, causal, window, cap, groups=1):
+@pytest.mark.parametrize("dtype,dk,dv,want,native", [
+    (torch.bfloat16, 192, 128, "tensor_cores", True),   # MLA: its own
+    (torch.float32, 192, 128, "fp32_cores", False),     # ... padded to 256
+    (torch.bfloat16, 24, 16, "fp32_cores", False),      # the smoke config's
+    (torch.float32, 24, 16, "fp32_cores", False),       # ... padded to 32
+    (torch.bfloat16, 64, 64, "tensor_cores", True),
+    (torch.bfloat16, 64, 256, "tensor_cores", False),   # padded to 256
+])
+def test_route_and_kernel_operands(dtype, dk, dv, want, native,
+                                   monkeypatch):
+    """What the op's CUDA route hands the kernel, with the kernel's
+    wrapper replaced by a recorder: on a native route q, k and v
+    themselves (same storage) and the kernel's own (BH, S, dv) output
+    back, no slice; on the padded route q, k and v zero-padded to
+    ``kernel.head_dims``' one hd at the unpadded scale, the output sliced
+    back to dv."""
+    assert K.route(dtype, dk, dv) == want
+    q, k, v = (torch.from_numpy(a).to(dtype) for a in (
+        _qkv(4, 40, 40, dk, seed=13)[:2]
+        + (np.random.default_rng(14).standard_normal((4, 40, dv),
+                                                     np.float32),)))
+    calls = []
+
+    def recorder(qq, kk, vv, **kw):
+        calls.append((qq, kk, vv, kw))
+        out = torch.zeros(qq.shape[0], qq.shape[1], vv.shape[2], dtype=dtype)
+        calls.append(out)
+        return out
+
+    monkeypatch.setattr(K, "flash_attention_fwd", recorder)
+    got = ops._kernel_forward(q, k, v, True, 0, 0.0, 1, None)
+    (qq, kk, vv, kw), out = calls
+    assert kw["scale"] == pytest.approx(1 / np.sqrt(dk))
+    assert got.shape == (4, 40, dv)
+    if native:
+        assert all(a is b for a, b in zip((qq, kk, vv), (q, k, v)))
+        assert got is out
+        return
+    d = K.head_dims(dtype, dk, dv)[0]
+    assert qq.shape[-1] == kk.shape[-1] == vv.shape[-1] == d
+    assert torch.equal(qq[..., :dk], q) and not qq[..., dk:].any()
+    assert torch.equal(vv[..., :dv], v) and not vv[..., dv:].any()
+    assert got is out if d == dv else got._base is out
+
+
+def test_a_refused_native_launch_raises(monkeypatch):
+    """A bf16 MLA call whose native launch the kernel refuses raises: one
+    call, on the unpadded operands, and no retry on the padded route."""
+    q, k = (torch.from_numpy(a).bfloat16()
+            for a in _qkv(2, 16, 16, 192, seed=15)[:2])
+    v = torch.zeros(2, 16, 128, dtype=torch.bfloat16)
+    calls = []
+
+    def refused(qq, kk, vv, **kw):
+        calls.append((qq.shape[-1], vv.shape[-1]))
+        raise RuntimeError("flash attention kernel (tensor_cores) launch "
+                           "failed: CUDA error 1")
+
+    monkeypatch.setattr(K, "flash_attention_fwd", refused)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ops._kernel_forward(q, k, v, True, 0, 0.0, 1, None)
+    assert calls == [(192, 128)]
+
+
+@pytest.mark.parametrize("dims,plan", [
+    (dims, i) for dims in sorted(K.TC_PLANS)
+    for i in range(len(K.TC_PLANS[dims]))])
+def test_tensor_core_shared_memory_fits_the_opt_in(dims, plan):
+    """Each instantiation's shared memory under each of its plans, as
+    ``tc::Smem`` counts it (mirrored by ``kernel.tc_smem_bytes``), under
+    the 227 KB a block may opt in to; the hand count of each."""
+    dk, dv = dims
+    p = K.TC_PLANS[dims][plan]
+    want = (1024 + 64 * p.consumers * dk * 2
+            + p.stages * (p.keys * dk * 2 + p.keys * dv * 2)
+            + (1 + 4 * p.stages) * 8)
+    assert K.tc_smem_bytes(dk, dv, p) == want <= K.SMEM_LIMIT == 232448
+    assert {(64, 64, 0): 91208, (64, 64, 1): 83016, (128, 128, 0): 99400,
+            (256, 256, 0): 197704, (192, 128, 0): 132168}[
+        dk, dv, plan] == want
+
+
+def test_tensor_core_plans_mirror_the_source():
+    """``kernel.TC_PLANS`` says what ``csrc/flash_attention.cu``'s plans
+    (``using ... = TilePlan<...>``) and its C entry's dispatch say: each
+    (hd, dv, query rows a block) launches the plan of those rows."""
+    import re
+    text = K.SOURCE.read_text()
+    plans = {name: K.TcPlan(*map(int, args)) for name, *args in re.findall(
+        r"using (\w+) = TilePlan<(\d+), (\d+), (\d+), (\d+), \d+, \d+>;",
+        text)}
+    launched = {}
+    for dk, dv, rows, name in re.findall(
+            r"hd == (\d+) && dv == (\d+) && rows == (\d+)\)\s*"
+            r"e = FLASH_TC\(\d+, \d+, tc::(\w+)\)", text):
+        assert 64 * plans[name].consumers == int(rows)
+        launched.setdefault((int(dk), int(dv)), set()).add(plans[name])
+    assert launched == {dims: set(p) for dims, p in K.TC_PLANS.items()}
+
+
+@pytest.mark.parametrize("BH,S,want", [
+    (64, 1500, 0),    # whisper's encoder: 512 blocks of 192 rows
+    (50, 3072, 0),    # hymba: 800
+    (64, 448, 1),     # whisper's cross / causal 448: 192 < 2 waves
+    (80, 256, 1),     # train_100m: 160
+    (64, 1100, 0),    # 384 blocks: two waves of 132 SMs
+    (64, 768, 1),     # 256
+])
+def test_tc_plan_by_grid(BH, S, want):
+    """hd 64 takes its three-consumer plan where 192-row blocks fill two
+    waves of the card, else its two-consumer one; every other
+    instantiation has one plan."""
+    assert K.tc_plan(BH, S, 64, 64) == K.TC_PLANS[64, 64][want]
+    assert K.tc_plan(BH, S, 128, 128) == K.TC_PLANS[128, 128][0]
+    assert K.tc_plan(BH, S, 192, 128) == K.TC_PLANS[192, 128][0]
+
+
+def tc_emulation(q, k, v, causal, window, cap, groups=1, plan=None):
     """The tensor-core kernel's arithmetic and tile order, for the tests
-    only: blocks of 128 query rows walk the block's visible keys from k_lo
-    (the window's first key, not tile-aligned) to k_hi in 64-key tiles;
-    each 64-row half skips the tiles none of its rows can see; scores
-    float32 from bf16 operands, times scale, the cap in float32, then
-    log2-scaled for exp2; the online softmax's m and l in float32; p
-    rounded to bf16 for P.V while l sums it unrounded; out = O / l (0
-    where l is 0), rounded to bf16.  q (BH,S,d), k/v (BH/groups,T,d)
-    bf16."""
+    only, under the tile plan the kernel takes for the call
+    (``kernel.tc_plan``, unless given): blocks of 64 x consumers
+    query rows walk the block's visible keys from k_lo (the window's first
+    key, not tile-aligned) to k_hi in tiles of ``plan.keys`` keys; each
+    64-row warpgroup skips the tiles none of its rows can see; scores
+    float32 from bf16 operands, times scale (1/sqrt of q's head dim), the
+    cap in float32, then log2-scaled for exp2; the online softmax's m and
+    l in float32; p rounded to bf16 for P.V while l sums it unrounded;
+    out = O / l (0 where l is 0), rounded to bf16.  q (BH,S,d), k
+    (BH/groups,T,d), v (BH/groups,T,dv) bf16."""
     BH, S, d = q.shape
-    T = k.shape[1]
+    T, dv = k.shape[1], v.shape[2]
+    plan = plan or K.tc_plan(BH, S, d, dv)
+    rows_a_block, bk = 64 * plan.consumers, plan.keys
     scale, log2e = 1.0 / np.sqrt(d), 1.4426950408889634
     qf = q.float()
-    kf = torch.cat([k.float(), torch.zeros(k.shape[0], 64, d)], 1)
-    vf = torch.cat([v.float(), torch.zeros(v.shape[0], 64, d)], 1)
+    kf = torch.cat([k.float(), torch.zeros(k.shape[0], bk, d)], 1)
+    vf = torch.cat([v.float(), torch.zeros(v.shape[0], bk, dv)], 1)
     kf = kf.repeat_interleave(groups, 0)
     vf = vf.repeat_interleave(groups, 0)
-    out = torch.zeros(BH, S, d)
-    for q0 in range(0, S, 128):
-        last = min(q0 + 128, S) - 1
+    out = torch.zeros(BH, S, dv)
+    for q0 in range(0, S, rows_a_block):
+        last = min(q0 + rows_a_block, S) - 1
         k_hi = min(T, last + 1) if causal else T
         k_lo = max(0, q0 - window + 1) if window else 0
-        for r0 in (q0, q0 + 64):
+        for r0 in range(q0, q0 + rows_a_block, 64):
             if r0 >= S:
                 continue
             rows = torch.arange(r0, min(r0 + 64, S))
@@ -271,17 +392,17 @@ def tc_emulation(q, k, v, causal, window, cap, groups=1):
             k_last = r0 + 63 if causal else T - 1
             m = torch.full((BH, len(rows)), -1e30)
             l_sum = torch.zeros(BH, len(rows))
-            o = torch.zeros(BH, len(rows), d)
-            for k0 in range(k_lo, k_hi, 64):
-                if not (k0 <= k_last and k0 + 64 > k_first):
+            o = torch.zeros(BH, len(rows), dv)
+            for k0 in range(k_lo, k_hi, bk):
+                if not (k0 <= k_last and k0 + bk > k_first):
                     continue
-                keys = torch.arange(k0, k0 + 64)
+                keys = torch.arange(k0, k0 + bk)
                 s = torch.einsum("brd,btd->brt", qf[:, rows],
-                                 kf[:, k0:k0 + 64]) * scale
+                                 kf[:, k0:k0 + bk]) * scale
                 if cap:
                     s = cap * torch.tanh(s / cap)
                 s = s * log2e
-                mask = (keys[None, :] < T).expand(len(rows), 64)
+                mask = (keys[None, :] < T).expand(len(rows), bk)
                 if causal:
                     mask = mask & (keys[None, :] <= rows[:, None])
                 if window:
@@ -294,7 +415,7 @@ def tc_emulation(q, k, v, causal, window, cap, groups=1):
                 l_sum = l_sum * alpha + p.sum(-1)
                 o = o * alpha[..., None] + torch.einsum(
                     "brt,btd->brd", p.to(torch.bfloat16).float(),
-                    vf[:, k0:k0 + 64])
+                    vf[:, k0:k0 + bk])
                 m = m_new
             out[:, rows] = o / torch.where(l_sum == 0, torch.ones_like(l_sum),
                                            l_sum)[..., None]
@@ -303,32 +424,60 @@ def tc_emulation(q, k, v, causal, window, cap, groups=1):
 
 @pytest.mark.parametrize("qk", [0.3, SHARP])
 @pytest.mark.parametrize("causal,window,cap", MASKS)
-@pytest.mark.parametrize("d,groups", [(64, 1), (256, 2)])
+@pytest.mark.parametrize("d,groups", [(64, 1), (256, 2), (64, 2)])
 def test_tensor_core_arithmetic_matches_the_pallas_kernel(d, groups, causal,
                                                           window, cap, qk):
     """The tensor-core kernel's tile order and rounding (``tc_emulation``)
-    against the reference's Pallas kernel in interpret mode at hd 64 and
-    256 (GQA there), the five masks, flat and sharp, within the bf16
-    bar."""
+    under every tile plan of the instantiation (at hd 64 128-key tiles
+    with blocks of 192 and of 128 query rows) against the reference's
+    Pallas kernel in interpret mode at hd 64 (G = 1 and 2) and 256 (GQA),
+    the five masks, flat and sharp, within the bf16 bar."""
     BH, S, T = 4, 256, 256
     arrs = _qkv(BH, S, T, d, seed=8, kv_rows=BH // groups, qk=qk)
     ref = j_flash(*_jax(arrs, "bfloat16"), causal, window, cap, True, groups)
-    emu = tc_emulation(*_port(arrs, "bfloat16"), causal, window, cap, groups)
+    for plan in K.TC_PLANS[d, d]:
+        emu = tc_emulation(*_port(arrs, "bfloat16"), causal, window, cap,
+                           groups, plan)
+        np.testing.assert_allclose(emu.float().numpy(),
+                                   np.asarray(ref, np.float32),
+                                   **TOL["bfloat16"])
+
+
+@pytest.mark.parametrize("qk", [0.3, SHARP])
+@pytest.mark.parametrize("causal,window,cap", MASKS)
+def test_tensor_core_mla_arithmetic_matches_the_pallas_kernel(causal, window,
+                                                              cap, qk):
+    """MLA's (192, 128) instantiation's arithmetic (``tc_emulation`` at q/k
+    192 beside v 128, scale 1/sqrt(192)) against the reference's Pallas
+    kernel in interpret mode at d = 192 with v zero-padded to 192 and its
+    output sliced to 128, the five masks, flat and sharp, within the bf16
+    bar."""
+    BH, S, T = 4, 256, 256
+    q, k, _ = _qkv(BH, S, T, 192, seed=16, qk=qk)
+    v = np.random.default_rng(17).standard_normal((BH, T, 128), np.float32)
+    vp = np.concatenate([v, np.zeros((BH, T, 64), np.float32)], -1)
+    ref = j_flash(*_jax((q, k, vp), "bfloat16"), causal, window, cap, True)
+    emu = tc_emulation(*_port((q, k, v), "bfloat16"), causal, window, cap)
+    assert emu.shape == (BH, S, 128)
     np.testing.assert_allclose(emu.float().numpy(),
-                               np.asarray(ref, np.float32), **TOL["bfloat16"])
+                               np.asarray(ref, np.float32)[..., :128],
+                               **TOL["bfloat16"])
 
 
 def test_tensor_core_emulation_takes_partial_tiles():
-    """S and T that are not multiples of the tiles, against the
-    reference's oracle (its kernel asserts that its tiles divide them)."""
+    """S and T that are not multiples of the tiles (of either hd-64
+    plan), against the reference's oracle (its kernel asserts that its
+    tiles divide them)."""
     for causal, window, cap in MASKS:
         arrs = _qkv(2, 200, 130, 64, seed=9, qk=SHARP)
         ref = j_ref(*_jax(arrs, "bfloat16"), causal=causal, window=window,
                     cap=cap)
-        emu = tc_emulation(*_port(arrs, "bfloat16"), causal, window, cap)
-        np.testing.assert_allclose(emu.float().numpy(),
-                                   np.asarray(ref, np.float32),
-                                   **TOL["bfloat16"])
+        for plan in K.TC_PLANS[64, 64]:
+            emu = tc_emulation(*_port(arrs, "bfloat16"), causal, window,
+                               cap, plan=plan)
+            np.testing.assert_allclose(emu.float().numpy(),
+                                       np.asarray(ref, np.float32),
+                                       **TOL["bfloat16"])
 
 
 def fp32_emulation(q, k, v, causal, window, cap, groups=1, span=None):
@@ -484,7 +633,9 @@ def test_fp32_plan_covers_every_walk():
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain_version():
     """The hand-written kernels against their plain version on the card:
-    every head dim, both types, the five masks, GQA, partial tiles, at
+    every head dim, both types, the five masks, GQA, partial tiles (at hd
+    64 also 96 heads of S=450 over T=700: the three-consumer plan, past a
+    192-row block and a 128-key tile; the smaller grids take the other), at
     test_kernels' scale and at ``SHARP``, each call on the kernel its
     route names (bf16 at hd 64-256 on the tensor cores), and the autograd
     gradients against plain autograd."""
@@ -494,8 +645,8 @@ def test_cuda_kernel_matches_plain_version():
     torch.backends.cuda.matmul.allow_tf32 = False
     for d in K.HEAD_DIMS:
         for (BH, S, T, G), qk in itertools.product(
-                ((2, 128, 128, 1), (8, 100, 37, 4), (4, 200, 260, 2)),
-                (0.3, SHARP)):
+                ((2, 128, 128, 1), (8, 100, 37, 4), (4, 200, 260, 2))
+                + (((96, 450, 700, 2),) if d == 64 else ()), (0.3, SHARP)):
             arrs = _qkv(BH, S, T, d, kv_rows=BH // G, qk=qk)
             for dtype in ("float32", "bfloat16"):
                 q, k, v = (t.cuda() for t in _port(arrs, dtype))

@@ -59,12 +59,20 @@ def _qkv(B, S, H, dk, dv, seed=0):
                                         (16, 16, 16), (128, 128, 128),
                                         (24, 24, 32), (64, 256, 256)])
 def test_padded_head_dim(dk, dv, want):
-    assert ops.padded_head_dim(dk, dv) == want
+    """``want`` is the float32 route's hd; bfloat16 takes the same but at
+    MLA's (192, 128), which the tensor-core kernel takes as it is."""
+    assert ops.padded_head_dim(dk, dv, torch.float32) == want
+    native = (dk, dv) in K.TC_PAIRS
+    assert ops.padded_head_dim(dk, dv, torch.bfloat16) == (
+        dk if native else want)
+    assert K.head_dims(torch.bfloat16, dk, dv) == (
+        (dk, dv) if native else (want, want))
 
 
 def test_padded_head_dim_refuses_what_no_kernel_covers():
-    with pytest.raises(ValueError, match="at most 256"):
-        ops.padded_head_dim(320, 128)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="at most 256"):
+            ops.padded_head_dim(320, 128, dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -74,12 +82,15 @@ def test_padding_then_plain_equals_unpadded_plain(dk, dv, dtype, causal):
     """What the padded route computes (``pad_head_dims``, the plain
     version at the unpadded scale, the output sliced to dv) is the
     unpadded plain version: zero columns add nothing to q·k and the
-    padded P·V columns are dropped."""
+    padded P·V columns are dropped.  bfloat16 MLA takes no pad (its
+    native route): the operands come back as they are."""
     q, k, v = (torch.from_numpy(a[0].transpose(1, 0, 2).copy()).to(
         getattr(torch, dtype)) for a in _qkv(1, 96, 6, dk, dv, seed=1))
     qp, kp, vp = ops.pad_head_dims(q, k, v)
-    D = ops.padded_head_dim(dk, dv)
-    assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == D
+    D, Dv = K.head_dims(q.dtype, dk, dv)
+    assert qp.shape[-1] == kp.shape[-1] == D and vp.shape[-1] == Dv
+    assert (D, Dv) != (dk, dv) or all(
+        a is b for a, b in zip((qp, kp, vp), (q, k, v)))
     assert torch.equal(qp[..., :dk], q) and not qp[..., dk:].any()
     assert torch.equal(vp[..., :dv], v) and not vp[..., dv:].any()
     scale = 1.0 / math.sqrt(dk)
@@ -277,10 +288,12 @@ def test_forward_routes_every_mla_layer_through_the_flash_op():
 
 @pytest.mark.cuda
 def test_cuda_padded_route_matches_plain_version():
-    """The kernel at MLA's head dims through the padded route (hd 256: the
-    tensor cores in bf16, the FP32 cores in f32) against the unpadded
-    plain version on the card, flat and sharp, and the op's gradients
-    against plain autograd."""
+    """The kernel at MLA's head dims against the unpadded plain version on
+    the card, flat and sharp: bf16 (192, 128) on the tensor-core kernel's
+    own instantiation (no pad; the kernel itself called on the unpadded
+    operands returns (BH, S, 128)), float32 (192, 128) and both types at
+    the smoke config's (24, 16) through the padded route (hd 256 / 32);
+    then the op's gradients against plain autograd."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine: "
                     "pytest -m cuda tests/test_torch_mla.py)")
@@ -291,20 +304,29 @@ def test_cuda_padded_route_matches_plain_version():
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (torch.from_numpy(a).cuda().to(dtype) for a in arrs)
             q, k = q * qk, k * qk
+            native = K.head_dims(dtype, dk, dv) == (dk, dv)
+            assert native == (dtype == torch.bfloat16 and dk == 192)
             before = (K.launches.n, K.tc_launches.n)
             out = mha_flash(q, k, v, causal=True, scale=1 / math.sqrt(dk))
             torch.cuda.synchronize()
-            tc = K.route(dtype, ops.padded_head_dim(dk, dv)) == \
-                K.TENSOR_CORES
+            tc = K.route(dtype, dk, dv) == K.TENSOR_CORES
+            assert tc == (dtype == torch.bfloat16 and dk == 192)
             assert (K.launches.n, K.tc_launches.n) == (before[0] + 1,
                                                        before[1] + int(tc))
-            flat = [t.transpose(1, 2).reshape(16, 200, -1) for t in (q, k, v)]
+            flat = [t.transpose(1, 2).reshape(16, 200, -1).contiguous()
+                    for t in (q, k, v)]
             ref = flash_attention_ref(*flat, causal=True)
             assert out.shape == (2, 200, 8, dv)
             np.testing.assert_allclose(
                 out.transpose(1, 2).reshape(16, 200, dv).float().cpu()
                 .numpy(), ref.float().cpu().numpy(), rtol=tol[dtype],
                 atol=tol[dtype])
+            if native:
+                own = K.flash_attention_fwd(*flat, causal=True)
+                assert own.shape == (16, 200, dv) and own._base is None
+                np.testing.assert_allclose(
+                    own.float().cpu().numpy(), ref.float().cpu().numpy(),
+                    rtol=tol[dtype], atol=tol[dtype])
     got, want = [], []
     arrs = _qkv(2, 128, 4, 192, 128, seed=11)
     for use_kernel in (True, False):
