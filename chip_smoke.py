@@ -45,7 +45,10 @@ non-zero without printing the final result line):
    bfloat16 on an int8 pool with ``spec_k=4`` (sampling lanes must not
    draft), each again at half the chunk, which must give the same
    streams (draws are keyed by position); tokens must agree, excusing
-   only the first flip of a stream at a near-tie: the two engines'
+   only the first flip of a stream at a near-tie, weighed on the rows
+   the two engines drew that token from in the lockstep (recorded on
+   every non-speculative step; a rerun of the context serves a position
+   with no such row): the two engines'
    logits at that position must agree within 6e-2 (bf16) or 1e-5 (f32)
    times the largest logit (else the phase fails), and the
    CPU's margin between the two tokens (on its logits, or when sampled
@@ -128,9 +131,10 @@ non-zero without printing the final result line):
    head dim 128, causal, S=T=512: in bfloat16 on the tensor-core
    kernel's own (192, 128) instantiation, no pad, one launch, the old
    route (zero pads to hd 256, the hd-256 kernel, the slice) timed
-   beside it; in float32 through the op's zero-padded route to hd 256 on
-   the FP32-core kernel; bytes and operations counted on the unpadded
-   operands, 2 (dk + dv) operations a visible pair and head), at
+   beside it; in float32 on the FP32-core kernel's own (192, 128)
+   instantiation the same way, and again at B x H = 8 heads, where the
+   plan splits the key walks; bytes and operations counted on the
+   unpadded operands, 2 (dk + dv) operations a visible pair and head), at
    train_100m's call (B=8 x H=10 over Kv=5, hd 64, bf16, causal,
    S=T=256; the tensor-core kernel) and at phase
    10's float32 calls (S=512, window 0 and 128; the
@@ -287,9 +291,11 @@ non-zero without printing the final result line):
    and one MoE layer) and 16 routed experts, so that a float32 copy fits
    in host RAM, the same weights on the card and on the CPU:
    ``prefill_logits`` of a 2 x 64-token prompt within 1e-5 x the largest
-   |logit| (the FP32-core flash kernel carrying both MLA layers through
-   the padded route, the plain version none), then the prompt fed by
-   ``decode_forward`` and 8 greedy steps under phase 17's lockstep rule.
+   |logit| (the FP32-core flash kernel carrying both MLA layers at their
+   own head dims, no pad and no slice, each call's output held against
+   the plain version on its inputs within 2e-4; the plain version none),
+   then the prompt fed by ``decode_forward`` and 8 greedy steps under
+   phase 17's lockstep rule.
    (b) bf16 at the registered widths and 160 experts, cut to 6 layers
    (the dense first layer and 5 MoE layers), drawn on the card from seed
    0: ``prefill_logits`` of a 2 x 512-token prompt (the tensor-core flash
@@ -731,13 +737,18 @@ def kernel_case(timer: Timer, C: int, dtype: torch.dtype, int8: bool,
 
 # --------------------------------------------------------------- phase 4 --
 def _lockstep(engines, requests, preempt_rid: int, preempt_after: int,
-              counters=()):
+              counters=(), rows=None):
     """Serve ``requests`` on every engine in lockstep (one ``step()`` each
     per round), preempting ``preempt_rid`` on all of them once it has
     ``preempt_after`` output tokens; a sharded engine's
     ``ClusterPagedPool`` invariants are checked after each of its steps.
     Returns each engine's tokens, and with ``counters`` (launch counters)
-    also each engine's launches by counter."""
+    also each engine's launches by counter.  With ``rows`` (a list of one
+    dict per engine) each engine's dict takes {rid: {position: the float32
+    logits row, on the host, that the lane drew that output token from}}
+    for every token a non-speculative step emits (``last_logits`` of its
+    lane; a verify step's accepted drafts come from rows it does not
+    keep)."""
     outs = [{r.rid: [] for r in requests} for _ in engines]
     launched = [[0] * len(counters) for _ in engines]
     for e in engines:
@@ -749,12 +760,22 @@ def _lockstep(engines, requests, preempt_rid: int, preempt_after: int,
         busy = False
         for k, (e, out) in enumerate(zip(engines, outs)):
             before = [c.n for c in counters]
+            if rows is not None:    # a lane that finishes leaves e.lanes
+                lanes = {r.rid: r.lane for r in e.lanes if r is not None}
+                spec0 = e.spec_iterations
             busy |= e.step()
             launched[k] = [n + c.n - b for n, c, b in
                            zip(launched[k], counters, before)]
             if hasattr(e, "cpool"):
                 e.cpool.check_invariants()
+            if rows is not None:
+                lanes.update({r.rid: r.lane for r in e.lanes
+                              if r is not None})
             for d in e.poll_deltas():
+                if rows is not None and d.tokens and d.rid in lanes \
+                        and e.spec_iterations == spec0:
+                    rows[k].setdefault(d.rid, {})[len(out[d.rid])] = \
+                        e.last_logits[lanes[d.rid]].float().cpu()
                 out[d.rid].extend(d.tokens)
         if not preempted and len(outs[0][preempt_rid]) >= preempt_after:
             for e in engines:
@@ -904,21 +925,32 @@ def flip_margin(rows, x: int, y: int, sp, pos: int, dtype: torch.dtype,
 
 
 def excuse_first_flip(label: str, prompt, a, b, rows_at, sp,
-                      dtype: torch.dtype) -> bool:
+                      dtype: torch.dtype, recorded=None) -> bool:
     """The first position where the streams ``a`` and ``b`` (the
     reference's) of one request differ must be a near-tie
-    (``flip_margin``; ``rows_at(ctx)`` gives both paths' logits after the
-    context ``ctx``).  Past it the two contexts differ and the streams are
-    not compared.  Returns whether they differed (and were excused)."""
+    (``flip_margin``).  It is weighed on the two runs' own rows where
+    ``recorded`` (the two streams' {position: logits row}, as
+    ``_lockstep`` keeps them) has both at that position: up to it the
+    contexts are equal, so those are the rows the two tokens were drawn
+    from.  Else ``rows_at(ctx)`` gives both paths' logits after the
+    context ``ctx`` (a rerun).  Past the flip the two contexts differ and
+    the streams are not compared.  Returns whether they differed (and were
+    excused)."""
     check(len(a) == len(b), f"{label}: lengths {len(a)}, {len(b)}")
     j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
     if j is None:
         return False
     ctx = tuple(prompt) + tuple(b[:j])
-    ok, numbers = flip_margin(rows_at(ctx), a[j], b[j], sp, len(ctx),
-                              dtype, f"{label} token {j}")
-    check(ok, f"{label} token {j}: {a[j]} != {b[j]}, {numbers}")
-    print(f"{label} token {j} excused: {numbers}", flush=True)
+    if recorded and all(j in r for r in recorded):
+        rows, source = [r[j] for r in recorded], "the lockstep's own rows"
+    else:
+        rows, source = rows_at(ctx), "a rerun's rows"
+    ok, numbers = flip_margin(rows, a[j], b[j], sp, len(ctx), dtype,
+                              f"{label} token {j}")
+    check(ok, f"{label} token {j}: {a[j]} != {b[j]}, weighed on {source}: "
+              f"{numbers}")
+    print(f"{label} token {j} excused, weighed on {source}: {numbers}",
+          flush=True)
     return True
 
 
@@ -1009,10 +1041,12 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
     counters = (K.launches, K.int8_launches, K.tc_launches, K.split_launches,
                 S.sampler_calls)
     before = [c.n for c in counters]
-    # with sampling the preempted lane is a sampling one
+    # with sampling the preempted lane is a sampling one; each engine's
+    # rows are kept to weigh a flip on (excuse_first_flip)
+    rows = [{}, {}]
     gpu_out, cpu_out = _lockstep(pair, requests,
                                  preempt_rid=1 if sampled else 0,
-                                 preempt_after=3)
+                                 preempt_after=3, rows=rows)
     same, int8, tc_launches, split_launches, sampler = (
         c.n - b for c, b in zip(counters, before))
     check((sampler > 0) == sampled,
@@ -1035,13 +1069,15 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
                                      f"{len(b)}")
         excused += excuse_first_flip(
             f"{label} CUDA vs CPU rid {r.rid}", r.prompt, a, b,
-            rerun_rows(engines, r.rid, r.sampling), r.sampling, dtype)
+            rerun_rows(engines, r.rid, r.sampling), r.sampling, dtype,
+            recorded=[rw.get(r.rid, {}) for rw in rows])
     halved_excused = 0
     if sampled:
         # draws are keyed by position: half the chunk, the same streams on
         # each device (a flip only at a near-tie between the two chunkings)
+        halved_rows = [{}, {}]
         halved = _lockstep(engines(chunk // 2), requests, preempt_rid=1,
-                           preempt_after=3)
+                           preempt_after=3, rows=halved_rows)
         for d, name in enumerate(("CUDA", "CPU")):
             def make_pair(d=d):
                 return [engines(chunk // 2)[d], engines(chunk)[d]]
@@ -1051,7 +1087,8 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
                     f"{r.rid}", r.prompt, halved[d][r.rid],
                     (gpu_out, cpu_out)[d][r.rid],
                     rerun_rows(make_pair, r.rid, r.sampling), r.sampling,
-                    dtype)
+                    dtype, recorded=[halved_rows[d].get(r.rid, {}),
+                                     rows[d].get(r.rid, {})])
         print(f"parity: chunk {chunk // 2} gives the chunk-{chunk} streams "
               f"on both devices, excused_positions={halved_excused}",
               flush=True)
@@ -3540,10 +3577,11 @@ def deepseek_lockstep() -> dict:
     float32, the same weights on both devices: ``prefill_logits`` of a
     ``DS_LOCK_PROMPT``-token prompt within ``MODEL_TOL`` (1e-5) x the
     largest |logit| (on the card the FP32-core flash kernel carrying both
-    MLA layers through the padded route, the plain version none), then
-    the prompt fed by ``decode_forward`` and ``DS_LOCK_STEPS`` greedy
-    steps, compared by ``lockstep_streams`` with each step's logits within
-    twice that."""
+    MLA layers at their own head dims, q/k 192 and v 128 with no pad and
+    the output its own, each call held against the plain version on its
+    inputs; the plain version none), then the prompt fed by
+    ``decode_forward`` and ``DS_LOCK_STEPS`` greedy steps, compared by
+    ``lockstep_streams`` with each step's logits within twice that."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import ops as FO
@@ -3557,8 +3595,9 @@ def deepseek_lockstep() -> dict:
     prompt = recurrent_prompt(cfg, DS_LOCK_B, DS_LOCK_PROMPT, 27, "cpu")
     n0, tc0, plain0 = FK.launches.n, FK.tc_launches.n, FO.plain_forwards.n
     with torch.no_grad():
-        a = M.prefill_logits(cfg, model, {"tokens": prompt.cuda()})
-        torch.cuda.synchronize()
+        with FlashCalls() as flash:
+            a = M.prefill_logits(cfg, model, {"tokens": prompt.cuda()})
+            torch.cuda.synchronize()
         launches, tc = FK.launches.n - n0, FK.tc_launches.n - tc0
         plain = FO.plain_forwards.n - plain0
         b = M.prefill_logits(cfg, ref_model, {"tokens": prompt})
@@ -3568,6 +3607,20 @@ def deepseek_lockstep() -> dict:
           f"{label}: prefill made {launches} flash launches ({tc} on the "
           f"tensor cores) and {plain} plain forwards on the card; want "
           f"{cfg.num_layers}, 0 and 0")
+    # every MLA layer's float32 call at its own head dims (q/k 192, v 128:
+    # no pad, the output the kernel's own, no slice), held against the
+    # plain version
+    dk = cfg.mla_qk_nope_dim + cfg.mla_qk_rope_dim
+    native = [(q.shape[-1], k.shape[-1], v.shape[-1], out.shape[-1],
+               out._base is None and out.is_contiguous())
+              for q, k, v, kw, out in flash.calls]
+    check(native == [(dk, dk, cfg.mla_v_head_dim, cfg.mla_v_head_dim,
+                      True)] * cfg.num_layers
+          and all(q.dtype == torch.float32 for q, *_ in flash.calls),
+          f"{label} prefill: flash calls (q, k, v, out head dims, own "
+          f"output) {native}")
+    flash_err = flash.against_plain(f"{label} prefill")
+    del flash
     ta, ra, _ = greedy_decode(cfg, model, prompt.cuda(), DS_LOCK_STEPS)
     tb, rb, _ = greedy_decode(cfg, ref_model, prompt, DS_LOCK_STEPS)
     flips, rel = lockstep_streams(label, (ta, ra), (tb, rb), DS_LOCK_PROMPT,
@@ -3576,12 +3629,15 @@ def deepseek_lockstep() -> dict:
                experts=cfg.moe_num_experts, init_s=init_s,
                prefill_max_abs_diff=prefill_diff, prefill_gate=gate,
                decode_rel_diff=rel, flips=flips,
-               fp32_core_launches=launches, tokens=ta)
+               fp32_core_launches=launches, flash_max_abs_err=flash_err,
+               tokens=ta)
     print(f"{label}: {cfg.num_layers} layers, {cfg.moe_num_experts} "
           f"experts; prefill logits max |diff| {prefill_diff:.3g} <= "
           f"{gate:.3g}; {DS_LOCK_STEPS} greedy steps x {DS_LOCK_B} lanes "
           f"after a {DS_LOCK_PROMPT}-token prompt fed by decode, flips "
-          f"excused {flips}; flash launches {launches}; each step's logits "
+          f"excused {flips}; flash launches {launches} at (q/k {dk}, v "
+          f"{cfg.mla_v_head_dim}), no pad, max |err| vs plain "
+          f"{flash_err:.3g}; each step's logits "
           "max |diff| / max |logit| per lane: "
           + json.dumps([[float(f"{x:.3g}") for x in r] for r in rel]),
           flush=True)
@@ -4100,14 +4156,15 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
     peaky).  v is N(0, 1), of head dim ``dv`` (``d`` if 0); where that
     is not ``d`` the op (``ops.flash_attention``) runs and is timed whole
     at the scale 1/sqrt(d): the kernel on the operands as they are where
-    it has the pair (bf16 MLA: no pad, its output the kernel's own), else
-    on q, k and v zero-padded to ``ops.padded_head_dim``; the plain
-    version and the library call take the unpadded operands.  The padded
-    route's parts are timed alone, the pads to hd 256 and the kernel on
-    the padded operands, and on the native route the whole old route
-    (pads, kernel, slice) beside them.  Without ``library`` the library
-    call is not made (its fields are None): a capped case compiles its
-    own ``flex_attention``, 3-20 s each on the card's host."""
+    it has the pair (MLA in either type: no pad, its output the kernel's
+    own), else on q, k and v zero-padded to ``kernel.head_dims``; the
+    plain version and the library call take the unpadded operands.  The
+    padded route's parts are timed alone, the pads to hd 256 and the
+    kernel on the padded operands, and on the native route the whole old
+    route (pads, kernel, slice) beside them.  Without ``library`` the
+    library call is not made (its fields are None): a capped case
+    compiles its own ``flex_attention``, 3-20 s each on the card's
+    host."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -4120,7 +4177,7 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
          * qk).to(dtype)
     v = torch.randn(BH // groups, T, dv, generator=g, device="cuda").to(dtype)
     dt = str(dtype).replace("torch.", "")
-    hd = FO.padded_head_dim(d, dv, dtype)
+    hd, hdv = FK.head_dims(dtype, d, dv)
     route = FK.route(dtype, d, dv)
     native = dv != d and hd == d
     name = (f"flash BH={BH} S={S} T={T} d={d}"
@@ -4142,7 +4199,7 @@ def flash_case(timer: Timer, BH: int, S: int, T: int, d: int,
             q, k.repeat_interleave(groups, 0), v.repeat_interleave(groups, 0),
             causal=causal, window=window, cap=cap)
 
-    span, splits = FK.fp32_plan(BH, S, T, hd, causal, window) \
+    span, splits = FK.fp32_plan(BH, S, T, hd, causal, window, hdv) \
         if route == FK.FP32_CORES else (0, 1)
     tc_plan = FK.tc_plan(BH, S, d, dv) if route == FK.TENSOR_CORES else None
     counters = (FK.launches, FK.tc_launches, FK.split_launches)
@@ -4248,7 +4305,8 @@ def flash_grads():
     against plain autograd through the plain version, on (out ** 2).sum()
     so the forward's output enters them: the grad tests' shapes, a
     gemma2 layer's head geometry at S=512 with its cap and a window, and
-    MLA's q/k head dim 192 beside v's 128 (the padded route)."""
+    MLA's q/k head dim 192 beside v's 128 (the FP32-core kernel's own
+    (192, 128) instantiation)."""
     from repro_torch.kernels.flash_attention import mha_flash
     from repro_torch.kernels.flash_attention import ref as FR
     worst = 0.0
@@ -4346,18 +4404,21 @@ def flash_cases(timer: Timer, draft: tuple) -> dict:
     check(all(c["kernel"] == "tensor_cores" for c in whisper),
           "whisper-medium's bf16 cases must run on the tensor cores")
     # deepseek-v2-236b's MLA (phase 20's prefill): B=2 x H=128 flat heads
-    # (G = 1), q/k head dim 192, v 128, causal, S=T=512, in both types
-    # (bf16 on the tensor cores' own (192, 128) instantiation, float32 on
-    # the FP32 cores at the padded hd 256)
-    mla = [flash_case(timer, DS_B * 128, DS_PROMPT, DS_PROMPT, 192, dtype,
+    # (G = 1), q/k head dim 192, v 128, causal, S=T=512, in both types,
+    # each on its kernel's own (192, 128) instantiation (bf16 on the
+    # tensor cores, float32 on the FP32 cores), and float32 again at 8
+    # heads, where the FP32-core plan splits the key walks
+    mla = [flash_case(timer, BH, DS_PROMPT, DS_PROMPT, 192, dtype,
                       True, 0, 0.0, qk=qk, dv=128)
-           for dtype in (torch.bfloat16, torch.float32)
+           for dtype, BH in ((torch.bfloat16, DS_B * 128),
+                             (torch.float32, DS_B * 128),
+                             (torch.float32, 8))
            for qk in (0.3, FLASH_SHARP)]
     check(all((c["kernel"], c["padded_hd"], c["native"]) == (
-        ("tensor_cores", 192, True) if c["dtype"] == "bfloat16"
-        else ("fp32_cores", 256, False)) for c in mla),
-          "MLA's flash calls: bf16 must run natively on the tensor cores, "
-          "float32 padded to hd 256 on the FP32 cores")
+        "tensor_cores" if c["dtype"] == "bfloat16" else "fp32_cores", 192,
+        True) for c in mla) and any(c["splits"] > 1 for c in mla),
+          "MLA's flash calls: each type must run natively, bf16 on the "
+          "tensor cores, float32 on the FP32 cores (split at 8 heads)")
     # train_100m's attention (phase 22 (b)'s steps): hd 64, G = 2
     (BH, S, T, d), groups = TRAIN_100M_FLASH
     train100m = [flash_case(timer, BH, S, T, d, torch.bfloat16, True, 0, 0.0,

@@ -81,16 +81,21 @@ process, in turns (A, B, ..., B, A), so all numbers come from one card.
   on its own route, in turns (P, N, N, P).
 * The FP32-core flash forward (``flash_f32``): phase 10's two float32
   calls (BH=16, S=T=512, hd 256, G=2, cap 50, window 0 / 128),
-  ``tests/test_kernels.py``'s three shapes x five masks in float32 and at
-  hd 32 in bfloat16, ms by ``chip_smoke.Timer`` and max |err| against
-  the plain version, in turns: the parent's kernel (with ``--parent``),
+  deepseek-v2's float32 MLA call (q/k 192, v 128, BH 256, causal,
+  S=T=512) and the same at BH 8 (split), ``tests/test_kernels.py``'s
+  three shapes and hd 16 x five masks in float32 and at hd 16 and 32 in
+  bfloat16, ms by ``chip_smoke.Timer`` and max |err| against the plain
+  version, in turns: the parent's kernel (with ``--parent``; at MLA its
+  route, as ``flash_tc``'s),
   then ``as_is``, ``no_split`` (one block a query tile), ``one_slot``
-  (one K and one V slot at every hd) and ``tanhf`` (the cap through
-  ``cap * tanhf(x / cap)``),
+  (one K and one V slot at every hd) and ``tanhf``
+  (the cap through ``cap * tanhf(x / cap)``),
   and, timing only, ``no_s``, ``no_pv`` (without a product) and
   ``no_copies`` (no K/V copies past the first slots), then the same
   reversed; then the library call (SDPA or the compiled
-  ``flex_attention``, ``chip_smoke.flash_library``) once a case.
+  ``flex_attention``, ``chip_smoke.flash_library``) once a case, and a
+  ``summary`` line a case: each side's median, and whether ``as_is``
+  equals the parent bit for bit (with the largest difference).
 
 * The tensor-core flash forward (``flash_tc``) at the main path's bf16
   calls (``chip_smoke.py`` phase 9): hd 64 at whisper-medium's three
@@ -104,9 +109,9 @@ process, in turns (A, B, ..., B, A), so all numbers come from one card.
   forced (``wide``: three consumers, ``narrow``: two, both 128-key tiles)
   and under each tile plan of ``FLASH_TC_PLANS`` (the source's
   ``Plan64Wide`` line rewritten, that plan forced), and, with
-  ``--parent``, the parent's kernel at every case (at MLA its route: q,
-  k and v zero-padded to hd 256, the hd-256 kernel, the output sliced to
-  128).  The other cases run ``as_is`` and the parent only (the plans
+  ``--parent``, the parent's kernel at every case (at MLA its route: its
+  own (192, 128) where its ``head_dims`` says so, else q, k and v
+  zero-padded to hd 256, the hd-256 kernel, the output sliced to 128).  The other cases run ``as_is`` and the parent only (the plans
   change no other instantiation).  Each JSON line is one timing; a
   ``summary`` line a case gives the median of each side's turns, SDPA's
   median, and whether the parent's and this tree's outputs are equal
@@ -136,6 +141,7 @@ from __future__ import annotations
 
 import argparse
 import importlib.util
+import itertools
 import json
 import re
 import statistics
@@ -231,14 +237,15 @@ ROUTE_SHAPES = [(64, 64, 64), (128, 128, 128), (256, 256, 256),
 #: source variants of the FP32-core flash kernel
 FLASH_F32_VARIANTS = {
     "as_is": [],
-    "one_slot": [("  static constexpr int kSlots = HD * int(sizeof(T)) >= "
-                  "1024 ? 1 : 2;", "  static constexpr int kSlots = 1;", 1)],
+    "one_slot": [("  static constexpr int kSlots = kQ + kP + 2 * (kK + kV) "
+                  "<= kSmemLimit ? 2 : 1;", "  static constexpr int kSlots = "
+                  "1;", 1)],
     "tanhf": [("        if (cap != 0.f) x = cap - __fdividef(two_cap, 1.f + "
                "exp2f(k2 * x));\n",
                "        if (cap != 0.f) x = cap * tanhf(x / cap);\n", 1)],
     # timing only (wrong values): no S products, no P.V, no K/V copies
     # past the first slots
-    "no_s": [("    for (int d = 0; d < HD; d += 4) {\n      float "
+    "no_s": [("    for (int d = 0; d < DK; d += 4) {\n      float "
               "qv[kRT][4], kv4[4][4];", "    for (int d = 0; d < 0; d += 4) "
               "{\n      float qv[kRT][4], kv4[4][4];", 1)],
     "no_pv": [("    for (int t4 = 0; t4 < kTok; t4 += 4) {\n      float "
@@ -546,6 +553,17 @@ def prefill_f32_variants_ab(card: str) -> None:
     K._library.cache_clear()
 
 
+def _padded_by(mod, dtype, dk: int, dv: int) -> int:
+    """The hd a flash wrapper ``mod`` (this checkout's or a parent's) runs
+    a (dk, dv) call at when it does not take the pair as it is (its
+    ``head_dims``; 256 for a wrapper older than that), else 0."""
+    if dk == dv:
+        return 0
+    dims = getattr(mod, "head_dims", None)
+    got = dims(dtype, dk, dv) if dims else (256, 256)
+    return 0 if got == (dk, dv) else got[0]
+
+
 def _parent_module(parent: Path, package: str, name: str):
     """The wrapper module ``kernels/<package>/kernel.py`` of the checkout
     ``parent``, loaded under ``name`` (its source is the parent's own)."""
@@ -804,6 +822,10 @@ def matmul_bf16_general_ab(card: str, parent) -> None:
 def flash_f32_ab(card: str, parent) -> None:
     """The FP32-core flash forward against the parent's and its variants
     (see the module docstring)."""
+    import math
+
+    import torch.nn.functional as F
+
     import chip_smoke as CS
     from repro_torch.kernels import launch
     from repro_torch.kernels.flash_attention import kernel as FK
@@ -823,25 +845,43 @@ def flash_f32_ab(card: str, parent) -> None:
                                           "no_pv", "no_copies")}}
     order = (["parent"] if PK else []) + list(variants) \
         + list(variants)[::-1] + (["parent"] if PK else [])
-    cases = [(16, 512, 512, 256, 2, torch.float32, True, w, 50.0)
+    # (BH, S, T, dk, dv, groups, dtype, causal, window, cap): phase 10's
+    # two calls, deepseek-v2's float32 MLA call (phase 9) and a grid of 8
+    # heads that the plan splits, then test_kernels' shapes and hd 16
+    cases = [(16, 512, 512, 256, 256, 2, torch.float32, True, w, 50.0)
              for w in (0, 128)]
-    cases += [(BH, S, T, d, 1, dtype, causal, window, cap)
-              for (BH, S, T, d) in CS.FLASH_SHAPES
+    cases += [(BH, CS.DS_PROMPT, CS.DS_PROMPT, 192, 128, 1, torch.float32,
+               True, 0, 0.0) for BH in (CS.DS_B * 128, 8)]
+    cases += [(BH, S, T, d, d, 1, dtype, causal, window, cap)
+              for (BH, S, T, d) in CS.FLASH_SHAPES + [(2, 128, 128, 16)]
               for (causal, window, cap) in CS.FLASH_MASKS
               for dtype in (torch.float32, torch.bfloat16)
-              if dtype == torch.float32 or d == 32]
+              if dtype == torch.float32 or d <= 32]
     inputs = []
-    for BH, S, T, d, G, dtype, causal, window, cap in cases:
+    for BH, S, T, d, dv, G, dtype, causal, window, cap in cases:
         g = torch.Generator(device="cuda").manual_seed(0)
         q = (torch.randn(BH, S, d, generator=g, device="cuda") * 0.3
              ).to(dtype)
         k = (torch.randn(BH // G, T, d, generator=g, device="cuda") * 0.3
              ).to(dtype)
-        v = torch.randn(BH // G, T, d, generator=g, device="cuda").to(dtype)
+        v = torch.randn(BH // G, T, dv, generator=g, device="cuda").to(dtype)
         ref = FR.flash_attention_ref(
             q, k.repeat_interleave(G, 0), v.repeat_interleave(G, 0),
             causal=causal, window=window, cap=cap)
         inputs.append((q, k, v, ref))
+
+    def call(mod, q, k, v, causal, window, cap, G):
+        d, dv = q.shape[-1], v.shape[-1]
+        kw = dict(causal=causal, window=window, cap=cap, groups=G,
+                  scale=1 / math.sqrt(d))
+        hd = _padded_by(mod, q.dtype, d, dv)
+        if hd:     # the wrapper's route for the pair: pad, slice
+            return mod.flash_attention_fwd(
+                *(F.pad(t, (0, hd - t.shape[-1])) for t in (q, k, v)),
+                **kw)[..., :dv]
+        return mod.flash_attention_fwd(q, k, v, **kw)
+
+    times, outs = {}, {}
     try:
         for name in order:
             mod = PK if name == "parent" else FK
@@ -849,24 +889,26 @@ def flash_f32_ab(card: str, parent) -> None:
                 source, FK.fp32_plan = variants[name]
                 FK.SOURCE = sources[source]
                 FK._library.cache_clear()
-            for (BH, S, T, d, G, dtype, causal, window, cap), (
-                    q, k, v, ref) in zip(cases, inputs):
+            for c, (BH, S, T, d, dv, G, dtype, causal, window, cap), (
+                    q, k, v, ref) in zip(itertools.count(), cases, inputs):
                 def run(q=q, k=k, v=v, mod=mod, causal=causal,
                         window=window, cap=cap, G=G):
-                    return mod.flash_attention_fwd(
-                        q, k, v, causal=causal, window=window, cap=cap,
-                        groups=G)
+                    return call(mod, q, k, v, causal, window, cap, G)
                 out = run()
                 torch.cuda.synchronize()
+                if name in ("parent", "as_is"):
+                    outs[name, c] = out
+                ms = timer.ms(run)
+                times.setdefault((name, c), []).append(ms)
                 print(json.dumps({
                     "card": card, "kernel": "flash_fp32_cores",
                     "variant": name, "timing_only": name in TIMING_ONLY,
-                    "BH": BH, "S": S, "T": T, "d": d,
+                    "BH": BH, "S": S, "T": T, "d": d, "dv": dv,
                     "G": G, "dtype": str(dtype).replace("torch.", ""),
                     "causal": causal, "window": window, "cap": cap,
                     "plan": None if name == "parent"
-                    else FK.fp32_plan(BH, S, T, d, causal, window),
-                    "ms": timer.ms(run),
+                    else FK.fp32_plan(BH, S, T, d, causal, window, dv),
+                    "ms": ms,
                     "max_abs_err": (out.float() - ref.float()).abs().max()
                     .item()}), flush=True)
     finally:
@@ -875,15 +917,31 @@ def flash_f32_ab(card: str, parent) -> None:
     from torch import _dynamo
     with _dynamo.config.patch(recompile_limit=64,
                               fail_on_recompile_limit_hit=True):
-        for (BH, S, T, d, G, dtype, causal, window, cap), (
-                q, k, v, _) in zip(cases, inputs):
+        for c, (BH, S, T, d, dv, G, dtype, causal, window, cap), (
+                q, k, v, _) in zip(itertools.count(), cases, inputs):
             library = CS.flash_library(q, k, v, causal, window, cap)
+            lib_ms = timer.ms(library)
             print(json.dumps({
                 "card": card, "kernel": "flex_attention" if cap else "sdpa",
-                "BH": BH, "S": S, "T": T, "d": d, "G": G,
+                "BH": BH, "S": S, "T": T, "d": d, "dv": dv, "G": G,
                 "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-                "window": window, "cap": cap, "ms": timer.ms(library)}),
-                flush=True)
+                "window": window, "cap": cap, "ms": lib_ms}), flush=True)
+            # each side's median, and whether this tree's output is the
+            # parent's bit for bit (MLA: the parent padded to hd 256)
+            med = {side: statistics.median(t)
+                   for (side, n), t in times.items() if n == c}
+            parent_out = outs.get(("parent", c))
+            print(json.dumps({
+                "card": card, "kernel": "flash_fp32_cores", "summary": c,
+                "BH": BH, "S": S, "T": T, "d": d, "dv": dv, "G": G,
+                "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+                "window": window, "cap": cap, "median_ms": med,
+                "library_ms": lib_ms,
+                "bit_equal_to_parent": None if parent_out is None
+                else torch.equal(parent_out, outs["as_is", c]),
+                "max_abs_diff_to_parent": None if parent_out is None
+                else (parent_out.float() - outs["as_is", c].float()).abs()
+                .max().item()}), flush=True)
 
 
 def flash_tc_ab(card: str, parent) -> None:
@@ -965,9 +1023,10 @@ def flash_tc_ab(card: str, parent) -> None:
             c for c in cases if c[0] == name)
         kw = dict(causal=causal, window=window, cap=cap, groups=G,
                   scale=1 / math.sqrt(dk))
-        if mod is PK and dk != dv:    # the parent's route: pad, slice
+        hd = _padded_by(mod, q.dtype, dk, dv)
+        if hd:    # the wrapper's route for the pair: pad, slice
             return mod.flash_attention_fwd(
-                *(F.pad(t, (0, 256 - t.shape[-1])) for t in (q, k, v)),
+                *(F.pad(t, (0, hd - t.shape[-1])) for t in (q, k, v)),
                 **kw)[..., :dv]
         return mod.flash_attention_fwd(q, k, v, **kw)
 

@@ -21,9 +21,10 @@
 // Two kernels, chosen by the wrapper (kernel.py::route) from the type and
 // the head dims alone, never on a failure: bfloat16 with hd in {64, 128,
 // 256}, and MLA's q/k 192 beside v 128, runs on the tensor cores
-// (namespace tc); float32 (whose 2e-4 bar is out of bf16 and TF32 reach)
-// and bf16 at hd 16 and 32 run on the FP32 cores (namespace fp32).  Other
-// pairs of unequal head dims reach them zero-padded to one hd (ops.py).
+// (namespace tc); float32 (whose 2e-4 bar is out of bf16 and TF32 reach),
+// MLA's (192, 128) included, and bf16 at hd 16 and 32 run on the FP32
+// cores (namespace fp32).  Other pairs of unequal head dims reach them
+// zero-padded to one hd (ops.py).
 //
 // What bounds it on the card: attention at S = 4096 reuses every K/V tile
 // across 64 query rows, so it is bound by operations (4 hd per visible
@@ -88,29 +89,33 @@
 //   percent either way, too little for a second form of this loop.
 //
 // The FP32-core kernel (namespace fp32): float32 at every hd (its 2e-4
-// bar is out of bf16's and TF32's reach) and bf16 at hd 16 and 32.  What
-// bounds it: 4 hd operations per visible (query, key) pair on the FP32
-// cores (67 TFLOP/s).  Its first kernel ran at 14-15% of that: it staged
-// K, waited, scored, staged V into the same buffer, waited (four
-// barriers a 32-key tile, no copy in flight), read 6 shared words per 32
-// FMAs in S and 20 per 64 in P.V at hd 256, took tanhf and expf per
-// score, and its grid (ceil(S / 64) x BH blocks) filled 2-128 of 132 SMs
-// with the causal tiles' walks in turn.  This design (row 1f's, the
-// paged FP32-core kernel's, for dense K/V):
+// bar is out of bf16's and TF32's reach) and at MLA's q/k 192 beside v
+// 128, and bf16 at hd 16 and 32; one instantiation per (type, q/k head
+// dim DK, v head dim DV).  What bounds it: 2 (DK + DV) operations per
+// visible (query, key) pair on the FP32 cores (67 TFLOP/s).  Its first
+// kernel ran at 14-15% of that: it staged K, waited, scored, staged V
+// into the same buffer, waited (four barriers a 32-key tile, no copy in
+// flight), read 6 shared words per 32 FMAs in S and 20 per 64 in P.V at
+// hd 256, took tanhf and expf per score, and its grid (ceil(S / 64) x BH
+// blocks) filled 2-128 of 132 SMs with the causal tiles' walks in turn.
+// This design (row 1f's, the paged FP32-core kernel's, for dense K/V):
 //   * a block of 256 threads (a 16 x 16 grid) owns 64 query rows of one
-//     flat head; S = q.K^T in 64-key tiles, each thread 4 rows x 4 keys
-//     (rows ty + 16i, keys tx + 16j), q and K read 16 bytes along d at a
-//     time: 8 reads feed 64 FMAs; P goes to shared memory; O += P.V with
-//     each thread 4 rows x hd/16 dims, p read 4 keys at a time and V 16
-//     bytes at a time (20 reads feed 256 FMAs at hd 256);
+//     flat head; S = q.K^T in 64-key tiles over DK, each thread 4 rows x
+//     4 keys (rows ty + 16i, keys tx + 16j), q and K read 16 bytes along
+//     d at a time: 8 reads feed 64 FMAs; P goes to shared memory; O +=
+//     P.V with each thread 4 rows x DV/16 dims, p read 4 keys at a time
+//     and V 16 bytes at a time (20 reads feed 256 FMAs at DV 256).  MLA's
+//     float32 (192, 128) runs at its own dims: no zero pads, 640 of the
+//     1,024 operations a pair of hd 256;
 //   * K and V in separate cp.async stages, each with its own commit
 //     group: K of tile j+1 is issued once S of tile j has read K, and
 //     lands under P.V of j; V of j+1 is issued once P.V of j is done and
 //     lands under S of j+1.  Two slots each where they fit, one each at
 //     hd 256 in float32 (q 66.6 KB + K 66.6 + V 65.5 + P 20.5 = 219 KB, one
-//     block an SM); bf16 tiles stay bf16 in shared memory (whole 16-byte
-//     chunks of 32- or 64-byte rows) and are widened as fragments are
-//     read.  Two barriers a tile;
+//     block an SM) and at MLA's (192, 128) (154 KB; Smem counts the
+//     bytes); bf16 tiles stay bf16 in shared memory (whole 16-byte chunks
+//     of 32- or 64-byte rows) and are widened as fragments are read.  Two
+//     barriers a tile;
 //   * the online softmax per row across the row's 16 threads (a half-warp)
 //     with shuffles, in log2 units with exp2, the cap through the tensor-
 //     core kernel's cap - 2 cap / (e^(2x/cap) + 1) (a few float32 ulps of
@@ -181,21 +186,30 @@ constexpr int kPLd = kTok + 16;      // P rows (floats): a warp's two rows
                                      // of p land in disjoint banks
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Shared memory of one block, in bytes: the q tile, P, and kSlots K slots
-// and kSlots V slots, all in the inputs' own type (bf16 rows are widened
-// as fragments are read).  q and K rows carry a 16-byte pad, so the 8
-// rows a quarter-warp reads 16 bytes of start in 8 different bank groups.
-// Two slots of each where they fit; at hd 256 in float32 one of each
-// (q 66.6 KB, K 66.6 KB, V 65.5 KB, P 20.5 KB: 219 KB).
-template <typename T, int HD>
+// shared memory a block may opt in to on the H100 (227 KB), less the
+// static last_flag and its alignment
+constexpr int kSmemLimit = 232448 - 16;
+
+// Shared memory of one block, in bytes: the q tile (DK wide), P, and
+// kSlots K slots (DK) and kSlots V slots (DV), all in the inputs' own
+// type (bf16 rows are widened as fragments are read).  q and K rows carry
+// a 16-byte pad, so the 8 rows a quarter-warp reads 16 bytes of start in
+// 8 different bank groups.  Two slots of each where they fit the opt-in,
+// else one of each: at hd 256 in float32 (q 66.6 KB, K 66.6 KB, V 65.5
+// KB, P 20.5 KB: 219 KB) and at MLA's float32 (192, 128) (q 50.2 KB, P
+// 20.5 KB, K 50.2 KB, V 32.8 KB: 154 KB; two of each would take 237 KB,
+// and two K slots beside one V slot, 204 KB, timed 0.4-1.8% slower:
+// PERF.md section 6).
+template <typename T, int DK, int DV>
 struct Smem {
-  static constexpr int kSlots = HD * int(sizeof(T)) >= 1024 ? 1 : 2;
-  static constexpr int kLd = HD + 16 / int(sizeof(T));   // q and K rows
+  static constexpr int kLd = DK + 16 / int(sizeof(T));   // q and K rows
   static constexpr int kQ = kRows * kLd * int(sizeof(T));
   static constexpr int kP = kRows * kPLd * 4;
   static constexpr int kK = kTok * kLd * int(sizeof(T));
-  static constexpr int kV = kTok * HD * int(sizeof(T));
+  static constexpr int kV = kTok * DV * int(sizeof(T));
+  static constexpr int kSlots = kQ + kP + 2 * (kK + kV) <= kSmemLimit ? 2 : 1;
   static constexpr int kBytes = kQ + kP + kSlots * (kK + kV);
+  static_assert(kBytes <= kSmemLimit, "a block's tiles exceed the opt-in");
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -252,14 +266,14 @@ __device__ __forceinline__ void load_vec(float (&d)[N],
   }
 }
 
-// kRows rows [row0, row0 + kRows) of a (rows, HD) matrix of T into a
+// kRows rows [row0, row0 + kRows) of a (rows, W) matrix of T into a
 // shared tile of row pitch LD (elements), by 16-byte cp.async; rows at or
 // past `limit` are zero-filled
-template <typename T, int HD, int LD>
+template <typename T, int W, int LD>
 __device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
                                       int row0, int limit) {
   constexpr int kE = 16 / int(sizeof(T));          // elements a copy
-  constexpr int kChunks = HD / kE;                 // copies a row
+  constexpr int kChunks = W / kE;                  // copies a row
   constexpr int kCopies = kRows * kChunks;
 #pragma unroll
   for (int j = 0; j < (kCopies + kThreads - 1) / kThreads; ++j) {
@@ -268,7 +282,7 @@ __device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
     const int r = i / kChunks, ch = i - r * kChunks;
     const bool in = row0 + r < limit;
     cp_async16(dst + r * LD + ch * kE,
-               in ? src + size_t(row0 + r) * HD + ch * kE : src,
+               in ? src + size_t(row0 + r) * W + ch * kE : src,
                in ? 16 : 0);
   }
 }
@@ -296,8 +310,9 @@ __device__ __forceinline__ bool last_split(int* ticket, int n_live,
 // first), each tile's splits together.  A split walks `span` key tiles of
 // its query tile's walk; with one live split it writes the output, with
 // more it writes its partial (m, l, acc) and the tile's last split to
-// finish combines them in split order.
-template <typename T, int HD>
+// finish combines them in split order.  q and k rows are DK wide; v, out
+// and the partials' acc rows DV.
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ out,
@@ -305,10 +320,10 @@ flash_fwd_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       float* __restrict__ part_acc, int* __restrict__ tickets,
                       int S, int T_len, int groups, int causal, int window,
                       float cap, float scale, int span) {
-  using L = Smem<T, HD>;
+  using L = Smem<T, DK, DV>;
   constexpr int kLd = L::kLd;
   constexpr int kSlots = L::kSlots;
-  constexpr int kD = HD / 16;              // P.V dims of a thread
+  constexpr int kD = DV / 16;              // P.V dims of a thread
   constexpr int kVec = kD < 4 ? kD : 4;    // ... read kVec at a time
   constexpr int kGroups = kD / kVec;       // ... in groups 16*kVec apart
   const int q_tiles = (S + kRows - 1) / kRows;
@@ -344,16 +359,16 @@ flash_fwd_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   auto v_slot = [&](int s) {
     return reinterpret_cast<T*>(ring + s * (L::kK + L::kV) + L::kK);
   };
-  const T* kb = k + size_t(b / groups) * T_len * HD;
-  const T* vb = v + size_t(b / groups) * T_len * HD;
+  const T* kb = k + size_t(b / groups) * T_len * DK;
+  const T* vb = v + size_t(b / groups) * T_len * DV;
   auto stage_k = [&](int it) {
     if (it < n_it)
-      stage<T, HD, kLd>(k_slot(it % kSlots), kb, k_lo + (t0 + it) * kTok,
+      stage<T, DK, kLd>(k_slot(it % kSlots), kb, k_lo + (t0 + it) * kTok,
                         k_hi);
   };
   auto stage_v = [&](int it) {
     if (it < n_it)
-      stage<T, HD, HD>(v_slot(it % kSlots), vb, k_lo + (t0 + it) * kTok,
+      stage<T, DV, DV>(v_slot(it % kSlots), vb, k_lo + (t0 + it) * kTok,
                        k_hi);
   };
 
@@ -362,7 +377,7 @@ flash_fwd_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // Counting them, K(it) and V(it) have landed once at most 2 kSlots - 2
   // younger groups are pending, and K(it) alone, for it < kSlots (the
   // prologue's), once 2 kSlots - 1 are: the first S does not wait for V0
-  stage<T, HD, kLd>(qs, q + size_t(b) * S * HD, q0, S);
+  stage<T, DK, kLd>(qs, q + size_t(b) * S * DK, q0, S);
 #pragma unroll
   for (int s = 0; s < kSlots; ++s) {
     stage_k(s);
@@ -403,7 +418,7 @@ flash_fwd_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
+    for (int d = 0; d < DK; d += 4) {
       float qv[kRT][4], kv4[4][4];
 #pragma unroll
       for (int i = 0; i < kRT; ++i)
@@ -482,7 +497,7 @@ flash_fwd_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int g = 0; g < kGroups; ++g) {
           float vv[kVec];
-          load_vec(vv, vs + (t4 + e) * HD + g * 16 * kVec + tx * kVec);
+          load_vec(vv, vs + (t4 + e) * DV + g * 16 * kVec + tx * kVec);
 #pragma unroll
           for (int i = 0; i < kRT; ++i)
 #pragma unroll
@@ -498,7 +513,7 @@ flash_fwd_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // this thread's dims of a row: g * 16 kVec + tx kVec + x
   auto store_row = [&](int row, const float (&o)[kD], float l_row) {
     const float inv = 1.f / (l_row == 0.f ? 1.f : l_row);   // nothing seen
-    T* dst = out + (size_t(b) * S + q0 + row) * HD;
+    T* dst = out + (size_t(b) * S + q0 + row) * DV;
 #pragma unroll
     for (int g = 0; g < kGroups; ++g) {
       T* d = dst + g * 16 * kVec + tx * kVec;
@@ -533,7 +548,7 @@ flash_fwd_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int g = 0; g < kGroups; ++g)
 #pragma unroll
       for (int x = 0; x < kVec; ++x)
-        part_acc[r * HD + g * 16 * kVec + tx * kVec + x] =
+        part_acc[r * DV + g * 16 * kVec + tx * kVec + x] =
             acc[i][g * kVec + x];
   }
   if (!last_split(tickets + size_t(b) * q_tiles + tile, n_live, &last_flag))
@@ -568,7 +583,7 @@ flash_fwd_fp32_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int x = 0; x < kVec; ++x)
           acc[i][g * kVec + x] = fmaf(
-              __ldcg(part_acc + r * HD + g * 16 * kVec + tx * kVec + x), w,
+              __ldcg(part_acc + r * DV + g * 16 * kVec + tx * kVec + x), w,
               acc[i][g * kVec + x]);
     }
   }
@@ -590,7 +605,7 @@ inline int max_walk(int S, int T_len, int causal, int window) {
   return most;
 }
 
-template <typename T, int HD>
+template <typename T, int DK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* part_ml, float* part_acc, int* tickets, int BH,
                    int S, int T_len, int groups, int causal, int window,
@@ -610,8 +625,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   }
   if ((long long)q_tiles * n_splits > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_fp32_kernel<T, HD>;
-  constexpr int smem = Smem<T, HD>::kBytes;
+  auto kernel = flash_fwd_fp32_kernel<T, DK, DV>;
+  constexpr int smem = Smem<T, DK, DV>::kBytes;
   static bool opted_in = false;   // above 48 KB a block needs the opt-in
   if (!opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -1243,22 +1258,24 @@ cudaError_t launch(EncodeTiled fn, const void* q, const void* k,
 }  // namespace
 
 // The FP32-core kernel.  Element-type codes: 0 = float32, 1 = bfloat16
-// (q, k, v and out share it).  q/out are (BH, S, hd), k/v (BH / groups, T,
-// hd), contiguous device tensors; window = 0 and cap = 0 switch those
-// masks off.  bfloat16 takes hd 16 and 32 only (wider heads run on the
-// tensor cores, below).  n_splits > 1 splits each query tile's walk into
-// spans of span_keys keys (a multiple of 64), n_splits of them enough for
-// the longest walk; then part_ml holds BH * ceil(S / 64) * n_splits * 64 *
-// 2 float32, part_acc the same times hd / 2, and tickets BH * ceil(S / 64)
-// int32 zeros (every launch leaves them zero).  Any other call is refused
-// with cudaErrorInvalidValue.  Launches on `stream`; does not synchronise.
+// (q, k, v and out share it).  q is (BH, S, hd), k (BH / groups, T, hd),
+// v (BH / groups, T, dv) and out (BH, S, dv), contiguous device tensors;
+// window = 0 and cap = 0 switch those masks off.  float32 takes hd = dv
+// in {16, 32, 64, 128, 256} and MLA's (hd, dv) = (192, 128); bfloat16 hd
+// = dv = 16 or 32 (wider heads run on the tensor cores, below).
+// n_splits > 1 splits each query tile's walk into spans of span_keys keys
+// (a multiple of 64), n_splits of them enough for the longest walk; then
+// part_ml holds BH * ceil(S / 64) * n_splits * 64 * 2 float32, part_acc
+// the same times dv / 2, and tickets BH * ceil(S / 64) int32 zeros (every
+// launch leaves them zero).  Any other call is refused with
+// cudaErrorInvalidValue.  Launches on `stream`; does not synchronise.
 extern "C" int flash_attention_launch(int dtype, const void* q,
                                       const void* k, const void* v,
                                       void* out, void* part_ml,
                                       void* part_acc, void* tickets, int BH,
-                                      int S, int T_len, int hd, int groups,
-                                      int causal, int window, float cap,
-                                      float scale, int span_keys,
+                                      int S, int T_len, int hd, int dv,
+                                      int groups, int causal, int window,
+                                      float cap, float scale, int span_keys,
                                       int n_splits, void* stream) {
   if (BH < 1 || BH > 65535 || S < 1 || T_len < 0 || groups < 1 ||
       BH % groups || n_splits < 1)
@@ -1267,23 +1284,26 @@ extern "C" int flash_attention_launch(int dtype, const void* q,
   float* ml = static_cast<float*>(part_ml);
   float* acc = static_cast<float*>(part_acc);
   int* tk = static_cast<int*>(tickets);
-#define FLASH_FP32(T_, HD_)                                                 \
-  fp32::launch<T_, HD_>(q, k, v, out, ml, acc, tk, BH, S, T_len, groups,    \
-                        causal, window, cap, scale, span_keys, n_splits, s)
+#define FLASH_FP32(T_, DK_, DV_)                                            \
+  fp32::launch<T_, DK_, DV_>(q, k, v, out, ml, acc, tk, BH, S, T_len,       \
+                             groups, causal, window, cap, scale, span_keys, \
+                             n_splits, s)
   cudaError_t e = cudaErrorInvalidValue;
-  if (dtype == 0) {
+  if (dtype == 0 && hd == dv) {
     switch (hd) {
-      case 16: e = FLASH_FP32(float, 16); break;
-      case 32: e = FLASH_FP32(float, 32); break;
-      case 64: e = FLASH_FP32(float, 64); break;
-      case 128: e = FLASH_FP32(float, 128); break;
-      case 256: e = FLASH_FP32(float, 256); break;
+      case 16: e = FLASH_FP32(float, 16, 16); break;
+      case 32: e = FLASH_FP32(float, 32, 32); break;
+      case 64: e = FLASH_FP32(float, 64, 64); break;
+      case 128: e = FLASH_FP32(float, 128, 128); break;
+      case 256: e = FLASH_FP32(float, 256, 256); break;
       default: break;
     }
-  } else if (dtype == 1 && hd == 16) {
-    e = FLASH_FP32(__nv_bfloat16, 16);
-  } else if (dtype == 1 && hd == 32) {
-    e = FLASH_FP32(__nv_bfloat16, 32);
+  } else if (dtype == 0 && hd == 192 && dv == 128) {
+    e = FLASH_FP32(float, 192, 128);
+  } else if (dtype == 1 && hd == 16 && dv == 16) {
+    e = FLASH_FP32(__nv_bfloat16, 16, 16);
+  } else if (dtype == 1 && hd == 32 && dv == 32) {
+    e = FLASH_FP32(__nv_bfloat16, 32, 32);
   }
 #undef FLASH_FP32
   return static_cast<int>(e);

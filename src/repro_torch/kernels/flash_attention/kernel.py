@@ -7,10 +7,10 @@ that replaces the reference's Pallas
 with flat query head ``b`` reading KV row ``b // groups`` (KV-major
 heads, as ``ops.mha_flash`` lays them out), causal / sliding-window masks
 on top-left-aligned iotas and an optional tanh logit cap; float32 or
-bfloat16, ``dv = d`` in :data:`HEAD_DIMS`, or in bfloat16 a pair of
-:data:`TC_PAIRS` (MLA's q/k 192 beside v 128).  It takes CUDA tensors
-only: a CPU tensor is the caller's cue to use the plain version (``ops``
-dispatches), never this module's.  The kernel masks partial tiles, so
+bfloat16, ``dv = d`` in :data:`HEAD_DIMS`, or MLA's q/k 192 beside v
+128 (:data:`TC_PAIRS` in bfloat16, :data:`FP32_PAIRS` in float32).  It
+takes CUDA tensors only: a CPU tensor is the caller's cue to use the
+plain version (``ops`` dispatches), never this module's.  The kernel masks partial tiles, so
 any S and T are right (the reference asserts that its tiles divide S and
 T).
 
@@ -18,8 +18,9 @@ The source holds two kernels, and :func:`route` picks one from the type
 and the head dims alone (never on a failure): bfloat16 at hd 64, 128 and
 256 and at MLA's (192, 128) runs on the tensor cores (TMA + wgmma, the
 tile plans of :data:`TC_PLANS`, one picked by :func:`tc_plan`), float32
-and bf16 at hd 16 and 32 on the FP32 cores; :func:`head_dims` says at
-which dims a call runs (``ops`` zero-pads any other pair to one hd).
+(MLA's (192, 128) too) and bf16 at hd 16 and 32 on the FP32 cores;
+:func:`head_dims` says at which dims a call runs (``ops`` zero-pads any
+other pair to one hd).
 Where the FP32-core grid is under a wave of
 the card, :func:`fp32_plan` splits each query tile's key walk over
 blocks, combined in one launch (the float32 partials and the tickets are
@@ -47,6 +48,10 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 #: (q/k head dim, v head dim) pairs of unequal dims the tensor-core kernel
 #: takes as they are, in bfloat16: MLA's (deepseek-v2) 128 + 64 beside 128
 TC_PAIRS = ((192, 128),)
+#: ... and the FP32-core kernel, in float32 (its ``<float, 192, 128>``)
+FP32_PAIRS = ((192, 128),)
+#: the unequal pairs each type runs as they are
+_NATIVE_PAIRS = {torch.bfloat16: TC_PAIRS, torch.float32: FP32_PAIRS}
 
 
 class TcPlan(NamedTuple):
@@ -117,15 +122,40 @@ def tc_smem_bytes(dk: int, dv: int, p: TcPlan) -> int:
             + p.stages * p.keys * (dk + dv) * 2 + (1 + 4 * p.stages) * 8)
 
 
+def fp32_smem(dtype: torch.dtype, dk: int, dv: int) -> tuple:
+    """(slots, dynamic shared memory bytes) of an FP32-core block of the
+    instantiation (``dtype``, dk, dv), as ``fp32::Smem`` counts them: the
+    q tile and each K slot in rows of dk plus 16 bytes, P in float32 rows
+    of 80, each V slot in rows of dv; two K and two V slots where they fit
+    the opt-in less 16 bytes (the static ``last_flag``), else one of
+    each."""
+    e = torch.finfo(dtype).bits // 8
+    ld = dk + 16 // e
+    fixed = FP32_ROWS * ld * e + FP32_ROWS * (FP32_KEYS + 16) * 4
+    slot = FP32_KEYS * e * (ld + dv)
+    slots = 2 if fixed + 2 * slot <= SMEM_LIMIT - 16 else 1
+    return slots, fixed + slots * slot
+
+
+def fp32_scratch(BH: int, S: int, dv: int, splits: int) -> tuple:
+    """(partial rows, float32 words, int32 tickets) of an FP32-core call's
+    split scratch: an (m, l) pair and an acc row of ``dv`` for each (head,
+    query tile, split, row), and a ticket a (head, query tile)."""
+    tiles = BH * -(-S // FP32_ROWS)
+    rows = tiles * splits * FP32_ROWS
+    return rows, rows * (2 + dv), tiles
+
+
 def head_dims(dtype: torch.dtype, dk: int, dv: int) -> tuple:
     """(q/k, v) head dims the kernels run a call of ``dtype`` with q/k head
     dim ``dk`` and v head dim ``dv`` at: the call's own where they take it
-    as it is (``dk == dv`` in :data:`HEAD_DIMS`, or a bfloat16 pair of
-    :data:`TC_PAIRS`), else (d, d) with d the smallest of
-    :data:`HEAD_DIMS` at least ``max(dk, dv)``, to which ``ops`` zero-pads
-    q, k and v (float32 MLA: 256).  Raises where none is that wide."""
-    if (dk == dv and dk in HEAD_DIMS) or (
-            dtype == torch.bfloat16 and (dk, dv) in TC_PAIRS):
+    as it is (``dk == dv`` in :data:`HEAD_DIMS`, a bfloat16 pair of
+    :data:`TC_PAIRS` or a float32 one of :data:`FP32_PAIRS`), else (d, d)
+    with d the smallest of :data:`HEAD_DIMS` at least ``max(dk, dv)``, to
+    which ``ops`` zero-pads q, k and v (the smoke config's (24, 16): 32).
+    Raises where none is that wide."""
+    if (dk == dv and dk in HEAD_DIMS) or \
+            (dk, dv) in _NATIVE_PAIRS.get(dtype, ()):
         return dk, dv
     for d in HEAD_DIMS:
         if d >= max(dk, dv):
@@ -139,9 +169,9 @@ def route(dtype: torch.dtype, dk: int, dv: Optional[int] = None) -> str:
     dim ``dv`` (``dk`` if None) takes, at :func:`head_dims`:
     :data:`TENSOR_CORES` for bfloat16 at an instantiation of
     :data:`TC_PLANS` (hd 64, 128, 256, MLA's (192, 128)),
-    :data:`FP32_CORES` for float32 (its 2e-4
-    bar is out of the tensor cores' reach) and for bfloat16 at hd 16 and
-    32 (less than one 128-byte TMA box a row)."""
+    :data:`FP32_CORES` for float32 (its 2e-4 bar is out of the tensor
+    cores' reach; MLA's (192, 128) included) and for bfloat16 at hd 16
+    and 32 (less than one 128-byte TMA box a row)."""
     dk, dv = head_dims(dtype, dk, dk if dv is None else dv)
     if dtype == torch.bfloat16 and (dk, dv) in TC_PLANS:
         return TENSOR_CORES
@@ -173,26 +203,29 @@ def _makespan(sizes) -> float:
 
 @functools.lru_cache(maxsize=1024)
 def fp32_plan(BH: int, S: int, T: int, hd: int, causal: bool,
-              window: int) -> tuple:
-    """(span_keys, splits) of an FP32-core call: (0, 1), one block a query
-    tile, where the grid fills two waves (2 x :data:`SMS` blocks); else
-    the span of whole key tiles whose blocks finish first on :data:`SMS`
-    SMs as :func:`_makespan` models them: a block costs its key tiles,
-    plus :data:`FP32_SPLIT_COST` / hd of a tile when its query tile is
-    split, and no split wins ties."""
+              window: int, dv: Optional[int] = None) -> tuple:
+    """(span_keys, splits) of an FP32-core call of q/k head dim ``hd`` and
+    v head dim ``dv`` (``hd`` if None): (0, 1), one block a query tile,
+    where the grid fills two waves (2 x :data:`SMS` blocks); else the span
+    of whole key tiles whose blocks finish first on :data:`SMS` SMs as
+    :func:`_makespan` models them: a block costs its key tiles, plus
+    :data:`FP32_SPLIT_COST` x 2 / (hd + dv) of a tile (a tile's operations
+    go as hd + dv) when its query tile is split, and no split wins
+    ties."""
     walks = fp32_walks(S, T, causal, window)
     longest = max(walks)
     if len(walks) * BH >= 2 * SMS:
         return 0, 1
     # issue order: head by head, each head's query tiles last-first
     order = walks[::-1] * BH
+    split_cost = FP32_SPLIT_COST * 2 / (hd + (hd if dv is None else dv))
     best, plan = _makespan(order), (0, 1)
     for span in range(1, longest):
         splits = -(-longest // span)
         sizes = []
         for w in order:
             live = max(1, -(-w // span))
-            extra = FP32_SPLIT_COST / hd if live > 1 else 0.0
+            extra = split_cost if live > 1 else 0.0
             sizes += [min(span, w - s * span) + extra for s in range(live)]
             sizes += [0.0] * (splits - live)
         cost = _makespan(sizes)
@@ -206,7 +239,7 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     source (this one, or a deliberately broken copy in the tests)."""
     fn = lib.flash_attention_launch
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+                   + [ctypes.c_int] * 8 + [ctypes.c_float] * 2
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     fn = lib.flash_attention_tc_launch
@@ -236,7 +269,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, groups: int):
     if k.shape[2] != d or head_dims(q.dtype, d, dv) != (d, dv):
         raise ValueError(f"head dims q {d}, k {k.shape[2]}, v {dv}: the "
                          f"kernels take one of {HEAD_DIMS} for all three, "
-                         f"or in bfloat16 (q/k, v) in {TC_PAIRS}")
+                         f"or (q/k, v) in {TC_PAIRS} in bfloat16 (tensor "
+                         f"cores) or {FP32_PAIRS} in float32 (FP32 cores)")
     if groups < 1 or BH != k.shape[0] * groups:
         raise ValueError(f"BH={BH} != {k.shape[0]} kv rows x groups="
                          f"{groups}")
@@ -282,21 +316,21 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 S, T, d, dv, rows, groups, int(bool(causal)), int(window),
                 float(cap), float(sc), stream)
         else:
-            span, splits = fp32_plan(BH, S, T, d, bool(causal), int(window))
+            span, splits = fp32_plan(BH, S, T, d, bool(causal), int(window),
+                                     dv)
             ml = acc = tickets = 0
             if splits > 1:
-                # the partials: (m, l) pairs, then acc rows (16-byte
+                # the partials: (m, l) pairs, then acc rows of dv (16-byte
                 # aligned), per (head, query tile, split, row)
-                rows = BH * -(-S // FP32_ROWS) * splits * FP32_ROWS
+                rows, words, n_tickets = fp32_scratch(BH, S, dv, splits)
                 part, tk = split_scratch(_fp32_buffers, q.device, stream,
-                                         rows * (2 + d),
-                                         BH * -(-S // FP32_ROWS))
+                                         words, n_tickets)
                 ml, acc, tickets = (part.data_ptr(),
                                     part.data_ptr() + 4 * 2 * rows,
                                     tk.data_ptr())
             err = lib.flash_attention_launch(
                 _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), ml, acc, tickets, BH, S, T, d, groups,
+                out.data_ptr(), ml, acc, tickets, BH, S, T, d, dv, groups,
                 int(bool(causal)), int(window), float(cap), float(sc), span,
                 splits, stream)
     if err:

@@ -15,18 +15,19 @@ plain version runs on the card (counted by :data:`backward_recomputes`).
 v may have its own head dim ``dv`` beside q and k's ``dk`` (MLA's 128
 beside 192; the reference's ``attend_fullseq`` takes that, its Pallas
 kernel does not), and the output is ``(..., dv)``.  Two routes, picked
-from the type and the dims alone (``kernel.head_dims``): a bfloat16 call
-at MLA's (192, 128) goes to the tensor-core kernel as it is (no pad, no
-copy, no slice: the kernel has an instantiation for it), and so does any
-call with ``dk == dv`` in :data:`kernel.HEAD_DIMS`.  Any other pair
-(float32 MLA, the smoke config's (24, 16), a ``dk`` the kernels lack)
-runs on q, k and v zero-padded along the head dim to the smallest of
-:data:`kernel.HEAD_DIMS` at least ``max(dk, dv)`` (:func:`pad_head_dims`),
-at the unpadded scale, and its output is sliced back to ``dv``.  That is
-exact: zero columns add nothing to q·k, and P·V's padded columns are
-dropped.  A call no head dim of the kernel covers raises, and so does a
-launch the kernel refuses; nothing falls back to the padded route or the
-plain version.  The backward recomputes on the unpadded tensors.
+from the type and the dims alone (``kernel.head_dims``): a call at MLA's
+(192, 128) goes to the kernels as it is (no pad, no copy, no slice:
+bfloat16 to the tensor-core kernel's ``<192, 128>`` instantiation,
+float32 to the FP32-core kernel's), and so does any call with ``dk ==
+dv`` in :data:`kernel.HEAD_DIMS`.  Any other pair (the smoke config's
+(24, 16), a ``dk`` the kernels lack) runs on q, k and v zero-padded
+along the head dim to the smallest of :data:`kernel.HEAD_DIMS` at least
+``max(dk, dv)`` (:func:`pad_head_dims`), at the unpadded scale, and its
+output is sliced back to ``dv``.  That is exact: zero columns add
+nothing to q·k, and P·V's padded columns are dropped.  A call no head
+dim of the kernel covers raises, and so does a launch the kernel
+refuses; nothing falls back to the padded route or the plain version.
+The backward recomputes on the unpadded tensors.
 
 Deliberate differences: the reference asserts that its 128-row tiles
 divide S and T; the kernel masks partial tiles, so any S and T are
@@ -60,9 +61,9 @@ def padded_head_dim(dk: int, dv: int, dtype: torch.dtype) -> int:
     """The q/k head dim the kernel runs a ``dtype`` call of q/k head dim
     ``dk`` and v head dim ``dv`` at (``kernel.head_dims``): ``dk`` itself
     where the kernel takes the pair as it is (``dk == dv`` in
-    :data:`kernel.HEAD_DIMS`, bfloat16 MLA's (192, 128)), else the
-    smallest of :data:`kernel.HEAD_DIMS` at least ``max(dk, dv)`` (256
-    for float32 MLA)."""
+    :data:`kernel.HEAD_DIMS`, MLA's (192, 128) in either type), else the
+    smallest of :data:`kernel.HEAD_DIMS` at least ``max(dk, dv)`` (32 for
+    the smoke config's (24, 16))."""
     return K.head_dims(dtype, dk, dv)[0]
 
 

@@ -242,7 +242,7 @@ def test_route_by_dtype_and_head_dim(dtype, hd, want):
 
 @pytest.mark.parametrize("dtype,dk,dv,want,native", [
     (torch.bfloat16, 192, 128, "tensor_cores", True),   # MLA: its own
-    (torch.float32, 192, 128, "fp32_cores", False),     # ... padded to 256
+    (torch.float32, 192, 128, "fp32_cores", True),      # ... in both types
     (torch.bfloat16, 24, 16, "fp32_cores", False),      # the smoke config's
     (torch.float32, 24, 16, "fp32_cores", False),       # ... padded to 32
     (torch.bfloat16, 64, 64, "tensor_cores", True),
@@ -286,22 +286,25 @@ def test_route_and_kernel_operands(dtype, dk, dv, want, native,
 
 
 def test_a_refused_native_launch_raises(monkeypatch):
-    """A bf16 MLA call whose native launch the kernel refuses raises: one
-    call, on the unpadded operands, and no retry on the padded route."""
-    q, k = (torch.from_numpy(a).bfloat16()
-            for a in _qkv(2, 16, 16, 192, seed=15)[:2])
-    v = torch.zeros(2, 16, 128, dtype=torch.bfloat16)
-    calls = []
+    """An MLA call (bf16 or float32) whose native launch the kernel
+    refuses raises: one call, on the unpadded operands, and no retry on
+    the padded route."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k = (torch.from_numpy(a).to(dtype)
+                for a in _qkv(2, 16, 16, 192, seed=15)[:2])
+        v = torch.zeros(2, 16, 128, dtype=dtype)
+        calls = []
 
-    def refused(qq, kk, vv, **kw):
-        calls.append((qq.shape[-1], vv.shape[-1]))
-        raise RuntimeError("flash attention kernel (tensor_cores) launch "
-                           "failed: CUDA error 1")
+        def refused(qq, kk, vv, **kw):
+            calls.append((qq.shape[-1], vv.shape[-1]))
+            raise RuntimeError(f"flash attention kernel "
+                               f"({K.route(dtype, 192, 128)}) launch "
+                               "failed: CUDA error 1")
 
-    monkeypatch.setattr(K, "flash_attention_fwd", refused)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        ops._kernel_forward(q, k, v, True, 0, 0.0, 1, None)
-    assert calls == [(192, 128)]
+        monkeypatch.setattr(K, "flash_attention_fwd", refused)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ops._kernel_forward(q, k, v, True, 0, 0.0, 1, None)
+        assert calls == [(192, 128)]
 
 
 @pytest.mark.parametrize("dims,plan", [
@@ -490,19 +493,21 @@ def fp32_emulation(q, k, v, causal, window, cap, groups=1, span=None):
     1), then log2-scaled for exp2; p rounded to v's type for P.V while l
     sums it unrounded; the splits combined in split order by log-sum-exp
     (a split a row sees nothing of weighs 0); out = O / l (0 where l is 0)
-    in q's type.  q (BH,S,d), k/v (BH/groups,T,d)."""
+    in q's type.  q (BH,S,d), k (BH/groups,T,d), v (BH/groups,T,dv): the
+    partials' acc rows and the output are dv wide."""
     BH, S, d = q.shape
-    T = k.shape[1]
+    T, dv = k.shape[1], v.shape[2]
     scale, log2e = 1.0 / np.sqrt(d), 1.4426950408889634
     if span is None:
-        span_keys, splits = K.fp32_plan(BH, S, T, d, causal, window)
+        span_keys, splits = K.fp32_plan(BH, S, T, d, causal, window, dv)
         span = span_keys // K.FP32_KEYS if splits > 1 else None
     qf = q.float()
-    pad = torch.zeros(k.shape[0], 64, d)
-    kf = torch.cat([k.float(), pad], 1).repeat_interleave(groups, 0)
-    vf = torch.cat([v.float(), pad], 1).repeat_interleave(groups, 0)
+    kf = torch.cat([k.float(), torch.zeros(k.shape[0], 64, d)],
+                   1).repeat_interleave(groups, 0)
+    vf = torch.cat([v.float(), torch.zeros(v.shape[0], 64, dv)],
+                   1).repeat_interleave(groups, 0)
     neg = torch.tensor(-1e30)
-    out = torch.zeros(BH, S, d)
+    out = torch.zeros(BH, S, dv)
     walks = K.fp32_walks(S, T, causal, window)
     for ti, q0 in enumerate(range(0, S, 64)):
         rows = torch.arange(q0, min(q0 + 64, S))
@@ -515,7 +520,7 @@ def fp32_emulation(q, k, v, causal, window, cap, groups=1, span=None):
         for t0 in range(0, max(n, 1), per):
             m = torch.full((BH, len(rows)), -1e30)
             l_sum = torch.zeros(BH, len(rows))
-            o = torch.zeros(BH, len(rows), d)
+            o = torch.zeros(BH, len(rows), dv)
             for it in range(t0, min(n, t0 + per)):
                 k0 = k_lo + it * 64
                 keys = torch.arange(k0, k0 + 64)
@@ -549,7 +554,7 @@ def fp32_emulation(q, k, v, causal, window, cap, groups=1, span=None):
         else:
             mx = torch.stack([pm for pm, _, _ in parts]).max(0).values
             l_sum = torch.zeros_like(mx)
-            o = torch.zeros(BH, len(rows), d)
+            o = torch.zeros(BH, len(rows), dv)
             for pm, pl, po in parts:
                 w = torch.exp2(pm - mx)
                 l_sum = l_sum + pl * w
@@ -595,6 +600,127 @@ def test_fp32_core_emulation_splits_and_partial_tiles():
             emu = fp32_emulation(*_port(arrs, "float32"), causal, window,
                                  cap, span=span)
             np.testing.assert_allclose(emu.numpy(), ref, **TOL["float32"])
+
+
+@pytest.mark.parametrize("qk", [0.3, SHARP])
+@pytest.mark.parametrize("causal,window,cap", MASKS + [(True, 1, 0.0)])
+@pytest.mark.parametrize("span", [None, 8])
+def test_fp32_core_mla_arithmetic_matches_the_pallas_kernel(span, causal,
+                                                            window, cap, qk):
+    """The FP32-core kernel's (192, 128) instantiation (``fp32_emulation``
+    at q/k 192 beside v 128, scale 1/sqrt(192)): its tile walk, the split
+    partials' acc rows of 128 and their log-sum-exp combine (``span``
+    None: the plan's splits, which cut every walk here; 8: one block a
+    query tile) against the reference's Pallas kernel in interpret mode at
+    d = 192 with v zero-padded to 192 and its output sliced to 128, S=256
+    over T=128 keys (rows past 128 + window see nothing), flat and sharp,
+    within the float32 bar."""
+    BH, S, T = 4, 256, 128
+    q, k, _ = _qkv(BH, S, T, 192, seed=18, qk=qk)
+    v = np.random.default_rng(19).standard_normal((BH, T, 128), np.float32)
+    vp = np.concatenate([v, np.zeros((BH, T, 64), np.float32)], -1)
+    if span is None:
+        assert K.fp32_plan(BH, S, T, 192, causal, window, 128)[1] > 1 \
+            or window == 1
+    ref = j_flash(*_jax((q, k, vp), "float32"), causal, window, cap, True)
+    emu = fp32_emulation(*_port((q, k, v), "float32"), causal, window, cap,
+                         span=span)
+    assert emu.shape == (BH, S, 128)
+    np.testing.assert_allclose(emu.numpy(),
+                               np.asarray(ref, np.float32)[..., :128],
+                               **TOL["float32"])
+
+
+def test_fp32_core_mla_emulation_takes_partial_tiles():
+    """MLA's (192, 128) at S and T that are not multiples of 64, with GQA
+    (2 flat heads a KV row), every split size, against the reference's
+    oracle at v's own head dim."""
+    for causal, window, cap in MASKS:
+        q, k, _ = _qkv(4, 200, 330, 192, seed=20, kv_rows=2, qk=SHARP)
+        v = np.random.default_rng(21).standard_normal((2, 330, 128),
+                                                      np.float32)
+        ref = np.asarray(j_ref(*_jax((q, np.repeat(k, 2, 0),
+                                     np.repeat(v, 2, 0)), "float32"),
+                               causal=causal, window=window, cap=cap))
+        for span in (1, 2, 3, None):
+            emu = fp32_emulation(*_port((q, k, v), "float32"), causal,
+                                 window, cap, groups=2, span=span)
+            np.testing.assert_allclose(emu.numpy(), ref, **TOL["float32"])
+
+
+def test_fp32_core_takes_mla_as_it_is():
+    """float32 (192, 128) runs at its own dims on the FP32 cores: its head
+    dims, route, split plan (costed by 192 + 128 operations a pair, not
+    those of a padded 256), split scratch (acc rows of 128) and shared
+    memory (one K slot of 192 beside one V slot of 128) are the pair's
+    own."""
+    f32 = torch.float32
+    assert K.head_dims(f32, 192, 128) == (192, 128)
+    assert ops.padded_head_dim(192, 128, f32) == 192
+    assert K.route(f32, 192, 128) == K.FP32_CORES
+    assert (192, 128) in K.FP32_PAIRS
+    # a split costs FP32_SPLIT_COST x 2 / (dk + dv) of a tile: at 16
+    # heads of S=T=512 the plan splits as hd 160 does, not as hd 192 does
+    assert K.fp32_plan(16, 512, 512, 192, True, 0, 128) \
+        == K.fp32_plan(16, 512, 512, 160, True, 0) == (128, 4) \
+        != K.fp32_plan(16, 512, 512, 192, True, 0)
+    assert K.fp32_plan(8, 512, 512, 192, True, 0, 128) == (192, 3)
+    assert K.fp32_plan(256, 512, 512, 192, True, 0, 128) == (0, 1)
+    assert K.fp32_plan(8, 512, 512, 192, True, 0) == K.fp32_plan(
+        8, 512, 512, 192, True, 0, 192)
+    rows, words, tickets = K.fp32_scratch(8, 512, 128, 3)
+    assert (rows, words, tickets) == (8 * 8 * 3 * 64, rows * 130, 64)
+    assert K.fp32_smem(f32, 192, 128) == (1, 153600)
+
+
+#: each FP32-core instantiation's (slots of K and of V, bytes), hand
+#: counted: q (64 rows of dk + 16 bytes), P (64 x 80 float32), each K slot
+#: (64 rows of dk + 16 bytes) and each V slot (64 rows of dv)
+FP32_SMEM = {("float32", 16, 16): (2, 44032),
+             ("float32", 32, 32): (2, 64512),
+             ("float32", 64, 64): (2, 105472),
+             ("float32", 128, 128): (2, 187392),
+             ("float32", 256, 256): (1, 219136),
+             ("float32", 192, 128): (1, 50176 + 20480 + 50176 + 32768),
+             ("bfloat16", 16, 16): (2, 33792),
+             ("bfloat16", 32, 32): (2, 44032)}
+
+
+@pytest.mark.parametrize("inst", sorted(FP32_SMEM))
+def test_fp32_core_shared_memory_fits_the_opt_in(inst):
+    """Each FP32-core instantiation's slots and shared memory, as
+    ``fp32::Smem`` derives them from the byte total (mirrored by
+    ``kernel.fp32_smem``), under the opt-in less the static flag: two of
+    each at every hd but float32 256 and MLA's float32 (192, 128), one
+    of each there (at MLA two of each would take 236,544 bytes)."""
+    dtype, dk, dv = inst
+    got = K.fp32_smem(getattr(torch, dtype), dk, dv)
+    assert got == FP32_SMEM[inst] and got[1] <= K.SMEM_LIMIT - 16
+    e = 4 if dtype == "float32" else 2
+    slot = 64 * e * (dk + 16 // e + dv)     # one K and one V slot
+    if got[0] == 1:     # a second of each would pass the opt-in
+        assert got[1] + slot > K.SMEM_LIMIT - 16
+    if inst == ("float32", 192, 128):
+        assert got[1] + slot == 236544
+
+
+def test_fp32_core_instantiations_mirror_the_source():
+    """The FP32-core C entry's dispatch (``FLASH_FP32(type, dk, dv)``)
+    instantiates exactly what ``kernel.head_dims`` sends there: float32 at
+    every hd of :data:`kernel.HEAD_DIMS` and at :data:`kernel.FP32_PAIRS`,
+    bf16 at hd 16 and 32; ``FP32_SMEM`` names the same set."""
+    import re
+    text = K.SOURCE.read_text()
+    names = {"float": "float32", "__nv_bfloat16": "bfloat16"}
+    got = {(names[t], int(dk), int(dv)) for t, dk, dv in re.findall(
+        r"FLASH_FP32\((float|__nv_bfloat16), (\d+), (\d+)\)", text)}
+    want = {("float32", d, d) for d in K.HEAD_DIMS} \
+        | {("float32", dk, dv) for dk, dv in K.FP32_PAIRS} \
+        | {("bfloat16", 16, 16), ("bfloat16", 32, 32)}
+    assert got == want == set(FP32_SMEM)
+    for dtype, dk, dv in got:
+        assert K.head_dims(getattr(torch, dtype), dk, dv) == (dk, dv)
+        assert K.route(getattr(torch, dtype), dk, dv) == K.FP32_CORES
 
 
 @pytest.mark.parametrize("BH,S,T,d,causal,window,want", [
@@ -701,8 +827,10 @@ def test_fp32_core_splits_match_plain_version(monkeypatch):
         if dtype == "float32" or shape[3] == 32]
     for (BH, S, T, d, G), dtype, span in cases:
         if span is not None:
-            monkeypatch.setattr(K, "fp32_plan", lambda BH, S, T, d, c, w: (
-                64 * span, -(-max(K.fp32_walks(S, T, c, w)) // span)))
+            monkeypatch.setattr(K, "fp32_plan",
+                                lambda BH, S, T, d, c, w, dv=None: (
+                                    64 * span, -(-max(K.fp32_walks(
+                                        S, T, c, w)) // span)))
         for qk in (0.3, SHARP):
             q, k, v = (t.cuda() for t in _port(
                 _qkv(BH, S, T, d, seed=12, kv_rows=BH // G, qk=qk), dtype))
@@ -721,6 +849,51 @@ def test_fp32_core_splits_match_plain_version(monkeypatch):
                                            ref.float().cpu().numpy(),
                                            **TOL[dtype])
         monkeypatch.setattr(K, "fp32_plan", plan)
+
+
+@pytest.mark.cuda
+def test_fp32_core_mla_matches_plain_version():
+    """The FP32-core kernel's float32 (192, 128) instantiation against the
+    plain version on the card, flat and sharp, the five masks and window
+    1: at deepseek-v2's 256 flat heads of S=T=512 (one block a query
+    tile), at 8 heads (the plan splits the walks) and at 4 heads of S=200
+    over T=330 with G=2 (partial tiles).  Each call is one FP32-core
+    launch on the operands as they are, its output the kernel's own (BH,
+    S, 128), and two calls give equal outputs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the GPU machine: "
+                    "pytest -m cuda tests/test_torch_flash_attention.py)")
+    seen = set()
+    for BH, S, T, G in ((256, 512, 512, 1), (8, 512, 512, 1),
+                        (4, 200, 330, 2)):
+        for qk in (0.3, SHARP):
+            q, k, _ = _qkv(BH, S, T, 192, seed=22, kv_rows=BH // G, qk=qk)
+            v = np.random.default_rng(23).standard_normal(
+                (BH // G, T, 128), np.float32)
+            q, k, v = (torch.from_numpy(a).cuda() for a in (q, k, v))
+            for causal, window, cap in MASKS + [(True, 1, 0.0)]:
+                splits = K.fp32_plan(BH, S, T, 192, causal, window, 128)[1]
+                seen.add(splits > 1)
+                before = (K.launches.n, K.tc_launches.n, K.split_launches.n)
+                out = K.flash_attention_fwd(q, k, v, causal=causal,
+                                            window=window, cap=cap, groups=G)
+                again = K.flash_attention_fwd(q, k, v, causal=causal,
+                                              window=window, cap=cap,
+                                              groups=G)
+                torch.cuda.synchronize()
+                assert (K.launches.n, K.tc_launches.n, K.split_launches.n) \
+                    == (before[0] + 2, before[1], before[2]
+                        + 2 * int(splits > 1))
+                assert out.shape == (BH, S, 128) and out._base is None
+                assert torch.equal(out, again)
+                ref = flash_attention_ref(
+                    q, k.repeat_interleave(G, 0), v.repeat_interleave(G, 0),
+                    causal=causal, window=window, cap=cap)
+                np.testing.assert_allclose(out.cpu().numpy(),
+                                           ref.cpu().numpy(),
+                                           **TOL["float32"])
+                del out, again, ref
+    assert seen == {True, False}
 
 
 #: deliberately broken copies of the kernel, made from its source at test

@@ -1,6 +1,7 @@
 """deepseek-v2's pieces in the port against the live JAX package, on the
-CPU: the flash op at unequal head dims (MLA's q/k 192 beside v 128) and
-its zero-padded route, MLA's projections, full-sequence attention and
+CPU: the flash op at unequal head dims (MLA's q/k 192 beside v 128,
+which both kernels take as it is, and the smoke config's 24 beside 16,
+which they take zero-padded), MLA's projections, full-sequence attention and
 absorbed decode, the MoE layer at the registered routing (160 experts,
 top-6, 2 shared, dropless and with capacity), and the full-sequence
 forward's route through the flash op.
@@ -8,8 +9,8 @@ forward's route through the flash op.
 Same numpy inputs from ``np.random.default_rng`` and the reference's
 weights (``params_from_jax``) on both sides; float32 within 1e-5 of the
 largest |value| (``BAR``) unless a test names another bar.  The
-``cuda``-marked test holds the kernel's padded route against the plain
-version on the card.
+``cuda``-marked test holds the kernel's native and padded routes against
+the plain version on the card.
 """
 import dataclasses
 import math
@@ -55,18 +56,19 @@ def _qkv(B, S, H, dk, dv, seed=0):
             rng.standard_normal((B, S, H, dv), np.float32))
 
 
-@pytest.mark.parametrize("dk,dv,want", [(24, 16, 32), (192, 128, 256),
+@pytest.mark.parametrize("dk,dv,want", [(24, 16, 32), (192, 128, 192),
                                         (16, 16, 16), (128, 128, 128),
                                         (24, 24, 32), (64, 256, 256)])
 def test_padded_head_dim(dk, dv, want):
-    """``want`` is the float32 route's hd; bfloat16 takes the same but at
-    MLA's (192, 128), which the tensor-core kernel takes as it is."""
-    assert ops.padded_head_dim(dk, dv, torch.float32) == want
+    """``want`` is the q/k hd each type runs at: MLA's (192, 128) as it
+    is (the tensor-core kernel's and the FP32-core kernel's own
+    instantiations), every other unequal pair padded to one hd."""
     native = (dk, dv) in K.TC_PAIRS
-    assert ops.padded_head_dim(dk, dv, torch.bfloat16) == (
-        dk if native else want)
-    assert K.head_dims(torch.bfloat16, dk, dv) == (
-        (dk, dv) if native else (want, want))
+    assert native == ((dk, dv) in K.FP32_PAIRS)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert ops.padded_head_dim(dk, dv, dtype) == want
+        assert K.head_dims(dtype, dk, dv) == (
+            (dk, dv) if native else (want, want))
 
 
 def test_padded_head_dim_refuses_what_no_kernel_covers():
@@ -82,7 +84,7 @@ def test_padding_then_plain_equals_unpadded_plain(dk, dv, dtype, causal):
     """What the padded route computes (``pad_head_dims``, the plain
     version at the unpadded scale, the output sliced to dv) is the
     unpadded plain version: zero columns add nothing to q·k and the
-    padded P·V columns are dropped.  bfloat16 MLA takes no pad (its
+    padded P·V columns are dropped.  MLA takes no pad in either type (its
     native route): the operands come back as they are."""
     q, k, v = (torch.from_numpy(a[0].transpose(1, 0, 2).copy()).to(
         getattr(torch, dtype)) for a in _qkv(1, 96, 6, dk, dv, seed=1))
@@ -289,11 +291,12 @@ def test_forward_routes_every_mla_layer_through_the_flash_op():
 @pytest.mark.cuda
 def test_cuda_padded_route_matches_plain_version():
     """The kernel at MLA's head dims against the unpadded plain version on
-    the card, flat and sharp: bf16 (192, 128) on the tensor-core kernel's
-    own instantiation (no pad; the kernel itself called on the unpadded
-    operands returns (BH, S, 128)), float32 (192, 128) and both types at
-    the smoke config's (24, 16) through the padded route (hd 256 / 32);
-    then the op's gradients against plain autograd."""
+    the card, flat and sharp: (192, 128) on the tensor-core kernel's own
+    instantiation in bf16 and the FP32-core kernel's in float32 (no pad;
+    the kernel itself called on the unpadded operands returns (BH, S,
+    128)), and both types at the smoke config's (24, 16) through the
+    padded route (hd 32); then the op's gradients against plain
+    autograd."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine: "
                     "pytest -m cuda tests/test_torch_mla.py)")
@@ -305,7 +308,7 @@ def test_cuda_padded_route_matches_plain_version():
             q, k, v = (torch.from_numpy(a).cuda().to(dtype) for a in arrs)
             q, k = q * qk, k * qk
             native = K.head_dims(dtype, dk, dv) == (dk, dv)
-            assert native == (dtype == torch.bfloat16 and dk == 192)
+            assert native == (dk == 192)
             before = (K.launches.n, K.tc_launches.n)
             out = mha_flash(q, k, v, causal=True, scale=1 / math.sqrt(dk))
             torch.cuda.synchronize()
