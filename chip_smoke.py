@@ -47,8 +47,8 @@ non-zero without printing the final result line):
    streams (draws are keyed by position); tokens must agree, excusing
    only the first flip of a stream at a near-tie, weighed on the rows
    the two engines drew that token from in the lockstep (recorded on
-   every non-speculative step; a rerun of the context serves a position
-   with no such row): the two engines'
+   every step, a verify step's accepted drafts and bonus included; a
+   flip with no row fails): the two engines'
    logits at that position must agree within 6e-2 (bf16) or 1e-5 (f32)
    times the largest logit (else the phase fails), and the
    CPU's margin between the two tokens (on its logits, or when sampled
@@ -736,6 +736,68 @@ def kernel_case(timer: Timer, C: int, dtype: torch.dtype, int8: bool,
 
 
 # --------------------------------------------------------------- phase 4 --
+class StepRows:
+    """While active, records for every engine that steps (it wraps
+    ``PagedServer.step``, which ``ShardedPagedServer.step`` calls too, so
+    it also sees engines that ``generate()`` drives) the float32 logits
+    row, on the host, that each emitted token was drawn from:
+    ``rows[engine]`` is {rid: {position in the rid's stream: row}}.  A
+    chunk or decode step's token comes from its lane's ``last_logits``, a
+    verify step's j-th token from its lane's ``verify_logits[lane, j]``.
+    It reads what the step appended to each request's ``SeqState.out``:
+    of the lanes and the queue before the step (a lane that finishes
+    leaves ``lanes``; a request admitted in the step was queued; a
+    preempted one is queued with the output it kept) and of the lanes
+    after it.  One D2H copy a step; the step itself is untouched."""
+
+    def __enter__(self):
+        from repro_torch.runtime.server import PagedServer
+        self._cls, self._real = PagedServer, PagedServer.step
+        self.rows = {}
+
+        def step(engine):
+            seqs = [r for r in engine.lanes if r is not None]
+            seqs += list(engine.queue)
+            before = {id(r): len(r.out) for r in seqs}
+            spec0 = engine.spec_iterations
+            busy = self._real(engine)
+            seqs += [r for r in engine.lanes
+                     if r is not None and id(r) not in before]
+            self._take(engine, seqs, before,
+                       engine.spec_iterations != spec0)
+            return busy
+        PagedServer.step = step
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.step = self._real
+
+    def _take(self, engine, seqs, before, verify: bool):
+        got = self.rows.setdefault(engine, {})
+        emitted = [(r, before.get(id(r), 0)) for r in seqs
+                   if len(r.out) > before.get(id(r), 0)]
+        lanes, cols, where = [], [], []
+        for r, n0 in emitted:
+            check(r.lane >= 0, f"rid {r.rid} emitted without a lane")
+            check(verify or len(r.out) == n0 + 1,
+                  f"rid {r.rid}: a chunk step emitted "
+                  f"{len(r.out) - n0} tokens")
+            for j in range(len(r.out) - n0):
+                lanes.append(r.lane)
+                cols.append(j)
+                where.append((r.rid, n0 + j))
+        if not where:
+            return
+        lanes = torch.tensor(lanes, device=engine.last_logits.device)
+        if verify:
+            picked = engine.verify_logits[lanes, torch.tensor(
+                cols, device=lanes.device)]
+        else:
+            picked = engine.last_logits[lanes]
+        for (rid, pos), row in zip(where, picked.float().cpu()):
+            got.setdefault(rid, {})[pos] = row
+
+
 def _lockstep(engines, requests, preempt_rid: int, preempt_after: int,
               counters=(), rows=None):
     """Serve ``requests`` on every engine in lockstep (one ``step()`` each
@@ -746,9 +808,7 @@ def _lockstep(engines, requests, preempt_rid: int, preempt_after: int,
     also each engine's launches by counter.  With ``rows`` (a list of one
     dict per engine) each engine's dict takes {rid: {position: the float32
     logits row, on the host, that the lane drew that output token from}}
-    for every token a non-speculative step emits (``last_logits`` of its
-    lane; a verify step's accepted drafts come from rows it does not
-    keep)."""
+    for every token it emits, a verify step's included (``StepRows``)."""
     outs = [{r.rid: [] for r in requests} for _ in engines]
     launched = [[0] * len(counters) for _ in engines]
     for e in engines:
@@ -756,31 +816,27 @@ def _lockstep(engines, requests, preempt_rid: int, preempt_after: int,
             e.submit(r)
     preempted = False
     busy = True
-    while busy:
-        busy = False
-        for k, (e, out) in enumerate(zip(engines, outs)):
-            before = [c.n for c in counters]
-            if rows is not None:    # a lane that finishes leaves e.lanes
-                lanes = {r.rid: r.lane for r in e.lanes if r is not None}
-                spec0 = e.spec_iterations
-            busy |= e.step()
-            launched[k] = [n + c.n - b for n, c, b in
-                           zip(launched[k], counters, before)]
-            if hasattr(e, "cpool"):
-                e.cpool.check_invariants()
-            if rows is not None:
-                lanes.update({r.rid: r.lane for r in e.lanes
-                              if r is not None})
-            for d in e.poll_deltas():
-                if rows is not None and d.tokens and d.rid in lanes \
-                        and e.spec_iterations == spec0:
-                    rows[k].setdefault(d.rid, {})[len(out[d.rid])] = \
-                        e.last_logits[lanes[d.rid]].float().cpu()
-                out[d.rid].extend(d.tokens)
-        if not preempted and len(outs[0][preempt_rid]) >= preempt_after:
-            for e in engines:
-                check(e.preempt(preempt_rid), "forced preemption missed")
-            preempted = True
+    with StepRows() if rows is not None else contextlib.nullcontext() \
+            as rec:
+        while busy:
+            busy = False
+            for k, (e, out) in enumerate(zip(engines, outs)):
+                before = [c.n for c in counters]
+                busy |= e.step()
+                launched[k] = [n + c.n - b for n, c, b in
+                               zip(launched[k], counters, before)]
+                if hasattr(e, "cpool"):
+                    e.cpool.check_invariants()
+                for d in e.poll_deltas():
+                    out[d.rid].extend(d.tokens)
+            if not preempted and \
+                    len(outs[0][preempt_rid]) >= preempt_after:
+                for e in engines:
+                    check(e.preempt(preempt_rid), "forced preemption missed")
+                preempted = True
+    if rows is not None:
+        for mine, e in zip(rows, engines):
+            mine.update(rec.rows.get(e, {}))
     return (outs, launched) if counters else outs
 
 
@@ -924,27 +980,33 @@ def flip_margin(rows, x: int, y: int, sp, pos: int, dtype: torch.dtype,
                 f"(ratio {bound / max(abs(margin), 1e-30):.3g}); {gated}")
 
 
-def excuse_first_flip(label: str, prompt, a, b, rows_at, sp,
-                      dtype: torch.dtype, recorded=None) -> bool:
+def excuse_first_flip(label: str, prompt, a, b, rows, sp,
+                      dtype: torch.dtype) -> bool:
     """The first position where the streams ``a`` and ``b`` (the
     reference's) of one request differ must be a near-tie
-    (``flip_margin``).  It is weighed on the two runs' own rows where
-    ``recorded`` (the two streams' {position: logits row}, as
-    ``_lockstep`` keeps them) has both at that position: up to it the
-    contexts are equal, so those are the rows the two tokens were drawn
-    from.  Else ``rows_at(ctx)`` gives both paths' logits after the
-    context ``ctx`` (a rerun).  Past the flip the two contexts differ and
-    the streams are not compared.  Returns whether they differed (and were
+    (``flip_margin``).  ``rows`` is either the two runs' own {position:
+    logits row} (``StepRows``, as ``_lockstep(rows=...)`` keeps them):
+    up to the flip the two contexts are equal, so those are the rows the
+    two tokens were drawn from, and a flip without a row on both sides
+    fails the check; or, for callers whose two sides compute that
+    position through different paths (phase 13 against phase 5, draft
+    parity's drafter forwards), a function giving both paths' rows after
+    the context ``ctx``.  Past the flip the two contexts differ and the
+    streams are not compared.  Returns whether they differed (and were
     excused)."""
     check(len(a) == len(b), f"{label}: lengths {len(a)}, {len(b)}")
     j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
     if j is None:
         return False
     ctx = tuple(prompt) + tuple(b[:j])
-    if recorded and all(j in r for r in recorded):
-        rows, source = [r[j] for r in recorded], "the lockstep's own rows"
+    if callable(rows):
+        rows, source = rows(ctx), "the two paths' rows"
     else:
-        rows, source = rows_at(ctx), "a rerun's rows"
+        check(all(j in r for r in rows),
+              f"{label} token {j}: {a[j]} != {b[j]} and the lockstep "
+              f"recorded no row there on "
+              f"{[k for k, r in enumerate(rows) if j not in r]}")
+        rows, source = [r[j] for r in rows], "the lockstep's own rows"
     ok, numbers = flip_margin(rows, a[j], b[j], sp, len(ctx), dtype,
                               f"{label} token {j}")
     check(ok, f"{label} token {j}: {a[j]} != {b[j]}, weighed on {source}: "
@@ -952,24 +1014,6 @@ def excuse_first_flip(label: str, prompt, a, b, rows_at, sp,
     print(f"{label} token {j} excused, weighed on {source}: {numbers}",
           flush=True)
     return True
-
-
-def rerun_rows(make_pair, rid: int, sp):
-    """``rows_at`` for ``excuse_first_flip``: the request's context served
-    alone for one token (a sampled draw keeps its key: it is keyed by
-    position) on each engine of ``make_pair()``, their last logits."""
-    from repro_torch.runtime import GenerationRequest
-
-    def rows_at(ctx):
-        one = GenerationRequest(rid, ctx,
-                                dataclasses.replace(sp, max_new=1))
-        rows = []
-        for e in make_pair():
-            e.submit(one)
-            e.run()
-            rows.append(e.last_logits[0])
-        return rows
-    return rows_at
 
 
 def parity_requests(cfg, sampled: bool = False) -> list:
@@ -1016,10 +1060,11 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
     lanes must never draft.  On bfloat16 weights the CUDA engine's chunk
     steps must take the tensor-core kernel.  Decode steps must take the
     split-KV kernel, float32 chunks the FP32-core kernel.  Tokens must
-    agree but for near-ties (``excuse_first_flip``).  Returns (excused
-    positions, {prompt: the CPU engine's tokens}, the CUDA engine's
-    launches by kernel, in all and its iterations, {rid: (CUDA tokens,
-    CPU tokens)})."""
+    agree but for near-ties (``excuse_first_flip``, on the rows each
+    engine drew the token from, a verify step's included).  Returns
+    (excused positions, {prompt: the CPU engine's tokens}, the CUDA
+    engine's launches by kernel, in all and its iterations, {rid: (CUDA
+    tokens, CPU tokens)})."""
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.runtime import CacheConfig, EngineConfig, make_engine
     from repro_torch.runtime import server as S
@@ -1069,8 +1114,7 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
                                      f"{len(b)}")
         excused += excuse_first_flip(
             f"{label} CUDA vs CPU rid {r.rid}", r.prompt, a, b,
-            rerun_rows(engines, r.rid, r.sampling), r.sampling, dtype,
-            recorded=[rw.get(r.rid, {}) for rw in rows])
+            [rw.get(r.rid, {}) for rw in rows], r.sampling, dtype)
     halved_excused = 0
     if sampled:
         # draws are keyed by position: half the chunk, the same streams on
@@ -1079,16 +1123,13 @@ def phase_parity(models, kv_dtype: str = "bf16", spec_k: int = 0,
         halved = _lockstep(engines(chunk // 2), requests, preempt_rid=1,
                            preempt_after=3, rows=halved_rows)
         for d, name in enumerate(("CUDA", "CPU")):
-            def make_pair(d=d):
-                return [engines(chunk // 2)[d], engines(chunk)[d]]
             for r in requests:
                 halved_excused += excuse_first_flip(
                     f"{label} {name} chunk {chunk // 2} vs {chunk} rid "
                     f"{r.rid}", r.prompt, halved[d][r.rid],
                     (gpu_out, cpu_out)[d][r.rid],
-                    rerun_rows(make_pair, r.rid, r.sampling), r.sampling,
-                    dtype, recorded=[halved_rows[d].get(r.rid, {}),
-                                     rows[d].get(r.rid, {})])
+                    [halved_rows[d].get(r.rid, {}), rows[d].get(r.rid, {})],
+                    r.sampling, dtype)
         print(f"parity: chunk {chunk // 2} gives the chunk-{chunk} streams "
               f"on both devices, excused_positions={halved_excused}",
               flush=True)
@@ -1205,26 +1246,6 @@ class RouteRecorder:
         return same, total
 
 
-class RowCapture:
-    """Keeps the last float32 logits the engine's vocabulary head gave
-    (it wraps ``repro_torch.models.layers.logits_from_hidden``): a chunk
-    or decode step's (B, V) rows, a verify step's (B, K+1, V)."""
-
-    def __enter__(self):
-        from repro_torch.models import layers as L
-        self._layers, self._real = L, L.logits_from_hidden
-        self.last = None
-
-        def spy(*args, **kw):
-            self.last = self._real(*args, **kw)
-            return self.last
-        L.logits_from_hidden = spy
-        return self
-
-    def __exit__(self, *exc):
-        self._layers.logits_from_hidden = self._real
-
-
 def moe_lockstep(models, kv_dtype: str = "bf16", spec_k: int = 0,
                  known=None) -> tuple:
     """``phase_parity``'s lockstep for bfloat16 MoE weights, with the CPU
@@ -1235,13 +1256,12 @@ def moe_lockstep(models, kv_dtype: str = "bf16", spec_k: int = 0,
     only the routing is aligned, not the arithmetic.  Every MoE call's
     router logits must then agree within ``logits_agree``'s bar until the
     round in which a first token flip appears (past it that lane feeds
-    another token); every
-    token's logits (the row it was picked from, captured in the same
-    step on both devices) must agree within it too until its stream's
-    first flip, which must be a near-tie by ``flip_margin`` on those
-    rows.  Prints the share of (row, layer) top-k sets the two devices
-    chose alike on their own.  Returns ({prompt: CPU tokens}, the card's
-    launches by kernel)."""
+    another token); every token's logits (the row it was drawn from,
+    recorded by ``StepRows`` on both devices) must agree within it too
+    until its stream's first flip, which must be a near-tie by
+    ``flip_margin`` on those rows.  Prints the share of (row, layer)
+    top-k sets the two devices chose alike on their own.  Returns
+    ({prompt: CPU tokens}, the card's launches by kernel)."""
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.runtime import (
         CacheConfig, EngineConfig, GenerationRequest, make_engine,
@@ -1264,7 +1284,6 @@ def moe_lockstep(models, kv_dtype: str = "bf16", spec_k: int = 0,
     pair = [make_engine(cfg, gpu_model, ecfg),
             make_engine(cfg, cpu_model, ecfg, device="cpu")]
     outs = [{r.rid: [] for r in requests} for _ in pair]
-    rows = [{} for _ in pair]                   # (rid, j) -> logits row
     for e in pair:
         for r in requests:
             e.submit(r)
@@ -1272,21 +1291,13 @@ def moe_lockstep(models, kv_dtype: str = "bf16", spec_k: int = 0,
     before = [c.n for c in counters]
     preempted, busy = False, True
     flip_calls = None       # CPU layer calls up to the round of a first flip
-    with RouteRecorder(follow=True) as rec, RowCapture() as cap:
+    with RouteRecorder(follow=True) as rec, StepRows() as cap:
         while busy:
             busy = False
-            for e, out, got in zip(pair, outs, rows):
-                lanes = {r.rid: r.lane for r in e.lanes if r is not None}
-                cap.last = None
+            for e, out in zip(pair, outs):
                 busy |= e.step()
-                lanes.update({r.rid: r.lane for r in e.lanes
-                              if r is not None and r.rid not in lanes})
                 for d in e.poll_deltas():
-                    for m, tok in enumerate(d.tokens):
-                        lg = cap.last[lanes[d.rid]]
-                        got[(d.rid, len(out[d.rid]))] = \
-                            (lg if lg.dim() == 1 else lg[m]).cpu()
-                        out[d.rid].append(tok)
+                    out[d.rid].extend(d.tokens)
             if flip_calls is None and any(
                     x != y for rid in outs[0]
                     for x, y in zip(outs[0][rid], outs[1][rid])):
@@ -1296,6 +1307,7 @@ def moe_lockstep(models, kv_dtype: str = "bf16", spec_k: int = 0,
                     check(e.preempt(0), "forced preemption missed")
                 preempted = True
     tc_launches, split_launches = (c.n - b for c, b in zip(counters, before))
+    rows = [cap.rows[e] for e in pair]
     # past the round of the first flip a lane's input token differs
     worst = 0.0
     n_calls = min(x for x in (rec.parted_at, flip_calls,
@@ -1314,13 +1326,13 @@ def moe_lockstep(models, kv_dtype: str = "bf16", spec_k: int = 0,
                                      f"{len(a)}, {len(b)}")
         j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
         for i in range(len(a) if j is None else j):
-            logits_agree((rows[0][(r.rid, i)], rows[1][(r.rid, i)]), dtype,
+            logits_agree((rows[0][r.rid][i], rows[1][r.rid][i]), dtype,
                          f"{label} rid {r.rid} token {i}")
             compared += 1
         if j is not None:
             pos = len(r.prompt) + j
             ok, numbers = flip_margin(
-                (rows[0][(r.rid, j)], rows[1][(r.rid, j)]), a[j], b[j],
+                (rows[0][r.rid][j], rows[1][r.rid][j]), a[j], b[j],
                 r.sampling, pos, dtype, f"{label} rid {r.rid} token {j}")
             check(ok, f"{label} rid {r.rid} token {j}: {a[j]} != {b[j]}, "
                       f"{numbers}")
@@ -1827,11 +1839,12 @@ def phase_sharded_lockstep(models, known: dict) -> dict:
     pages, and the sharded engine on the CPU, in lockstep, at each
     ``SHARDED_LOCK`` mesh (int8 pages with ``spec_k=4`` and a
     ``ReplayDrafter`` of ``known`` at (2, 1)).  Tokens must agree but for
-    near-ties (``excuse_first_flip``, each engine pair rerun on the
-    context alone); the sharded engines' iterations, transfers and spec
-    counters must be equal; every cluster must be used; on the card every
-    shard's kernel must carry every layer of every iteration and the
-    plain version never run.  Returns the card's launches by kernel."""
+    near-ties (``excuse_first_flip``, on the rows each engine drew the
+    token from in the lockstep); the sharded engines' iterations,
+    transfers and spec counters must be equal; every cluster must be
+    used; on the card every shard's kernel must carry every layer of
+    every iteration and the plain version never run.  Returns the card's
+    launches by kernel."""
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention import ref as R
     from repro_torch.runtime import (
@@ -1856,18 +1869,16 @@ def phase_sharded_lockstep(models, known: dict) -> dict:
         flat = EngineConfig(**dict(
             spec, max_lanes=2 * C,
             cache=dataclasses.replace(spec["cache"], num_pages=64 * C)))
-
-        def make(kind):
-            return {"sharded": lambda: make_engine(cfg, gpu_model, sharded),
-                    "flat": lambda: make_engine(cfg, gpu_model, flat),
-                    "cpu": lambda: make_engine(cfg, cpu_model, sharded,
-                                               device="cpu")}[kind]()
-        engines = [make(k) for k in ("sharded", "flat", "cpu")]
+        engines = [make_engine(cfg, gpu_model, sharded),
+                   make_engine(cfg, gpu_model, flat),
+                   make_engine(cfg, cpu_model, sharded, device="cpu")]
         g = engines[0]
         check(isinstance(g, ShardedPagedServer) and on_card(g),
               f"({C}, {H}): a shard is not on the card")
+        rows = [{}, {}, {}]
         outs, launched = _lockstep(engines, requests, preempt_rid=0,
-                                   preempt_after=3, counters=counters)
+                                   preempt_after=3, counters=counters,
+                                   rows=rows)
         same, int8, tc, split, plain = launched[0]
         kernel = int8 if kv_dtype == "int8" else same
         label = f"sharded ({C}, {H}) float32 kv {kv_dtype} spec_k={spec_k}"
@@ -1891,10 +1902,8 @@ def phase_sharded_lockstep(models, known: dict) -> dict:
                       f"{label} rid {r.rid}: lengths {len(a)}, {len(b)}")
                 excused += excuse_first_flip(
                     f"{label} vs {name} rid {r.rid}", r.prompt, a, b,
-                    rerun_rows(lambda o=other: [
-                        make("sharded"), make(("sharded", "flat",
-                                               "cpu")[o])],
-                        r.rid, r.sampling), r.sampling, dtype)
+                    [rows[0].get(r.rid, {}), rows[other].get(r.rid, {})],
+                    r.sampling, dtype)
         c = engines[2]
         counts = [(e.iterations, e.h2d_events, e.d2h_events,
                    e.spec_proposed, e.spec_accepted, e.spec_rejected)
@@ -2042,7 +2051,9 @@ def phase_draft_parity(models, k: int = 4) -> dict:
     context of ``DRAFT_CTX`` tokens (bucketed inside phase 13's draft
     lengths): the logits after the context must agree
     (``logits_agree``) and the ``k`` proposals must be equal but for a
-    near-tie (``excuse_first_flip``)."""
+    near-tie (``excuse_first_flip``, on each drafter's own forward over
+    the context up to the flip: a drafter's rows are its model's, not an
+    engine step's)."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import ops as FO
     from repro_torch.runtime import DraftModelDrafter, SamplingParams
@@ -5116,36 +5127,36 @@ def phase_serve_paged(device="cuda") -> dict:
     preemptions, RAB / pool / backing-store stats and every request's
     finish reason, prefix-hit tokens and preemptions must be equal, and
     its tokens too, but for a stream's first flip at a near-tie
-    (``excuse_first_flip``: phase 4's rule, on both engines' logits for
-    the context served alone).  On the card the paged kernels must carry
-    every layer of every iteration (tensor cores for the chunks,
-    split-KV for the decodes)."""
+    (``excuse_first_flip``: phase 4's rule, on the rows each engine drew
+    the token from, recorded by ``StepRows`` around both runs).  On the
+    card the paged kernels must carry every layer of every iteration
+    (tensor cores for the chunks, split-KV for the decodes)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.paged_attention import kernel as K
     from repro_torch.kernels.paged_attention import ref as KR
     from repro_torch.launch import serve_paged as SP
     from repro_torch.models.model import init_params
-    from repro_torch.runtime import make_engine
+    from repro_torch.runtime import SamplingParams
     cfg = get_config("yi-6b").smoke()
     model = init_params(cfg, seed=0, device=device)
     cpu_model = copy.deepcopy(model).to("cpu")
     counters = (K.launches, K.tc_launches, K.split_launches, KR.calls)
     for c in counters:
         c.reset()
-    card = SP.run(cfg, model, device=device)
-    launches, tc, split, plain = (c.n for c in counters)
-    with contextlib.redirect_stdout(io.StringIO()):
-        cpu = SP.run(cfg, cpu_model, device="cpu")
+    with StepRows() as rec:
+        card = SP.run(cfg, model, device=device)
+        launches, tc, split, plain = (c.n for c in counters)
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu = SP.run(cfg, cpu_model, device="cpu")
+    check(len(rec.rows) == 2, f"serve_paged: {len(rec.rows)} engines "
+                              "stepped, not 2")
+    rows = list(rec.rows.values())      # the card's, then the CPU's
     for key in ("iterations", "h2d", "d2h", "preemptions", "rab", "pool",
                 "backing", "lifecycles"):
         check(card[key] == cpu[key],
               f"serve_paged {key}: {card[key]} != CPU {cpu[key]}")
     check(card["preemptions"] >= 1, "serve_paged: no preemption")
     requests = {r.rid: r for r in SP.requests(8)}
-
-    def make_pair():
-        return [make_engine(cfg, m, SP.engine_config(device=d), device=d)
-                for m, d in ((model, device), (cpu_model, "cpu"))]
     flips = 0
     for rid, got in card["results"].items():
         want = cpu["results"][rid]
@@ -5153,13 +5164,12 @@ def phase_serve_paged(device="cuda") -> dict:
             check(got[key] == want[key],
                   f"serve_paged rid {rid} {key}: {got[key]} != {want[key]}")
         if rid == SP.VIP["rid"]:
-            from repro_torch.runtime import SamplingParams
             prompt, sp = tuple(SP.VIP["prompt"]), SamplingParams(max_new=6)
         else:
             prompt, sp = tuple(requests[rid].prompt), requests[rid].sampling
         flips += excuse_first_flip(
             f"serve_paged rid {rid}", prompt, got["tokens"], want["tokens"],
-            rerun_rows(make_pair, rid, sp), sp, torch.bfloat16)
+            [r.get(rid, {}) for r in rows], sp, torch.bfloat16)
     on_card = torch.device(device).type == "cuda"
     n_layers = cfg.num_layers
     if on_card:

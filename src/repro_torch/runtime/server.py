@@ -210,6 +210,12 @@ class PagedServer:
     ``last_logits`` holds, after each iteration, the float32 logits (B, V)
     of the row every lane sampled from — on the device, never pulled by
     the engine itself — for callers that compare engines logit by logit.
+    ``verify_logits`` holds, after each verify iteration (and until the
+    next one), the float32 logits (B, K+1, V) of every candidate row, on
+    the device too: lane b took token j of that iteration from row
+    ``verify_logits[b, j]`` (its accepted drafts, each the greedy token of
+    its row, then the bonus token at row ``accepted``, which is
+    ``last_logits[b]``).
     """
 
     def __init__(self, cfg: ArchConfig, params,
@@ -345,6 +351,7 @@ class PagedServer:
         self.topk_dev = torch.zeros((B,), dtype=torch.int32, device=dev)
         self.topp_dev = torch.ones((B,), dtype=torch.float32, device=dev)
         self.last_logits: Optional[torch.Tensor] = None
+        self.verify_logits: Optional[torch.Tensor] = None
         # constant decode-step inputs (every lane feeds its last sample)
         self._decode_feed = torch.zeros((B, 1), dtype=torch.int32, device=dev)
         self._decode_use_last = torch.ones((B,), dtype=torch.int32,
@@ -1336,10 +1343,11 @@ class PagedServer:
     def _verify(self, drafts, n_spec, sampling) -> torch.Tensor:
         """Run the speculative verify step over every lane; returns the
         (B, K+2) verdict."""
-        verdict, self.last_tok, self.len_dev, self.last_logits = \
-            self._spec_step(self.kv_pages, self.bt_dev, self.len_dev,
-                            self.active_dev, self.last_tok, drafts, n_spec,
-                            kv_scales=self.kv_scales, sampling=sampling)
+        (verdict, self.last_tok, self.len_dev, self.last_logits,
+         self.verify_logits) = self._spec_step(
+            self.kv_pages, self.bt_dev, self.len_dev, self.active_dev,
+            self.last_tok, drafts, n_spec, kv_scales=self.kv_scales,
+            sampling=sampling)
         return verdict
 
     def _sampling(self, active: List[SeqState]):
@@ -1763,9 +1771,9 @@ def _paged_spec_step(cfg: ArchConfig, model, use_kernel: bool,
     draw plain decode makes.  Lengths advance by ``accepted + 1``.
 
     Returns (verdict (B, K+2), next tokens (B,), new lengths (B,), the
-    bonus rows' logits (B, V) f32); ``verdict[:, :K+1]`` holds each row's
-    greedy token (the bonus token at column ``accepted``) and
-    ``verdict[:, K+1]`` the accepted count."""
+    bonus rows' logits (B, V) f32, every row's logits (B, K+1, V) f32);
+    ``verdict[:, :K+1]`` holds each row's greedy token (the bonus token at
+    column ``accepted``) and ``verdict[:, K+1]`` the accepted count."""
     B, K = drafts.shape
     feed = torch.cat([torch.zeros_like(drafts[:, :1]), drafts], dim=1)
     n_new = torch.where(active == 1, n_spec + 1, torch.zeros_like(n_spec))
@@ -1792,4 +1800,4 @@ def _paged_spec_step(cfg: ArchConfig, model, use_kernel: bool,
     toks = greedy.clone()
     toks[rows, acc] = last
     verdict = torch.cat([toks, accepted[:, None]], dim=1)
-    return verdict, last, new_lens, bonus_logits
+    return verdict, last, new_lens, bonus_logits, logits

@@ -189,6 +189,10 @@ class ShardedPagedServer(PagedServer):
             _cat(list(parts), 0) for parts in zip(*outs))
 
     def _verify(self, drafts, n_spec, sampling) -> torch.Tensor:
+        """Each cluster runs the unsharded verify step on its own lanes;
+        the verdicts and logits (``last_logits``, ``verify_logits``) are
+        gathered in cluster order, so a lane indexes them as it does the
+        unsharded engine's."""
         outs = [self._spec_step(self.kv_shards[c], self.bt_dev[sl],
                                 self.len_dev[sl], self.active_dev[sl],
                                 self.last_tok[sl], drafts[sl], n_spec[sl],
@@ -196,8 +200,9 @@ class ShardedPagedServer(PagedServer):
                                 sampling=_rows(sampling, sl),
                                 head_attn=self.head_attn)
                 for c, sl in enumerate(self.layout.lanes)]
-        verdict, self.last_tok, self.len_dev, self.last_logits = (
-            _cat(list(parts), 0) for parts in zip(*outs))
+        (verdict, self.last_tok, self.len_dev, self.last_logits,
+         self.verify_logits) = (_cat(list(parts), 0)
+                                for parts in zip(*outs))
         return verdict
 
     # --------------------------------------------------------- scheduler --
